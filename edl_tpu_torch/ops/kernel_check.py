@@ -1,0 +1,204 @@
+"""The flash kernels held against their plain versions on the card, and
+faults planted in copies of the kernel sources to show the check sees them.
+
+The rule, for every bf16 output (out, dq, dk, dv), element by element:
+
+    |kernel - plain| <= BF16_RTOL * |plain| + BF16_ATOL * rms(plain)
+
+Kernel and plain version round to bf16 at the same points but sum in other
+orders, so the fp32 values they round differ a little and the two results
+may land one bf16 ulp apart: at most 2^-7 of the element.  The absolute
+floor, a small fraction of the tensor's RMS, covers elements near zero,
+where the fp32 sums cancel.  Because the limit follows each element's own
+size, a kernel that is wrong only where the values are small (the late rows
+of a causal softmax, which average many keys, or one GQA member's share of
+dK/dV) fails.  The fp32 logsumexp is held to ``LSE_ATOL`` absolute.
+
+Run on a machine with the card, from the repository root:
+
+    python -m edl_tpu_torch.ops.kernel_check
+
+It plants each fault of :data:`FAULTS` in a temporary copy of
+``edl_tpu_torch/csrc``, builds the copies, runs each through the kernel
+wrappers at FLAGSHIP attention shapes (causal) and prints one JSON line per
+fault, with whether the coarser whole-tensor rule ``COARSE_TOL`` would have
+caught it (the lse is left out of that contrast); it exits non-zero when
+the unchanged kernels fail the rule or a planted fault passes it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import shutil
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from edl_tpu_torch.device import resolve
+from edl_tpu_torch.ops import _build
+from edl_tpu_torch.ops import flash_attention as fa
+
+#: one bf16 ulp is at most 2^-7 of the value it rounds
+BF16_RTOL = 2.0 ** -7
+#: absolute floor, as a fraction of the tensor's RMS: about twice the
+#: largest floor the unchanged kernels need at FLAGSHIP attention shapes
+#: (0.0174 for dQ on an H100; ``need_atol`` in this module's output)
+BF16_ATOL = 2.0 ** -5
+#: fp32 logsumexp: the same fp32 sums in another order (measured up to
+#: 1.2e-6 at FLAGSHIP shapes on an H100)
+LSE_ATOL = 1e-5
+#: a coarser rule, max |kernel - plain| <= 2e-2 * max(1, max |plain|) over
+#: the whole tensor, reported beside each planted fault for contrast
+COARSE_TOL = 2e-2
+#: outputs of each kernel
+OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
+           "flash_bwd_dkv": ("dk", "dv")}
+
+#: name -> (library, source, text, planted text): each fault is one edit of
+#: one kernel, of the kind a tiling or indexing slip makes
+FAULTS = {
+    # every query also sees the key just after it (causal mask one late)
+    "fwd_mask_one_late": (
+        "flash_fwd", "flash_fwd.cu", "> row + (i >> 1) * 8)",
+        "> row + (i >> 1) * 8 + 1)"),
+    "dq_mask_one_late": (
+        "flash_bwd", "flash_bwd.cu", "> row + (i >> 1) * 8)",
+        "> row + (i >> 1) * 8 + 1)"),
+    # the dQ loop stops before the diagonal tile
+    "dq_diagonal_tile_dropped": (
+        "flash_bwd", "flash_bwd.cu",
+        "const int n_kt = CAUSAL ? qt + 1 : s / kTile;",
+        "const int n_kt = CAUSAL ? qt : s / kTile;"),
+    # dK/dV masks the diagonal itself (each key loses its own query)
+    "dkv_diagonal_masked": (
+        "flash_bwd", "flash_bwd.cu", "> qt * kTile + col) x = kNegInf",
+        ">= qt * kTile + col) x = kNegInf"),
+    # dK/dV sums over every GQA member but the last
+    "dkv_gqa_member_skipped": (
+        "flash_bwd", "flash_bwd.cu", "member < rep;", "member < rep - 1;"),
+    # ... and only for the last key tile, whose keys see the fewest
+    # queries and so hold the smallest dK/dV
+    "dkv_gqa_member_skipped_last_tile": (
+        "flash_bwd", "flash_bwd.cu", "member < rep;",
+        "member < rep - (kt == n_qt - 1);"),
+}
+
+
+def reading(got: torch.Tensor, want: torch.Tensor, rtol: float,
+            atol: float) -> dict:
+    """How ``got`` stands against ``want`` under |got - want| <= rtol·|want|
+    + atol: ``worst`` is the largest share of its limit an element uses
+    (the check passes at <= 1), ``need_atol`` the least atol that would
+    pass at this rtol, in units of rms(want)."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean().sqrt().item()
+    if not torch.isfinite(g).all():
+        return dict(max_abs_err=math.inf, worst=math.inf,
+                    need_atol=math.inf, max_abs_want=w.abs().max().item(),
+                    rms_want=rms)
+    err = (g - w).abs()
+    return dict(
+        max_abs_err=err.max().item(),
+        worst=(err / (rtol * w.abs() + atol)).max().item(),
+        need_atol=(err - rtol * w.abs()).clamp_min(0).max().item() / rms,
+        max_abs_want=w.abs().max().item(), rms_want=rms)
+
+
+def bf16_reading(got: torch.Tensor, want: torch.Tensor) -> dict:
+    rms = want.float().square().mean().sqrt().item()
+    return reading(got, want, BF16_RTOL, BF16_ATOL * rms)
+
+
+def random_inputs(bh: int, bkh: int, s: int, d: int, seed: int,
+                  device: torch.device):
+    """Seeded bf16 (q, k, v, dO) with heads folded into the batch."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(n):
+        return torch.randn(n, s, d, generator=g, device=device
+                           ).to(torch.bfloat16)
+
+    q, do = rnd(bh), rnd(bh)
+    k, v = rnd(bkh), rnd(bkh)
+    return q, k, v, do
+
+
+def compare(q, k, v, do, causal: bool, h: int, hk: int
+            ) -> tuple[dict, dict]:
+    """Each kernel and its plain version on the same inputs → (reading of
+    each output, the kernels' outputs).  dQ and dK/dV take the kernel
+    forward's lse and δ, as in training."""
+    out, lse = fa.flash_forward_cuda(q, k, v, causal, h, hk)
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, h, hk)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, h, hk)
+    ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, h, hk)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, h, hk)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                            h, hk)
+    torch.cuda.synchronize()
+    readings = {name: bf16_reading(got, want) for name, (got, want) in
+                dict(out=(out, ref_out), dq=(dq, ref_dq), dk=(dk, ref_dk),
+                     dv=(dv, ref_dv)).items()}
+    readings["lse"] = reading(lse, ref_lse, 0.0, LSE_ATOL)
+    return readings, dict(out=out, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv)
+
+
+def failures(readings: dict) -> list[str]:
+    """The outputs that break the rule, each with its reading."""
+    return [f"{name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
+            f"{r['worst']:.3g}x its limit" for name, r in readings.items()
+            if not r["worst"] <= 1.0]
+
+
+def _build_fault(name: str, root: Path) -> Path:
+    lib, source, text, planted = FAULTS[name]
+    csrc = root / name / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    code = (csrc / source).read_text()
+    if code.count(text) != 1:
+        raise RuntimeError(f"fault {name}: {text!r} is not in {source} once")
+    (csrc / source).write_text(code.replace(text, planted))
+    _build.build(csrc, root / name / "lib", names=(lib,))
+    return root / name / "lib" / f"lib{lib}.so"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    dev = resolve("cuda")
+    b, s, h, hk, d = 16, 1024, 8, 2, 128  # FLAGSHIP attention, bench batch
+    _build.build()
+    inputs = random_inputs(b * h, b * hk, s, d, args.seed, dev)
+    base, _ = compare(*inputs, True, h, hk)
+    print(json.dumps({"fault": None, "failed": failures(base),
+                      "readings": base}), flush=True)
+    ok = not failures(base)
+    with tempfile.TemporaryDirectory() as tmp:
+        with ThreadPoolExecutor(len(FAULTS)) as pool:
+            built = dict(zip(FAULTS, pool.map(
+                lambda n: _build_fault(n, Path(tmp)), FAULTS)))
+        for name, path in built.items():
+            lib = FAULTS[name][0]
+            with _build.substituted(lib, _build.load(path, lib)):
+                readings, _ = compare(*inputs, True, h, hk)
+            failed = failures(readings)
+            ok &= bool(failed)
+            coarse = any(r["max_abs_err"] > COARSE_TOL
+                         * max(1.0, r["max_abs_want"])
+                         for o, r in readings.items() if o != "lse")
+            print(json.dumps({"fault": name, "caught": bool(failed),
+                              "caught_by_coarse_rule": coarse,
+                              "failed": failed, "readings": readings}),
+                  flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

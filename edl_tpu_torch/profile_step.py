@@ -1,0 +1,106 @@
+"""Where the time of the FLAGSHIP train step goes on the card.
+
+Drives the main path of ``chip_smoke.py`` (``entry.flagship_trainer``:
+ElasticTrainer, FLAGSHIP with the flash kernels, adamw(3e-4), batch 16 x seq
+1024) and prints one JSON line.  After two warm-up steps it runs ``--steps``
+steps unprofiled, timed by CUDA events, then ``--steps`` steps under
+``torch.profiler``, and reports:
+
+- device time per step by kernel group, and the fifteen costliest kernels
+  (profiled window);
+- ``idle_share_profiled``: 1 - device busy / wall of the profiled window
+  (one window; the wall carries the profiler's own host cost);
+- ``idle_share_unprofiled_est``: 1 - the profiled busy time per step / the
+  unprofiled step time — derived across the two windows of this one run,
+  since the unprofiled window has no kernel times of its own.
+
+    python -m edl_tpu_torch.profile_step [--steps 3]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+#: kernel-name fragments → group (first match wins)
+GROUPS = (
+    ("flash_fwd_kernel", "flash_fwd"),
+    ("flash_bwd_dq_kernel", "flash_bwd_dq"),
+    ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+    ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
+    ("cutlass", "matmul"), ("cublas", "matmul"),
+    ("multi_tensor_apply", "optimizer"),
+    ("direct_copy", "copy_cast"),
+    ("reduce_kernel", "reduction"),
+    ("elementwise", "elementwise"),
+)
+
+
+def group_of(kernel: str) -> str:
+    low = kernel.lower()
+    for frag, group in GROUPS:
+        if frag in low:
+            return group
+    return "other"
+
+
+def main() -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from edl_tpu_torch.entry import flagship_trainer
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    trainer, batch = flagship_trainer()
+    for _ in range(2):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(args.steps):
+        trainer.step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    unprofiled_ms = start.elapsed_time(end) / args.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    per_kernel: dict[str, float] = defaultdict(float)
+    for evt in prof.key_averages():
+        # user annotations (Optimizer.step#...) are spans, not kernels
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            per_kernel[evt.key] += evt.self_device_time_total / 1e3  # ms
+    groups: dict[str, float] = defaultdict(float)
+    for name, ms in per_kernel.items():
+        groups[group_of(name)] += ms / args.steps
+    busy_ms = sum(per_kernel.values()) / args.steps
+    step_ms = 1e3 * wall_s / args.steps
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "steps": args.steps,
+        "unprofiled_step_ms": unprofiled_ms,
+        "profiled_step_ms": step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share_profiled": (1 - busy_ms / step_ms) if busy_ms else None,
+        "idle_share_unprofiled_est": (1 - busy_ms / unprofiled_ms)
+        if busy_ms else None,
+        "group_ms_per_step": dict(sorted(groups.items(),
+                                         key=lambda kv: -kv[1])),
+        "top_kernels_ms_per_step": {k[:120]: v / args.steps for k, v in top},
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""The port stands alone: no module of edl_tpu_torch, and not chip_smoke.py,
+imports jax, optax or anything of the JAX package, and its entry points
+refuse to run quietly on the CPU when no CUDA device exists."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "edl_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "edl_tpu"}
+
+
+def _port_modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'edl_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for mod in {list(_port_modules())!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "print('imported', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "imported" in proc.stdout
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from edl_tpu_torch.entry import entry, flagship_trainer
+    from edl_tpu_torch.models import transformer as tfm
+    from edl_tpu_torch.parallel.mesh import make_mesh
+    from edl_tpu_torch.runtime import optim
+    from edl_tpu_torch.runtime.elastic import ElasticTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flagship_trainer(cfg=tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfm.Transformer(tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    model = tfm.Transformer(tfm.TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticTrainer(tfm.loss_fn, model, optim.adamw(1e-3))
+
+
+def test_entry_on_the_cpu_builds_the_flagship():
+    from edl_tpu_torch.entry import entry
+
+    fn, (model, tokens) = entry(device="cpu")
+    assert tokens.shape == (2, 256)
+    assert model.cfg.use_flash and model.cfg.d_model == 1024
+    assert sum(p.numel() for p in model.parameters()) > 150e6
+
+
+def test_main_path_trainer_on_the_cpu_takes_a_step():
+    """The helper behind chip_smoke's main path, at TINY on the CPU: the
+    flash path's plain versions inside one training step."""
+    from edl_tpu_torch.entry import flagship_trainer
+    from edl_tpu_torch.models import transformer as tfm
+
+    trainer, (tokens, targets) = flagship_trainer(
+        batch=2, seq=128, device="cpu", cfg=tfm.TINY)
+    assert trainer.state.params.cfg.use_flash and trainer.world_size == 1
+    assert tokens.shape == targets.shape == (2, 128)
+    assert torch.equal(targets[:, :-1], tokens[:, 1:])
+    first = trainer.step((tokens, targets))
+    assert np.isfinite(first) and trainer.step((tokens, targets)) < first
