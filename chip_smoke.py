@@ -9,20 +9,35 @@ Phases, each of which raises on failure:
 
 (a) build the hand-written kernels from ``edl_tpu_torch/csrc`` (nvcc,
     sm_90a) and print the build seconds;
-(b) hold each kernel — flash forward, dQ, dK/dV — against its plain PyTorch
+(b) hold each flash kernel — forward, dQ, dK/dV — against its plain PyTorch
     version at FLAGSHIP attention shapes (bf16, b 16, s 1024, h 8, hk 2,
     d 128), causal and non-causal, and time the kernel, the plain version
     and ``F.scaled_dot_product_attention`` (a yardstick the port never
     calls) beside the least time the card could take;
-(c) the main path: ``ElasticTrainer`` on FLAGSHIP with the flash kernels,
-    adamw(3e-4), batch 16 x seq 1024 of seeded tokens, 1 warm-up step and 5
-    timed steps; every loss finite, the loss falling, and each kernel
-    launched once per layer per step;
+(c) the FLAGSHIP path: ``ElasticTrainer`` on FLAGSHIP with the flash
+    kernels, adamw(3e-4), batch 16 x seq 1024 of seeded tokens, 1 warm-up
+    step and 5 timed steps; every loss finite, the loss falling, and each
+    kernel launched once per layer per step;
 (d) the port's entry point, and the model's logits through the flash
     kernels against its reference attention path on a small input, with
-    the same model's attention output zeroed as a control that must fail.
+    the same model's attention output zeroed as a control that must fail;
+(e) the GroupNorm kernels against their plain versions at every distinct
+    ResNet-50 site shape at b 256 (12 shapes, G 32, bf16), timed beside
+    ``F.group_norm`` (a yardstick) and their byte bounds, and summed over
+    the 53 sites of a step;
+(f) the flash kernels at the BERT-base shape (b 32, s 512, h = hk = 12,
+    d 64, non-causal), checked and timed as in (b);
+(g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
+    adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
+    kernel per step; the same steps from fresh weights with
+    ``EDL_GN_PALLAS=0`` (the plain versions, no launch); and the logits of
+    the kernel path against the plain path's on a small input, with one
+    stage's ``norm3`` scales zeroed as a control that must fail;
+(h) the BERT-base path: ``ElasticTrainer`` on BERT_BASE at 32 x 512 MLM,
+    1 warm-up and 5 timed steps, 12 launches of each flash kernel per step.
 
-Each kernel is held to the element-wise rule of
+Each path runs with the launch counts set to 0 just before it and read just
+after.  Each kernel is held to the element-wise rule of
 ``edl_tpu_torch/ops/kernel_check.py``; ``python -m
 edl_tpu_torch.ops.kernel_check`` shows that faults planted in the kernels
 fail it.
@@ -34,8 +49,11 @@ there is no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -44,16 +62,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edl_tpu_torch.entry import entry, flagship_trainer
+from edl_tpu_torch.entry import (bert_trainer, entry, flagship_trainer,
+                                 resnet_trainer)
+from edl_tpu_torch.models import resnet
 from edl_tpu_torch.ops import _build
 from edl_tpu_torch.ops import flash_attention as fa
+from edl_tpu_torch.ops import group_norm as gn
 from edl_tpu_torch.ops import kernel_check as kc
 
-#: H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+#: H100 SXM data sheet: dense bf16 tensor-core rate, fp32 rate outside the
+#: tensor cores, and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 #: FLAGSHIP attention at bench.py's accelerator batch
 B, S, H, HK, D = 16, 1024, 8, 2, 128
+#: BERT-base attention at bench.py's model-zoo batch
+BERT_B, BERT_S, BERT_H, BERT_D = 32, 512, 12, 64
+#: ResNet-50 at bench.py's model-zoo batch
+RESNET_B, RESNET_HW = 256, 224
 WARMUP_STEPS, TIMED_STEPS = 1, 5
 KERNEL_ITERS, PLAIN_ITERS = 20, 3
 #: phase (d): the logits of the flash and reference attention paths of the
@@ -64,6 +91,17 @@ KERNEL_ITERS, PLAIN_ITERS = 20, 3
 #: its attention output zeroed needs; phase (d) prints both (on an H100,
 #: below 0.2 and above 7 rms)
 MODEL_ATOL = 0.5
+#: phase (g): the same rule for the ResNet-50 logits of the GroupNorm
+#: kernels against the plain versions.  Both round at the same points; they
+#: differ where an fp32 sum taken in another order moves a rounding, and
+#: that grows through 53 norms.  Phase (g) prints the floor each side needs
+RESNET_MODEL_ATOL = 0.25
+#: phase (g)'s small input
+RESNET_CHECK_BATCH = 4
+#: arithmetic of each GroupNorm kernel per element (fp32, outside the
+#: tensor cores): forward x·x, two sums, x·p + q; backward dy·x, two sums,
+#: dy·p − x·q + r
+GN_OPS_PER_ELEMENT = {"group_norm_fwd": 5, "group_norm_bwd": 7}
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -75,7 +113,13 @@ KERNELS = {
     "flash_bwd_dkv": dict(source="edl_tpu_torch/csrc/flash_bwd.cu",
                           replaces="edl_tpu/ops/flash_attention.py:251",
                           products=4),
+    "group_norm_fwd": dict(source="edl_tpu_torch/csrc/group_norm.cu",
+                           replaces="edl_tpu/ops/group_norm.py:67"),
+    "group_norm_bwd": dict(source="edl_tpu_torch/csrc/group_norm.cu",
+                           replaces="edl_tpu/ops/group_norm.py:128"),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+GROUP_NORM = ("group_norm_fwd", "group_norm_bwd")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -93,27 +137,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name: str, causal: bool, tensors) -> tuple[float, str]:
-    """Least time for the kernel's work on this card: the larger of its
-    tensor-core operations over the visible score pairs at the bf16 peak,
-    and its bytes (each input read once, each output written once) at the
-    memory rate."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = KERNELS[name]["products"] * 2.0 * B * H * pairs * D
+def roofline(flops: float, peak_flops: float, tensors) -> tuple[float, str]:
+    """Least time for the work on this card (ms): the larger of its
+    operations at ``peak_flops`` and its bytes (each input read once, each
+    output written once) at the memory rate."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels() -> dict:
-    """(b): every kernel against its plain version, causal and not."""
-    rows = {name: {"max_abs_err": 0.0} for name in KERNELS}
+def phase_flash(b: int, s: int, h: int, hk: int, d: int, causal_modes,
+                label: str) -> dict:
+    """(b) and (f): every flash kernel against its plain version at one
+    shape; the timings of the first mode are the record."""
+    rows = {name: {"max_abs_err": 0.0} for name in FLASH}
     dev = torch.device("cuda")
-    for seed, causal in enumerate((True, False)):
-        q, k, v, do = kc.random_inputs(B * H, B * HK, S, D, seed, dev)
-        readings, got = kc.compare(q, k, v, do, causal, H, HK)
-        tag = "causal" if causal else "full"
+    for seed, causal in enumerate(causal_modes):
+        q, k, v, do = kc.random_inputs(b * h, b * hk, s, d, seed, dev)
+        readings, got = kc.compare(q, k, v, do, causal, h, hk)
+        tag = f"{label} {'causal' if causal else 'full'}"
         for name, r in readings.items():
             print(f"check {name} {tag}: max |kernel - plain| "
                   f"{r['max_abs_err']:.4e}, {r['worst']:.3f} of its limit "
@@ -124,52 +167,54 @@ def phase_kernels() -> dict:
                                  + "; ".join(failed))
         errs = {name: max(readings[o]["max_abs_err"] for o in outs
                           if o != "lse")
-                for name, outs in kc.OUTPUTS.items()}
+                for name, outs in kc.OUTPUTS.items() if name in FLASH}
         for name, e in errs.items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
 
         # timings at these inputs; the library yardstick is SDPA with GQA
         # on the [b, h, s, d] views of the same buffers
         out, lse, delta = got["out"], got["lse"], got["delta"]
-        q4, k4, v4 = (x.view(B, -1, S, D) for x in (q, k, v))
+        q4, k4, v4 = (x.view(b, -1, s, d) for x in (q, k, v))
         qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                                  enable_gqa=True)
-        do4 = do.view(B, H, S, D)
+        do4 = do.view(b, h, s, d)
         times = {
             "flash_fwd": (
-                lambda: fa.flash_forward_cuda(q, k, v, causal, H, HK),
-                lambda: fa.flash_forward_plain(q, k, v, causal, H, HK),
+                lambda: fa.flash_forward_cuda(q, k, v, causal, h, hk),
+                lambda: fa.flash_forward_plain(q, k, v, causal, h, hk),
                 lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal, enable_gqa=True),
                 (q, k, v, out, lse)),
             "flash_bwd_dq": (
                 lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal,
-                                             H, HK),
+                                             h, hk),
                 lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
-                                              H, HK),
+                                              h, hk),
                 lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do4,
                                             retain_graph=True),
                 (q, k, v, do, lse, delta, got["dq"])),
             "flash_bwd_dkv": (
                 lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                              causal, H, HK),
+                                              causal, h, hk),
                 lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                               causal, H, HK),
+                                               causal, h, hk),
                 lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do4,
                                             retain_graph=True),
                 (q, k, v, do, lse, delta, got["dk"], got["dv"])),
         }
+        pairs = s * (s + 1) // 2 if causal else s * s
         for name, (kern, plain, lib, tensors) in times.items():
             ms = cuda_ms(kern, KERNEL_ITERS)
             plain_ms = cuda_ms(plain, PLAIN_ITERS)
             library_ms = cuda_ms(lib, KERNEL_ITERS)
-            bound_ms, bound_by = bound(name, causal, tensors)
+            flops = KERNELS[name]["products"] * 2.0 * b * h * pairs * d
+            bound_ms, bound_by = roofline(flops, PEAK_BF16_FLOPS, tensors)
             print(f"kernel {name} {tag}: max_abs_err {errs[name]:.4e} "
                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
                   f"({bound_by})", flush=True)
-            if causal:  # the main path is causal: its times are the record
+            if causal == causal_modes[0]:
                 rows[name].update(ms=ms, plain_ms=plain_ms,
                                   library_ms=library_ms, bound_ms=bound_ms,
                                   bound_by=bound_by)
@@ -177,35 +222,49 @@ def phase_kernels() -> dict:
     return rows
 
 
-def phase_main_path() -> dict:
-    """(c): FLAGSHIP train steps through ElasticTrainer with the kernels."""
-    trainer, batch = flagship_trainer(B, S)
-    n_layers = trainer.state.params.cfg.n_layers
+def run_path(label: str, trainer, batch, counters: dict, want: dict,
+             unit: str, per_step_units: int) -> tuple[dict, float]:
+    """1 warm-up and 5 timed steps of ``trainer`` with ``counters`` set to 0
+    just before; every step must grow each counter by ``want`` and every
+    loss be finite, the loss falling.  Returns (the counts just after, the
+    mean timed step in ms)."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
-    fa.reset_launches()
+    for name in counters:
+        counters[name] = 0
     for i in range(WARMUP_STEPS + TIMED_STEPS):
-        before = dict(fa.launches)
+        before = dict(counters)
         t0 = time.perf_counter()
         losses.append(trainer.step(batch))  # float(loss) waits for the step
         step_s.append(time.perf_counter() - t0)
-        grown = {n: fa.launches[n] - before[n] for n in fa.launches}
-        if any(c != n_layers for c in grown.values()):
-            raise AssertionError(f"step {i}: launches {grown}, want "
-                                 f"{n_layers} of each kernel")
-    launches = dict(fa.launches)
+        grown = {n: counters[n] - before[n] for n in counters}
+        if grown != want:
+            raise AssertionError(f"{label} step {i}: launches {grown}, "
+                                 f"want {want}")
+    launches = dict(counters)
     timed = losses[WARMUP_STEPS:]
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not timed[-1] < timed[0]:
-        raise AssertionError(f"loss did not fall: {timed}")
+        raise AssertionError(f"{label}: loss did not fall: {timed}")
     step_ms = 1e3 * float(np.mean(step_s[WARMUP_STEPS:]))
-    print(f"main path: FLAGSHIP b{B} s{S} losses "
-          f"{[round(x, 4) for x in losses]} step_ms {step_ms:.2f} "
+    print(f"path {label}: losses {[round(x, 4) for x in losses]} "
+          f"step_ms {step_ms:.2f} "
           f"(per step {[round(1e3 * x, 2) for x in step_s]}) "
-          f"tokens_per_second {B * S / (step_ms / 1e3):.1f} "
-          f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.2f}",
-          flush=True)
+          f"{unit}_per_second {per_step_units / (step_ms / 1e3):.1f} "
+          f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"launches {launches}", flush=True)
+    return launches, step_ms
+
+
+def phase_flagship() -> dict:
+    """(c): FLAGSHIP train steps through ElasticTrainer with the kernels."""
+    trainer, batch = flagship_trainer(B, S)
+    n = trainer.state.params.cfg.n_layers
+    launches, _ = run_path(f"flagship b{B} s{S}", trainer, batch,
+                           fa.launches, {k: n for k in FLASH}, "tokens",
+                           B * S)
     return launches
 
 
@@ -231,22 +290,175 @@ def phase_model_check() -> None:
         for layer in model.layers:
             layer.wo.zero_()
         out["no attention"] = fn(model, toks)
-    ref = out[False]
+    check_against(out[False], out[True], out["no attention"], MODEL_ATOL,
+                  "flash vs reference logits", "attention zeroed")
+
+
+def check_against(ref, got, control, atol: float, what: str,
+                  control_what: str) -> None:
+    """``got`` must pass 2^-7·|ref| + atol·rms(ref) element by element and
+    ``control`` must fail it."""
     rms = ref.float().square().mean().sqrt().item()
-    flash, control = (kc.reading(out[key], ref, kc.BF16_RTOL,
-                                 MODEL_ATOL * rms)
-                      for key in (True, "no attention"))
-    print(f"model check: entry logits {tuple(logits.shape)} finite; "
-          f"flash vs reference logits max |diff| {flash['max_abs_err']:.4f},"
-          f" {flash['worst']:.3f} of the limit (floor needed "
-          f"{flash['need_atol']:.4f} rms); attention zeroed "
-          f"{control['worst']:.3f} of it ({control['need_atol']:.4f} rms)",
-          flush=True)
-    if not flash["worst"] <= 1.0:
-        raise AssertionError("flash path's logits off the reference path's")
-    if control["worst"] <= 1.0:
-        raise AssertionError("the logits check passes a model without "
-                             "attention")
+    r, c = (kc.reading(x, ref, kc.BF16_RTOL, atol * rms)
+            for x in (got, control))
+    print(f"model check: {what} max |diff| {r['max_abs_err']:.4f}, "
+          f"{r['worst']:.3f} of the limit (floor needed "
+          f"{r['need_atol']:.4f} rms); {control_what} {c['worst']:.3f} of "
+          f"it ({c['need_atol']:.4f} rms)", flush=True)
+    if not r["worst"] <= 1.0:
+        raise AssertionError(f"{what}: off the reference")
+    if c["worst"] <= 1.0:
+        raise AssertionError(f"{what}: the check passes its control "
+                             f"({control_what})")
+
+
+def phase_group_norm(sites) -> dict:
+    """(e): both GroupNorm kernels against their plain versions at every
+    site shape of the ResNet-50 step; per-step sums over the sites."""
+    rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       bound_ms=0.0, bound_by="bytes") for name in GROUP_NORM}
+    dev, groups = torch.device("cuda"), resnet.RESNET50.groups
+    for seed, ((hw, c), count) in enumerate(sorted(sites.items())):
+        x, dy, scale, bias = kc.gn_random_inputs(RESNET_B, hw, c, seed, dev)
+        readings, got = kc.gn_compare(x, dy, scale, bias, groups)
+        tag = f"[{RESNET_B},{hw},{c}] x{count}"
+        for name, r in readings.items():
+            print(f"check {name} {tag}: max |kernel - plain| "
+                  f"{r['max_abs_err']:.4e}, {r['worst']:.3f} of its limit "
+                  f"(floor needed {r['need_atol']:.6f} rms)", flush=True)
+        failed = kc.failures(readings)
+        if failed:
+            raise AssertionError(f"group norm kernels vs plain versions "
+                                 f"({tag}): " + "; ".join(failed))
+        mean, inv = got["mean"], got["inv"]
+        # the yardstick: F.group_norm on the channels-last NCHW view of the
+        # same memory (its parameters in x's dtype, cast before timing)
+        side = math.isqrt(hw)
+        nchw = (lambda t: t.view(RESNET_B, side, side, c)  # noqa: E731
+                .permute(0, 3, 1, 2))
+        xg = nchw(x).detach().requires_grad_()
+        sg, bg = (t.to(x.dtype).requires_grad_() for t in (scale, bias))
+        lib_out = F.group_norm(xg, groups, sg, bg, 1e-5)
+        times = {
+            "group_norm_fwd": (
+                lambda: gn.group_norm_fwd_cuda(x, scale, bias, groups, 1e-5),
+                lambda: gn.group_norm_fwd_plain(x, scale, bias, groups, 1e-5),
+                lambda: F.group_norm(nchw(x), groups, sg.detach(),
+                                     bg.detach(), 1e-5),
+                (x, scale, bias, got["y"], mean, inv)),
+            "group_norm_bwd": (
+                lambda: gn.group_norm_bwd_cuda(x, dy, scale, mean, inv,
+                                               groups),
+                lambda: gn.group_norm_bwd_plain(x, dy, scale, mean, inv,
+                                                groups),
+                lambda: torch.autograd.grad(lib_out, (xg, sg, bg), nchw(dy),
+                                            retain_graph=True),
+                (x, dy, scale, mean, inv, got["dx"], got["dgamma"],
+                 got["dbeta"])),
+        }
+        for name, (kern, plain, lib, tensors) in times.items():
+            ms = cuda_ms(kern, KERNEL_ITERS)
+            plain_ms = cuda_ms(plain, PLAIN_ITERS)
+            library_ms = cuda_ms(lib, KERNEL_ITERS)
+            bound_ms, bound_by = roofline(
+                GN_OPS_PER_ELEMENT[name] * x.numel(), PEAK_FP32_FLOPS,
+                tensors)
+            err = readings["y" if name == "group_norm_fwd" else "dx"][
+                "max_abs_err"]
+            print(f"kernel {name} {tag}: max_abs_err {err:.4e} "
+                  f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
+                  f"({bound_by})", flush=True)
+            row = rows[name]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", library_ms),
+                             ("bound_ms", bound_ms)):
+                row[key] += count * val
+            if bound_by != "bytes":
+                row["bound_by"] = bound_by
+        del lib_out, xg
+    for name, row in rows.items():
+        print(f"kernel {name} per ResNet-50 step ({sum(sites.values())} "
+              f"sites): kernel_ms {row['ms']:.4f} plain_ms "
+              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+              f"bound_ms {row['bound_ms']:.4f}", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def plain_group_norm():
+    """Within the block, GroupNorm on the card runs its plain versions
+    (``EDL_GN_PALLAS=0``)."""
+    kept = os.environ.get("EDL_GN_PALLAS")
+    os.environ["EDL_GN_PALLAS"] = "0"
+    try:
+        yield
+    finally:
+        if kept is None:
+            del os.environ["EDL_GN_PALLAS"]
+        else:
+            os.environ["EDL_GN_PALLAS"] = kept
+
+
+def phase_resnet(n_sites: int) -> dict:
+    """(g): ResNet-50 train steps with the GroupNorm kernels, the same steps
+    with the plain versions, and the logits check."""
+    label = f"resnet50 b{RESNET_B} {RESNET_HW}x{RESNET_HW}"
+    trainer, batch = resnet_trainer(RESNET_B, RESNET_HW)
+    launches, step_ms = run_path(label, trainer, batch, gn.launches,
+                                 {k: n_sites for k in GROUP_NORM}, "images",
+                                 RESNET_B)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    with plain_group_norm():
+        trainer, batch = resnet_trainer(RESNET_B, RESNET_HW)
+        _, plain_step_ms = run_path(label + " EDL_GN_PALLAS=0", trainer,
+                                    batch, gn.launches,
+                                    {k: 0 for k in GROUP_NORM}, "images",
+                                    RESNET_B)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    print(f"resnet50 A/B: step_ms {step_ms:.2f} with the GroupNorm kernels, "
+          f"{plain_step_ms:.2f} with their plain versions", flush=True)
+
+    model = resnet.ResNet(resnet.RESNET50, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randn(RESNET_CHECK_BATCH, RESNET_HW, RESNET_HW, 3,
+                         generator=gen, device="cuda")
+    with torch.no_grad():
+        # GroupNorm scales and biases off their init (1 and 0), so that p
+        # and q of every site are rounded values of their own
+        for norm in model.modules():
+            if isinstance(norm, resnet.Norm):
+                norm.scale.add_(0.1 * torch.randn(
+                    norm.scale.shape, generator=gen, device="cuda"))
+                norm.bias.add_(0.1 * torch.randn(
+                    norm.bias.shape, generator=gen, device="cuda"))
+        kernel = resnet.apply(model, images)
+        with plain_group_norm():
+            plain = resnet.apply(model, images)
+        for blk in model.stages[-1]:
+            blk.norm3.scale.zero_()
+        control = resnet.apply(model, images)
+    if not torch.isfinite(kernel).all() or kernel.shape != (
+            RESNET_CHECK_BATCH, resnet.RESNET50.num_classes):
+        raise AssertionError("resnet50 logits not finite of the expected "
+                             "shape")
+    check_against(plain, kernel, control, RESNET_MODEL_ATOL,
+                  "resnet50 kernel vs plain GroupNorm logits",
+                  "last stage's norm3 scales zeroed")
+    return launches
+
+
+def phase_bert() -> dict:
+    """(h): BERT-base MLM train steps through the flash kernels."""
+    trainer, batch = bert_trainer(BERT_B, BERT_S)
+    n = trainer.state.params.cfg.n_layers
+    launches, _ = run_path(f"bert_base b{BERT_B} s{BERT_S}", trainer, batch,
+                           fa.launches, {k: n for k in FLASH}, "tokens",
+                           BERT_B * BERT_S)
+    return launches
 
 
 def main() -> int:
@@ -263,22 +475,34 @@ def main() -> int:
 
     build_s = _build.build()
     print(f"build: {build_s:.2f} s into {_build.build_dir()}", flush=True)
-    rows = phase_kernels()
-    launches = phase_main_path()
+    rows = phase_flash(B, S, H, HK, D, (True, False), "flagship")
+    paths = {"flagship": phase_flagship()}
     phase_model_check()
+    sites = resnet.group_norm_sites(resnet.RESNET50, RESNET_HW)
+    rows.update(phase_group_norm(sites))
+    bert_rows = phase_flash(BERT_B, BERT_S, BERT_H, BERT_H, BERT_D, (False,),
+                            "bert_base")
+    paths["resnet50"] = phase_resnet(sum(sites.values()))
+    paths["bert_base"] = phase_bert()
 
-    kernels = [dict(name=name, route="cuda", source=meta["source"],
-                    replaces=meta["replaces"], launches=launches[name],
-                    max_abs_err=rows[name]["max_abs_err"],
-                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
-                    bound_ms=rows[name]["bound_ms"],
-                    bound_by=rows[name]["bound_by"],
-                    library_ms=rows[name]["library_ms"])
-               for name, meta in KERNELS.items()]
+    kernels = []
+    for name, meta in KERNELS.items():
+        by_path = {p: n[name] for p, n in paths.items() if name in n}
+        row = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=sum(by_path.values()),
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            launches_by_path=by_path))
+        if name in bert_rows:
+            kernels[-1]["at_bert_base"] = bert_rows[name]
     print(json.dumps({"kernels": kernels}))
+    # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,12 +1,14 @@
 """Entry points of the port: the forward pass on the flagship model, and the
-main path's trainer.
+trainers of the paths that ``chip_smoke.py`` drives.
 
 ``entry(device)`` returns ``(fn, example_args)`` with ``fn(*example_args)``
 the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``__graft_entry__.entry``.  ``flagship_trainer(device)`` returns the
 ``ElasticTrainer`` and batch that ``chip_smoke.py`` and
-``edl_tpu_torch.profile_step`` drive.  Both run on the CUDA device unless
-``device`` says otherwise, with the flash kernels on.
+``edl_tpu_torch.profile_step`` drive; ``resnet_trainer`` and
+``bert_trainer`` do the same for bench.py's model-zoo leg (ResNet-50 at
+256 x 224², BERT-base MLM at 32 x 512).  All run on the CUDA device unless
+``device`` says otherwise, with the kernels on.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from edl_tpu_torch.device import resolve
+from edl_tpu_torch.models import bert
+from edl_tpu_torch.models import resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
@@ -47,3 +51,39 @@ def flagship_trainer(batch: int = 16, seq: int = 1024, device="cuda",
     data = (torch.from_numpy(tokens).to(dev),
             torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
     return trainer, data
+
+
+def resnet_trainer(batch: int = 256, hw: int = 224, device="cuda",
+                   cfg: resnet.ResNetConfig = resnet.RESNET50):
+    """(trainer, (images, labels)): ``ElasticTrainer`` on ``cfg`` (RESNET50)
+    with adamw(3e-4), random weights from seed 0, ``batch`` standard-normal
+    ``hw`` x ``hw`` NHWC images in ``cfg.dtype`` and uniform labels, both
+    made on the device from seed 1 — bench.py's model-zoo setting."""
+    dev = resolve(device)
+    model = resnet.ResNet(cfg, device=dev, seed=0)
+    trainer = ElasticTrainer(resnet.loss_fn, model, optim.adamw(3e-4),
+                             devices=[dev])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(batch, hw, hw, 3, generator=gen, device=dev
+                         ).to(cfg.dtype)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device=dev)
+    return trainer, (images, labels)
+
+
+def bert_trainer(batch: int = 32, seq: int = 512, device="cuda",
+                 cfg: bert.BertConfig = bert.BERT_BASE):
+    """(trainer, (tokens, targets, mask)): ``ElasticTrainer`` on ``cfg``
+    (BERT_BASE) with the flash kernels and adamw(3e-4), random weights from
+    seed 0, and bench.py's MLM recipe from seed 1: uniform tokens and
+    targets, and a 0/1 mask on ~15 % of the positions."""
+    dev = resolve(device)
+    model = bert.Bert(cfg, device=dev, seed=0)
+    trainer = ElasticTrainer(bert.mlm_loss_fn, model, optim.adamw(3e-4),
+                             devices=[dev])
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64)
+    targets = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64)
+    mask = (rng.random((batch, seq)) < 0.15).astype(np.float32)
+    return trainer, tuple(torch.from_numpy(a).to(dev)
+                          for a in (tokens, targets, mask))

@@ -1,5 +1,6 @@
-"""Model zoo of the port; this slice carries the Llama-family decoder."""
+"""Model zoo of the port: the Llama-family decoder, ResNet-50 and
+BERT-base."""
 
-from edl_tpu_torch.models import transformer
+from edl_tpu_torch.models import bert, resnet, transformer
 
-__all__ = ["transformer"]
+__all__ = ["bert", "resnet", "transformer"]

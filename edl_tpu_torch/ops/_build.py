@@ -24,7 +24,8 @@ from typing import Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "edl_tpu_torch"
 #: library name -> its one source file
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "group_norm": "group_norm.cu"}
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -126,6 +127,9 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_fwd":
         fns = {"edl_flash_fwd": [p] * 5 + [i] * 6 + [f, p]}
+    elif name == "group_norm":
+        fns = {"edl_group_norm_fwd": [p] * 8 + [i] * 6 + [f, p],
+               "edl_group_norm_bwd": [p] * 10 + [i] * 6 + [p]}
     else:
         fns = {"edl_flash_bwd_dq": [p] * 7 + [i] * 6 + [f, p],
                "edl_flash_bwd_dkv": [p] * 8 + [i] * 6 + [f, p]}

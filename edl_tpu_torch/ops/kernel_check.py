@@ -1,5 +1,5 @@
-"""The flash kernels held against their plain versions on the card, and
-faults planted in copies of the kernel sources to show the check sees them.
+"""The kernels held against their plain versions on the card, and faults
+planted in copies of the kernel sources to show the check sees them.
 
 The rule, for every bf16 output (out, dq, dk, dv), element by element:
 
@@ -14,14 +14,20 @@ size, a kernel that is wrong only where the values are small (the late rows
 of a causal softmax, which average many keys, or one GQA member's share of
 dK/dV) fails.  The fp32 logsumexp is held to ``LSE_ATOL`` absolute.
 
+GroupNorm's bf16 ``y`` and ``dx`` take the same rule.  Its fp32 outputs
+(mean, inv, the dγ/dβ partials; and y, dx when x is fp32) are the same fp32
+sums in another order, held at ``GN_FP32_RTOL`` of the element plus
+``GN_FP32_RTOL`` of the tensor's RMS.
+
 Run on a machine with the card, from the repository root:
 
     python -m edl_tpu_torch.ops.kernel_check
 
 It plants each fault of :data:`FAULTS` in a temporary copy of
 ``edl_tpu_torch/csrc``, builds the copies, runs each through the kernel
-wrappers at FLAGSHIP attention shapes (causal) and prints one JSON line per
-fault, with whether the coarser whole-tensor rule ``COARSE_TOL`` would have
+wrappers (flash faults at FLAGSHIP attention shapes, causal; GroupNorm
+faults at the ResNet-50 shapes of :data:`GN_FAULT_SHAPES`, bf16) and prints
+one JSON line per fault, with whether the coarser whole-tensor rule ``COARSE_TOL`` would have
 caught it (the lse is left out of that contrast); it exits non-zero when
 the unchanged kernels fail the rule or a planted fault passes it.
 """
@@ -42,6 +48,7 @@ import torch
 from edl_tpu_torch.device import resolve
 from edl_tpu_torch.ops import _build
 from edl_tpu_torch.ops import flash_attention as fa
+from edl_tpu_torch.ops import group_norm as gn
 
 #: one bf16 ulp is at most 2^-7 of the value it rounds
 BF16_RTOL = 2.0 ** -7
@@ -55,9 +62,18 @@ LSE_ATOL = 1e-5
 #: a coarser rule, max |kernel - plain| <= 2e-2 * max(1, max |plain|) over
 #: the whole tensor, reported beside each planted fault for contrast
 COARSE_TOL = 2e-2
+#: GroupNorm's fp32 outputs: fp32 sums of up to 25 088 terms per group
+#: (the ResNet-50 stem) in another order than the plain version's
+GN_FP32_RTOL = 1e-4
 #: outputs of each kernel
 OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
-           "flash_bwd_dkv": ("dk", "dv")}
+           "flash_bwd_dkv": ("dk", "dv"),
+           "group_norm_fwd": ("y", "mean", "inv"),
+           "group_norm_bwd": ("dx", "dgamma", "dbeta")}
+#: (b, hw, c) of the GroupNorm fault runs: the ResNet-50 stem (49 row
+#: chunks, 2 channels a group) and a stage-3 site (64 channels a group)
+GN_FAULT_SHAPES = ((16, 12544, 64), (16, 196, 1024))
+GN_GROUPS = 32
 
 #: name -> (library, source, text, planted text): each fault is one edit of
 #: one kernel, of the kind a tiling or indexing slip makes
@@ -86,6 +102,24 @@ FAULTS = {
     "dkv_gqa_member_skipped_last_tile": (
         "flash_bwd", "flash_bwd.cu", "member < rep;",
         "member < rep - (kt == n_qt - 1);"),
+    # GroupNorm's group statistics fold channels one to the right
+    "gn_group_membership_off_by_one": (
+        "group_norm", "group_norm.cu", "const int ch = g * cg + j;",
+        "const int ch = (g * cg + j + 1) % c;"),
+    # the forward's statistics leave out the last chunk of rows
+    "gn_last_chunk_skipped": (
+        "group_norm", "group_norm.cu",
+        "for (int k = 0; k < n_chunks; ++k) {",
+        "for (int k = 0; k < n_chunks - 1; ++k) {"),
+    # dγ loses its mean term: Σ dy·x·inv instead of Σ dy·x̂
+    "gn_dgamma_mean_term_dropped": (
+        "group_norm", "group_norm.cu",
+        "__fmul_rn(inv, __fsub_rn(s, __fmul_rn(mean, a)))",
+        "__fmul_rn(inv, s)"),
+    # dx reads its coefficients p, q, r in the wrong slots
+    "gn_dx_coefficients_swapped": (
+        "group_norm", "group_norm.cu", "cv * kVec, c, p, q, r);",
+        "cv * kVec, c, q, r, p);"),
 }
 
 
@@ -149,6 +183,45 @@ def compare(q, k, v, do, causal: bool, h: int, hk: int
     return readings, dict(out=out, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv)
 
 
+def gn_random_inputs(b: int, hw: int, c: int, seed: int,
+                     device: torch.device, dtype=torch.bfloat16):
+    """Seeded (x, dy, scale, bias): x off zero (mean 0.5, std 2), so the
+    mean terms of the statistics and of dγ matter."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(b, hw, c, generator=g, device=device) * 2 + 0.5
+         ).to(dtype)
+    dy = torch.randn(b, hw, c, generator=g, device=device).to(dtype)
+    scale = torch.randn(c, generator=g, device=device) * 0.5 + 1.0
+    bias = torch.randn(c, generator=g, device=device) * 0.5
+    return x, dy, scale, bias
+
+
+def _fp32_reading(got: torch.Tensor, want: torch.Tensor) -> dict:
+    rms = want.float().square().mean().sqrt().item()
+    return reading(got, want, GN_FP32_RTOL, GN_FP32_RTOL * rms)
+
+
+def gn_compare(x, dy, scale, bias, groups: int, eps: float = 1e-5
+               ) -> tuple[dict, dict]:
+    """The GroupNorm kernels and their plain versions on the same inputs →
+    (reading of each output, the kernels' outputs).  The backward takes
+    the kernel forward's mean and inv, as in training."""
+    y, mean, inv = gn.group_norm_fwd_cuda(x, scale, bias, groups, eps)
+    ref_y, ref_mean, ref_inv = gn.group_norm_fwd_plain(x, scale, bias,
+                                                       groups, eps)
+    dx, dg, db = gn.group_norm_bwd_cuda(x, dy, scale, mean, inv, groups)
+    ref_dx, ref_dg, ref_db = gn.group_norm_bwd_plain(x, dy, scale, mean, inv,
+                                                     groups)
+    torch.cuda.synchronize()
+    act = bf16_reading if x.dtype == torch.bfloat16 else _fp32_reading
+    readings = dict(y=act(y, ref_y), dx=act(dx, ref_dx))
+    readings.update({name: _fp32_reading(got, want) for name, (got, want) in
+                     dict(mean=(mean, ref_mean), inv=(inv, ref_inv),
+                          dgamma=(dg, ref_dg), dbeta=(db, ref_db)).items()})
+    return readings, dict(y=y, mean=mean, inv=inv, dx=dx, dgamma=dg,
+                          dbeta=db)
+
+
 def failures(readings: dict) -> list[str]:
     """The outputs that break the rule, each with its reading."""
     return [f"{name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
@@ -175,11 +248,26 @@ def main(argv=None) -> int:
     dev = resolve("cuda")
     b, s, h, hk, d = 16, 1024, 8, 2, 128  # FLAGSHIP attention, bench batch
     _build.build()
-    inputs = random_inputs(b * h, b * hk, s, d, args.seed, dev)
-    base, _ = compare(*inputs, True, h, hk)
-    print(json.dumps({"fault": None, "failed": failures(base),
-                      "readings": base}), flush=True)
-    ok = not failures(base)
+    flash_inputs = random_inputs(b * h, b * hk, s, d, args.seed, dev)
+    gn_inputs = [gn_random_inputs(*shape, args.seed, dev)
+                 for shape in GN_FAULT_SHAPES]
+
+    def check(lib: str) -> dict:
+        """Readings of the library's kernels: output (at each GroupNorm
+        shape) -> reading."""
+        if lib != "group_norm":
+            return compare(*flash_inputs, True, h, hk)[0]
+        return {f"{out}@{shape[1]}x{shape[2]}": r
+                for shape, inputs in zip(GN_FAULT_SHAPES, gn_inputs)
+                for out, r in gn_compare(*inputs, GN_GROUPS)[0].items()}
+
+    ok = True
+    for lib in ("flash", "group_norm"):
+        base = check(lib)
+        print(json.dumps({"fault": None, "kernels": lib,
+                          "failed": failures(base), "readings": base}),
+              flush=True)
+        ok &= not failures(base)
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(FAULTS)) as pool:
             built = dict(zip(FAULTS, pool.map(
@@ -187,7 +275,7 @@ def main(argv=None) -> int:
         for name, path in built.items():
             lib = FAULTS[name][0]
             with _build.substituted(lib, _build.load(path, lib)):
-                readings, _ = compare(*inputs, True, h, hk)
+                readings = check(lib)
             failed = failures(readings)
             ok &= bool(failed)
             coarse = any(r["max_abs_err"] > COARSE_TOL

@@ -1,20 +1,22 @@
-"""Where the time of the FLAGSHIP train step goes on the card.
+"""Where the time of a train step goes on the card.
 
-Drives the main path of ``chip_smoke.py`` (``entry.flagship_trainer``:
-ElasticTrainer, FLAGSHIP with the flash kernels, adamw(3e-4), batch 16 x seq
-1024) and prints one JSON line.  After two warm-up steps it runs ``--steps``
-steps unprofiled, timed by CUDA events, then ``--steps`` steps under
-``torch.profiler``, and reports:
+Drives one of the paths of ``chip_smoke.py`` through its ``entry.py``
+helper (``--model flagship``: ElasticTrainer on FLAGSHIP with the flash
+kernels, batch 16 x seq 1024; ``resnet50``: RESNET50 with the GroupNorm
+kernels, 256 x 224²; ``bert_base``: BERT_BASE MLM with the flash kernels,
+32 x 512; adamw(3e-4) in each) and prints one JSON line.  After two warm-up
+steps it runs ``--steps`` steps unprofiled, timed by CUDA events, then
+``--steps`` steps under ``torch.profiler``, and reports:
 
-- device time per step by kernel group, and the fifteen costliest kernels
-  (profiled window);
+- device time per step by kernel group, and the ``TOP_KERNELS`` costliest
+  kernels (profiled window);
 - ``idle_share_profiled``: 1 - device busy / wall of the profiled window
   (one window; the wall carries the profiler's own host cost);
 - ``idle_share_unprofiled_est``: 1 - the profiled busy time per step / the
   unprofiled step time — derived across the two windows of this one run,
   since the unprofiled window has no kernel times of its own.
 
-    python -m edl_tpu_torch.profile_step [--steps 3]
+    python -m edl_tpu_torch.profile_step [--model resnet50] [--steps 3]
 """
 
 from __future__ import annotations
@@ -26,11 +28,16 @@ from collections import defaultdict
 
 import torch
 
+TOP_KERNELS = 25
 #: kernel-name fragments → group (first match wins)
 GROUPS = (
+    ("gn_fwd_", "group_norm_fwd"),
+    ("gn_bwd_", "group_norm_bwd"),
     ("flash_fwd_kernel", "flash_fwd"),
     ("flash_bwd_dq_kernel", "flash_bwd_dq"),
     ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+    ("fprop", "conv"), ("dgrad", "conv"), ("wgrad", "conv"),
+    ("conv", "conv"), ("max_pool", "pooling"),
     ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
     ("cutlass", "matmul"), ("cublas", "matmul"),
     ("multi_tensor_apply", "optimizer"),
@@ -51,12 +58,16 @@ def group_of(kernel: str) -> str:
 def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    from edl_tpu_torch.entry import flagship_trainer
+    from edl_tpu_torch import entry
 
+    trainers = {"flagship": entry.flagship_trainer,
+                "resnet50": entry.resnet_trainer,
+                "bert_base": entry.bert_trainer}
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(trainers), default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
-    trainer, batch = flagship_trainer()
+    trainer, batch = trainers[args.model]()
     for _ in range(2):
         trainer.step(batch)
     torch.cuda.synchronize()
@@ -86,9 +97,10 @@ def main() -> None:
         groups[group_of(name)] += ms / args.steps
     busy_ms = sum(per_kernel.values()) / args.steps
     step_ms = 1e3 * wall_s / args.steps
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "model": args.model,
         "steps": args.steps,
         "unprofiled_step_ms": unprofiled_ms,
         "profiled_step_ms": step_ms,

@@ -54,7 +54,9 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from edl_tpu_torch.entry import entry, flagship_trainer
+    from edl_tpu_torch.entry import (bert_trainer, entry, flagship_trainer,
+                                     resnet_trainer)
+    from edl_tpu_torch.models import bert, resnet
     from edl_tpu_torch.models import transformer as tfm
     from edl_tpu_torch.parallel.mesh import make_mesh
     from edl_tpu_torch.runtime import optim
@@ -66,7 +68,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         flagship_trainer(cfg=tfm.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
+        resnet_trainer(batch=2, hw=32, cfg=resnet.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert_trainer(batch=2, seq=16, cfg=bert.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
         tfm.Transformer(tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet.ResNet(resnet.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert.Bert(bert.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh()
     model = tfm.Transformer(tfm.TINY, device="cpu")
@@ -96,3 +106,26 @@ def test_main_path_trainer_on_the_cpu_takes_a_step():
     assert torch.equal(targets[:, :-1], tokens[:, 1:])
     first = trainer.step((tokens, targets))
     assert np.isfinite(first) and trainer.step((tokens, targets)) < first
+
+
+@pytest.mark.parametrize("model", ["resnet", "bert"])
+def test_model_zoo_trainers_on_the_cpu_take_a_step(model):
+    """The helpers behind chip_smoke's ResNet-50 and BERT-base paths, at
+    TINY on the CPU: the kernels' plain versions inside training steps."""
+    import dataclasses
+
+    from edl_tpu_torch.entry import bert_trainer, resnet_trainer
+    from edl_tpu_torch.models import bert, resnet
+
+    if model == "resnet":
+        trainer, batch = resnet_trainer(batch=4, hw=32, device="cpu",
+                                        cfg=resnet.TINY)
+        assert batch[0].shape == (4, 32, 32, 3) and batch[1].shape == (4,)
+    else:
+        cfg = dataclasses.replace(bert.TINY, use_flash=True, max_seq_len=128)
+        trainer, batch = bert_trainer(batch=2, seq=128, device="cpu",
+                                      cfg=cfg)
+        assert [t.shape for t in batch] == [(2, 128)] * 3
+        assert set(batch[2].unique().tolist()) <= {0.0, 1.0}
+    first = trainer.step(batch)
+    assert np.isfinite(first) and trainer.step(batch) < first
