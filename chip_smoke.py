@@ -8,7 +8,8 @@ toolkit:
 Phases, each of which raises on failure:
 
 (a) build the hand-written kernels from ``edl_tpu_torch/csrc`` (nvcc,
-    sm_90a) and print the build seconds;
+    sm_90a), print the build seconds and, for each flash kernel, the
+    registers, static shared memory and spill bytes ptxas reported;
 (b) hold each flash kernel — forward, dQ, dK/dV — against its plain PyTorch
     version at FLAGSHIP attention shapes (bf16, b 16, s 1024, h 8, hk 2,
     d 128), causal and non-causal, and time the kernel, the plain version
@@ -147,6 +148,19 @@ def roofline(flops: float, peak_flops: float, tensors) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def print_ptxas_report() -> None:
+    """(a): what ptxas reported for each flash kernel instantiation.  The
+    register count is the one a block is launched with; the forward and
+    dK/dV kernels then move registers from their producer warpgroup to
+    their consumers with setmaxnreg (csrc/hopper_common.cuh)."""
+    for lib in ("flash_fwd", "flash_bwd"):
+        for r in _build.ptxas_report(lib):
+            print(f"ptxas {lib} {r['kernel']}: registers {r['registers']} "
+                  f"static_smem_bytes {r['static_smem_bytes']} "
+                  f"spill_store_bytes {r['spill_store_bytes']} "
+                  f"spill_load_bytes {r['spill_load_bytes']}", flush=True)
+
+
 def phase_flash(b: int, s: int, h: int, hk: int, d: int, causal_modes,
                 label: str) -> dict:
     """(b) and (f): every flash kernel against its plain version at one
@@ -249,8 +263,9 @@ def run_path(label: str, trainer, batch, counters: dict, want: dict,
     if not timed[-1] < timed[0]:
         raise AssertionError(f"{label}: loss did not fall: {timed}")
     step_ms = 1e3 * float(np.mean(step_s[WARMUP_STEPS:]))
+    median_ms = 1e3 * float(np.median(step_s[WARMUP_STEPS:]))
     print(f"path {label}: losses {[round(x, 4) for x in losses]} "
-          f"step_ms {step_ms:.2f} "
+          f"step_ms {step_ms:.2f} median_step_ms {median_ms:.2f} "
           f"(per step {[round(1e3 * x, 2) for x in step_s]}) "
           f"{unit}_per_second {per_step_units / (step_ms / 1e3):.1f} "
           f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.2f} "
@@ -475,6 +490,7 @@ def main() -> int:
 
     build_s = _build.build()
     print(f"build: {build_s:.2f} s into {_build.build_dir()}", flush=True)
+    print_ptxas_report()
     rows = phase_flash(B, S, H, HK, D, (True, False), "flagship")
     paths = {"flagship": phase_flagship()}
     phase_model_check()

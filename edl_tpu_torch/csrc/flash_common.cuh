@@ -1,8 +1,9 @@
 // Shared pieces of the hand-written flash-attention kernels for Hopper
-// (sm_90a): tile constants, global->shared tile loads, and the
-// mma.sync m16n8k16 bf16 fragment helpers.
+// (sm_90a): the mma.sync m16n8k16 tile helpers of the dQ kernel, and the
+// small helpers (bf16 packing, quad reductions, the shared-memory limit)
+// that the wgmma kernels (hopper_common.cuh) use too.
 //
-// Layout conventions (all three kernels):
+// Layout conventions of the dQ kernel:
 //   * a block has 4 warps (128 threads) and owns one 64-row tile; each warp
 //     owns 16 of those rows;
 //   * a 64 x D bf16 tile sits in shared memory row-major with a row stride

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The build
 happens at first use, under ``build/edl_tpu_torch/<hash>/`` at the repository
-root, keyed by a hash of every source and header and the compiler flags, so an
-edited kernel is rebuilt and an unchanged one is reused.  All sources compile
-in parallel, one ``nvcc`` each.
+root, keyed by a hash of every file under ``csrc/`` and the compiler flags, so
+an edited kernel or header is rebuilt and an unchanged one is reused.  All
+sources compile in parallel, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +27,6 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "edl_tpu_torch"
 #: library name -> its one source file
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "group_norm": "group_norm.cu"}
-HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,11 +46,13 @@ def _nvcc() -> str:
 
 
 def build_dir(csrc: Path = CSRC) -> Path:
-    """Where this exact set of sources and flags builds to."""
+    """Where this exact set of sources and flags builds to: a hash of the
+    flags and of every file under ``csrc`` (name and bytes), so that any
+    header a source includes keys the build too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(set(SOURCES.values()) | set(HEADERS)):
-        h.update(name.encode())
-        h.update((csrc / name).read_bytes())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -87,6 +89,33 @@ def build(csrc: Path = CSRC, out: Optional[Path] = None,
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_report(name: str, out: Optional[Path] = None) -> list[dict]:
+    """Per kernel of library ``name``, what ptxas reported when it was
+    built (``<name>.log`` beside the library): the kernel's mangled name,
+    registers a thread, static shared memory bytes, and spill store and
+    load bytes."""
+    out = build_dir() if out is None else out
+    rows: list[dict] = []
+    for line in (out / f"{name}.log").read_text().splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            rows.append(dict(kernel=m.group(1)))
+        elif rows and (m := _PTXAS_USED.search(line)):
+            smem = _PTXAS_SMEM.search(line)
+            rows[-1].update(registers=int(m.group(1)),
+                            static_smem_bytes=int(smem.group(1)) if smem
+                            else 0)
+        elif rows and (m := _PTXAS_SPILL.search(line)):
+            rows[-1].update(spill_store_bytes=int(m.group(1)),
+                            spill_load_bytes=int(m.group(2)))
+    return rows
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -28,11 +28,14 @@ from edl_tpu_torch.ops import _build
 
 #: the JAX package's TPU block sizes, kept for :func:`fit_blocks` (which
 #: decides eligibility exactly as the JAX dispatch does); the Hopper kernels
-#: use 64-row tiles of their own
+#: use tiles of their own
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 1024
-#: rows of one kernel tile (``kTile`` in csrc/flash_common.cuh)
-KERNEL_TILE = 64
+#: the sequence length each kernel takes is a multiple of its tile: the
+#: forward's 128-row q and k tiles (``kBQ``, ``kBK`` in csrc/flash_fwd.cu),
+#: dQ's 64-row tiles (``kTile`` in csrc/flash_common.cuh) and dK/dV's
+#: 128-key blocks (``dkv::kBK`` in csrc/flash_bwd.cu)
+KERNEL_TILES = {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 128}
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
 
@@ -145,7 +148,8 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, h: int,
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def _check_kernel_inputs(q, k, v, h: int, hk: int, *extra) -> None:
+def _check_kernel_inputs(kernel: str, q, k, v, h: int, hk: int,
+                         *extra) -> None:
     bh, s, d = q.shape
     if h % hk or bh % h:
         raise ValueError(f"folded q batch {bh} does not hold heads h={h}, "
@@ -156,10 +160,12 @@ def _check_kernel_inputs(q, k, v, h: int, hk: int, *extra) -> None:
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in {KERNEL_HEAD_DIMS},"
                          f" got {d}")
-    if s % KERNEL_TILE:
-        raise ValueError(f"flash kernel needs s % {KERNEL_TILE} == 0, got {s}")
-    if bh > 65535:
-        raise ValueError(f"folded batch {bh} exceeds the kernel grid")
+    tile = KERNEL_TILES[kernel]
+    if s % tile:
+        raise ValueError(f"{kernel} kernel needs s % {tile} == 0, got {s}")
+    if bh > 65535 or bh * s >= 2 ** 31:
+        raise ValueError(f"folded batch {bh} x s {s} exceeds the kernel grid"
+                         " or the TMA row coordinates")
     for x in (q, k, v, *extra):
         if x.device != q.device:
             raise ValueError("flash kernel inputs must share one CUDA device")
@@ -186,7 +192,7 @@ def _stream(x: torch.Tensor) -> int:
 def flash_forward_cuda(q, k, v, causal: bool, h: int, hk: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel → (out [b·h, s, d] bf16, lse [b·h, s])."""
-    _check_kernel_inputs(q, k, v, h, hk)
+    _check_kernel_inputs("flash_fwd", q, k, v, h, hk)
     bh, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
@@ -204,7 +210,7 @@ def flash_forward_cuda(q, k, v, causal: bool, h: int, hk: int
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, h: int,
                       hk: int) -> torch.Tensor:
     """Launch the dQ kernel → dq [b·h, s, d] bf16."""
-    _check_kernel_inputs(q, k, v, h, hk, do, lse, delta)
+    _check_kernel_inputs("flash_bwd_dq", q, k, v, h, hk, do, lse, delta)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
     bh, s, d = q.shape
@@ -223,7 +229,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, h: int,
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, h: int,
                        hk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel → (dk, dv) [b·hk, s, d] bf16."""
-    _check_kernel_inputs(q, k, v, h, hk, do, lse, delta)
+    _check_kernel_inputs("flash_bwd_dkv", q, k, v, h, hk, do, lse, delta)
     if do.shape != q.shape:
         raise ValueError("dO must have q's shape")
     bh, s, d = q.shape

@@ -80,8 +80,13 @@ GN_GROUPS = 32
 FAULTS = {
     # every query also sees the key just after it (causal mask one late)
     "fwd_mask_one_late": (
-        "flash_fwd", "flash_fwd.cu", "> row + (i >> 1) * 8)",
-        "> row + (i >> 1) * 8 + 1)"),
+        "flash_fwd", "flash_fwd.cu", "> row + 8 * (e >> 1))",
+        "> row + 8 * (e >> 1) + 1)"),
+    # the S = Q·Kᵀ product reads K one 16-wide wgmma K step too far on
+    # (its shared-memory descriptor advanced off by one)
+    "fwd_kstep_off_by_one": (
+        "flash_fwd", "flash_fwd.cu", "desc_add(dk0, koff)",
+        "desc_add(dk0, koff + 32)"),
     "dq_mask_one_late": (
         "flash_bwd", "flash_bwd.cu", "> row + (i >> 1) * 8)",
         "> row + (i >> 1) * 8 + 1)"),
@@ -92,16 +97,23 @@ FAULTS = {
         "const int n_kt = CAUSAL ? qt : s / kTile;"),
     # dK/dV masks the diagonal itself (each key loses its own query)
     "dkv_diagonal_masked": (
-        "flash_bwd", "flash_bwd.cu", "> qt * kTile + col) x = kNegInf",
-        ">= qt * kTile + col) x = kNegInf"),
+        "flash_bwd", "flash_bwd.cu", "> q0 + col) x = kNegInf",
+        ">= q0 + col) x = kNegInf"),
     # dK/dV sums over every GQA member but the last
     "dkv_gqa_member_skipped": (
-        "flash_bwd", "flash_bwd.cu", "member < rep;", "member < rep - 1;"),
+        "flash_bwd", "flash_bwd.cu", "const int n_steps = rep * per_member;",
+        "const int n_steps = (rep - 1) * per_member;"),
     # ... and only for the last key tile, whose keys see the fewest
     # queries and so hold the smallest dK/dV
     "dkv_gqa_member_skipped_last_tile": (
-        "flash_bwd", "flash_bwd.cu", "member < rep;",
-        "member < rep - (kt == n_qt - 1);"),
+        "flash_bwd", "flash_bwd.cu", "const int n_steps = rep * per_member;",
+        "const int n_steps = (rep - (kt == s / kBK - 1)) * per_member;"),
+    # the dK/dV consumers wait for ring stage st but read the next stage,
+    # whose Q / dO / lse / delta belong to another step (or have not landed)
+    "dkv_ring_wrong_stage": (
+        "flash_bwd", "flash_bwd.cu",
+        "unsigned char* sq = stages + st * L::kStage;",
+        "unsigned char* sq = stages + (st + 1) % kStages * L::kStage;"),
     # GroupNorm's group statistics fold channels one to the right
     "gn_group_membership_off_by_one": (
         "group_norm", "group_norm.cu", "const int ch = g * cg + j;",

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from edl_tpu_torch.ops import _build
+from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.ops import kernel_check as kc
 
 #: (h, hk, causal): GQA causal and non-causal, plus an MHA case
@@ -34,6 +35,41 @@ def test_cuda_kernels_match_plain_versions(cuda_device, d, h, hk, causal):
     inputs = kc.random_inputs(2 * h, 2 * hk, 256, d, 0, cuda_device)
     readings, _ = kc.compare(*inputs, causal, h, hk)
     assert not kc.failures(readings), readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [384, 1024])
+def test_cuda_kernels_gqa_at_ring_corners(cuda_device, s, d, causal):
+    """GQA 4:1 at s 384 and at FLAGSHIP's s 1024, under the same rule.
+    At s 384 the forward's 3 key tiles go once round its 2-stage ring (d
+    128) and the dK/dV blocks walk 8, 16 or 24 steps through 3 stages, so
+    the causal ones stop part-way through a round; at s 1024 the forward
+    walks 8 tiles (4 rounds of 2 stages, 2 rounds and 2 steps of 3)."""
+    inputs = kc.random_inputs(2 * 4, 2 * 1, s, d, 1, cuda_device)
+    readings, _ = kc.compare(*inputs, causal, 4, 1)
+    assert not kc.failures(readings), readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_kernels_repeat_bitwise(cuda_device, causal):
+    """Two launches of the forward and of dK/dV on the same inputs give
+    the same bits: the GQA group's sum is taken in a fixed order with no
+    atomics."""
+    h, hk = 4, 1
+    q, k, v, do = kc.random_inputs(2 * h, 2 * hk, 384, 128, 2, cuda_device)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_forward_cuda(q, k, v, causal, h, hk)
+        delta = (do.float() * out.float()).sum(-1)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, h,
+                                       hk)
+        runs.append((out, lse, dk, dv))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def test_the_rule_follows_each_element():
@@ -60,3 +96,19 @@ def test_every_planted_fault_edits_its_source_once():
         code = (_build.CSRC / source).read_text()
         assert code.count(text) == 1, name
         assert _build.SOURCES[lib] == source and planted != text
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkv"])
+def test_kernels_raise_on_a_length_off_their_tile(kernel):
+    """On the CPU, before any launch: the forward and dK/dV kernels take
+    s % 128 == 0 (their 128-row tiles) and raise on s 192, which the dQ
+    kernel's 64-row tiles would take."""
+    assert fa.KERNEL_TILES[kernel] == 128
+    assert 192 % fa.KERNEL_TILES["flash_bwd_dq"] == 0
+    q, k, v, do = kc.random_inputs(4, 2, 192, 64, 0, torch.device("cpu"))
+    lse = torch.zeros(4, 192)
+    with pytest.raises(ValueError, match="s % 128"):
+        if kernel == "flash_fwd":
+            fa.flash_forward_cuda(q, k, v, True, 2, 1)
+        else:
+            fa.flash_bwd_dkv_cuda(q, k, v, do, lse, lse, True, 2, 1)
