@@ -8,8 +8,9 @@ toolkit:
 Phases, each of which raises on failure:
 
 (a) build the hand-written kernels from ``edl_tpu_torch/csrc`` (nvcc,
-    sm_90a), print the build seconds and, for each flash kernel, the
-    registers, static shared memory and spill bytes ptxas reported;
+    sm_90a), print the build seconds and, for each flash and GroupNorm
+    kernel, the registers, static shared memory and spill bytes ptxas
+    reported;
 (b) hold each flash kernel — forward, dQ, dK/dV — against its plain PyTorch
     version at FLAGSHIP attention shapes (bf16, b 16, s 1024, h 8, hk 2,
     d 128), causal and non-causal, and time the kernel, the plain version
@@ -23,9 +24,12 @@ Phases, each of which raises on failure:
     kernels against its reference attention path on a small input, with
     the same model's attention output zeroed as a control that must fail;
 (e) the GroupNorm kernels against their plain versions at every distinct
-    ResNet-50 site shape at b 256 (12 shapes, G 32, bf16), timed beside
-    ``F.group_norm`` (a yardstick) and their byte bounds, and summed over
-    the 53 sites of a step;
+    ResNet-50 site shape at b 256 (12 shapes, G 32, bf16), each shape's
+    cluster plan in each direction (k blocks an image, rows a block, rows
+    resident in shared memory) and the clusters the card runs at once,
+    timed beside ``F.group_norm`` (a yardstick) and their byte bounds, and
+    summed over the 53 sites of a step; a plan past clusters of 8 is also
+    timed capped at 8;
 (f) the flash kernels at the BERT-base shape (b 32, s 512, h = hk = 12,
     d 64, non-causal), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
@@ -84,6 +88,12 @@ BERT_B, BERT_S, BERT_H, BERT_D = 32, 512, 12, 64
 RESNET_B, RESNET_HW = 256, 224
 WARMUP_STEPS, TIMED_STEPS = 1, 5
 KERNEL_ITERS, PLAIN_ITERS = 20, 3
+#: phase (e): the largest cluster every Hopper part runs; a plan past it is
+#: also timed capped at it
+PORTABLE_CLUSTER = 8
+#: cuda_ms: ~10 ms at the H100's 1.98 GHz boost clock, far longer than the
+#: host takes to queue KERNEL_ITERS calls of any kernel timed here
+QUEUE_SLEEP_CYCLES = 20_000_000
 #: phase (d): the logits of the flash and reference attention paths of the
 #: bf16 model, element by element: |flash - reference| <= 2^-7 |reference|
 #: + MODEL_ATOL * rms(reference).  The two paths round the attention
@@ -125,9 +135,12 @@ GROUP_NORM = ("group_norm_fwd", "group_norm_bwd")
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
-    one warm-up call (CUDA events)."""
+    one warm-up call (CUDA events).  The card first sleeps for
+    ``QUEUE_SLEEP_CYCLES`` while the host queues every call, so that a call
+    shorter than its own launch cost on the host is timed on the card."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -149,11 +162,12 @@ def roofline(flops: float, peak_flops: float, tensors) -> tuple[float, str]:
 
 
 def print_ptxas_report() -> None:
-    """(a): what ptxas reported for each flash kernel instantiation.  The
-    register count is the one a block is launched with; the forward and
-    dK/dV kernels then move registers from their producer warpgroup to
-    their consumers with setmaxnreg (csrc/hopper_common.cuh)."""
-    for lib in ("flash_fwd", "flash_bwd"):
+    """(a): what ptxas reported for each flash and GroupNorm kernel
+    instantiation.  The register count is the one a block is launched
+    with; the flash forward and dK/dV kernels then move registers from
+    their producer warpgroup to their consumers with setmaxnreg
+    (csrc/hopper_common.cuh)."""
+    for lib in ("flash_fwd", "flash_bwd", "group_norm"):
         for r in _build.ptxas_report(lib):
             print(f"ptxas {lib} {r['kernel']}: registers {r['registers']} "
                   f"static_smem_bytes {r['static_smem_bytes']} "
@@ -327,6 +341,22 @@ def check_against(ref, got, control, atol: float, what: str,
                              f"({control_what})")
 
 
+def gn_plan(name: str, tag: str, hw: int, c: int, dtype,
+            max_k: int = gn.MAX_CLUSTER) -> tuple[int, int, int]:
+    """(e): one kernel's cluster plan at one site shape, printed with the
+    clusters of it the card runs at once."""
+    backward = name == "group_norm_bwd"
+    itemsize = torch.finfo(dtype).bits // 8
+    k, rows, resident = plan = gn.cluster_plan(hw, c, itemsize, backward,
+                                               max_k)
+    held = ("resident" if resident == (1 + backward) * rows
+            else "reads rows again")
+    print(f"plan {name} {tag}: k {k} rows {rows} resident {resident} "
+          f"({held}) active_clusters "
+          f"{gn.active_clusters(c, dtype, backward, plan)}", flush=True)
+    return plan
+
+
 def phase_group_norm(sites) -> dict:
     """(e): both GroupNorm kernels against their plain versions at every
     site shape of the ResNet-50 step; per-step sums over the sites."""
@@ -337,6 +367,8 @@ def phase_group_norm(sites) -> dict:
         x, dy, scale, bias = kc.gn_random_inputs(RESNET_B, hw, c, seed, dev)
         readings, got = kc.gn_compare(x, dy, scale, bias, groups)
         tag = f"[{RESNET_B},{hw},{c}] x{count}"
+        plans = {name: gn_plan(name, tag, hw, c, x.dtype)
+                 for name in GROUP_NORM}
         for name, r in readings.items():
             print(f"check {name} {tag}: max |kernel - plain| "
                   f"{r['max_abs_err']:.4e}, {r['worst']:.3f} of its limit "
@@ -356,14 +388,15 @@ def phase_group_norm(sites) -> dict:
         lib_out = F.group_norm(xg, groups, sg, bg, 1e-5)
         times = {
             "group_norm_fwd": (
-                lambda: gn.group_norm_fwd_cuda(x, scale, bias, groups, 1e-5),
+                lambda plan=None: gn.group_norm_fwd_cuda(
+                    x, scale, bias, groups, 1e-5, plan),
                 lambda: gn.group_norm_fwd_plain(x, scale, bias, groups, 1e-5),
                 lambda: F.group_norm(nchw(x), groups, sg.detach(),
                                      bg.detach(), 1e-5),
                 (x, scale, bias, got["y"], mean, inv)),
             "group_norm_bwd": (
-                lambda: gn.group_norm_bwd_cuda(x, dy, scale, mean, inv,
-                                               groups),
+                lambda plan=None: gn.group_norm_bwd_cuda(
+                    x, dy, scale, mean, inv, groups, plan),
                 lambda: gn.group_norm_bwd_plain(x, dy, scale, mean, inv,
                                                 groups),
                 lambda: torch.autograd.grad(lib_out, (xg, sg, bg), nchw(dy),
@@ -375,6 +408,14 @@ def phase_group_norm(sites) -> dict:
             ms = cuda_ms(kern, KERNEL_ITERS)
             plain_ms = cuda_ms(plain, PLAIN_ITERS)
             library_ms = cuda_ms(lib, KERNEL_ITERS)
+            if plans[name][0] > PORTABLE_CLUSTER:
+                # a plan past the portable cluster size against the one
+                # capped at it, which keeps dy and reads x again
+                alt = gn_plan(name, tag, hw, c, x.dtype, PORTABLE_CLUSTER)
+                alt_ms = cuda_ms(lambda: kern(plan=alt), KERNEL_ITERS)
+                print(f"alt_plan {name} {tag}: kernel_ms {alt_ms:.4f} at k "
+                      f"{alt[0]}, {ms:.4f} at k {plans[name][0]}",
+                      flush=True)
             bound_ms, bound_by = roofline(
                 GN_OPS_PER_ELEMENT[name] * x.numel(), PEAK_FP32_FLOPS,
                 tensors)

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash forward and dK/dV kernels:
-// mbarriers, TMA loads, warpgroup matrix multiplies (wgmma) and their
-// shared-memory descriptors, and the host-side TMA tensor maps.
+// Hopper (sm_90a) building blocks of the flash forward and dK/dV kernels
+// and of the GroupNorm kernels: mbarriers, TMA and bulk loads, cluster
+// barriers and distributed shared memory, warpgroup matrix multiplies
+// (wgmma) and their shared-memory descriptors, and the host-side TMA
+// tensor maps.
 //
 // Shared-memory tiles: a bf16 tile of R rows and 64 columns (128 bytes a
 // row) is one TMA box loaded with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk
@@ -106,6 +108,54 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into L2,
+// without waiting and without a destination in shared memory.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src,
+                                                 uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+// -- thread block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every block of the cluster arrives, then waits: the
+// writes to shared memory before the arrival (release) are visible to the
+// reads after the wait (acquire), in this block and its peers.  All threads
+// of a warp execute it together.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The two floats (8-byte aligned) at the same shared-memory offset as `p`, in
+// the block of cluster rank `rank` (distributed shared memory).
+__device__ __forceinline__ float2 ld_cluster2(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote));
+  return v;
 }
 
 // -- wgmma -------------------------------------------------------------------

@@ -157,8 +157,9 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     if name == "flash_fwd":
         fns = {"edl_flash_fwd": [p] * 5 + [i] * 6 + [f, p]}
     elif name == "group_norm":
-        fns = {"edl_group_norm_fwd": [p] * 8 + [i] * 6 + [f, p],
-               "edl_group_norm_bwd": [p] * 10 + [i] * 6 + [p]}
+        fns = {"edl_group_norm_fwd": [p] * 6 + [i] * 8 + [f, p],
+               "edl_group_norm_bwd": [p] * 8 + [i] * 8 + [p],
+               "edl_group_norm_active_clusters": [i] * 5 + [p]}
     else:
         fns = {"edl_flash_bwd_dq": [p] * 7 + [i] * 6 + [f, p],
                "edl_flash_bwd_dkv": [p] * 8 + [i] * 6 + [f, p]}

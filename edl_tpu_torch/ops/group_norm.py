@@ -6,11 +6,11 @@ The forward gives ``y`` plus the mean and inverse standard deviation of each
 (image, group); the backward gives ``dx`` plus per-image dγ/dβ partials,
 which :class:`GroupNormFn` sums over the batch, as the JAX package's
 ``_gn2d_bwd`` does.  The JAX kernels hold one image's ``[hw, c]`` map in
-VMEM; a Hopper block cannot (1.6 MB at the ResNet-50 stem against 227 KB of
-shared memory), so each kernel is a pass of per-channel partial sums over
-chunks of rows, a small pass that folds them into group statistics and
-per-channel coefficients, and an elementwise pass.  The outputs match; the
-tiling does not.
+VMEM and read it once; so do the Hopper kernels, in the shared memories of a
+thread block cluster of ``k`` blocks per image (1.6 MB at the ResNet-50 stem
+against 227 KB a block).  :func:`cluster_plan` picks ``k`` and how many rows
+each block keeps resident; rows that do not fit are read again from device
+memory.  The outputs match; the tiling does not.
 
 The plain versions repeat the kernels' arithmetic and their rounding points
 (the JAX kernels' too): ``x·x`` and ``dy·x`` in x's dtype before the fp32
@@ -27,19 +27,29 @@ A/B.  A tensor on the CPU takes the plain versions.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
 
 from edl_tpu_torch.ops import _build
 
-#: the kernels' limits: 8 channels per 16-byte vector of a thread, and one
-#: row of at most 256 such vectors per pass of a block
+#: the kernels' limits: 8 channels per 16-byte vector of a thread, at most
+#: 2048 channels; a block's 512 summing threads cover 512 / (c / 8) rows a
+#: pass
 KERNEL_MAX_CHANNELS = 2048
-KERNEL_THREADS = 256
+KERNEL_THREADS = 512
 KERNEL_VEC = 8
-#: elements of one row chunk of the statistics and elementwise passes
-CHUNK_ELEMENTS = 16384
+#: bulk copies (each on its own mbarrier) a block splits its resident rows
+#: into
+KERNEL_PIECES = 8
+#: dynamic shared memory one Hopper block may use (227 KB)
+SMEM_BYTES = 232_448
+#: the largest cluster :func:`cluster_plan` takes.  Past the portable 8,
+#: only where 8 blocks cannot hold the image (the ResNet-50 backward's two
+#: largest sites): on an H100 a cluster of 16 holding dy and x beat one of 8
+#: holding dy and reading x again (PERF.md)
+MAX_CLUSTER = 16
 
 #: launches of each kernel since the last :func:`reset_launches`
 launches = {"group_norm_fwd": 0, "group_norm_bwd": 0}
@@ -124,12 +134,33 @@ def group_norm_bwd_plain(x2d, dy, scale, mean, inv, groups: int
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def chunk_rows(hw: int, c: int) -> int:
-    """Rows of one chunk: about :data:`CHUNK_ELEMENTS` elements, a multiple
-    of the rows a block's threads cover in one pass."""
-    per_pass = KERNEL_THREADS // (c // KERNEL_VEC)
-    rows = max(per_pass, CHUNK_ELEMENTS // c // per_pass * per_pass)
-    return min(rows, hw)
+def smem_overhead(c: int) -> int:
+    """Shared-memory bytes of a block beside its resident rows: the row
+    lanes' fp32 sums ``[lanes, c]`` of one sum at a time (later the block's
+    partial row ``[c, 2]`` and the image's statistics) and the mbarriers
+    (``csrc/group_norm.cu``)."""
+    lanes = KERNEL_THREADS // (c // KERNEL_VEC)
+    return 4 * max(lanes, 2) * c + 8 * KERNEL_PIECES
+
+
+def cluster_plan(hw: int, c: int, itemsize: int, backward: bool,
+                 max_k: int = MAX_CLUSTER) -> tuple[int, int, int]:
+    """How the kernels cut one image ``[hw, c]`` of ``itemsize``-byte
+    elements → ``(k, rows, resident)``: a cluster of ``k`` blocks, block
+    ``r`` owning rows ``[r·rows, (r + 1)·rows)``, of which the first
+    ``resident`` stay in its shared memory.  The backward holds dy and x:
+    its ``resident`` counts dy's rows first, then x's, up to ``2·rows``.
+
+    ``k`` is the smallest power of two up to ``max_k`` at which a block's
+    rows fit :data:`SMEM_BYTES` of shared memory; past ``max_k``, each
+    block keeps what fits and reads the rest again."""
+    tensors = 2 if backward else 1
+    room = (SMEM_BYTES - smem_overhead(c)) // (c * itemsize)
+    k = 1
+    while k < max_k and tensors * -(-hw // k) > room:
+        k *= 2
+    rows = -(-hw // k)
+    return k, rows, min(tensors * rows, room)
 
 
 def _check_kernel_inputs(x2d, groups: int, *others) -> None:
@@ -170,34 +201,39 @@ def _launch(name: str, fn, *args) -> None:
     launches[name] += 1
 
 
-def group_norm_fwd_cuda(x2d, scale, bias, groups: int, eps: float
+def _plan(x2d, backward: bool, plan) -> tuple[int, int, int]:
+    _, hw, c = x2d.shape
+    return plan or cluster_plan(hw, c, x2d.element_size(), backward)
+
+
+def group_norm_fwd_cuda(x2d, scale, bias, groups: int, eps: float,
+                        plan: tuple[int, int, int] | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the forward kernels → (y, mean [b, G], inv [b, G])."""
+    """Launch the forward kernel → (y, mean [b, G], inv [b, G]), cut as
+    ``plan`` (k, rows, resident) says, by default :func:`cluster_plan`."""
     _check_kernel_inputs(x2d, groups, scale, bias)
     b, hw, c = x2d.shape
     _check_params(c, scale, bias)
-    rows = chunk_rows(hw, c)
-    n_chunks = -(-hw // rows)
+    k, rows, resident = _plan(x2d, False, plan)
     f32 = dict(dtype=torch.float32, device=x2d.device)
     y = torch.empty_like(x2d)
     mean = torch.empty(b, groups, **f32)
     inv = torch.empty(b, groups, **f32)
-    partials = torch.empty(2, b, n_chunks, c, **f32)
-    coef = torch.empty(b, 2, c, **f32)
     lib = _build.library("group_norm")
     with torch.cuda.device(x2d.device):
         _launch("group_norm_fwd", lib.edl_group_norm_fwd,
-                *map(torch.Tensor.data_ptr,
-                     (x2d, scale, bias, y, mean, inv, partials, coef)),
-                b, hw, c, groups, rows, int(x2d.dtype == torch.bfloat16),
-                eps, torch.cuda.current_stream(x2d.device).cuda_stream)
+                *map(torch.Tensor.data_ptr, (x2d, scale, bias, y, mean, inv)),
+                b, hw, c, groups, k, rows, resident,
+                int(x2d.dtype == torch.bfloat16), eps,
+                torch.cuda.current_stream(x2d.device).cuda_stream)
     return y, mean, inv
 
 
-def group_norm_bwd_cuda(x2d, dy, scale, mean, inv, groups: int
+def group_norm_bwd_cuda(x2d, dy, scale, mean, inv, groups: int,
+                        plan: tuple[int, int, int] | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels → (dx, dγ partials [b, c], dβ partials
-    [b, c])."""
+    """Launch the backward kernel → (dx, dγ partials [b, c], dβ partials
+    [b, c]), cut as ``plan`` says, by default :func:`cluster_plan`."""
     _check_kernel_inputs(x2d, groups, dy, scale, mean, inv)
     b, hw, c = x2d.shape
     _check_params(c, scale)
@@ -206,22 +242,39 @@ def group_norm_bwd_cuda(x2d, dy, scale, mean, inv, groups: int
     for t in (mean, inv):
         if t.dtype != torch.float32 or t.shape != (b, groups):
             raise ValueError(f"mean/inv must be fp32 [{b}, {groups}]")
-    rows = chunk_rows(hw, c)
-    n_chunks = -(-hw // rows)
+    k, rows, resident = _plan(x2d, True, plan)
     f32 = dict(dtype=torch.float32, device=x2d.device)
     dx = torch.empty_like(x2d)
     dg = torch.empty(b, c, **f32)
     db = torch.empty(b, c, **f32)
-    partials = torch.empty(2, b, n_chunks, c, **f32)
-    coef = torch.empty(b, 3, c, **f32)
     lib = _build.library("group_norm")
     with torch.cuda.device(x2d.device):
         _launch("group_norm_bwd", lib.edl_group_norm_bwd,
                 *map(torch.Tensor.data_ptr,
-                     (x2d, dy, scale, mean, inv, dx, dg, db, partials, coef)),
-                b, hw, c, groups, rows, int(x2d.dtype == torch.bfloat16),
+                     (x2d, dy, scale, mean, inv, dx, dg, db)),
+                b, hw, c, groups, k, rows, resident,
+                int(x2d.dtype == torch.bfloat16),
                 torch.cuda.current_stream(x2d.device).cuda_stream)
     return dx, dg, db
+
+
+def active_clusters(c: int, dtype: torch.dtype, backward: bool,
+                    plan: tuple[int, int, int],
+                    device: torch.device | None = None) -> int:
+    """Clusters of ``plan`` the card runs at once for a kernel of ``c``
+    channels (``cudaOccupancyMaxActiveClusters``); raises if the card
+    cannot run one."""
+    k, _, resident = plan
+    lib = _build.library("group_norm")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = lib.edl_group_norm_active_clusters(
+            int(backward), int(dtype == torch.bfloat16), c, k, resident,
+            ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"group norm occupancy query failed: cudaError_t "
+                           f"{err}")
+    return n.value
 
 
 # -- dispatch ----------------------------------------------------------------

@@ -70,9 +70,11 @@ OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
            "flash_bwd_dkv": ("dk", "dv"),
            "group_norm_fwd": ("y", "mean", "inv"),
            "group_norm_bwd": ("dx", "dgamma", "dbeta")}
-#: (b, hw, c) of the GroupNorm fault runs: the ResNet-50 stem (49 row
-#: chunks, 2 channels a group) and a stage-3 site (64 channels a group)
-GN_FAULT_SHAPES = ((16, 12544, 64), (16, 196, 1024))
+#: (b, hw, c) of the GroupNorm fault runs: the ResNet-50 stem (clusters of
+#: 8 forward and 16 backward, 2 channels a group), a stage-3 site (clusters
+#: of 2 and 4, 64 channels a group), and twice the stem, whose backward
+#: keeps dy resident and reads most of x again
+GN_FAULT_SHAPES = ((16, 12544, 64), (16, 196, 1024), (4, 25088, 64))
 GN_GROUPS = 32
 
 #: name -> (library, source, text, planted text): each fault is one edit of
@@ -116,13 +118,13 @@ FAULTS = {
         "unsigned char* sq = stages + (st + 1) % kStages * L::kStage;"),
     # GroupNorm's group statistics fold channels one to the right
     "gn_group_membership_off_by_one": (
-        "group_norm", "group_norm.cu", "const int ch = g * cg + j;",
-        "const int ch = (g * cg + j + 1) % c;"),
-    # the forward's statistics leave out the last chunk of rows
-    "gn_last_chunk_skipped": (
-        "group_norm", "group_norm.cu",
-        "for (int k = 0; k < n_chunks; ++k) {",
-        "for (int k = 0; k < n_chunks - 1; ++k) {"),
+        "group_norm", "group_norm.cu", "const int ch = g * cg + i;",
+        "const int ch = (g * cg + i + 1) % c;"),
+    # the image's channel sums leave out the last cluster rank's partial
+    # row (its share of the rows)
+    "gn_last_rank_skipped": (
+        "group_norm", "group_norm.cu", "if (rk < k) {",
+        "if (rk < k - 1) {"),
     # dγ loses its mean term: Σ dy·x·inv instead of Σ dy·x̂
     "gn_dgamma_mean_term_dropped": (
         "group_norm", "group_norm.cu",
@@ -130,8 +132,20 @@ FAULTS = {
         "__fmul_rn(inv, s)"),
     # dx reads its coefficients p, q, r in the wrong slots
     "gn_dx_coefficients_swapped": (
-        "group_norm", "group_norm.cu", "cv * kVec, c, p, q, r);",
-        "cv * kVec, c, q, r, p);"),
+        "group_norm", "group_norm.cu", "pg, pm, pi, p, q, r);",
+        "pg, pm, pi, q, r, p);"),
+    # the elementwise pass reads each resident row from the row after it
+    # (the last from the shared memory that follows, still the block's own)
+    "gn_resident_row_off_by_one": (
+        "group_norm", "group_norm.cu", "const T* ur = su + off;",
+        "const T* ur = su + c + off;"),
+    # the backward's rows of x that did not stay resident are read again
+    # from the neighbouring block's rows; only twice the stem re-reads x at
+    # GN_FAULT_SHAPES
+    "gn_reread_neighbour_rows": (
+        "group_norm", "group_norm.cu", "const T* xa = gv + off;",
+        "const T* xa = gv + (long)(min(rank ^ 1, k - 1) - rank) * P.rows * c"
+        " + off;"),
 }
 
 

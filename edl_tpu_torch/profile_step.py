@@ -8,8 +8,8 @@ kernels, 256 x 224²; ``bert_base``: BERT_BASE MLM with the flash kernels,
 steps it runs ``--steps`` steps unprofiled, timed by CUDA events, then
 ``--steps`` steps under ``torch.profiler``, and reports:
 
-- device time per step by kernel group, and the ``TOP_KERNELS`` costliest
-  kernels (profiled window);
+- device time and launches per step by kernel group, and the
+  ``TOP_KERNELS`` costliest kernels (profiled window);
 - ``idle_share_profiled``: 1 - device busy / wall of the profiled window
   (one window; the wall carries the profiler's own host cost);
 - ``idle_share_unprofiled_est``: 1 - the profiled busy time per step / the
@@ -87,14 +87,18 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     per_kernel: dict[str, float] = defaultdict(float)
+    calls: dict[str, int] = defaultdict(int)
     for evt in prof.key_averages():
         # user annotations (Optimizer.step#...) are spans, not kernels
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)):
             per_kernel[evt.key] += evt.self_device_time_total / 1e3  # ms
+            calls[evt.key] += evt.count
     groups: dict[str, float] = defaultdict(float)
+    group_calls: dict[str, float] = defaultdict(float)
     for name, ms in per_kernel.items():
         groups[group_of(name)] += ms / args.steps
+        group_calls[group_of(name)] += calls[name] / args.steps
     busy_ms = sum(per_kernel.values()) / args.steps
     step_ms = 1e3 * wall_s / args.steps
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
@@ -110,6 +114,7 @@ def main() -> None:
         if busy_ms else None,
         "group_ms_per_step": dict(sorted(groups.items(),
                                          key=lambda kv: -kv[1])),
+        "group_launches_per_step": dict(sorted(group_calls.items())),
         "top_kernels_ms_per_step": {k[:120]: v / args.steps for k, v in top},
     }))
 

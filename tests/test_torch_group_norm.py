@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from edl_tpu.ops import group_norm as jgn
+from edl_tpu_torch.models import resnet
 from edl_tpu_torch.ops import group_norm as gn
 
 #: (b, h, w, c, groups): the JAX test's shape, cg 2 (the ResNet-50 stem's
@@ -170,9 +171,29 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         gn.group_norm_fwd_cuda(x, scale, torch.zeros(c), 4, 1e-5)
 
 
-def test_chunks_cover_every_row():
-    for hw, c in [(12544, 64), (49, 2048), (3136, 256), (9, 8), (1, 96)]:
-        rows = gn.chunk_rows(hw, c)
-        per_pass = gn.KERNEL_THREADS // (c // gn.KERNEL_VEC)
-        assert 0 < rows <= hw and (rows % per_pass == 0 or rows == hw)
-        assert -(-hw // rows) * rows >= hw
+#: (hw, c, itemsize): the 12 ResNet-50 site shapes in bf16, then small and
+#: odd ones: TINY's narrowest, a single row, and an fp32 map larger than a
+#: cluster's shared memory
+PLAN_SHAPES = ([(hw, c, 2) for hw, c in sorted(
+    resnet.group_norm_sites(resnet.RESNET50, 224))]
+    + [(9, 8, 2), (1, 96, 2), (50000, 64, 4)])
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("hw,c,itemsize", PLAN_SHAPES)
+def test_cluster_plan_covers_every_row_once_within_shared_memory(
+        hw, c, itemsize, backward):
+    k, rows, resident = gn.cluster_plan(hw, c, itemsize, backward)
+    assert 1 <= k <= gn.MAX_CLUSTER and k & (k - 1) == 0
+    covered = [r for rank in range(k)
+               for r in range(rank * rows, min((rank + 1) * rows, hw))]
+    assert covered == list(range(hw))
+    tensors = 2 if backward else 1
+    assert 0 <= resident <= tensors * rows
+    assert (resident * c * itemsize + gn.smem_overhead(c)
+            <= gn.SMEM_BYTES)
+    if itemsize == 2 and (hw, c) in resnet.group_norm_sites(
+            resnet.RESNET50, 224) and not backward:
+        assert resident == rows  # every bf16 site: the image read once
+    if resident < tensors * rows:  # rows are read again only when the
+        assert k == gn.MAX_CLUSTER  # largest cluster cannot hold them
