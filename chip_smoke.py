@@ -164,8 +164,8 @@ def roofline(flops: float, peak_flops: float, tensors) -> tuple[float, str]:
 def print_ptxas_report() -> None:
     """(a): what ptxas reported for each flash and GroupNorm kernel
     instantiation.  The register count is the one a block is launched
-    with; the flash forward and dK/dV kernels then move registers from
-    their producer warpgroup to their consumers with setmaxnreg
+    with; the flash kernels then move registers from their producer
+    warpgroup to their consumers with setmaxnreg
     (csrc/hopper_common.cuh)."""
     for lib in ("flash_fwd", "flash_bwd", "group_norm"):
         for r in _build.ptxas_report(lib):

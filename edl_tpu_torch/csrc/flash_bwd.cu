@@ -13,21 +13,42 @@
 // visible score pairs (~52 µs of bf16 tensor work) and the dK/dV kernel four
 // (~69 µs); each reads and writes well under 100 MB (~30 µs of memory).
 //
-// dQ kernel, simple first: one block of 4 warps per (q tile of 64 rows,
-// folded q head), looping over the k tiles up to the diagonal with
-// mma.sync m16n8k16 and plain loads (flash_common.cuh); dQ stays in
-// registers; ds goes to k's dtype from the fp32 p, as Pallas rounds.
+// Both kernels take Hopper's producer / consumer shape: two consumer
+// warpgroups and a producer warpgroup whose registers setmaxnreg hands to
+// the consumers, 384 threads; one producer thread issues every TMA load;
+// a ring of shared-memory stages with a full and an empty mbarrier each;
+// products are wgmma on 128-byte-swizzled tiles (hopper_common.cuh); no
+// __syncthreads() after set-up: the roles meet only at mbarriers.
 //
-// dK/dV kernel, Hopper's producer / consumer shape:
-//   * one block per (k tile of 128 keys, folded kv head): two consumer
-//     warpgroups of 64 keys each and a producer warpgroup whose registers
-//     setmaxnreg hands to the consumers (the 64 x d fp32 dK and dV
-//     accumulators alone take 128 registers a thread at d 128), 384
-//     threads; the grid runs the heaviest key tiles (the first, when
-//     causal) first;
-//   * K and V stay resident in shared memory; a producer thread streams
+// dQ kernel:
+//   * one block per (q tile of 128 rows, folded q head), each consumer
+//     warpgroup owning 64 of the rows; when causal the grid runs the
+//     heaviest q tiles (the last) first;
+//   * Q and dO are loaded once (TMA) and stay resident; each consumer
+//     thread reads its two rows' lse and delta once, into registers;
+//   * K and V tiles of 64 keys stream through a 4-stage ring (32 KB a stage
+//     at d 128: 193 KB of shared memory with Q and dO); when causal, tiles
+//     past the diagonal are never loaded and only the two tiles that cross
+//     it are masked;
+//   * S = Q Kᵀ and dP = dO Vᵀ are wgmma from shared memory (K and V are
+//     K-major as they stand), two commit groups, so that p is formed while
+//     dP is still in the tensor cores; ds = p ∘ (dp − delta) · scale goes
+//     to bf16 from the fp32 p, as the Pallas kernel rounds, and dQ += ds K
+//     takes ds from registers and K MN-major (transpose bit);
+//   * the 64 x d fp32 dQ accumulator stays in registers over the whole key
+//     loop (S 32, dP 32, dQ 64 and ds 16 registers a thread at d 128, under
+//     the consumers' 232) and is written once as bf16; each row is summed by
+//     one warpgroup in key order, with no atomics, so two runs give the
+//     same bits.
+//
+// dK/dV kernel:
+//   * one block per (k tile of 128 keys, folded kv head), two consumer
+//     warpgroups of 64 keys each (the 64 x d fp32 dK and dV accumulators
+//     alone take 128 registers a thread at d 128); the grid runs the
+//     heaviest key tiles (the first, when causal) first;
+//   * K and V stay resident in shared memory; the producer thread streams
 //     Q, dO (TMA boxes of 64 queries) and lse, delta (bulk copies) through a
-//     3-stage ring with full / empty mbarriers;
+//     3-stage ring;
 //   * the block walks (group member, q tile) in that fixed order, exactly
 //     the Pallas inner grid axis g · n_q_blocks + qi, starting at the first
 //     q tile that holds its first key when causal; the GQA group's sum is
@@ -44,119 +65,217 @@
 //     blocks (the first walks 4 x 16 steps, the last 4 x 2) take 0.62 of
 //     the non-causal time on an H100 (chip_smoke.py phase (b)), against
 //     0.56 of the work, so fp32 partials summed by a second pass could win
-//     at most about a tenth;
-//   * no __syncthreads() after set-up: the roles meet only at mbarriers.
-#include "flash_common.cuh"
+//     at most about a tenth.
 #include "hopper_common.cuh"
 
 namespace edl {
 
+namespace dq {
+
+using namespace hopper;
+
+constexpr int kBQ = 128;                   // q rows of a block
+constexpr int kBK = 64;                    // keys of a K/V tile
+constexpr int kConsumers = 256;            // two warpgroups, 64 rows each
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kStages = 4;
+constexpr int kQRegion = kBQ * 128;        // bytes of a 64-column box of Q
+constexpr int kKRegion = kBK * 128;        // ... and of K
+
+template <int D>
+struct Layout {
+  static constexpr int kRegions = D / 64;
+  static constexpr int kQTile = kBQ * D * 2;   // Q or dO
+  static constexpr int kKVTile = kBK * D * 2;  // K or V
+  // Q, dO, then per stage K and V, then the barriers; 1 KB for alignment
+  static constexpr int kBarOffset = 2 * kQTile + 2 * kStages * kKVTile;
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int s, int h, int hk, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + kTile * LD;
-  bf16* sk = sdo + kTile * LD;
-  bf16* sv = sk + kTile * LD;
+                    int bh_count, int s, int h, int hk, float scale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sdo = sq + L::kQTile;
+  unsigned char* skv = sdo + L::kQTile;  // stage st: K, then V
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sq + L::kBarOffset);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int kvh = (bh / h) * hk + (bh % h) / (h / hk);
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  const int row = qt * kTile + r0 + g;  // and row + 8
-  const bf16* kg = k + (size_t)kvh * s * D;
-  const bf16* vg = v + (size_t)kvh * s * D;
-  const float lse_r[2] = {lse[(size_t)bh * s + row],
-                          lse[(size_t)bh * s + row + 8]};
-  const float delta_r[2] = {delta[(size_t)bh * s + row],
-                            delta[(size_t)bh * s + row + 8]};
+  const int n_qt = s / kBQ;
+  const int bh = blockIdx.x % bh_count;
+  const int qt = CAUSAL ? n_qt - 1 - (int)blockIdx.x / bh_count
+                        : (int)blockIdx.x / bh_count;
+  const int kvh = (bh / h) * hk + (bh % h) / (h / hk);  // _kv_head_map
+  // when causal, the last key of the block's last row ends the loop
+  const int n_kt = CAUSAL ? (qt + 1) * (kBQ / kBK) : s / kBK;
 
-  load_tile<D>(sq, q + ((size_t)bh * s + qt * kTile) * D);
-  load_tile<D>(sdo, dout + ((size_t)bh * s + qt * kTile) * D);
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int n_kt = CAUSAL ? qt + 1 : s / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile<D>(sk, kg + (size_t)kt * kTile * D);
-    load_tile<D>(sv, vg + (size_t)kt * kTile * D);
-    __syncthreads();
-
-    float sc[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a<LD>(aq, sq, r0, kk * 16, lane);
-      load_a<LD>(ado, sdo, r0, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        uint32_t b[2];
-        load_b_t<LD>(b, sk, nt * 8, kk * 16, lane);
-        mma16816(sc[nt], aq, b);
-        load_b_t<LD>(b, sv, nt * 8, kk * 16, lane);
-        mma16816(dp[nt], ado, b);
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    // producer: one thread of the last warpgroup loads Q and dO once, then
+    // K and V for each key tile
+    if (threadIdx.x == kConsumers) {
+      const int qrow = bh * s + qt * kBQ;
+      mbar_expect_tx(qdo_full, 2 * L::kQTile);
+      for (int r = 0; r < L::kRegions; ++r) {
+        tma_load_2d(sq + r * kQRegion, &tq, qdo_full, 64 * r, qrow);
+        tma_load_2d(sdo + r * kQRegion, &tdo, qdo_full, 64 * r, qrow);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % kStages;
+        const uint32_t round = i / kStages;
+        unsigned char* dst = skv + 2 * st * L::kKVTile;
+        mbar_wait(&empty[st], (round & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * L::kKVTile);
+        for (int r = 0; r < L::kRegions; ++r) {
+          tma_load_2d(dst + r * kKRegion, &tk, &full[st], 64 * r,
+                      kvh * s + i * kBK);
+          tma_load_2d(dst + L::kKVTile + r * kKRegion, &tv, &full[st],
+                      64 * r, kvh * s + i * kBK);
+        }
       }
     }
+  } else {
+    consumer_regs();
+    // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the q tile
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int lane = t % 32, c = lane % 4;
+    const int row = qt * kBQ + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
+    const size_t grow = (size_t)bh * s + row;
+    // p = exp2(s·scale·log2(e) − lse·log2(e))
+    const float scale_log2 = scale * kLog2e;
+    const float lse_log2[2] = {lse[grow] * kLog2e, lse[grow + 8] * kLog2e};
+    const float delta_r[2] = {delta[grow], delta[grow + 8]};
+    const uint64_t dq0 = desc_sw128(sq + wg * 64 * 128, 16, 1024);
+    const uint64_t ddo0 = desc_sw128(sdo + wg * 64 * 128, 16, 1024);
 
-    // ds = p ∘ (dp − delta) · scale, p from the saved lse (fp32)
+    float acc[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = sc[nt][i] * scale;
-        if (CAUSAL && kt * kTile + nt * 8 + t * 2 + (i & 1) > row + (i >> 1) * 8)
-          x = kNegInf;
-        const float p = expf(x - lse_r[i >> 1]);
-        sc[nt][i] = p * (dp[nt][i] - delta_r[i >> 1]) * scale;
-      }
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    // dQ += bf16(ds) · K
+    mbar_wait(qdo_full, 0);
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % kStages;
+      const uint32_t round = i / kStages;
+      const int key0 = i * kBK;  // first key of the tile
+      unsigned char* sk = skv + 2 * st * L::kKVTile;
+      const uint64_t dk0 = desc_sw128(sk, 16, 1024);
+      const uint64_t dv0 = desc_sw128(sk + L::kKVTile, 16, 1024);
+      mbar_wait(&full[st], round & 1);
+
+      // S = Q Kᵀ and dP = dO Vᵀ: 64 rows x 64 keys, over d in 16-wide
+      // steps; two commit groups, so that p is formed while dP still runs
+      float sc[kBK / 2], dp[kBK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, sc, kk);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t b[2];
-        load_b_n<LD>(b, sk, kk * 16, dn * 8, lane);
-        mma16816(acc[dn], a, b);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qoff = (kk / 4) * kQRegion + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * kKRegion + (kk % 4) * 32;
+        wgmma_ss<kBK>(sc, desc_add(dq0, qoff), desc_add(dk0, koff), kk > 0);
       }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qoff = (kk / 4) * kQRegion + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * kKRegion + (kk % 4) * 32;
+        wgmma_ss<kBK>(dp, desc_add(ddo0, qoff), desc_add(dv0, koff), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // p = exp(s·scale − lse) in fp32; only the tiles that cross the
+      // diagonal are masked (_block_scores)
+      const bool diag = CAUSAL && key0 + kBK > qt * kBQ;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * scale_log2;
+          if (diag && key0 + 8 * j + 2 * c + (e & 1) > row + 8 * (e >> 1))
+            x = kNegInf;
+          sc[4 * j + e] = exp2f(x - lse_log2[e >> 1]);
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+
+      // ds = p ∘ (dp − delta) · scale from the fp32 p, then
+      // dQ += bf16(ds) K, K read MN-major
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              sc[4 * j + e] * (dp[4 * j + e] - delta_r[e >> 1]) * scale;
+      uint32_t ads[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) acc_to_a(ads[kk], dp, kk);
+      const uint64_t dk_mn = desc_sw128(sk, kKRegion, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<D>(acc, ads[kk], desc_add(dk_mn, kk * 2048));
+      wgmma_commit();
+      wgmma_wait<0>();
+      // the register operands stay live until their product is done
+      fence_regs(ads);
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+
+    bf16* out = dq + grow * D + 2 * c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(out + 8 * D + 8 * j) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
-  store_rows<D>(dq + (size_t)bh * s * D, acc, qt * kTile + r0, 1.f, 1.f,
-                lane);
 }
 
 template <int D, bool CAUSAL>
-static cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dq, int bh, int s,
-                             int h, int hk, float scale, cudaStream_t stream) {
-  const size_t smem = 4 * kTile * (D + 8) * sizeof(bf16);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, CAUSAL>, smem);
+static cudaError_t launch(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int s, int h,
+                          int hk, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t kv_rows = (uint64_t)(bh / h * hk) * s;
+  cudaError_t err = tile_map(&tq, q, (uint64_t)bh * s, D, kBQ);
+  if (err == cudaSuccess) err = tile_map(&tdo, dout, (uint64_t)bh * s, D, kBQ);
+  if (err == cudaSuccess) err = tile_map(&tk, k, kv_rows, D, kBK);
+  if (err == cudaSuccess) err = tile_map(&tv, v, kv_rows, D, kBK);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_bwd_dq_kernel<D, CAUSAL>, Layout<D>::kSmem);
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<D, CAUSAL>
-      <<<dim3(s / kTile, bh), kThreads, smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<bf16*>(dq), s, h, hk, scale);
+      <<<bh * (s / kBQ), kThreads, Layout<D>::kSmem, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dq), bh, s, h,
+          hk, scale);
   return cudaGetLastError();
 }
+
+}  // namespace dq
 
 namespace dkv {
 
@@ -403,11 +522,11 @@ extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return causal ? edl::launch_dq<64, true>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st)
-                  : edl::launch_dq<64, false>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st);
+    return causal ? edl::dq::launch<64, true>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st)
+                  : edl::dq::launch<64, false>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st);
   if (d == 128)
-    return causal ? edl::launch_dq<128, true>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st)
-                  : edl::launch_dq<128, false>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st);
+    return causal ? edl::dq::launch<128, true>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st)
+                  : edl::dq::launch<128, false>(q, k, v, dout, lse, delta, dq, bh, s, h, hk, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

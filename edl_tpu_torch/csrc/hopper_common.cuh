@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash forward and dK/dV kernels
-// and of the GroupNorm kernels: mbarriers, TMA and bulk loads, cluster
-// barriers and distributed shared memory, warpgroup matrix multiplies
-// (wgmma) and their shared-memory descriptors, and the host-side TMA
-// tensor maps.
+// Hopper (sm_90a) building blocks of the flash kernels and of the GroupNorm
+// kernels: mbarriers, TMA and bulk loads, cluster barriers and distributed
+// shared memory, warpgroup matrix multiplies (wgmma) and their
+// shared-memory descriptors, the host-side TMA tensor maps, and small
+// helpers (bf16 packing, quad reductions, the shared-memory limit).
 //
 // Shared-memory tiles: a bf16 tile of R rows and 64 columns (128 bytes a
 // row) is one TMA box loaded with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk
@@ -20,16 +20,48 @@
 //     bytes.  Read with the transpose bit of B set.
 // Accumulator fragment of m64nNk16, thread t of the warpgroup (warp w =
 // t / 32, g = (t % 32) / 4, c = t % 4): element 4j + e sits at row
-// 16w + g + 8·(e / 2), column 8j + 2c + e % 2 — the mma.sync C layout
-// repeated over N / 8 column blocks.  A from registers takes the mma.sync
-// A layout, so an accumulator rounded to bf16 feeds the next product.
+// 16w + g + 8·(e / 2), column 8j + 2c + e % 2 — the C fragment of the warp
+// level m16n8k16 product repeated over N / 8 column blocks.  A from
+// registers takes that product's A fragment layout, so an accumulator
+// rounded to bf16 feeds the next product.
 #pragma once
 
 #include <cuda.h>
-
-#include "flash_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace edl {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
+
+// Two fp32 values rounded to bf16 and packed; `lo` takes the lower column.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Max / sum over the four lanes that share a row of an accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Raise the dynamic shared-memory limit of `kernel` (needed above 48 KB).
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 namespace hopper {
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -260,8 +292,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
   }
 }
 
-// d[64 x N] += A[64 x 16] · B[16 x N], A from registers (mma.sync A
-// layout, bf16 pairs), B MN-major in shared memory (transpose bit set).
+// d[64 x N] += A[64 x 16] · B[16 x N], A from registers (the m16n8k16 A
+// fragment layout, bf16 pairs), B MN-major in shared memory (transpose bit set).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t b) {

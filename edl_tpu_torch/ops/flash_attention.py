@@ -33,9 +33,9 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 1024
 #: the sequence length each kernel takes is a multiple of its tile: the
 #: forward's 128-row q and k tiles (``kBQ``, ``kBK`` in csrc/flash_fwd.cu),
-#: dQ's 64-row tiles (``kTile`` in csrc/flash_common.cuh) and dK/dV's
-#: 128-key blocks (``dkv::kBK`` in csrc/flash_bwd.cu)
-KERNEL_TILES = {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 128}
+#: dQ's 128-row q tiles (``dq::kBQ`` in csrc/flash_bwd.cu; its K/V tiles
+#: are 64 keys) and dK/dV's 128-key blocks (``dkv::kBK`` there)
+KERNEL_TILES = {"flash_fwd": 128, "flash_bwd_dq": 128, "flash_bwd_dkv": 128}
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
 

@@ -90,13 +90,33 @@ FAULTS = {
         "flash_fwd", "flash_fwd.cu", "desc_add(dk0, koff)",
         "desc_add(dk0, koff + 32)"),
     "dq_mask_one_late": (
-        "flash_bwd", "flash_bwd.cu", "> row + (i >> 1) * 8)",
-        "> row + (i >> 1) * 8 + 1)"),
-    # the dQ loop stops before the diagonal tile
+        "flash_bwd", "flash_bwd.cu", "> row + 8 * (e >> 1))",
+        "> row + 8 * (e >> 1) + 1)"),
+    # the dQ loop stops before the last key tile that crosses the diagonal
+    # (producer and consumers alike, so the ring stays whole)
     "dq_diagonal_tile_dropped": (
         "flash_bwd", "flash_bwd.cu",
-        "const int n_kt = CAUSAL ? qt + 1 : s / kTile;",
-        "const int n_kt = CAUSAL ? qt : s / kTile;"),
+        "const int n_kt = CAUSAL ? (qt + 1) * (kBQ / kBK) : s / kBK;",
+        "const int n_kt = CAUSAL ? (qt + 1) * (kBQ / kBK) - 1 : s / kBK;"),
+    # the dQ consumers wait for ring stage st but read the next stage, whose
+    # K / V belong to another key tile (or have not landed)
+    "dq_ring_wrong_stage": (
+        "flash_bwd", "flash_bwd.cu",
+        "unsigned char* sk = skv + 2 * st * L::kKVTile;",
+        "unsigned char* sk = skv + 2 * ((st + 1) % kStages) * L::kKVTile;"),
+    # S = Q·Kᵀ reads K one 16-wide wgmma K step too far on
+    "dq_kstep_off_by_one": (
+        "flash_bwd", "flash_bwd.cu", "desc_add(dk0, koff)",
+        "desc_add(dk0, koff + 32)"),
+    # dQ += ds·K reads K (MN-major) one 16-key step too far on
+    "dq_mn_step_off_by_one": (
+        "flash_bwd", "flash_bwd.cu", "desc_add(dk_mn, kk * 2048)",
+        "desc_add(dk_mn, kk * 2048 + 2048)"),
+    # every q head reads the K / V of the next kv head of its batch row
+    "dq_kv_head_off_by_one": (
+        "flash_bwd", "flash_bwd.cu",
+        "const int kvh = (bh / h) * hk + (bh % h) / (h / hk);",
+        "const int kvh = (bh / h) * hk + ((bh % h) / (h / hk) + 1) % hk;"),
     # dK/dV masks the diagonal itself (each key loses its own query)
     "dkv_diagonal_masked": (
         "flash_bwd", "flash_bwd.cu", "> q0 + col) x = kNegInf",

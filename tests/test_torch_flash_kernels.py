@@ -46,7 +46,12 @@ def test_cuda_kernels_gqa_at_ring_corners(cuda_device, s, d, causal):
     At s 384 the forward's 3 key tiles go once round its 2-stage ring (d
     128) and the dK/dV blocks walk 8, 16 or 24 steps through 3 stages, so
     the causal ones stop part-way through a round; at s 1024 the forward
-    walks 8 tiles (4 rounds of 2 stages, 2 rounds and 2 steps of 3)."""
+    walks 8 tiles (4 rounds of 2 stages, 2 rounds and 2 steps of 3).  dQ
+    streams 64-key tiles through 4 stages: at s 384 a non-causal block
+    walks 6 tiles (the ring wraps once, 2 steps into its second round) and
+    the causal q tiles walk 2, 4 (neither wraps) or 6; at s 1024 a
+    non-causal block walks 16 tiles (4 whole rounds) and the causal ones 2
+    to 16 in steps of 2, ending half-way through a round or at its end."""
     inputs = kc.random_inputs(2 * 4, 2 * 1, s, d, 1, cuda_device)
     readings, _ = kc.compare(*inputs, causal, 4, 1)
     assert not kc.failures(readings), readings
@@ -55,18 +60,19 @@ def test_cuda_kernels_gqa_at_ring_corners(cuda_device, s, d, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_kernels_repeat_bitwise(cuda_device, causal):
-    """Two launches of the forward and of dK/dV on the same inputs give
-    the same bits: the GQA group's sum is taken in a fixed order with no
-    atomics."""
+    """Two launches of the forward, of dQ and of dK/dV on the same inputs
+    give the same bits: each dQ row and the GQA group's dK/dV sums are
+    taken in a fixed order with no atomics."""
     h, hk = 4, 1
     q, k, v, do = kc.random_inputs(2 * h, 2 * hk, 384, 128, 2, cuda_device)
     runs = []
     for _ in range(2):
         out, lse = fa.flash_forward_cuda(q, k, v, causal, h, hk)
         delta = (do.float() * out.float()).sum(-1)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, h, hk)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, h,
                                        hk)
-        runs.append((out, lse, dk, dv))
+        runs.append((out, lse, dq, dk, dv))
     torch.cuda.synchronize()
     for first, second in zip(*runs):
         assert torch.equal(first, second)
@@ -98,17 +104,18 @@ def test_every_planted_fault_edits_its_source_once():
         assert _build.SOURCES[lib] == source and planted != text
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkv"])
+@pytest.mark.parametrize("kernel",
+                         ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 def test_kernels_raise_on_a_length_off_their_tile(kernel):
-    """On the CPU, before any launch: the forward and dK/dV kernels take
-    s % 128 == 0 (their 128-row tiles) and raise on s 192, which the dQ
-    kernel's 64-row tiles would take."""
+    """On the CPU, before any launch: every flash kernel takes s % 128 == 0
+    (its 128-row tiles) and raises on s 192."""
     assert fa.KERNEL_TILES[kernel] == 128
-    assert 192 % fa.KERNEL_TILES["flash_bwd_dq"] == 0
     q, k, v, do = kc.random_inputs(4, 2, 192, 64, 0, torch.device("cpu"))
     lse = torch.zeros(4, 192)
     with pytest.raises(ValueError, match="s % 128"):
         if kernel == "flash_fwd":
             fa.flash_forward_cuda(q, k, v, True, 2, 1)
+        elif kernel == "flash_bwd_dq":
+            fa.flash_bwd_dq_cuda(q, k, v, do, lse, lse, True, 2, 1)
         else:
             fa.flash_bwd_dkv_cuda(q, k, v, do, lse, lse, True, 2, 1)
