@@ -39,7 +39,20 @@ Phases, each of which raises on failure:
     the kernel path against the plain path's on a small input, with one
     stage's ``norm3`` scales zeroed as a control that must fail;
 (h) the BERT-base path: ``ElasticTrainer`` on BERT_BASE at 32 x 512 MLM,
-    1 warm-up and 5 timed steps, 12 launches of each flash kernel per step.
+    1 warm-up and 5 timed steps, 12 launches of each flash kernel per step;
+(i) the serving path: FLAGSHIP decoded token by token through
+    ``flagship_decode_fleet`` (8 slots, 64-token prefill chunks, a paged KV
+    pool of 16-token blocks).  The paged logits of 3 prompts of 256 tokens
+    and 16 decode steps against ``transformer.apply`` on the same
+    sequences, with a control that reads another session's context; 16
+    mixed-priority sessions through a 2-replica fleet scaled to 1 once every
+    session has its first token, token-equal to an undisturbed 1-replica
+    fleet with no session dropped; the same sessions with speculative
+    decode, equal to single-token decode wherever its logits' top-2 margin
+    clears the logits check's tolerance, and ``verify_step`` fed perfect
+    drafts held to the same rule; tokens/s, TTFT and TPOT, the device
+    time of a decode step and of a prefill chunk, and 0 launches of the
+    hand-written kernels (no Pallas kernel lies on the decode path).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -67,9 +80,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edl_tpu_torch.entry import (bert_trainer, entry, flagship_trainer,
+from edl_tpu_torch.entry import (DECODE_DEFAULTS, bert_trainer, entry,
+                                 flagship_decode_fleet, flagship_trainer,
                                  resnet_trainer)
-from edl_tpu_torch.models import resnet
+from edl_tpu_torch.models import llama, resnet
+from edl_tpu_torch.models import transformer as tfm
+from edl_tpu_torch.observability.metrics import get_registry
+from edl_tpu_torch.runtime import serving
+from edl_tpu_torch.runtime.kvcache import KVBlockPool
 from edl_tpu_torch.ops import _build
 from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.ops import group_norm as gn
@@ -113,6 +131,22 @@ RESNET_CHECK_BATCH = 4
 #: tensor cores): forward x·x, two sums, x·p + q; backward dy·x, two sums,
 #: dy·p − x·q + r
 GN_OPS_PER_ELEMENT = {"group_norm_fwd": 5, "group_norm_bwd": 7}
+#: phase (i): the logits check's prompts, and the traffic of the resize
+#: and speculative checks (prompt lengths uniform in SERVE_PROMPT_LENS)
+LOGITS_PROMPTS, LOGITS_PROMPT_LEN, LOGITS_STEPS = 3, 256, 16
+SERVE_SESSIONS, SERVE_NEW_TOKENS, SERVE_PROMPT_LENS = 16, 64, (64, 512)
+SPEC_TOKENS = 4
+#: phase (i): the paged logits against transformer.apply's, by the rule of
+#: check_against.  The two round K/V and the attention output at other
+#: points (bf16 cache, fp32 paged attention).  The floor sits between what
+#: the two paths need and what the control (another session's context)
+#: needs; phase (i) prints both (on an H100: 0.1445 and 7.28 rms)
+SERVING_ATOL = 0.25
+#: phase (i): a decode step or prefill chunk is ~550 launches, which take
+#: the host 10-30 ms to queue; the card's launch queue holds about one
+#: call's worth, so a timed call is one call behind a ~0.1 s device sleep,
+#: and the record the median of SERVE_TIMED_REPS of them
+SERVE_TIMED_REPS, SERVE_SLEEP_CYCLES = 5, 200_000_000
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -133,14 +167,15 @@ FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GROUP_NORM = ("group_norm_fwd", "group_norm_bwd")
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, sleep_cycles: int = QUEUE_SLEEP_CYCLES
+            ) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, after
     one warm-up call (CUDA events).  The card first sleeps for
-    ``QUEUE_SLEEP_CYCLES`` while the host queues every call, so that a call
+    ``sleep_cycles`` while the host queues every call, so that a call
     shorter than its own launch cost on the host is timed on the card."""
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -516,6 +551,360 @@ def phase_bert() -> dict:
                            BERT_B * BERT_S)
     return launches
 
+# -- phase (i): the serving path -------------------------------------------
+
+
+def zero_launch_counts() -> None:
+    for counts in (fa.launches, gn.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def serving_pool(cfg, job: str, dev) -> KVBlockPool:
+    """(i): a pool of the fleet's shapes, with a block for every slot at
+    full context."""
+    maxb = DECODE_DEFAULTS["max_blocks_per_session"]
+    return KVBlockPool(cfg, DECODE_DEFAULTS["slots"] * maxb,
+                       DECODE_DEFAULTS["kv_block_size"], maxb, job=job,
+                       device=dev)
+
+
+def serving_logits_check(model, dev) -> None:
+    """(i): the paged path's logits — the last prefill chunk's last row,
+    then LOGITS_STEPS decode steps at the fleet's 8 slots — against
+    ``transformer.apply`` on the same full sequences; the control reads
+    each session's context through the next session's block table."""
+    cfg, params = model.cfg, llama.as_decode_params(model)
+    slots, chunk = DECODE_DEFAULTS["slots"], DECODE_DEFAULTS["prefill_chunk"]
+    n, plen = LOGITS_PROMPTS, LOGITS_PROMPT_LEN
+    pool = serving_pool(cfg, "smoke/logits", dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (n, plen))
+    tables = np.full((slots, pool.max_blocks_per_session), pool.num_blocks)
+    for i in range(n):
+        pool.ensure_capacity(i, plen + LOGITS_STEPS)
+        tables[i] = pool.block_table(i)
+    rolled = tables.copy()
+    rolled[:n] = np.roll(tables[:n], 1, axis=0)
+
+    def scratch():
+        return {name: t.clone() for name, t in pool.cache.items()}
+
+    got, control = [], []
+    for start in range(0, plen, chunk):
+        rows, ctrl_rows = [], []
+        for i in range(n):
+            toks = prompts[i, start:start + chunk]
+            if start + chunk >= plen:
+                lc, _ = llama.prefill(params, scratch(), toks, rolled[i],
+                                      start, len(toks))
+                ctrl_rows.append(lc[len(toks) - 1])
+            lg, _ = llama.prefill(params, pool.cache, toks, tables[i], start,
+                                  len(toks))
+            rows.append(lg[len(toks) - 1])
+    got.append(torch.stack(rows))
+    control.append(torch.stack(ctrl_rows))
+    seqs = prompts.tolist()
+    live = np.arange(slots) < n
+    for step in range(LOGITS_STEPS):
+        nxt = got[-1].argmax(dim=-1).tolist()
+        toks = np.zeros(slots, np.int64)
+        toks[:n] = nxt
+        pos = np.where(live, plen + step, 0)
+        for seq, t in zip(seqs, nxt):
+            seq.append(t)
+        lc, _ = llama.decode_step(params, scratch(), toks, pos, rolled, live)
+        lg, _ = llama.decode_step(params, pool.cache, toks, pos, tables, live)
+        got.append(lg[:n])
+        control.append(lc[:n])
+    full = torch.tensor(seqs, device=dev)
+    with torch.no_grad():
+        ref = [tfm.apply(model, full[:, :plen + step])[:, -1]
+               for step in range(LOGITS_STEPS + 1)]
+    check_against(torch.stack(ref), torch.stack(got), torch.stack(control),
+                  SERVING_ATOL, "paged decode vs transformer.apply logits",
+                  "another session's context")
+
+
+def serving_timings(model, dev) -> None:
+    """(i): the device time of one decode step at 8 slots with 512 cached
+    tokens a slot, and of one 64-token prefill chunk over 448 cached
+    tokens, with their byte bounds; and the host's time a decode step."""
+    cfg, params = model.cfg, llama.as_decode_params(model)
+    slots, chunk = DECODE_DEFAULTS["slots"], DECODE_DEFAULTS["prefill_chunk"]
+    cached = 512
+    pool = serving_pool(cfg, "smoke/timing", dev)
+    for i in range(slots):
+        pool.ensure_capacity(i, cached + 1)
+    tables = np.stack([pool.block_table(i) for i in range(slots)])
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, chunk)
+    pos = np.full(slots, cached)
+    live = np.ones(slots, bool)
+
+    def decode():
+        return llama.decode_step(params, pool.cache, toks[:slots], pos,
+                                 tables, live)
+
+    def prefill():
+        return llama.prefill(params, pool.cache, toks, tables[0],
+                             cached - chunk, chunk)
+
+    def device_ms(fn):
+        return float(np.median([cuda_ms(fn, 1, SERVE_SLEEP_CYCLES)
+                                for _ in range(SERVE_TIMED_REPS)]))
+
+    decode_ms, prefill_ms = device_ms(decode), device_ms(prefill)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_TIMED_REPS):
+        decode()[0].argmax(dim=-1).tolist()  # the loop's one read
+    host_ms = 1e3 * (time.perf_counter() - t0) / SERVE_TIMED_REPS
+    weights = sum(t.numel() * t.element_size()
+                  for layer in params.layers for name, t in layer.items()
+                  if name.startswith("w")) + (
+        params.lm_head.numel() * params.lm_head.element_size())
+    mm_params = weights // params.lm_head.element_size()
+    kv_token = llama.cache_bytes(cfg, 1, 1)
+    for label, ms, rows, kv_tokens in (
+            ("decode_step 8 slots x 512 cached", decode_ms, slots,
+             slots * (cached + 1)),
+            ("prefill chunk 64 over 448 cached", prefill_ms, chunk, cached)):
+        nbytes = weights + kv_tokens * kv_token
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 2.0 * mm_params * rows / PEAK_BF16_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        print(f"serve {label}: device_ms {ms:.4f} bound_ms {bound:.4f} "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{nbytes / 1e6:.1f} MB of weights and K/V)", flush=True)
+    print(f"serve decode_step host_ms {host_ms:.4f} a step with its argmax "
+          f"read (the loop's pace)", flush=True)
+
+
+def serving_traffic(cfg) -> list[tuple[list[int], int]]:
+    """(i): SERVE_SESSIONS (prompt, priority): lengths uniform in
+    SERVE_PROMPT_LENS and ids uniform over the vocabulary, from seed 1;
+    priorities high, normal and low in turn."""
+    rng = np.random.default_rng(1)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_SESSIONS)
+    pris = (serving.PRI_HIGH, serving.PRI_NORMAL, serving.PRI_LOW)
+    return [(rng.integers(0, cfg.vocab_size, int(n)).tolist(), pris[i % 3])
+            for i, n in enumerate(lens)]
+
+
+def serve(label: str, fleet, traffic, resize_to=None) -> dict:
+    """(i): every session of ``traffic`` through ``fleet`` (stopped after);
+    with ``resize_to``, ``scale_to(resize_to)`` once every session has its
+    first token.  Prints tokens/s, TTFT and TPOT (from the sessions, and
+    the histogram buckets holding p50/p99) and returns the run."""
+    try:
+        t0 = time.perf_counter()
+        sessions = [fleet.submit(p, SERVE_NEW_TOKENS, priority=pri)
+                    for p, pri in traffic]
+        if resize_to is not None:
+            for s in sessions:
+                s.wait_first_token(300)
+            t_scale = time.perf_counter()
+            fleet.scale_to(resize_to)
+            scale_ms = 1e3 * (time.perf_counter() - t_scale)
+        tokens = [s.wait(300) for s in sessions]
+        wall = time.perf_counter() - t0
+        run = dict(tokens=tokens, failed=fleet.sessions_failed,
+                   migrations=fleet.migrations,
+                   d2d_bytes=fleet.migration_bytes_d2d,
+                   host_bytes=fleet.migration_bytes_host,
+                   kv_bytes=fleet.kv_bytes(),
+                   drafted=sum(r.spec_drafted for r in fleet._replicas),
+                   accepted=sum(r.spec_accepted for r in fleet._replicas))
+    finally:
+        fleet.stop()
+    n_tok = sum(len(t) for t in tokens)
+    ttft = 1e3 * np.array([s.ttft_s for s in sessions])
+    tpot = 1e3 * np.array([s.tpot_s for s in sessions])
+    reg = get_registry()
+    hist = {name: [reg.histogram(f"serving_{name}_seconds")
+                   .quantile_bucket(q, job=fleet.job) for q in (0.5, 0.99)]
+            for name in ("ttft", "tpot")}
+    resize = (f" scale_to({resize_to}) {scale_ms:.1f} ms"
+              if resize_to is not None else "")
+    print(f"serve {label}: sessions {len(sessions)} tokens {n_tok} wall_s "
+          f"{wall:.3f} decode_tokens_per_s {n_tok / wall:.1f} ttft_ms p50 "
+          f"{np.percentile(ttft, 50):.2f} p99 {np.percentile(ttft, 99):.2f} "
+          f"tpot_ms p50 {np.percentile(tpot, 50):.3f} p99 "
+          f"{np.percentile(tpot, 99):.3f} (histogram buckets: ttft_s "
+          f"<= {hist['ttft']}, tpot_s <= {hist['tpot']}) failed "
+          f"{run['failed']} migrations {run['migrations']} d2d_bytes "
+          f"{run['d2d_bytes']} host_bytes {run['host_bytes']} kv_bytes "
+          f"{run['kv_bytes']}{resize}", flush=True)
+    return run
+
+
+def single_token_margins(model, traffic, tokens, dev) -> list:
+    """(i): the single-token path's logits teacher-forced with ``tokens``
+    (the single-token fleet's), the sessions in groups of the fleet's
+    slots at its shapes: per session and generated position, the top-2
+    logits, the rms of the logits and their argmax."""
+    cfg, params = model.cfg, llama.as_decode_params(model)
+    slots, chunk = DECODE_DEFAULTS["slots"], DECODE_DEFAULTS["prefill_chunk"]
+    out = []
+    for lo in range(0, len(traffic), slots):
+        group = list(range(lo, min(lo + slots, len(traffic))))
+        pool = serving_pool(cfg, "smoke/margins", dev)
+        rows = {}
+        for i in group:
+            prompt = traffic[i][0]
+            pool.ensure_capacity(i, len(prompt) + SERVE_NEW_TOKENS)
+            for start in range(0, len(prompt), chunk):
+                n = min(chunk, len(prompt) - start)
+                toks = np.zeros(chunk, np.int64)
+                toks[:n] = prompt[start:start + n]
+                lg, _ = llama.prefill(params, pool.cache, toks,
+                                      pool.block_table(i), start, n)
+            rows[i] = [lg[n - 1]]
+        tables = np.full((slots, pool.max_blocks_per_session),
+                         pool.num_blocks)
+        live = np.zeros(slots, bool)
+        for j, i in enumerate(group):
+            tables[j], live[j] = pool.block_table(i), True
+        for step in range(SERVE_NEW_TOKENS - 1):
+            toks = np.zeros(slots, np.int64)
+            pos = np.zeros(slots, np.int64)
+            for j, i in enumerate(group):
+                toks[j] = tokens[i][step]
+                pos[j] = len(traffic[i][0]) + step
+            lg, _ = llama.decode_step(params, pool.cache, toks, pos, tables,
+                                      live)
+            for j, i in enumerate(group):
+                rows[i].append(lg[j])
+        for i in group:
+            logits = torch.stack(rows[i])
+            out.append((logits.topk(2, dim=-1).values.cpu(),
+                        logits.square().mean(dim=-1).sqrt().cpu(),
+                        logits.argmax(dim=-1).cpu()))
+    return out
+
+
+def perfect_draft_check(model, traffic, tokens, margins, dev) -> None:
+    """(i): ``verify_step`` fed the single-token tokens as its drafts
+    (every draft right, SPEC_TOKENS rows a slot, the fleet's shapes): each
+    row's argmax must be the next single-token token wherever that token's
+    top-2 margin clears the tolerance of :func:`spec_check`."""
+    cfg, params = model.cfg, llama.as_decode_params(model)
+    slots, chunk = DECODE_DEFAULTS["slots"], DECODE_DEFAULTS["prefill_chunk"]
+    rows = above = wrong = 0
+    for lo in range(0, len(traffic), slots):
+        group = list(range(lo, min(lo + slots, len(traffic))))
+        pool = serving_pool(cfg, "smoke/drafts", dev)
+        for i in group:
+            prompt = traffic[i][0]
+            pool.ensure_capacity(i, len(prompt) + SERVE_NEW_TOKENS)
+            for start in range(0, len(prompt), chunk):
+                n = min(chunk, len(prompt) - start)
+                toks = np.zeros(chunk, np.int64)
+                toks[:n] = prompt[start:start + n]
+                llama.prefill(params, pool.cache, toks, pool.block_table(i),
+                              start, n)
+        tables = np.full((slots, pool.max_blocks_per_session),
+                         pool.num_blocks)
+        for j, i in enumerate(group):
+            tables[j] = pool.block_table(i)
+        for first in range(0, SERVE_NEW_TOKENS - 1, SPEC_TOKENS):
+            feed = np.zeros((slots, SPEC_TOKENS), np.int64)
+            pos = np.zeros(slots, np.int64)
+            nts = np.zeros(slots, np.int64)
+            for j, i in enumerate(group):
+                k = min(SPEC_TOKENS, SERVE_NEW_TOKENS - 1 - first)
+                feed[j, :k] = tokens[i][first:first + k]
+                pos[j] = len(traffic[i][0]) + first
+                nts[j] = k
+            best = llama.verify_step(params, pool.cache, feed, pos, nts,
+                                     tables)[0].argmax(dim=-1).tolist()
+            for j, i in enumerate(group):
+                top2, rms, _ = margins[i]
+                for r in range(int(nts[j])):
+                    t = first + r + 1  # the generated position row r feeds
+                    tol = (kc.BF16_RTOL * top2[t].abs().sum()
+                           + 2 * SERVING_ATOL * rms[t])
+                    clear = bool(top2[t, 0] - top2[t, 1] > tol)
+                    rows += 1
+                    above += clear
+                    wrong += clear and best[j][r] != tokens[i][t]
+    print(f"serve verify with perfect drafts: {rows} rows, {above} above the "
+          f"margin, {wrong} of those off the single-token token", flush=True)
+    if wrong:
+        raise AssertionError(f"verify_step: {wrong} rows above the margin "
+                             "disagree with single-token decode")
+
+
+def spec_check(single, spec, margins) -> None:
+    """(i): speculative tokens equal single-token ones up to each
+    session's first difference, which must fall where the single-token
+    logits' top-2 margin is within the logits check's tolerance for those
+    two logits (2^-7 of each, plus SERVING_ATOL rms each)."""
+    compared = under = forced_equal = 0
+    first_diffs = []
+    for i, (a, b) in enumerate(zip(single, spec)):
+        top2, rms, best = margins[i]
+        forced_equal += int((best == torch.tensor(a)).sum())
+        tol = kc.BF16_RTOL * top2.abs().sum(dim=-1) + 2 * SERVING_ATOL * rms
+        low = (top2[:, 0] - top2[:, 1]) <= tol
+        for j, (x, y) in enumerate(zip(a, b)):
+            compared += 1
+            under += int(low[j])
+            if x != y:
+                first_diffs.append((i, j, bool(low[j])))
+                break
+    print(f"serve spec vs single: compared {compared} tokens, {under} under "
+          f"the margin; first differences (session, position, under the "
+          f"margin) {first_diffs}; teacher-forced single-token argmax "
+          f"equals the fleet's tokens at {forced_equal} of "
+          f"{sum(len(a) for a in single)}", flush=True)
+    bad = [d for d in first_diffs if not d[2]]
+    if bad:
+        raise AssertionError(f"speculative decode differs from single-token "
+                             f"decode above the margin: {bad}")
+
+
+def phase_serving() -> dict:
+    """(i): FLAGSHIP served on the card through the decode plane."""
+    zero_launch_counts()
+    dev = torch.device("cuda")
+    model = tfm.Transformer(tfm.FLAGSHIP, device=dev, seed=0)
+    serving_logits_check(model, dev)
+    serving_timings(model, dev)
+    traffic = serving_traffic(model.cfg)
+    resized = serve("2->1 resize", flagship_decode_fleet(
+        roles={"decode": 2}, job="smoke/resize"), traffic, resize_to=1)
+    single = serve("1 replica", flagship_decode_fleet(job="smoke/single"),
+                   traffic)
+    if resized["failed"] or resized["migrations"] < 1:
+        raise AssertionError(f"resize: {resized['failed']} sessions failed, "
+                             f"{resized['migrations']} migrations")
+    differ = [(i, next(j for j, (x, y) in enumerate(zip(a + [None], b))
+                       if x != y))
+              for i, (a, b) in enumerate(zip(resized["tokens"],
+                                             single["tokens"])) if a != b]
+    print(f"serve resize vs undisturbed: {len(traffic) - len(differ)} of "
+          f"{len(traffic)} sessions token-equal; (session, first differing "
+          f"position) {differ}", flush=True)
+    if differ:
+        raise AssertionError(f"2->1 resize tokens differ from the "
+                             f"undisturbed fleet's: {differ}")
+    spec = serve(f"1 replica spec_tokens {SPEC_TOKENS}", flagship_decode_fleet(
+        job="smoke/spec", spec_tokens=SPEC_TOKENS), traffic)
+    print(f"serve spec acceptance: {spec['accepted']} of {spec['drafted']} "
+          f"drafts ({spec['accepted'] / max(spec['drafted'], 1):.4f})",
+          flush=True)
+    margins = single_token_margins(model, traffic, single["tokens"], dev)
+    spec_check(single["tokens"], spec["tokens"], margins)
+    perfect_draft_check(model, traffic, single["tokens"], margins, dev)
+    launches = {**fa.launches, **gn.launches}
+    print(f"serve launches of the hand-written kernels over phase (i): "
+          f"{launches} (no Pallas kernel lies on the decode path)",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"phase (i) launched {launches}")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -541,6 +930,7 @@ def main() -> int:
                             "bert_base")
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
+    phase_serving()
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,5 +1,5 @@
 """Entry points of the port: the forward pass on the flagship model, and the
-trainers of the paths that ``chip_smoke.py`` drives.
+trainers of the paths that ``chip_smoke.py`` drives, and the decode fleet.
 
 ``entry(device)`` returns ``(fn, example_args)`` with ``fn(*example_args)``
 the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
@@ -7,8 +7,9 @@ the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``ElasticTrainer`` and batch that ``chip_smoke.py`` and
 ``edl_tpu_torch.profile_step`` drive; ``resnet_trainer`` and
 ``bert_trainer`` do the same for bench.py's model-zoo leg (ResNet-50 at
-256 x 224², BERT-base MLM at 32 x 512).  All run on the CUDA device unless
-``device`` says otherwise, with the kernels on.
+256 x 224², BERT-base MLM at 32 x 512).  ``flagship_decode_fleet(device)``
+returns the ``DecodeFleet`` that serves FLAGSHIP token by token.  All run on
+the CUDA device unless ``device`` says otherwise, with the kernels on.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from edl_tpu_torch.models import resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
+from edl_tpu_torch.runtime.serving import DecodeFleet
 
 
 def entry(device="cuda"):
@@ -87,3 +89,22 @@ def bert_trainer(batch: int = 32, seq: int = 512, device="cuda",
     mask = (rng.random((batch, seq)) < 0.15).astype(np.float32)
     return trainer, tuple(torch.from_numpy(a).to(dev)
                           for a in (tokens, targets, mask))
+
+
+#: the decode fleet's defaults at FLAGSHIP: 8 slots, 64-token prefill
+#: chunks, 16-token blocks, 64 blocks a session (FLAGSHIP's max_seq_len of
+#: 1 024 tokens), and blocks for every slot of two replicas at full context
+DECODE_DEFAULTS = dict(slots=8, prefill_chunk=64, kv_block_size=16,
+                       max_blocks_per_session=64, kv_blocks=2 * 8 * 64)
+
+
+def flagship_decode_fleet(device="cuda",
+                          cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                          **kw) -> DecodeFleet:
+    """A ``DecodeFleet`` serving ``cfg`` (FLAGSHIP, bf16) with random
+    weights from seed 0 on ``device``; ``kw`` overrides
+    :data:`DECODE_DEFAULTS` and passes any other fleet argument (``roles``,
+    ``spec_tokens``, ``job``, ...)."""
+    dev = resolve(device)
+    model = tfm.Transformer(cfg, device=dev, seed=0)
+    return DecodeFleet(model, cfg, device=dev, **{**DECODE_DEFAULTS, **kw})

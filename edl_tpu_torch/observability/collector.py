@@ -2,33 +2,29 @@
 
 from __future__ import annotations
 
-import threading
+from edl_tpu_torch.observability.metrics import MetricsRegistry, get_registry
 
 
 class Counters:
     """``inc("name", type="x")`` and ``get("name", type="x")`` agree: the
-    labels are folded into the key in sorted order."""
+    labels are folded into the key in sorted order.  A facade over a
+    :class:`MetricsRegistry`: the process-wide instance is backed by
+    ``metrics.get_registry()``, so every count renders as
+    ``edl_<name>_total{labels}``; a standalone ``Counters()`` gets a
+    private registry."""
 
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._counts: dict[tuple, int] = {}
-
-    @staticmethod
-    def _key(name: str, labels: dict) -> tuple:
-        return (name, *sorted(labels.items()))
+    def __init__(self, registry: MetricsRegistry | None = None) -> None:
+        self._registry = registry if registry is not None \
+            else MetricsRegistry()
 
     def inc(self, name: str, n: int = 1, **labels: str) -> int:
-        key = self._key(name, labels)
-        with self._lock:
-            self._counts[key] = self._counts.get(key, 0) + n
-            return self._counts[key]
+        return int(self._registry.counter(name).inc(n, **labels))
 
     def get(self, name: str, **labels: str) -> int:
-        with self._lock:
-            return self._counts.get(self._key(name, labels), 0)
+        return int(self._registry.counter(name).value(**labels))
 
 
-_default_counters = Counters()
+_default_counters = Counters(get_registry())
 
 
 def get_counters() -> Counters:

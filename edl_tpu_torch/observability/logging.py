@@ -23,6 +23,9 @@ class StructuredLogger:
     def warn(self, msg: str, **kv) -> None:
         self._log.warning(self._fmt(msg, kv), stacklevel=2)
 
+    def error(self, msg: str, **kv) -> None:
+        self._log.error(self._fmt(msg, kv), stacklevel=2)
+
 
 def get_logger(name: str) -> StructuredLogger:
     return StructuredLogger(name)

@@ -1,15 +1,18 @@
-"""Where the time of a train step goes on the card.
+"""Where the time of a train step, or of a decode iteration, goes on the
+card.
 
 Drives one of the paths of ``chip_smoke.py`` through its ``entry.py``
 helper (``--model flagship``: ElasticTrainer on FLAGSHIP with the flash
 kernels, batch 16 x seq 1024; ``resnet50``: RESNET50 with the GroupNorm
 kernels, 256 x 224²; ``bert_base``: BERT_BASE MLM with the flash kernels,
-32 x 512; adamw(3e-4) in each) and prints one JSON line.  After two warm-up
-steps it runs ``--steps`` steps unprofiled, timed by CUDA events, then
-``--steps`` steps under ``torch.profiler``, and reports:
+32 x 512; adamw(3e-4) in each; ``flagship_decode``: one decode iteration of
+the FLAGSHIP serving loop — ``llama.decode_step`` at 8 slots with 512
+cached tokens a slot and its argmax read) and prints one JSON line.  After
+two warm-up steps it runs ``--steps`` steps unprofiled, timed by CUDA
+events, then ``--steps`` steps under ``torch.profiler``, and reports:
 
-- device time and launches per step by kernel group, and the
-  ``TOP_KERNELS`` costliest kernels (profiled window);
+- device time and launches per step by kernel group, the launches per step
+  in all, and the ``TOP_KERNELS`` costliest kernels (profiled window);
 - ``idle_share_profiled``: 1 - device busy / wall of the profiled window
   (one window; the wall carries the profiler's own host cost);
 - ``idle_share_unprofiled_est``: 1 - the profiled busy time per step / the
@@ -41,10 +44,15 @@ GROUPS = (
     ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
     ("cutlass", "matmul"), ("cublas", "matmul"),
     ("multi_tensor_apply", "optimizer"),
-    ("direct_copy", "copy_cast"),
+    ("direct_copy", "copy_cast"), ("catarray", "copy_cast"),
+    ("memcpy", "memcpy"),
+    ("index", "gather_scatter"),
+    ("softmax", "softmax"),
     ("reduce_kernel", "reduction"),
     ("elementwise", "elementwise"),
 )
+#: flagship_decode: the serving loop's decode batch and cached length
+DECODE_SLOTS, DECODE_CACHED = 8, 512
 
 
 def group_of(kernel: str) -> str:
@@ -53,6 +61,39 @@ def group_of(kernel: str) -> str:
         if frag in low:
             return group
     return "other"
+
+
+def decode_iteration(device="cuda"):
+    """One iteration of the FLAGSHIP serving loop as a callable: a decode
+    step at DECODE_SLOTS slots with DECODE_CACHED cached tokens each (seed-0
+    weights), then the one argmax read of the loop."""
+    import numpy as np
+
+    from edl_tpu_torch.entry import DECODE_DEFAULTS
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.models import transformer as tfm
+    from edl_tpu_torch.runtime.kvcache import KVBlockPool
+
+    model = tfm.Transformer(tfm.FLAGSHIP, device=device, seed=0)
+    params = llama.as_decode_params(model)
+    del model
+    maxb = DECODE_DEFAULTS["max_blocks_per_session"]
+    pool = KVBlockPool(tfm.FLAGSHIP, DECODE_SLOTS * maxb,
+                       DECODE_DEFAULTS["kv_block_size"], maxb,
+                       job="profile/decode", device=device)
+    for i in range(DECODE_SLOTS):
+        pool.ensure_capacity(i, DECODE_CACHED + 1)
+    tables = np.stack([pool.block_table(i) for i in range(DECODE_SLOTS)])
+    toks = np.arange(DECODE_SLOTS)
+    pos = np.full(DECODE_SLOTS, DECODE_CACHED)
+    live = np.ones(DECODE_SLOTS, bool)
+
+    def step():
+        logits, _ = llama.decode_step(params, pool.cache, toks, pos, tables,
+                                      live)
+        return logits.argmax(dim=-1).tolist()
+
+    return step
 
 
 def main() -> None:
@@ -64,18 +105,25 @@ def main() -> None:
                 "resnet50": entry.resnet_trainer,
                 "bert_base": entry.bert_trainer}
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=sorted(trainers), default="flagship")
+    ap.add_argument("--model", choices=sorted(trainers) + ["flagship_decode"],
+                    default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
-    trainer, batch = trainers[args.model]()
+    if args.model == "flagship_decode":
+        step = decode_iteration()
+    else:
+        trainer, batch = trainers[args.model]()
+
+        def step():
+            return trainer.step(batch)
     for _ in range(2):
-        trainer.step(batch)
+        step()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(args.steps):
-        trainer.step(batch)
+        step()
     end.record()
     torch.cuda.synchronize()
     unprofiled_ms = start.elapsed_time(end) / args.steps
@@ -83,7 +131,7 @@ def main() -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            trainer.step(batch)
+            step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     per_kernel: dict[str, float] = defaultdict(float)
@@ -115,6 +163,7 @@ def main() -> None:
         "group_ms_per_step": dict(sorted(groups.items(),
                                          key=lambda kv: -kv[1])),
         "group_launches_per_step": dict(sorted(group_calls.items())),
+        "launches_per_step": sum(group_calls.values()),
         "top_kernels_ms_per_step": {k[:120]: v / args.steps for k, v in top},
     }))
 

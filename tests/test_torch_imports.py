@@ -129,3 +129,45 @@ def test_model_zoo_trainers_on_the_cpu_take_a_step(model):
         assert set(batch[2].unique().tolist()) <= {0.0, 1.0}
     first = trainer.step(batch)
     assert np.isfinite(first) and trainer.step(batch) < first
+
+
+def test_decode_plane_raises_without_cuda(monkeypatch):
+    from edl_tpu_torch.entry import flagship_decode_fleet
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.models import transformer as tfm
+    from edl_tpu_torch.runtime.serving import DecodeFleet, DecodeReplica
+
+    model = tfm.Transformer(tfm.TINY, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flagship_decode_fleet(cfg=tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeFleet(model, tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeReplica("r", model, tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_cache(tfm.TINY, 4, 4)
+
+
+@pytest.mark.timeout_s(120)
+def test_decode_fleet_helper_on_the_cpu_serves():
+    """The helper behind chip_smoke's serving path, at TINY on the CPU: a
+    session's tokens equal the model's own full-context greedy loop."""
+    from edl_tpu_torch.entry import DECODE_DEFAULTS, flagship_decode_fleet
+    from edl_tpu_torch.models import transformer as tfm
+
+    fleet = flagship_decode_fleet(device="cpu", cfg=tfm.TINY,
+                                  job="t/entry-decode")
+    try:
+        assert fleet.kv_blocks()[1] == DECODE_DEFAULTS["kv_blocks"]
+        prompt = list(range(3, 80))
+        got = fleet.submit(prompt, 6).wait(60)
+    finally:
+        fleet.stop()
+    model = tfm.Transformer(tfm.TINY, device="cpu", seed=0)
+    seq = list(prompt)
+    with torch.no_grad():
+        for _ in range(6):
+            seq.append(int(tfm.apply(model, torch.tensor([seq]))[0, -1]
+                           .argmax()))
+    assert got == seq[len(prompt):]
