@@ -52,7 +52,20 @@ Phases, each of which raises on failure:
     clears the logits check's tolerance, and ``verify_step`` fed perfect
     drafts held to the same rule; tokens/s, TTFT and TPOT, the device
     time of a decode step and of a prefill chunk, and 0 launches of the
-    hand-written kernels (no Pallas kernel lies on the decode path).
+    hand-written kernels (no Pallas kernel lies on the decode path);
+(j) the multi-rank trainer: two spawned processes share the card and join
+    one gloo process group through ``entry.flagship_elastic_world``
+    (FLAGSHIP, the global batch of (c)).  Two steps on a world of 1 (rank 1
+    stands by), ``resize(2)``, two steps on 2, ``resize(1)``, two steps on
+    1; rank 1's params and optimizer state bitwise equal to rank 0's after
+    the grow, every parameter bitwise equal across the ranks after each step
+    of 2, each live rank launching every flash kernel once per layer a step
+    and a rank standing by none, every loss within ``WORLD_LOSS_ATOL`` of a
+    one-rank control (the same steps from the same init, in this process);
+    then one more ``resize(2)`` with an allocation failure planted on rank 1
+    only, which both ranks roll back, stepping on at world 1.  Two ranks on
+    one card prove the protocol, not scaling: the world-2 step time is no
+    data-parallel speed-up.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -74,6 +87,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -81,8 +95,8 @@ import torch
 import torch.nn.functional as F
 
 from edl_tpu_torch.entry import (DECODE_DEFAULTS, bert_trainer, entry,
-                                 flagship_decode_fleet, flagship_trainer,
-                                 resnet_trainer)
+                                 flagship_decode_fleet, flagship_elastic_world,
+                                 flagship_trainer, resnet_trainer)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.metrics import get_registry
@@ -147,6 +161,17 @@ SERVING_ATOL = 0.25
 #: call's worth, so a timed call is one call behind a ~0.1 s device sleep,
 #: and the record the median of SERVE_TIMED_REPS of them
 SERVE_TIMED_REPS, SERVE_SLEEP_CYCLES = 5, 200_000_000
+#: phase (j): the ranks sharing the card, the world each step runs on (the
+#: trainer resizes where it changes), and each rank's time limit
+WORLD_RANKS = 2
+WORLD_SCHEDULE = (1, 1, 2, 2, 1, 1)
+WORLD_CHILD_TIMEOUT_S = 600
+#: phase (j): |loss - one-rank control's loss| for every step.  A world of
+#: 2 splits the batch and averages two half-batch gradients, so its bf16
+#: loss and every step after it drift from the control's in their last
+#: digits (losses ~9.7); the world-1 steps before the first resize run the
+#: control's exact computation
+WORLD_LOSS_ATOL = 2e-2
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -906,6 +931,183 @@ def phase_serving() -> dict:
     return launches
 
 
+# -- phase (j): the multi-rank trainer ---------------------------------------
+
+
+def checksum(tensors) -> list[list[int]]:
+    """A bitwise fingerprint of each 4-byte-element tensor, taken on its
+    device: the sum of its words as int32, and their sum weighted by
+    position (mod 65521, plus 1)."""
+    out = []
+    for t in tensors:
+        w = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append([int(w.sum()), int((w * pos).sum())])
+    return out
+
+
+def state_tensors(trainer, with_opt: bool) -> list[torch.Tensor]:
+    params = list(trainer.state.params.parameters())
+    if not with_opt:
+        return params
+    opt = trainer.state.opt_state.state
+    return params + [v for p in params for _, v in sorted(opt[p].items())
+                     if v.device == trainer.device]
+
+
+def world_rank(rank: int, store: str, out: str) -> None:
+    """(j), one rank of the job: the schedule with what one rank can see of
+    it (losses, step times, launches, fingerprints, resize events), written
+    as JSON to ``out``."""
+    from edl_tpu_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer, batch = flagship_elastic_world(
+        rank, WORLD_RANKS, store, batch=B, seq=S,
+        initial_world_size=WORLD_SCHEDULE[0])
+    rec = dict(rank=rank, steps=[], resized=[])
+    fa.reset_launches()
+    for world in WORLD_SCHEDULE:
+        if world != trainer.world_size:
+            grow = world > trainer.world_size
+            rec["resized"].append(trainer.resize(world))
+            if grow:
+                rec["after_grow"] = checksum(state_tensors(trainer, True))
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        rec["steps"].append(dict(
+            world=trainer.world_size, live=trainer.live, loss=loss,
+            ms=1e3 * (time.perf_counter() - t0),
+            launches={k: fa.launches[k] - before[k] for k in fa.launches},
+            params=(checksum(state_tensors(trainer, False))
+                    if trainer.world_size > 1 else None)))
+
+    def no_memory(*args, **kwargs):
+        raise RuntimeError("planted: out of memory staging the resize")
+
+    if rank == 1:
+        elastic._fresh = no_memory
+    rec["planted"] = trainer.resize(WORLD_RANKS)
+    rec["planted_failed"] = trainer.resizes_failed
+    before = dict(fa.launches)
+    loss = trainer.step(batch)
+    rec["after_planted"] = dict(
+        world=trainer.world_size, loss=loss,
+        launches={k: fa.launches[k] - before[k] for k in fa.launches})
+    rec["launches"] = dict(fa.launches)
+    rec["events"] = trainer.resize_events
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def run_world() -> list[dict]:
+    """(j): spawn the ranks, join them within WORLD_CHILD_TIMEOUT_S (killing
+    any left), and return each rank's record."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(WORLD_RANKS)]
+        procs = [ctx.Process(target=world_rank,
+                             args=(r, os.path.join(tmp, "store"), outs[r]))
+                 for r in range(WORLD_RANKS)]
+        try:
+            for p in procs:
+                p.start()
+            end = time.monotonic() + WORLD_CHILD_TIMEOUT_S
+            for p in procs:
+                p.join(max(end - time.monotonic(), 0.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        bad = [(r, p.exitcode) for r, p in enumerate(procs)
+               if p.exitcode != 0 or not os.path.exists(outs[r])]
+        if bad:
+            raise AssertionError(f"phase (j): ranks (rank, exit code) {bad} "
+                                 f"failed or ran past "
+                                 f"{WORLD_CHILD_TIMEOUT_S} s")
+        recs = []
+        for out in outs:
+            with open(out) as f:
+                recs.append(json.load(f))
+    return recs
+
+
+def phase_world(card: str) -> dict:
+    """(j): FLAGSHIP over two ranks sharing the card through 1→2→1, against
+    a one-rank control; returns the launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_world()
+    torch.cuda.empty_cache()
+    trainer, batch = flagship_trainer(B, S)
+    control = [trainer.step(batch) for _ in WORLD_SCHEDULE]
+    del trainer, batch
+    torch.cuda.empty_cache()
+    n = tfm.FLAGSHIP.n_layers
+    per_step = {k: n for k in FLASH}
+    r0, r1 = recs
+    for rec in recs:
+        for evt in rec["events"]:
+            print(f"world rank {rec['rank']} resize_event {json.dumps(evt)}",
+                  flush=True)
+    for world in sorted(set(WORLD_SCHEDULE)):
+        # rank 0 is live on every world and waits out the all-reduce, so
+        # its step spans the world's; the first step on each world warms
+        # a rank up (its first kernels, or its first all-reduce)
+        ms = {rec["rank"]: [round(s["ms"], 2) for s in rec["steps"]
+                            if s["world"] == world and s["live"]]
+              for rec in recs}
+        print(f"world {world} step_ms by rank {ms} median after the first "
+              f"{float(np.median(ms[0][1:])):.2f} (b{B} s{S} global batch; "
+              f"two ranks share one card: not a scaling figure) on {card}",
+              flush=True)
+    losses = [s["loss"] for s in r0["steps"]]
+    diff = [abs(a - b) for a, b in zip(losses, control)]
+    print(f"world losses {[round(x, 6) for x in losses]} control "
+          f"{[round(x, 6) for x in control]} max |world - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL})", flush=True)
+    failures = []
+    if r0["resized"] != [True, True] or r1["resized"] != [True, True]:
+        failures.append(f"resizes {r0['resized']} {r1['resized']}")
+    if r0["after_grow"] != r1["after_grow"]:
+        failures.append("rank 1's state after resize(2) is not rank 0's")
+    for i, (a, b) in enumerate(zip(r0["steps"], r1["steps"])):
+        if a["world"] > 1 and (a["params"] != b["params"]
+                               or a["loss"] != b["loss"]):
+            failures.append(f"step {i}: the ranks' params or loss differ")
+        for rank, st in enumerate((a, b)):
+            want = per_step if st["live"] else {k: 0 for k in FLASH}
+            if st["launches"] != want:
+                failures.append(f"step {i} rank {rank}: launches "
+                                f"{st['launches']}, want {want}")
+    if not all(np.isfinite(losses)) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {losses} vs control {control}")
+    for rank, rec in enumerate(recs):
+        after = rec["after_planted"]
+        live = rank < after["world"]
+        want = per_step if live else {k: 0 for k in FLASH}
+        if (rec["planted"] or rec["planted_failed"] != 1
+                or after["world"] != 1 or after["launches"] != want
+                or (after["loss"] is not None) != live):
+            failures.append(f"rank {rank}: planted resize "
+                            f"{rec['planted']}, resizes_failed "
+                            f"{rec['planted_failed']}, then {after}")
+    print(f"world planted failure on rank 1: resize -> "
+          f"{[rec['planted'] for rec in recs]}, resizes_failed "
+          f"{[rec['planted_failed'] for rec in recs]}, next step world "
+          f"{r0['after_planted']['world']} loss "
+          f"{r0['after_planted']['loss']:.6f}; bitwise state after grow "
+          f"{r0['after_grow'] == r1['after_grow']}; launches "
+          f"{[rec['launches'] for rec in recs]}", flush=True)
+    if failures:
+        raise AssertionError("phase (j): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -931,6 +1133,7 @@ def main() -> int:
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
     phase_serving()
+    paths["flagship_world"] = phase_world(card)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -5,7 +5,8 @@ trainers of the paths that ``chip_smoke.py`` drives, and the decode fleet.
 the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``__graft_entry__.entry``.  ``flagship_trainer(device)`` returns the
 ``ElasticTrainer`` and batch that ``chip_smoke.py`` and
-``edl_tpu_torch.profile_step`` drive; ``resnet_trainer`` and
+``edl_tpu_torch.profile_step`` drive, and ``flagship_elastic_world`` the
+same for one rank of a multi-rank job; ``resnet_trainer`` and
 ``bert_trainer`` do the same for bench.py's model-zoo leg (ResNet-50 at
 256 x 224², BERT-base MLM at 32 x 512).  ``flagship_decode_fleet(device)``
 returns the ``DecodeFleet`` that serves FLAGSHIP token by token.  All run on
@@ -15,9 +16,11 @@ the CUDA device unless ``device`` says otherwise, with the kernels on.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from edl_tpu_torch.device import resolve
 from edl_tpu_torch.models import bert
@@ -48,11 +51,51 @@ def flagship_trainer(batch: int = 16, seq: int = 1024, device="cuda",
     model = tfm.Transformer(cfg, device=dev, seed=0)
     trainer = ElasticTrainer(tfm.loss_fn, model, optim.adamw(3e-4),
                              devices=[dev])
+    return trainer, _flagship_data(cfg, batch, seq, dev)
+
+
+def _flagship_data(cfg: tfm.TransformerConfig, batch: int, seq: int,
+                   dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                (batch, seq), dtype=np.int64)
-    data = (torch.from_numpy(tokens).to(dev),
+    return (torch.from_numpy(tokens).to(dev),
             torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
-    return trainer, data
+
+
+def flagship_elastic_world(rank: int, world: int, store_path,
+                           device="cuda", batch: int = 16, seq: int = 1024,
+                           backend: Optional[str] = None,
+                           cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                           initial_world_size: Optional[int] = None):
+    """(trainer, (tokens, targets)) for rank ``rank`` of a ``world``-rank
+    job: :func:`flagship_trainer`'s model, optimizer and global batch on
+    this rank's device, its ``ElasticTrainer`` over the job's process group.
+
+    Joins the default process group through a ``FileStore`` at
+    ``store_path``.  On the card, ``device="cuda"`` gives rank r its own
+    card ``cuda:r`` while there are cards enough, and the ranks NCCL;
+    otherwise (more ranks than cards, or a device with an index) the ranks
+    share a card and talk gloo, as they do on the CPU.  ``backend``
+    overrides the choice.  Every rank calls this with the same arguments
+    but its rank; the first world is the whole group unless
+    ``initial_world_size`` says fewer."""
+    dev = resolve(device)
+    shared = True
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if dev.index is None:
+            shared = world > cards
+            dev = torch.device("cuda", 0 if shared else rank)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend or ("gloo" if shared else "nccl"),
+                            store=dist.FileStore(str(store_path), world),
+                            rank=rank, world_size=world)
+    cfg = dataclasses.replace(cfg, use_flash=True)
+    model = tfm.Transformer(cfg, device=dev, seed=0)
+    trainer = ElasticTrainer(tfm.loss_fn, model, optim.adamw(3e-4),
+                             devices=[dev],
+                             initial_world_size=initial_world_size)
+    return trainer, _flagship_data(cfg, batch, seq, dev)
 
 
 def resnet_trainer(batch: int = 256, hw: int = 224, device="cuda",

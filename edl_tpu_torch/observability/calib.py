@@ -1,10 +1,12 @@
 """Calibration plane: a predicted-vs-measured ledger for the cost models
-the decode serving plane runs on — the part of
-edl_tpu.observability.calib that the plane calls.
+the decode serving plane and the trainer's resize run on — the part of
+edl_tpu.observability.calib that they call.
 
-Instrumented predictors: ``kv_move_seconds`` (a D2D KV move priced at the
-nominal fabric rate vs its measured placement), ``spec_accept`` (the
-drafter's acceptance EWMA vs the realized tokens per verify step),
+Instrumented predictors: ``reshard_seconds`` (a resize's planned bytes at
+the nominal rate vs its measured reshard), ``kv_move_seconds`` (a D2D KV
+move priced at the nominal fabric rate vs its measured placement),
+``spec_accept`` (the drafter's acceptance EWMA vs the realized tokens per
+verify step),
 ``interleave_decode_ms`` and ``interleave_prefill_ms`` (the token
 scheduler's EWMAs vs the measured iteration).  Every site calls the
 module-level :func:`record`, a no-op until a ledger is armed with

@@ -6,14 +6,21 @@ edl_tpu.parallel.mesh.
 out in that shape.  Axis conventions: ``dp`` data parallel, ``fsdp`` fully
 sharded data parallel, ``tp`` tensor parallel, ``sp`` sequence parallel,
 ``ep`` expert parallel.
+
+The port is SPMD: one process a rank.  Once ``torch.distributed`` is
+initialised a mesh spans a rank prefix ``(0, …, n-1)`` of the default
+process group, and carries the process group over that prefix
+(:func:`rank_group`, built once per prefix size).  Without a process group a
+mesh is a tuple of this process's devices, as before.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 AXIS_DP = "dp"
 AXIS_FSDP = "fsdp"
@@ -116,11 +123,17 @@ class MeshShape:
 
 @dataclass(frozen=True)
 class Mesh:
-    """Devices laid out row-major over the axes in declaration order."""
+    """Devices laid out row-major over the axes in declaration order.
+
+    Under a process group, ``ranks`` is the rank prefix the mesh spans,
+    ``group`` the process group over it, and ``devices`` this process's
+    device; without one, ``ranks`` is empty and ``group`` None."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...]
     axis_shape: tuple[int, ...]
+    ranks: tuple[int, ...] = ()
+    group: Any = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -128,14 +141,61 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return len(self.ranks) if self.ranks else len(self.devices)
+
+
+def distributed() -> bool:
+    """True when this process is a rank of an initialised process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+#: rank_group's cache: (default group, prefix size) -> process group
+_groups: dict[tuple[Any, int], Any] = {}
+
+
+def rank_group(n: int):
+    """The process group over ranks ``[0, n)`` of the default group: the
+    default group itself at full size, else one ``dist.new_group`` built the
+    first time ``n`` is asked for and cached by ``n`` (on a rank outside the
+    prefix, torch's non-member sentinel).  ``new_group`` is collective over
+    the default group, so every rank asks for a new size at the same point;
+    a size seen before costs nothing and creates no group."""
+    world = dist.group.WORLD
+    if n == dist.get_world_size():
+        return world
+    if (world, n) not in _groups:
+        _groups[world, n] = dist.new_group(list(range(n)))
+    return _groups[world, n]
+
+
+def local_device() -> torch.device:
+    """This rank's CUDA device: ``cuda:(rank mod device count)``; raises
+    when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device; pass devices=")
+    return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
 
 
 def make_mesh(n_devices: Optional[int] = None,
               spec: Optional[MeshSpec] = None,
               devices: Optional[Sequence[torch.device]] = None) -> Mesh:
-    """A mesh over the first ``n_devices`` of ``devices`` (default: every
-    CUDA device; raises when there is none)."""
+    """Without a process group, a mesh over the first ``n_devices`` of
+    ``devices`` (default: every CUDA device; raises when there is none).
+
+    Under a process group, a mesh over the first ``n_devices`` ranks
+    (default: all of them) with their process group; ``devices`` names this
+    process's device (default :func:`local_device`).  Every rank makes the
+    same meshes in the same order (see :func:`rank_group`)."""
+    if distributed():
+        world = dist.get_world_size()
+        n = world if n_devices is None else n_devices
+        if not 1 <= n <= world:
+            raise ValueError(f"want {n} ranks, the process group has "
+                             f"{world}")
+        sizes = (spec or MeshSpec(dp=-1)).resolve(n)
+        dev = torch.device(devices[0]) if devices else local_device()
+        return Mesh((dev,), tuple(sizes), tuple(sizes.values()),
+                    ranks=tuple(range(n)), group=rank_group(n))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device; pass devices=")

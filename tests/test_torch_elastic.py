@@ -1,5 +1,6 @@
 """The port's ElasticTrainer and optimizers held against the JAX package's
-ElasticTrainer and optax on TINY, on one CPU device."""
+ElasticTrainer and optax on TINY, on one CPU device with no process group
+(the multi-rank worlds are tests/test_torch_elastic_world.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -95,6 +96,9 @@ def test_step_accumulate_equals_one_step_on_the_concatenated_batch():
 
 
 def test_resize_beyond_the_devices_rolls_back_and_training_goes_on():
+    """With no process group the group is this one process: a resize past
+    it, or to a layout this trainer does not build, rolls back and
+    training goes on on the world of one."""
     t = _port_trainer()
     batch = _batch(4)
     first = t.step(batch)
@@ -104,33 +108,42 @@ def test_resize_beyond_the_devices_rolls_back_and_training_goes_on():
     assert t.resizes_failed == 1 and t.resizes == 0
     assert get_counters().get("resizes_failed") == failed_before + 1
     assert get_tracer().events()[-1].name == "resize_rolled_back"
+    assert "process group" in get_tracer().events()[-1].args["error"]
     assert t.world_size == 1 and t.shape == MeshShape()
     assert t.resize(MeshShape(dp=1, fsdp=2)) is False
     assert t.resizes_failed == 2
     second = t.step(batch)
     assert np.isfinite(second) and second < first
-    assert t.state.step == 2
+    assert t.state.step == 2 and t.resize_events == []
 
 
 def test_more_devices_than_one_start_a_world_of_one():
-    """Handed two devices, the trainer trains on the first; growing to two
-    needs the multi-device trainer, so that resize rolls back."""
+    """With no process group a world is one device: handed two, the
+    trainer trains on the first, a resize to two rolls back, and a first
+    world of two is refused."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
     t = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                        devices=CPU * 2)
-    assert t.world_size == 1 and t.device == CPU[0]
+    assert t.world_size == 1 and t.device == CPU[0] and t.live
+    assert t.mesh.ranks == () and t.mesh.group is None
     assert np.isfinite(t.step(_batch(5)))
     assert t.resize(2) is False and t.world_size == 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                        devices=CPU * 2, initial_world_size=2)
 
 
 def test_unsupported_modes_are_refused():
+    """fsdp parameter sharding is refused, naming the later item; both of
+    the reference's accumulation modes are taken, "dp" by default."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
-    with pytest.raises(ValueError):
-        ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
-                       accum_mode="dp")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="fsdp sharding is a later item"):
         ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
                        param_sharding="fsdp")
+    with pytest.raises(ValueError, match="accum_mode"):
+        ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
+                       accum_mode="rounds")
+    assert ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
+                          devices=CPU).accum_mode == "dp"
+    assert ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
+                          accum_mode="replicated").accum_mode == "replicated"

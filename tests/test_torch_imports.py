@@ -53,8 +53,9 @@ def test_no_source_names_jax_or_the_jax_package():
     assert not bad, bad
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
-    from edl_tpu_torch.entry import (bert_trainer, entry, flagship_trainer,
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from edl_tpu_torch.entry import (bert_trainer, entry,
+                                     flagship_elastic_world, flagship_trainer,
                                      resnet_trainer)
     from edl_tpu_torch.models import bert, resnet
     from edl_tpu_torch.models import transformer as tfm
@@ -67,6 +68,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         flagship_trainer(cfg=tfm.TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):  # before joining a group
+        flagship_elastic_world(0, 1, tmp_path / "store", cfg=tfm.TINY)
+    assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="CUDA"):
         resnet_trainer(batch=2, hw=32, cfg=resnet.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
