@@ -31,7 +31,8 @@ Phases, each of which raises on failure:
     summed over the 53 sites of a step; a plan past clusters of 8 is also
     timed capped at 8;
 (f) the flash kernels at the BERT-base shape (b 32, s 512, h = hk = 12,
-    d 64, non-causal), checked and timed as in (b);
+    d 64, non-causal), and at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk
+    and d, causal), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -66,6 +67,24 @@ Phases, each of which raises on failure:
     only, which both ranks roll back, stepping on at world 1.  Two ranks on
     one card prove the protocol, not scaling: the world-2 step time is no
     data-parallel speed-up.
+(k) the durable virtual-worker loop: two spawned ranks share the card over
+    gloo (``entry.flagship_virtual_world``: FLAGSHIP, 8 virtual workers, a
+    constant global batch of 16 x 1024 as 8 micro-batches, replicated
+    accumulation).  ``VirtualWorkerLoop`` runs 9 steps through worlds 1→2,
+    rank 0 checkpointing every 3 steps (``ElasticCheckpointer``, one DCP
+    directory a step, in a temporary directory deleted at the end); every
+    rank is then killed mid-accumulation (``abort_after=3`` on world 2), and
+    fresh trainers restore step 9 and run steps 10-12, shrinking to 1.  The
+    stitched 12 losses must equal a one-process control's bitwise, every
+    row be trained exactly once, each live rank launch every flash kernel
+    64 times a step (8 layers x 8 micro-batches) and one standing by none,
+    and no loop's stall watchdog see a stall (each watches its own loop,
+    not the restore or the drills).  Rank 0 then tears the newest step
+    (12), past which a fresh checkpointer must fall back to 9, and times one
+    synchronous save of the 1.86 GB state (its folds and its CRC32s alone
+    too) and one ``save_async`` (its pause, then its persist).  The same
+    schedule in dp-packed mode must stay within ``trajectories_equivalent``
+    of the control.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -85,6 +104,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -96,12 +116,22 @@ import torch.nn.functional as F
 
 from edl_tpu_torch.entry import (DECODE_DEFAULTS, bert_trainer, entry,
                                  flagship_decode_fleet, flagship_elastic_world,
-                                 flagship_trainer, resnet_trainer)
+                                 flagship_trainer, flagship_virtual_world,
+                                 resnet_trainer)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
+from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.metrics import get_registry
+from edl_tpu_torch.runtime import checkpoint as ckpt
 from edl_tpu_torch.runtime import serving
+from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+from edl_tpu_torch.runtime.elastic import AccumulationAborted
 from edl_tpu_torch.runtime.kvcache import KVBlockPool
+from edl_tpu_torch.runtime.virtual import (DEFAULT_LOSS_ATOL,
+                                           DEFAULT_LOSS_RTOL, VirtualBatches,
+                                           VirtualWorkerLoop, loss_divergence,
+                                           trajectories_equivalent)
+from edl_tpu_torch.runtime.watchdog import StallWatchdog
 from edl_tpu_torch.ops import _build
 from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.ops import group_norm as gn
@@ -172,6 +202,18 @@ WORLD_CHILD_TIMEOUT_S = 600
 #: digits (losses ~9.7); the world-1 steps before the first resize run the
 #: control's exact computation
 WORLD_LOSS_ATOL = 2e-2
+#: phase (k): steps of the job, its checkpoint cadence, the step the first
+#: loop stops at (the kill lands in the next one), the stall watchdog's
+#: deadline floor, and the ranks' join deadline
+VIRTUAL_STEPS = 12
+VIRTUAL_CKPT_EVERY = 3
+VIRTUAL_KILL_AFTER = 9
+VIRTUAL_STALL_FLOOR_S = 30.0
+VIRTUAL_CHILD_TIMEOUT_S = 900
+#: phase (k)'s micro-batch: the global batch B over the job's 8 virtual
+#: workers (entry.flagship_virtual_world's defaults); the flash kernels
+#: are held against their plain versions at this batch too
+VIRTUAL_MICRO_BATCH = B // 8
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -1004,19 +1046,21 @@ def world_rank(rank: int, store: str, out: str) -> None:
         json.dump(rec, f)
 
 
-def run_world() -> list[dict]:
-    """(j): spawn the ranks, join them within WORLD_CHILD_TIMEOUT_S (killing
-    any left), and return each rank's record."""
+def run_ranks(target, phase: str, timeout_s: float, *args) -> list[dict]:
+    """(j) and (k): spawn WORLD_RANKS processes of ``target(rank, store,
+    out, *args)``, join them within ``timeout_s`` (killing any left), and
+    return each rank's record, the JSON it wrote to ``out``."""
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(WORLD_RANKS)]
-        procs = [ctx.Process(target=world_rank,
-                             args=(r, os.path.join(tmp, "store"), outs[r]))
+        procs = [ctx.Process(target=target,
+                             args=(r, os.path.join(tmp, "store"), outs[r],
+                                   *args))
                  for r in range(WORLD_RANKS)]
         try:
             for p in procs:
                 p.start()
-            end = time.monotonic() + WORLD_CHILD_TIMEOUT_S
+            end = time.monotonic() + timeout_s
             for p in procs:
                 p.join(max(end - time.monotonic(), 0.0))
         finally:
@@ -1027,9 +1071,8 @@ def run_world() -> list[dict]:
         bad = [(r, p.exitcode) for r, p in enumerate(procs)
                if p.exitcode != 0 or not os.path.exists(outs[r])]
         if bad:
-            raise AssertionError(f"phase (j): ranks (rank, exit code) {bad} "
-                                 f"failed or ran past "
-                                 f"{WORLD_CHILD_TIMEOUT_S} s")
+            raise AssertionError(f"phase ({phase}): ranks (rank, exit code) "
+                                 f"{bad} failed or ran past {timeout_s} s")
         recs = []
         for out in outs:
             with open(out) as f:
@@ -1041,7 +1084,7 @@ def phase_world(card: str) -> dict:
     """(j): FLAGSHIP over two ranks sharing the card through 1→2→1, against
     a one-rank control; returns the launches of both ranks summed."""
     torch.cuda.empty_cache()
-    recs = run_world()
+    recs = run_ranks(world_rank, "j", WORLD_CHILD_TIMEOUT_S)
     torch.cuda.empty_cache()
     trainer, batch = flagship_trainer(B, S)
     control = [trainer.step(batch) for _ in WORLD_SCHEDULE]
@@ -1108,6 +1151,284 @@ def phase_world(card: str) -> dict:
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
 
 
+# -- phase (k): the durable virtual-worker loop -------------------------------
+
+
+def virtual_world(step: int) -> int:
+    """(k)'s schedule: world 1 for steps 0-2, 2 for steps 3-8, 1 after."""
+    return 2 if 3 <= step < VIRTUAL_KILL_AFTER else 1
+
+
+def instrument(trainer, steps: list, watchdog=None) -> None:
+    """Record every ``step_accumulate`` of ``trainer`` into ``steps``: its
+    world, whether this rank was live, its loss, its host ms between two
+    ``synchronize()``s and its flash launches; then beat ``watchdog``
+    (armed by its first beat, so it watches only this trainer's loop)."""
+    real = trainer.step_accumulate
+
+    def timed(micro, **kw):
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = real(micro, **kw)
+        torch.cuda.synchronize()
+        steps.append(dict(
+            world=trainer.world_size, live=trainer.live, loss=loss,
+            ms=1e3 * (time.perf_counter() - t0),
+            launches={k: fa.launches[k] - before[k] for k in FLASH}))
+        if watchdog is not None:
+            watchdog.beat()
+        return loss
+
+    trainer.step_accumulate = timed
+
+
+def rows_once(reports) -> dict:
+    """The exactly-once ledger of several runs of one job, merged."""
+    rows: dict[int, int] = {}
+    for rep in reports:
+        for gid, c in rep.rows_trained.items():
+            rows[gid] = rows.get(gid, 0) + c
+    want = VIRTUAL_STEPS * B
+    return dict(duplicated=sum(c - 1 for c in rows.values() if c > 1),
+                missing=want - len(rows), trained=sum(rows.values()))
+
+
+def step_files(store: str, step: int) -> list[str]:
+    root = os.path.join(store, str(step))
+    return [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+
+
+def checkpoint_drills(trainer, store: str) -> dict:
+    """(k), rank 0 after the restored run: the newest step torn and a fresh
+    checkpointer's fallback, then one synchronous and one async save of the
+    FLAGSHIP state timed, with the fold and the CRC of a save timed
+    alone."""
+    tree = {"params": trainer.state.params, "opt": trainer.state.opt_state}
+    got = {}
+    newest = max(int(p) for p in os.listdir(store) if p.isdigit())
+    victim = max(step_files(store, newest), key=os.path.getsize)
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    counters = get_counters()
+    before = (counters.get("checkpoint_corruption_detected"),
+              counters.get("recoveries_completed", type="corrupt_checkpoint"))
+    fresh = ElasticCheckpointer(store)
+    t0 = time.perf_counter()
+    fresh.restore(tree)
+    torch.cuda.synchronize()
+    got.update(
+        torn=newest, fallback=fresh.last_restored_step,
+        fallback_ms=1e3 * (time.perf_counter() - t0),
+        hash_ok=fresh.last_restore_hash_ok,
+        corruption=counters.get("checkpoint_corruption_detected") - before[0],
+        recoveries=counters.get("recoveries_completed",
+                                type="corrupt_checkpoint") - before[1])
+
+    pause_dir = store + "-pause"
+    ck = ElasticCheckpointer(pause_dir, max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, tree)
+    got["save_ms"] = 1e3 * (time.perf_counter() - t0)
+    got["file_bytes"] = sum(os.path.getsize(f)
+                            for f in step_files(pause_dir, 1))
+    got["state_bytes"] = sum(t.numel() * t.element_size()
+                             for t in state_tensors(trainer, True))
+    t0 = time.perf_counter()
+    ElasticCheckpointer._tree_folds(tree)
+    got["fold_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ckpt._fingerprint_tree(os.path.join(pause_dir, "1"))
+    got["crc_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got["pause_ms"] = 1e3 * ck.save_async(2, tree)
+    ck.wait_pending()
+    got["persist_ms"] = 1e3 * (time.perf_counter() - t0)
+    ck.finalize()
+    got["async_verified"] = ck.latest_verified_step()
+    shutil.rmtree(pause_dir)
+    return got
+
+
+def virtual_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
+    """(k), one rank of the job: the replicated run through 1→2 with its
+    kill mid-accumulation, the restore on fresh trainers and the run's end
+    through 2→1; on rank 0 the checkpoint drills; then the dp-mode run.
+    Each of the three trainers' loops has its own stall watchdog, stopped
+    when the loop ends, so that the restore, the drills and the rebuilds
+    between the loops are not watched.  What the rank saw is written as
+    JSON to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    watchdogs: list[StallWatchdog] = []
+
+    def watched(trainer, steps: list) -> None:
+        watchdogs.append(StallWatchdog(
+            floor_s=VIRTUAL_STALL_FLOOR_S,
+            scope=f"virtual-rank{rank}-loop{len(watchdogs)}").start())
+        instrument(trainer, steps, watchdogs[-1])
+
+    rec = dict(rank=rank, steps=[], dp_steps=[])
+    fa.reset_launches()
+    trainer, reg, ids, cfg = flagship_virtual_world(
+        rank, WORLD_RANKS, store, initial_world_size=virtual_world(0))
+    watched(trainer, rec["steps"])
+    batches = VirtualBatches(cfg, ids, reg.get)
+    first = VirtualWorkerLoop(
+        trainer, cfg, batches, checkpointer=ElasticCheckpointer(ckpt_dir),
+        ckpt_every=VIRTUAL_CKPT_EVERY).run(max_steps=VIRTUAL_KILL_AFTER,
+                                           world_size_for=virtual_world)
+    before = dict(fa.launches)
+    rec["kill_world"] = trainer.world_size
+    try:
+        trainer.step_accumulate(batches.next_step(), abort_after=3)
+        rec["killed"] = False
+    except AccumulationAborted:
+        rec["killed"] = True
+    watchdogs[-1].stop()
+    rec["kill_launches"] = {k: fa.launches[k] - before[k] for k in FLASH}
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    trainer, reg, ids, cfg = flagship_virtual_world(
+        rank, WORLD_RANKS, store, initial_world_size=WORLD_RANKS)
+    loop = VirtualWorkerLoop(
+        trainer, cfg, VirtualBatches(cfg, ids, reg.get),
+        checkpointer=ElasticCheckpointer(ckpt_dir),
+        ckpt_every=VIRTUAL_CKPT_EVERY)
+    t0 = time.perf_counter()
+    rec["restored"] = loop.restore_latest()
+    torch.cuda.synchronize()
+    rec["restore_ms"] = 1e3 * (time.perf_counter() - t0)
+    watched(trainer, rec["steps"])
+    second = loop.run(max_steps=VIRTUAL_STEPS - VIRTUAL_KILL_AFTER,
+                      world_size_for=virtual_world)
+    watchdogs[-1].stop()
+    rec.update(losses=first.losses + second.losses,
+               resizes=[first.resizes, second.resizes],
+               rows=rows_once([first, second]))
+    if rank == 0:
+        rec["drills"] = checkpoint_drills(trainer, ckpt_dir)
+    torch.distributed.barrier()
+    del loop, trainer
+    torch.cuda.empty_cache()
+
+    trainer, reg, ids, cfg = flagship_virtual_world(
+        rank, WORLD_RANKS, store, accum_mode="dp",
+        initial_world_size=virtual_world(0))
+    watched(trainer, rec["dp_steps"])
+    dp = VirtualWorkerLoop(trainer, cfg, VirtualBatches(cfg, ids, reg.get)
+                           ).run(max_steps=VIRTUAL_STEPS,
+                                 world_size_for=virtual_world)
+    watchdogs[-1].stop()
+    rec.update(dp_losses=dp.losses, dp_rows=rows_once([dp]),
+               stalls=sum(w.stalls_detected for w in watchdogs),
+               launches=dict(fa.launches))
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_virtual(card: str) -> dict:
+    """(k): the durable virtual-worker loop on two ranks sharing the card,
+    against a one-process control; returns the launches of the ranks and
+    the control summed."""
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = run_ranks(virtual_rank, "k", VIRTUAL_CHILD_TIMEOUT_S,
+                         os.path.join(tmp, "ckpt"))
+    torch.cuda.empty_cache()
+    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+    assert cfg.micro_batch == VIRTUAL_MICRO_BATCH, cfg
+    steps: list = []
+    instrument(trainer, steps)
+    control = VirtualWorkerLoop(trainer, cfg, VirtualBatches(
+        cfg, ids, reg.get)).run(max_steps=VIRTUAL_STEPS).losses
+    control_launches = dict(fa.launches)
+    del trainer
+    torch.cuda.empty_cache()
+    r0, r1 = recs
+    d = r0["drills"]
+    print(f"virtual phase (k): FLAGSHIP, V {cfg.vw_count}, global batch "
+          f"{cfg.global_batch} x {S}, two ranks sharing the card over gloo, "
+          f"on {card}", flush=True)
+    per_world = {}
+    for st in r0["steps"]:
+        per_world.setdefault(st["world"], []).append(round(st["ms"], 2))
+    per_world["control"] = [round(st["ms"], 2) for st in steps]
+    for world, ms in per_world.items():
+        print(f"virtual step_ms world {world} rank 0 {ms} median "
+              f"{float(np.median(ms)):.2f} on {card}", flush=True)
+    bitwise = r0["losses"] == control
+    div = loss_divergence(control, r0["dp_losses"])
+    print(f"virtual losses {r0['losses']} control {control} bitwise "
+          f"{bitwise}; rows duplicated {r0['rows']['duplicated']} missing "
+          f"{r0['rows']['missing']} of {VIRTUAL_STEPS * cfg.global_batch}; "
+          f"resizes {r0['resizes']}; restored step {r0['restored']}",
+          flush=True)
+    print(f"virtual dp losses {r0['dp_losses']} max |dp - control| "
+          f"{div['max_loss_divergence']:.3e} equivalent "
+          f"{trajectories_equivalent(control, r0['dp_losses'])} (atol "
+          f"{DEFAULT_LOSS_ATOL}, rtol {DEFAULT_LOSS_RTOL})", flush=True)
+    gbps = d["file_bytes"] / d["save_ms"] / 1e6
+    print(f"checkpoint save_ms {d['save_ms']:.2f} bytes {d['file_bytes']} "
+          f"(state {d['state_bytes']}) GB/s {gbps:.3f} fold_ms "
+          f"{d['fold_ms']:.2f} crc_ms {d['crc_ms']:.2f} on {card}",
+          flush=True)
+    print(f"save_async pause_ms {d['pause_ms']:.2f} persist_ms "
+          f"{d['persist_ms']:.2f} on {card}", flush=True)
+    print(f"restore_ms {r0['restore_ms']:.2f} (rank 0, step "
+          f"{r0['restored']}) {r1['restore_ms']:.2f} (rank 1); restore "
+          f"fallback {d['torn']} -> {d['fallback']} in "
+          f"{d['fallback_ms']:.2f} ms, checkpoint_corruption_detected "
+          f"+{d['corruption']}, recoveries_completed{{type="
+          f"corrupt_checkpoint}} +{d['recoveries']}, last_restore_hash_ok "
+          f"{d['hash_ok']}", flush=True)
+    print(f"virtual stalls_detected {[rec['stalls'] for rec in recs]} "
+          f"(floor {VIRTUAL_STALL_FLOOR_S} s)", flush=True)
+    failures = []
+    n = tfm.FLAGSHIP.n_layers * cfg.vw_count
+    for rec in recs:
+        got = sorted({(st["live"], tuple(st["launches"].values()))
+                      for st in rec["steps"]})
+        print(f"virtual launches rank {rec['rank']}: (live, per step) "
+              f"{got}; kill {rec['kill_launches']}; total "
+              f"{rec['launches']}", flush=True)
+        for st in rec["steps"]:
+            want = n if st["live"] else 0
+            if set(st["launches"].values()) != {want}:
+                failures.append(f"rank {rec['rank']} launches {st}")
+        if not rec["killed"] or rec["kill_world"] != 2:
+            failures.append(f"rank {rec['rank']}: kill {rec['killed']} on "
+                            f"world {rec['kill_world']}")
+        if rec["restored"] != VIRTUAL_KILL_AFTER:
+            failures.append(f"rank {rec['rank']} restored {rec['restored']}")
+        if rec["stalls"]:
+            failures.append(f"rank {rec['rank']} stalls {rec['stalls']}")
+    if not bitwise or not all(np.isfinite(control)):
+        failures.append(f"losses {r0['losses']} vs control {control}")
+    if r0["rows"]["duplicated"] or r0["rows"]["missing"]:
+        failures.append(f"rows {r0['rows']}")
+    if r0["resizes"] != [1, 1]:
+        failures.append(f"resizes {r0['resizes']}")
+    if (not trajectories_equivalent(control, r0["dp_losses"])
+            or r0["dp_rows"]["duplicated"] or r0["dp_rows"]["missing"]):
+        failures.append(f"dp {r0['dp_losses']} rows {r0['dp_rows']}")
+    if (d["torn"], d["fallback"], d["corruption"], d["recoveries"],
+            d["hash_ok"]) != (VIRTUAL_STEPS, VIRTUAL_KILL_AFTER, 1, 1, True):
+        failures.append(f"torn step drill {d}")
+    if d["async_verified"] != 2:
+        failures.append(f"save_async not verified: {d['async_verified']}")
+    if control_launches != {k: n * VIRTUAL_STEPS for k in FLASH}:
+        failures.append(f"control launches {control_launches}")
+    if failures:
+        raise AssertionError("phase (k): " + "; ".join(failures))
+    return {k: control_launches[k] + sum(rec["launches"][k] for rec in recs)
+            for k in FLASH}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1130,10 +1451,13 @@ def main() -> int:
     rows.update(phase_group_norm(sites))
     bert_rows = phase_flash(BERT_B, BERT_S, BERT_H, BERT_H, BERT_D, (False,),
                             "bert_base")
+    virtual_rows = phase_flash(VIRTUAL_MICRO_BATCH, S, H, HK, D, (True,),
+                               "flagship_virtual")
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
     phase_serving()
     paths["flagship_world"] = phase_world(card)
+    paths["flagship_virtual"] = phase_virtual(card)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1148,6 +1472,8 @@ def main() -> int:
             launches_by_path=by_path))
         if name in bert_rows:
             kernels[-1]["at_bert_base"] = bert_rows[name]
+        if name in virtual_rows:
+            kernels[-1]["at_flagship_virtual"] = virtual_rows[name]
     print(json.dumps({"kernels": kernels}))
     # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {

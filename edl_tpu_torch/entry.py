@@ -5,8 +5,9 @@ trainers of the paths that ``chip_smoke.py`` drives, and the decode fleet.
 the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``__graft_entry__.entry``.  ``flagship_trainer(device)`` returns the
 ``ElasticTrainer`` and batch that ``chip_smoke.py`` and
-``edl_tpu_torch.profile_step`` drive, and ``flagship_elastic_world`` the
-same for one rank of a multi-rank job; ``resnet_trainer`` and
+``edl_tpu_torch.profile_step`` drive, ``flagship_elastic_world`` the
+same for one rank of a multi-rank job, and ``flagship_virtual_world`` that
+rank's trainer with the virtual-worker job's data; ``resnet_trainer`` and
 ``bert_trainer`` do the same for bench.py's model-zoo leg (ResNet-50 at
 256 x 224², BERT-base MLM at 32 x 512).  ``flagship_decode_fleet(device)``
 returns the ``DecodeFleet`` that serves FLAGSHIP token by token.  All run on
@@ -27,8 +28,10 @@ from edl_tpu_torch.models import bert
 from edl_tpu_torch.models import resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.runtime import optim
+from edl_tpu_torch.runtime.data import ShardRegistry
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 from edl_tpu_torch.runtime.serving import DecodeFleet
+from edl_tpu_torch.runtime.virtual import VirtualConfig
 
 
 def entry(device="cuda"):
@@ -47,11 +50,17 @@ def flagship_trainer(batch: int = 16, seq: int = 1024, device="cuda",
     ``batch`` x ``seq`` tokens from seed 1 with the targets shifted by one —
     bench.py's accelerator setting, on one device."""
     dev = resolve(device)
-    cfg = dataclasses.replace(cfg, use_flash=True)
-    model = tfm.Transformer(cfg, device=dev, seed=0)
-    trainer = ElasticTrainer(tfm.loss_fn, model, optim.adamw(3e-4),
-                             devices=[dev])
-    return trainer, _flagship_data(cfg, batch, seq, dev)
+    return _flagship(cfg, dev), _flagship_data(cfg, batch, seq, dev)
+
+
+def _flagship(cfg: tfm.TransformerConfig, dev: torch.device,
+              **trainer_kw) -> ElasticTrainer:
+    """The ``ElasticTrainer`` of every FLAGSHIP builder: ``cfg`` with the
+    flash kernels, weights from seed 0, adamw(3e-4)."""
+    model = tfm.Transformer(dataclasses.replace(cfg, use_flash=True),
+                            device=dev, seed=0)
+    return ElasticTrainer(tfm.loss_fn, model, optim.adamw(3e-4),
+                          devices=[dev], **trainer_kw)
 
 
 def _flagship_data(cfg: tfm.TransformerConfig, batch: int, seq: int,
@@ -66,19 +75,29 @@ def flagship_elastic_world(rank: int, world: int, store_path,
                            device="cuda", batch: int = 16, seq: int = 1024,
                            backend: Optional[str] = None,
                            cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
-                           initial_world_size: Optional[int] = None):
+                           initial_world_size: Optional[int] = None,
+                           accum_mode: str = "dp"):
     """(trainer, (tokens, targets)) for rank ``rank`` of a ``world``-rank
     job: :func:`flagship_trainer`'s model, optimizer and global batch on
-    this rank's device, its ``ElasticTrainer`` over the job's process group.
+    this rank's device, its ``ElasticTrainer`` over the job's process group
+    (joined by :func:`_join_world`).  Every rank calls this with the same
+    arguments but its rank; the first world is the whole group unless
+    ``initial_world_size`` says fewer; ``accum_mode`` is the trainer's."""
+    dev = _join_world(rank, world, store_path, device, backend)
+    trainer = _flagship(cfg, dev, initial_world_size=initial_world_size,
+                        accum_mode=accum_mode)
+    return trainer, _flagship_data(cfg, batch, seq, dev)
 
-    Joins the default process group through a ``FileStore`` at
-    ``store_path``.  On the card, ``device="cuda"`` gives rank r its own
-    card ``cuda:r`` while there are cards enough, and the ranks NCCL;
-    otherwise (more ranks than cards, or a device with an index) the ranks
-    share a card and talk gloo, as they do on the CPU.  ``backend``
-    overrides the choice.  Every rank calls this with the same arguments
-    but its rank; the first world is the whole group unless
-    ``initial_world_size`` says fewer."""
+
+def _join_world(rank: int, world: int, store_path, device,
+                backend: Optional[str] = None) -> torch.device:
+    """This rank's device, after joining the default process group through
+    a ``FileStore`` at ``store_path`` (unless this process has joined it
+    already: a rank building a fresh trainer after a failure).  On the
+    card, ``device="cuda"`` gives rank r its own card ``cuda:r`` while
+    there are cards enough, and the ranks NCCL; otherwise (more ranks than
+    cards, or a device with an index) the ranks share a card and talk
+    gloo, as they do on the CPU.  ``backend`` overrides the choice."""
     dev = resolve(device)
     shared = True
     if dev.type == "cuda":
@@ -87,15 +106,48 @@ def flagship_elastic_world(rank: int, world: int, store_path,
             shared = world > cards
             dev = torch.device("cuda", 0 if shared else rank)
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend or ("gloo" if shared else "nccl"),
-                            store=dist.FileStore(str(store_path), world),
-                            rank=rank, world_size=world)
-    cfg = dataclasses.replace(cfg, use_flash=True)
-    model = tfm.Transformer(cfg, device=dev, seed=0)
-    trainer = ElasticTrainer(tfm.loss_fn, model, optim.adamw(3e-4),
-                             devices=[dev],
-                             initial_world_size=initial_world_size)
-    return trainer, _flagship_data(cfg, batch, seq, dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend or ("gloo" if shared else "nccl"),
+                                store=dist.FileStore(str(store_path), world),
+                                rank=rank, world_size=world)
+    return dev
+
+
+#: the virtual-worker job's dataset: rows of ``seq`` tokens, in shards
+VIRTUAL_ROWS, VIRTUAL_SHARDS = 256, 16
+
+
+def flagship_virtual_world(rank: int, world: int, store_path,
+                           device="cuda",
+                           cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                           vw_count: int = 8, global_batch: int = 16,
+                           seq: int = 1024, accum_mode: str = "replicated",
+                           initial_world_size: Optional[int] = None):
+    """(trainer, registry, shard_ids, VirtualConfig) for rank ``rank`` of a
+    ``world``-rank virtual-worker job: the trainer as
+    :func:`flagship_elastic_world` builds it (with ``accum_mode``), and a
+    :class:`~edl_tpu_torch.runtime.data.ShardRegistry` of
+    :data:`VIRTUAL_ROWS` rows of ``seq`` tokens from seed 1 (the targets
+    shifted by one) in :data:`VIRTUAL_SHARDS` shards, for ``vw_count``
+    virtual workers and a constant ``global_batch``.  Without a
+    ``store_path`` (``world`` 1) it joins no group: the one-process
+    control."""
+    if store_path is None:
+        if world != 1:
+            raise ValueError(f"a world of {world} ranks needs a store_path "
+                             "to join through")
+        dev = resolve(device)
+    else:
+        dev = _join_world(rank, world, store_path, device)
+    trainer = _flagship(cfg, dev, initial_world_size=initial_world_size,
+                        accum_mode=accum_mode)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (VIRTUAL_ROWS, seq), dtype=np.int64)
+    registry = ShardRegistry()
+    ids = registry.register_arrays((tokens, np.roll(tokens, -1, axis=1)),
+                                   num_shards=VIRTUAL_SHARDS)
+    return (trainer, registry, ids,
+            VirtualConfig(vw_count=vw_count, global_batch=global_batch))
 
 
 def resnet_trainer(batch: int = 256, hw: int = 224, device="cuda",

@@ -23,6 +23,17 @@ class Counters:
     def get(self, name: str, **labels: str) -> int:
         return int(self._registry.counter(name).value(**labels))
 
+    def snapshot(self) -> dict[str, int]:
+        """Flat ``name{k=v,...}`` → count view of every counter that has
+        counted (flight records, tests)."""
+        out: dict[str, int] = {}
+        for name, fam in sorted(self._registry.counter_families().items()):
+            for labels, v in fam.series().items():
+                key = name if not labels else name + "{" + ",".join(
+                    f"{k}={val}" for k, val in labels) + "}"
+                out[key] = int(v)
+        return out
+
 
 _default_counters = Counters(get_registry())
 

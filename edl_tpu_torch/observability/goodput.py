@@ -9,9 +9,12 @@ phases that cannot break the conservation invariant
 
     Σ_phase attributed_chip_seconds  ==  ∫ world_size dt.
 
-The trainer feeds the process ledger through the module-level
-:func:`note_span` and :func:`set_world_size`, which are no-ops until one is
-installed with :func:`set_process_ledger`.
+Phases nest: :meth:`GoodputLedger.enter` pushes a phase that accrues until
+:meth:`GoodputLedger.exit` pops it (the stall watchdog brackets a detected
+stall so).  The runtime feeds the process ledger through the module-level
+:func:`note_span`, :func:`enter_phase`, :func:`exit_phase` and
+:func:`set_world_size`, which are no-ops until one is installed with
+:func:`set_process_ledger`.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ class GoodputLedger:
         self._integral_t = now    # independent conservation-integral stamp
         self._world = max(int(world_size), 0)
         self._attributed: dict[str, float] = {p: 0.0 for p in ALL_PHASES}
-        self._phase = base_phase  # the reference's phase stack, unentered
+        #: the phase stack; its top accrues, its bottom is the base phase
+        self._stack = [base_phase]
         self._integral = 0.0      # ∫ world_size dt, chip-seconds
 
     def _accrue_locked(self, now: float) -> None:
@@ -67,7 +71,7 @@ class GoodputLedger:
         reads, so a skipped accrual makes them diverge."""
         dt = now - self._last
         if dt > 0:
-            self._attributed[self._phase] += dt * self._world
+            self._attributed[self._stack[-1]] += dt * self._world
             self._last = now
         di = now - self._integral_t
         if di > 0:
@@ -98,7 +102,7 @@ class GoodputLedger:
             return 0.0
         with self._lock:
             self._accrue_locked(self._clock())
-            src = self._phase
+            src = self._stack[-1]
             if src == phase:
                 return 0.0
             ws = self._world if world_size is None else max(int(world_size), 0)
@@ -106,6 +110,31 @@ class GoodputLedger:
             self._attributed[src] -= move
             self._attributed[phase] += move
             return move
+
+    def enter(self, phase: str) -> bool:
+        """Push ``phase``; it accrues until exited.  Entering a phase
+        already on the stack is a no-op returning False, so two detectors
+        firing on one event cannot double-push."""
+        if phase not in ALL_PHASES:
+            raise ValueError(f"unknown phase {phase!r}")
+        with self._lock:
+            if phase in self._stack:
+                return False
+            self._accrue_locked(self._clock())
+            self._stack.append(phase)
+            return True
+
+    def exit(self, phase: str) -> bool:
+        """Pop the topmost occurrence of ``phase``, wherever it sits; a
+        no-op (False) when it is not active or is the base."""
+        with self._lock:
+            now = self._clock()
+            for i in range(len(self._stack) - 1, 0, -1):
+                if self._stack[i] == phase:
+                    self._accrue_locked(now)
+                    del self._stack[i]
+                    return True
+            return False
 
     def chip_seconds(self, phase: str) -> float:
         with self._lock:
@@ -159,6 +188,24 @@ def note_span(phase: str, seconds: float,
             led.note_span(phase, seconds, world_size=world_size)
         except Exception:
             pass  # accounting must never fail the runtime
+
+
+def enter_phase(phase: str) -> None:
+    led = _process_ledger
+    if led is not None:
+        try:
+            led.enter(phase)
+        except Exception:
+            pass
+
+
+def exit_phase(phase: str) -> None:
+    led = _process_ledger
+    if led is not None:
+        try:
+            led.exit(phase)
+        except Exception:
+            pass
 
 
 def set_world_size(n: int) -> None:

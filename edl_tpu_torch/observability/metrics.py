@@ -1,5 +1,6 @@
 """Metrics registry and Prometheus text exposition: the part of
-edl_tpu.observability.metrics that the decode serving plane uses.
+edl_tpu.observability.metrics that the decode serving plane uses, and the
+flight record a stall dumps (:func:`dump_flight_record`).
 
 Every series renders with the ``edl_`` prefix; counters get the ``_total``
 suffix; histograms use fixed buckets so series of different replicas
@@ -10,9 +11,14 @@ package's strict ``parse_exposition`` holds it to.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
 import re
+import tempfile
 import threading
+import time
 from typing import Callable, Iterable, Optional
 
 #: default histogram buckets (seconds): sub-ms pauses up to 120 s
@@ -289,6 +295,11 @@ class MetricsRegistry:
         with self._lock:
             self._gauge_fns[(name, _label_key(labels))] = (fn, help)
 
+    def counter_families(self) -> dict[str, Counter]:
+        with self._lock:
+            return {n: f for n, f in self._families.items()
+                    if isinstance(f, Counter)}
+
     def render(self) -> str:
         """Prometheus text exposition (0.0.4) of every family and callback
         gauge, deterministically ordered."""
@@ -322,3 +333,44 @@ _default_registry = MetricsRegistry()
 
 def get_registry() -> MetricsRegistry:
     return _default_registry
+
+
+def dump_flight_record(dir_path: str, reason: str,
+                       extra: Optional[dict] = None, keep: int = 20) -> str:
+    """Dump the process's trace ring, counters and rendered metrics to a
+    timestamped ``flightrec-<utc>-<reason>-<pid>-<seq>.json`` under
+    ``dir_path`` (temp file and rename) and return its path; keeps the
+    ``keep`` newest records.  Called on a stall's escalation, so that the
+    post-mortem exists even with no profiler or scraper attached."""
+    from edl_tpu_torch.observability.collector import get_counters
+    from edl_tpu_torch.observability.tracing import get_tracer
+
+    os.makedirs(dir_path, exist_ok=True)
+    stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
+    slug = re.sub(r"[^a-zA-Z0-9_-]", "-", reason)[:48] or "event"
+    with _flight_lock:
+        _flight_seq[0] += 1
+        path = os.path.join(dir_path, f"flightrec-{stamp}-{slug}-"
+                                      f"{os.getpid()}-{_flight_seq[0]}.json")
+        doc = {"reason": reason, "wall_time": time.time(),
+               "pid": os.getpid(), "extra": extra or {},
+               "counters": get_counters().snapshot(),
+               "metrics_text": get_registry().render(),
+               "trace_events": [dataclasses.asdict(e)
+                                for e in get_tracer().events()]}
+        fd, tmp = tempfile.mkstemp(dir=dir_path, prefix=".flightrec-")
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, default=str)
+        os.replace(tmp, path)
+        recs = sorted(f for f in os.listdir(dir_path)
+                      if f.startswith("flightrec-") and f.endswith(".json"))
+        for f in recs[:-keep] if keep > 0 else recs:
+            try:
+                os.remove(os.path.join(dir_path, f))
+            except OSError:
+                pass
+    return path
+
+
+_flight_lock = threading.Lock()
+_flight_seq = [0]

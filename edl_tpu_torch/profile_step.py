@@ -7,7 +7,10 @@ kernels, batch 16 x seq 1024; ``resnet50``: RESNET50 with the GroupNorm
 kernels, 256 x 224²; ``bert_base``: BERT_BASE MLM with the flash kernels,
 32 x 512; adamw(3e-4) in each; ``flagship_decode``: one decode iteration of
 the FLAGSHIP serving loop — ``llama.decode_step`` at 8 slots with 512
-cached tokens a slot and its argmax read) and prints one JSON line.  After
+cached tokens a slot and its argmax read; ``flagship_virtual``: one step of
+the virtual-worker loop's one-process control — ``step_accumulate`` of 8
+micro-batches of 2 x 1024 from ``entry.flagship_virtual_world``) and
+prints one JSON line.  After
 two warm-up steps it runs ``--steps`` steps unprofiled, timed by CUDA
 events, then ``--steps`` steps under ``torch.profiler``, and reports:
 
@@ -96,6 +99,22 @@ def decode_iteration(device="cuda"):
     return step
 
 
+def virtual_step(device="cuda"):
+    """One step of the virtual-worker loop's one-process control as a
+    callable: the next 8 micro-batches of the job's stream, accumulated
+    into one update."""
+    from edl_tpu_torch.entry import flagship_virtual_world
+    from edl_tpu_torch.runtime.virtual import VirtualBatches
+
+    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None, device=device)
+    batches = VirtualBatches(cfg, ids, reg.get, passes=64)
+
+    def step():
+        return trainer.step_accumulate(batches.next_step())
+
+    return step
+
+
 def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,12 +124,14 @@ def main() -> None:
                 "resnet50": entry.resnet_trainer,
                 "bert_base": entry.bert_trainer}
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=sorted(trainers) + ["flagship_decode"],
-                    default="flagship")
+    ap.add_argument("--model", choices=sorted(trainers) + [
+        "flagship_decode", "flagship_virtual"], default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     if args.model == "flagship_decode":
         step = decode_iteration()
+    elif args.model == "flagship_virtual":
+        step = virtual_step()
     else:
         trainer, batch = trainers[args.model]()
 

@@ -103,6 +103,8 @@ class TrainState:
     params: nn.Module
     opt_state: torch.optim.Optimizer
     step: int = 0
+    #: the virtual-worker job seed the loop stamps (runtime.virtual)
+    job_seed: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -141,6 +143,11 @@ class ElasticTrainer:
     ``accum_mode`` places :meth:`step_accumulate`'s micro-batches, as in the
     reference: ``"dp"`` packs them into rounds of the world's width,
     ``"replicated"`` runs every one on every live rank.
+
+    ``rng_in_loss=True`` makes the loss ``loss_fn(params, batch, key)``, with
+    ``key`` a micro-batch's ``torch.Generator`` from the virtual-worker
+    lineage (:func:`edl_tpu_torch.runtime.virtual.vw_keys`); such a trainer
+    steps only through :meth:`step_accumulate`, which carries the keys.
     """
 
     def __init__(
@@ -153,6 +160,7 @@ class ElasticTrainer:
         devices: Optional[Sequence[torch.device]] = None,
         initial_world_size: Optional[int] = None,
         accum_mode: str = "dp",
+        rng_in_loss: bool = False,
     ) -> None:
         if param_sharding != "replicated":
             raise ValueError(
@@ -164,6 +172,7 @@ class ElasticTrainer:
         self.loss_fn = loss_fn
         self.spec = spec
         self.accum_mode = accum_mode
+        self.rng_in_loss = rng_in_loss
         if distributed():
             self._device = (torch.device(devices[0]) if devices
                             else local_device())
@@ -274,6 +283,10 @@ class ElasticTrainer:
         """One training step on the live world; returns the loss over the
         whole global batch.  A rank standing by computes nothing and
         returns None."""
+        if self.rng_in_loss:
+            raise ValueError(
+                "rng_in_loss trainers step via step_accumulate(micro, "
+                "rng_keys=...) — the plain step path carries no key")
         if not self.live:
             return None
         opt = self.state.opt_state
@@ -297,6 +310,7 @@ class ElasticTrainer:
         return float(loss)
 
     def step_accumulate(self, micro_batches: Sequence,
+                        rng_keys: Optional[Sequence] = None,
                         abort_after: Optional[int] = None
                         ) -> Optional[float]:
         """One constant-effective-batch step: the gradients of the V
@@ -314,20 +328,30 @@ class ElasticTrainer:
         size.
 
         ``abort_after=k`` raises :class:`AccumulationAborted` after k
-        micro-batches, before the update: state is untouched."""
+        micro-batches, before the update: state is untouched.
+
+        ``rng_keys`` (one generator per micro-batch, in VW order) are
+        required by an ``rng_in_loss`` trainer and force the replicated
+        path: a packed round would smear one key over many VWs."""
         V = len(micro_batches)
         if V == 0:
             raise ValueError("step_accumulate needs at least 1 micro-batch")
+        if self.rng_in_loss and (rng_keys is None or len(rng_keys) != V):
+            raise ValueError("rng_in_loss trainer needs one rng key per "
+                             "micro-batch")
         if not self.live:
             return None
         n = self.world_size
-        use_dp = self.accum_mode == "dp" and n > 1 and V % n == 0
+        use_dp = (self.accum_mode == "dp" and not self.rng_in_loss and n > 1
+                  and V % n == 0)
         mine = micro_batches[self.rank::n] if use_dp else micro_batches
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
         lsum, done = 0.0, 0
-        for mb in mine:
-            loss = self.loss_fn(self.state.params, self._to_device(mb))
+        for v, mb in enumerate(mine):
+            args = (rng_keys[v],) if self.rng_in_loss else ()
+            loss = self.loss_fn(self.state.params, self._to_device(mb),
+                                *args)
             loss.backward()  # .grad accumulates the sum
             lsum += float(loss.detach())
             done += n if use_dp else 1

@@ -175,3 +175,32 @@ def test_decode_fleet_helper_on_the_cpu_serves():
             seq.append(int(tfm.apply(model, torch.tensor([seq]))[0, -1]
                            .argmax()))
     assert got == seq[len(prompt):]
+
+
+def test_durable_loop_modules_are_scanned():
+    """The virtual-worker loop's modules stand in the scans above."""
+    mods = set(_port_modules())
+    assert {"edl_tpu_torch.models.mlp", "edl_tpu_torch.runtime.checkpoint",
+            "edl_tpu_torch.runtime.data", "edl_tpu_torch.runtime.sdc",
+            "edl_tpu_torch.runtime.virtual",
+            "edl_tpu_torch.runtime.watchdog"} <= mods
+
+
+def test_durable_loop_raises_without_cuda(monkeypatch, tmp_path):
+    from edl_tpu_torch.entry import flagship_virtual_world
+    from edl_tpu_torch.models import mlp
+    from edl_tpu_torch.models import transformer as tfm
+    from edl_tpu_torch.runtime.virtual import vw_key, vw_keys
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flagship_virtual_world(0, 1, None, cfg=tfm.TINY, seq=32)
+    with pytest.raises(RuntimeError, match="CUDA"):  # before joining a group
+        flagship_virtual_world(0, 2, tmp_path / "store", cfg=tfm.TINY, seq=32)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mlp.MLP([16, 32, 4])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vw_key(0, 0, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vw_keys(0, 8, 0)

@@ -22,10 +22,9 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn as nn
-import torch.nn.functional as F
 
 from edl_tpu_torch import interop
+from edl_tpu_torch.models import mlp
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.parallel.mesh import MeshShape
 from edl_tpu_torch.runtime import elastic, optim
@@ -154,29 +153,11 @@ def synthetic_classification(n=512, dim=16, classes=4, seed=0):
     return x.astype(np.float32), y.astype(np.int64)
 
 
-class MLP(nn.Module):
-    """A two-layer classifier [16, 32, 4] from a seed."""
-
-    def __init__(self, sizes=(16, 32, 4), seed: int = 0) -> None:
-        super().__init__()
-        g = torch.Generator().manual_seed(seed)
-        self.w1 = nn.Parameter(torch.randn(sizes[0], sizes[1], generator=g)
-                               / sizes[0] ** 0.5)
-        self.b1 = nn.Parameter(torch.zeros(sizes[1]))
-        self.w2 = nn.Parameter(torch.randn(sizes[1], sizes[2], generator=g)
-                               / sizes[1] ** 0.5)
-        self.b2 = nn.Parameter(torch.zeros(sizes[2]))
-
-
-def mlp_loss(model: MLP, batch) -> torch.Tensor:
-    x, y = batch
-    h = torch.relu(x @ model.w1 + model.b1)
-    return F.cross_entropy(h @ model.w2 + model.b2, y)
-
-
 def mlp_trainer(n0: int, **kw) -> ElasticTrainer:
-    return ElasticTrainer(mlp_loss, MLP(), optim.adam(1e-2),
-                          devices=[torch.device("cpu")],
+    """The port's MLP [16, 32, 4] from seed 0 under adam(1e-2) on the
+    CPU."""
+    return ElasticTrainer(mlp.loss_fn, mlp.MLP([16, 32, 4], device="cpu"),
+                          optim.adam(1e-2), devices=[torch.device("cpu")],
                           initial_world_size=n0, **kw)
 
 
@@ -397,8 +378,9 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
         batch = (x[:64], y[:64])
         before = digest(t)
         ev = t.eval_loss(batch)
-        direct = float(mlp_loss(t.state.params, (torch.as_tensor(batch[0]),
-                                                 torch.as_tensor(batch[1]))))
+        direct = float(mlp.loss_fn(t.state.params,
+                                   (torch.as_tensor(batch[0]),
+                                    torch.as_tensor(batch[1]))))
         got = dict(ev=ev, direct=direct, untouched=digest(t) == before,
                    step=t.state.step)
         for i in range(30):
@@ -406,7 +388,7 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
         got["trained"] = t.eval_loss(batch)
         t.resize(4)
         got["ev4"] = t.eval_loss(batch)
-        got["direct4"] = float(mlp_loss(
+        got["direct4"] = float(mlp.loss_fn(
             t.state.params, (torch.as_tensor(batch[0]),
                              torch.as_tensor(batch[1]))))
         t.resize(1)
@@ -457,4 +439,258 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
          eval_loss, records, unresolvable], rank)
 
 
-SUITES = {"two": suite_two, "four": suite_four}
+# -- the eight-rank virtual-worker suite --------------------------------------
+
+
+class DictKV:
+    """The smallest KV store: ``kv_set``/``kv_get`` over a dict."""
+
+    def __init__(self) -> None:
+        self.data: dict[str, bytes] = {}
+
+    def kv_set(self, key: str, value: bytes) -> None:
+        self.data[key] = value
+
+    def kv_get(self, key: str):
+        return self.data.get(key)
+
+
+def suite_virtual(rank: int, world: int, store: str, mlp_params: dict,
+                  data: tuple, seed: int) -> dict:
+    """The scenarios of tests/test_accuracy_elasticity.py that need more
+    than one rank, on the port's MLP holding the JAX init ``mlp_params``:
+    every rank runs the same loop, and rank 0's report is the job's."""
+    from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.elastic import AccumulationAborted
+    from edl_tpu_torch.runtime.virtual import (OwnershipMap, CursorStore,
+                                               VirtualBatches, VirtualConfig,
+                                               VirtualWorkerLoop, vw_keys)
+    from edl_tpu_torch.runtime.watchdog import StallWatchdog
+    from edl_tpu_torch.observability.collector import get_counters
+
+    _join(rank, world, store)
+    tmp = Path(store).parent
+    cfg = VirtualConfig(vw_count=8, global_batch=64, job_seed=seed)
+    reg = ShardRegistry()
+    ids = reg.register_arrays(data, num_shards=16)
+    cpu = torch.device("cpu")
+
+    def trainer(n, accum_mode="replicated", loss=mlp.loss_fn, **kw):
+        model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                          mlp_params)
+        return ElasticTrainer(loss, model, optim.adam(1e-2), devices=[cpu],
+                              initial_world_size=n, accum_mode=accum_mode,
+                              **kw)
+
+    def loop(schedule, max_steps=20, run_cfg=cfg, kv=None, job="job",
+             ckpt=None, ckpt_every=0, augment=None, on_step=None, **kw):
+        tr = trainer(schedule(0), **kw)
+        vb = VirtualBatches(run_cfg, ids, reg.get, passes=2)
+        lp = VirtualWorkerLoop(tr, run_cfg, vb, kv=kv, job=job,
+                               checkpointer=ckpt, ckpt_every=ckpt_every,
+                               augment=augment)
+        return lp, lp.run(max_steps=max_steps, world_size_for=schedule,
+                          on_step=on_step)
+
+    def summary(rep) -> dict:
+        return dict(losses=rep.losses, worlds=rep.world_sizes,
+                    resizes=rep.resizes, vw_moves=rep.vw_moves,
+                    duplicated=rep.rows_duplicated(),
+                    rows=dict(rep.rows_trained))
+
+    walk_4_2_8 = lambda s: 4 if s < 7 else (2 if s < 14 else 8)  # noqa
+    control_4 = lambda s: 4  # noqa: E731
+    x, y = data
+    micro = [(x[v * 8:(v + 1) * 8], y[v * 8:(v + 1) * 8]) for v in range(8)]
+
+    def noisy_loss(params, batch, key):
+        xb, yb = batch
+        return mlp.loss_fn(params, (xb + 0.05 * torch.randn(
+            xb.shape, generator=key), yb))
+
+    def augment(mb, key):
+        xb, yb = mb
+        return (xb + 0.05 * torch.randn(xb.shape, generator=key).numpy(), yb)
+
+    def accum_replicated(rank):
+        got = {}
+        for n in (1, 2, 4, 8):
+            t = trainer(n)
+            got[n] = [t.step_accumulate(micro) for _ in range(4)]
+        return got
+
+    def accum_dp_bounded(rank):
+        t2, t8 = trainer(2, accum_mode="dp"), trainer(8, accum_mode="dp")
+        return [(t2.step_accumulate(micro), t8.step_accumulate(micro))
+                for _ in range(4)]
+
+    def rng_layout(rank):
+        got = {}
+        for n in (2, 8):
+            t = trainer(n, loss=noisy_loss, rng_in_loss=True)
+            got[n] = [t.step_accumulate(micro,
+                                        rng_keys=vw_keys(seed, 8, s, "cpu"))
+                      for s in range(3)]
+        return got
+
+    def control(rank):
+        return summary(loop(control_4)[1])
+
+    def resize_4_2_8(rank):
+        kv = DictKV()
+        c0 = get_counters().get("vw_remaps")
+        _, rep = loop(walk_4_2_8, kv=kv, job="acc")
+        cursor = CursorStore(kv, job="acc").load()
+        owners = OwnershipMap.load(kv, job="acc")
+        return dict(summary(rep), remaps=get_counters().get("vw_remaps") - c0,
+                    map=owners.mapping if owners else None,
+                    cursor_step=cursor["step"] if cursor else None)
+
+    def dp_packed(rank):
+        _, ctrl = loop(control_4, max_steps=16, accum_mode="dp")
+        _, res = loop(walk_4_2_8, max_steps=16, accum_mode="dp")
+        return dict(control=ctrl.losses, resized=res.losses)
+
+    def augmentation(rank):
+        _, ctrl = loop(control_4, max_steps=12, augment=augment)
+        _, res = loop(walk_4_2_8, max_steps=12, augment=augment)
+        return dict(control=ctrl.losses, resized=res.losses)
+
+    def kill_restore(rank):
+        ck = ElasticCheckpointer(tmp / "ckpt-kill")
+        kv = DictKV()
+        tr = trainer(4)
+        vb = VirtualBatches(cfg, ids, reg.get, passes=2)
+        rep1 = VirtualWorkerLoop(tr, cfg, vb, kv=kv, job="kill",
+                                 checkpointer=ck, ckpt_every=5).run(
+            max_steps=10, world_size_for=walk_4_2_8)
+        try:  # the kill: step 11's accumulation dies between micro-grads
+            tr.step_accumulate(vb.next_step(), abort_after=3)
+            killed = False
+        except AccumulationAborted:
+            killed = True
+        tr2 = trainer(2)  # fresh trainers on the shrunken world
+        loop2 = VirtualWorkerLoop(tr2, cfg,
+                                  VirtualBatches(cfg, ids, reg.get, passes=2),
+                                  kv=kv, job="kill", checkpointer=ck,
+                                  ckpt_every=5)
+        restored = loop2.restore_latest()
+        rep2 = loop2.run(max_steps=10, world_size_for=walk_4_2_8)
+        rows: dict[int, int] = {}
+        for rep in (rep1, rep2):
+            for gid, c in rep.rows_trained.items():
+                rows[gid] = rows.get(gid, 0) + c
+        ck.close()
+        return dict(killed=killed, live=tr.live, restored=restored,
+                    stitched=rep1.losses + rep2.losses, rows=rows,
+                    saved=sorted(int(p.name) for p in
+                                 (tmp / "ckpt-kill").iterdir()
+                                 if p.name.isdigit()))
+
+    def drifted_config(rank):
+        ck = ElasticCheckpointer(tmp / "ckpt-drift")
+        loop(control_4, max_steps=5, ckpt=ck, ckpt_every=5)
+        drifted = VirtualConfig(vw_count=4, global_batch=64, job_seed=seed)
+        loop2 = VirtualWorkerLoop(trainer(4), drifted,
+                                  VirtualBatches(drifted, ids, reg.get),
+                                  checkpointer=ck, ckpt_every=5)
+        try:
+            loop2.restore_latest()
+            error = None
+        except ValueError as exc:
+            error = str(exc)
+        loop3 = VirtualWorkerLoop(trainer(4), cfg,
+                                  VirtualBatches(cfg, ids, reg.get),
+                                  checkpointer=ck, ckpt_every=5)
+        return dict(error=error, original=loop3.restore_latest())
+
+    def stall(rank):
+        _, ctrl = loop(control_4, max_steps=12)
+        wd = StallWatchdog(floor_s=0.4, k=8.0, scope=f"acc-elastic-{rank}")
+        wd.start(poll_s=0.05)
+        stalled = []
+
+        def on_step(step, loss, world):
+            wd.beat(step)
+            if step == 6 and not stalled:
+                stalled.append(True)
+                time.sleep(1.2)  # the wedge
+
+        try:
+            _, res = loop(walk_4_2_8, max_steps=12, on_step=on_step)
+        finally:
+            wd.stop()
+        return dict(control=ctrl.losses, resized=res.losses,
+                    wedged=bool(stalled),
+                    stalls=get_counters().get(
+                        "stalls_detected", scope=f"acc-elastic-{rank}"))
+
+    def restore_agreement(rank):
+        """The newest step's read fails on rank 3 alone, then on every
+        rank: the first restore raises everywhere, the second falls back
+        to the step before on every rank and resumes from there."""
+        ck = ElasticCheckpointer(tmp / "ckpt-agree")
+        loop(control_4, max_steps=10, ckpt=ck, ckpt_every=5)
+        dist.barrier()  # rank 0's saves are on disk
+        real = ck._read
+
+        def failing(ranks):
+            def read(step, tree_like):
+                if step == 10 and rank in ranks:
+                    raise OSError("injected read failure")
+                return real(step, tree_like)
+            return read
+
+        def fresh():
+            return VirtualWorkerLoop(trainer(4), cfg,
+                                     VirtualBatches(cfg, ids, reg.get,
+                                                    passes=2),
+                                     checkpointer=ck, ckpt_every=5)
+
+        got = {}
+        ck._read = failing({3})
+        try:
+            fresh().restore_latest()
+            got["one_rank"] = None
+        except RuntimeError as exc:
+            got["one_rank"] = str(exc)
+        ck._read = failing(set(range(world)))
+        lp = fresh()
+        got["every_rank"] = lp.restore_latest()
+        got["state_step"] = lp.trainer.state.step
+        got["losses"] = lp.run(max_steps=5,
+                               world_size_for=control_4).losses
+        ck._read = real
+        ck.close()
+        return got
+
+    def restore_other_world(rank):
+        t = trainer(2, accum_mode="dp")
+        batch = (x[:64], y[:64])
+        for _ in range(5):
+            t.step(batch)
+        loss = t.eval_loss((x, y))
+        ck = ElasticCheckpointer(tmp / "ckpt-world")
+        if rank == 0:
+            ck.save(t.state.step, {"params": t.state.params,
+                                   "opt": t.state.opt_state})
+        dist.barrier()
+        t2 = trainer(4, accum_mode="dp")
+        t2.state.params, t2.state.opt_state = ck.restore(
+            {"params": t2.state.params, "opt": t2.state.opt_state}).values()
+        got = dict(loss=loss, restored=t2.eval_loss((x, y)),
+                   digest=digest(t2), live=t2.live)
+        for _ in range(10):
+            t2.step(batch)
+        got["trained"] = t2.eval_loss((x, y))
+        return got
+
+    return _run_scenarios(
+        [accum_replicated, accum_dp_bounded, rng_layout, control,
+         resize_4_2_8, dp_packed, augmentation, kill_restore,
+         drifted_config, stall, restore_agreement, restore_other_world],
+        rank)
+
+
+SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual}
