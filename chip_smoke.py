@@ -31,8 +31,9 @@ Phases, each of which raises on failure:
     summed over the 53 sites of a step; a plan past clusters of 8 is also
     timed capped at 8;
 (f) the flash kernels at the BERT-base shape (b 32, s 512, h = hk = 12,
-    d 64, non-causal), and at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk
-    and d, causal), checked and timed as in (b);
+    d 64, non-causal), at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk and
+    d, causal) and at the local batch of a live rank of (j) and (l) on a
+    world of 2 (b 8), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -85,6 +86,19 @@ Phases, each of which raises on failure:
     too) and one ``save_async`` (its pause, then its persist).  The same
     schedule in dp-packed mode must stay within ``trajectories_equivalent``
     of the control.
+(l) fsdp: two spawned ranks share the card over gloo
+    (``entry.flagship_elastic_world`` with ``param_sharding="fsdp"`` and
+    ``MeshSpec(dp=1, fsdp=-1)``: FLAGSHIP, the global batch of (c)) through
+    (j)'s schedule of worlds 1→2→1.  Each resize's planned ``bytes_moved``
+    against the bytes its broadcasts sent, and the full parameters bitwise
+    the same before and after it; each rank's resting state on the world of
+    2 (its blocks of the parameters and of Adam's moments, and
+    ``torch.cuda.memory_allocated``) against the replicated trainer's, every
+    sharded leaf holding exactly half its bytes; the collective census of a
+    step by mesh axis; step times by rank (not a scaling figure); each
+    live rank launching every flash kernel once per layer a step and one
+    standing by none; every loss within ``WORLD_LOSS_ATOL`` of the
+    one-rank control.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -122,6 +136,7 @@ from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.metrics import get_registry
+from edl_tpu_torch.parallel.mesh import MeshSpec
 from edl_tpu_torch.runtime import checkpoint as ckpt
 from edl_tpu_torch.runtime import serving
 from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
@@ -202,6 +217,8 @@ WORLD_CHILD_TIMEOUT_S = 600
 #: digits (losses ~9.7); the world-1 steps before the first resize run the
 #: control's exact computation
 WORLD_LOSS_ATOL = 2e-2
+#: phase (l): the fsdp trainer's layout (every rank on the fsdp axis)
+FSDP_SPEC = MeshSpec(dp=1, fsdp=-1)
 #: phase (k): steps of the job, its checkpoint cadence, the step the first
 #: loop stops at (the kill lands in the next one), the stall watchdog's
 #: deadline floor, and the ranks' join deadline
@@ -1080,16 +1097,23 @@ def run_ranks(target, phase: str, timeout_s: float, *args) -> list[dict]:
     return recs
 
 
-def phase_world(card: str) -> dict:
-    """(j): FLAGSHIP over two ranks sharing the card through 1→2→1, against
-    a one-rank control; returns the launches of both ranks summed."""
-    torch.cuda.empty_cache()
-    recs = run_ranks(world_rank, "j", WORLD_CHILD_TIMEOUT_S)
+def world_control() -> list[float]:
+    """(j) and (l)'s one-rank control: WORLD_SCHEDULE's steps of phase
+    (c)'s trainer from the same init on the same batch, in this process."""
     torch.cuda.empty_cache()
     trainer, batch = flagship_trainer(B, S)
     control = [trainer.step(batch) for _ in WORLD_SCHEDULE]
     del trainer, batch
     torch.cuda.empty_cache()
+    return control
+
+
+def phase_world(card: str) -> dict:
+    """(j): FLAGSHIP over two ranks sharing the card through 1→2→1, against
+    a one-rank control; returns the launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(world_rank, "j", WORLD_CHILD_TIMEOUT_S)
+    control = world_control()
     n = tfm.FLAGSHIP.n_layers
     per_step = {k: n for k in FLASH}
     r0, r1 = recs
@@ -1148,6 +1172,151 @@ def phase_world(card: str) -> dict:
           f"{[rec['launches'] for rec in recs]}", flush=True)
     if failures:
         raise AssertionError("phase (j): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
+# -- phase (l): fsdp over two ranks sharing the card --------------------------
+
+
+def resting_state(trainer) -> dict:
+    """(l): what this rank holds at rest: its blocks of the parameters and
+    of Adam's moments (bytes summed, and each sharded leaf's share of its
+    full bytes), what a replicated trainer's rank holds of the same leaves
+    (each at its full shape), and what the caching allocator holds in this
+    process."""
+    opt = trainer.state.opt_state.state
+    dims, shapes = trainer.sharded_dims(), trainer.full_shapes()
+    nbytes, replicated, shares = 0, 0, set()
+    for name, shard in trainer.shards.items():
+        for t in [shard] + [v for v in opt.get(shard, {}).values()
+                            if v.shape == shard.shape]:
+            full = math.prod(shapes[name]) * t.element_size()
+            nbytes += t.nbytes
+            replicated += full
+            if dims[name] is not None:
+                shares.add(t.nbytes / full)
+    return dict(state_bytes=nbytes, replicated_bytes=replicated,
+                shares=sorted(shares),
+                replicated=[n for n, d in dims.items() if d is None],
+                allocated=torch.cuda.memory_allocated(trainer.device))
+
+
+def fsdp_rank(rank: int, store: str, out: str) -> None:
+    """(l), one rank of the job: WORLD_SCHEDULE on an fsdp trainer, with
+    what one rank can see of it written as JSON to ``out``."""
+    from edl_tpu_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer, batch = flagship_elastic_world(
+        rank, WORLD_RANKS, store, batch=B, seq=S,
+        initial_world_size=WORLD_SCHEDULE[0], param_sharding="fsdp",
+        spec=FSDP_SPEC)
+    rec = dict(rank=rank, steps=[], resized=[], moved=[], kept=[])
+    fa.reset_launches()
+    for world in WORLD_SCHEDULE:
+        if world != trainer.world_size:
+            # rank 0, live on every world, fingerprints the whole params
+            full = checksum(trainer.full_params().values())
+            elastic.reset_census()
+            rec["resized"].append(trainer.resize(world))
+            rec["moved"].append(elastic.collective_census())
+            after = checksum(trainer.full_params().values())
+            rec["kept"].append(full == after if rank == 0 else None)
+        before = dict(fa.launches)
+        elastic.reset_census()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        rec["steps"].append(dict(
+            world=trainer.world_size, live=trainer.live, loss=loss,
+            ms=1e3 * (time.perf_counter() - t0),
+            launches={k: fa.launches[k] - before[k] for k in fa.launches},
+            census=elastic.collective_census()))
+        if trainer.world_size == WORLD_RANKS and "rest" not in rec:
+            torch.cuda.synchronize()
+            rec["rest"] = resting_state(trainer)
+    rec["launches"] = dict(fa.launches)
+    rec["events"] = trainer.resize_events
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_fsdp(card: str) -> dict:
+    """(l): FLAGSHIP with fsdp parameter sharding over two ranks sharing
+    the card through 1→2→1, against a one-rank control; returns the
+    launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(fsdp_rank, "l", WORLD_CHILD_TIMEOUT_S)
+    control = world_control()
+    n = tfm.FLAGSHIP.n_layers
+    per_step = {k: n for k in FLASH}
+    r0, r1 = recs
+    failures = []
+    for rec in recs:
+        for evt, moved, kept in zip(rec["events"], rec["moved"],
+                                    rec["kept"]):
+            sent = sum(slot["bytes"] for label, slot in moved.items()
+                       if label != "world")
+            print(f"fsdp rank {rec['rank']} resize to {evt['shape']}: "
+                  f"bytes_moved {evt['bytes_moved']} (plan; bytes_naive "
+                  f"{evt['bytes_naive']}), broadcast {sent} bytes, "
+                  f"reshard_ms {evt['reshard_ms']}, full params bitwise "
+                  f"kept {kept}", flush=True)
+            # the plan counts Adam's step count, which travels by value
+            if kept is False or not 0 <= evt["bytes_moved"] - sent <= 4:
+                failures.append(f"rank {rec['rank']} resize {evt}: "
+                                f"broadcast {sent}, kept {kept}")
+    for rec in recs:
+        rest = rec["rest"]
+        print(f"fsdp rank {rec['rank']} resting state on fsdp2: "
+              f"{rest['state_bytes'] / 1e9:.4f} GB of params and Adam "
+              f"moments (a replicated trainer's rank: "
+              f"{rest['replicated_bytes'] / 1e9:.4f} GB), each "
+              f"sharded leaf's share {rest['shares']}, replicated leaves "
+              f"{rest['replicated']}, torch.cuda.memory_allocated "
+              f"{rest['allocated'] / 1e9:.4f} GB on {card}", flush=True)
+        if rest["shares"] != [0.5]:
+            failures.append(f"rank {rec['rank']}: shares {rest['shares']}")
+    for world in sorted(set(WORLD_SCHEDULE)):
+        ms = {rec["rank"]: [round(st["ms"], 2) for st in rec["steps"]
+                            if st["world"] == world and st["live"]]
+              for rec in recs}
+        print(f"fsdp world {world} step_ms by rank {ms} median after the "
+              f"first {float(np.median(ms[0][1:])):.2f} (b{B} s{S} global "
+              f"batch; two ranks share one card: not a scaling figure) on "
+              f"{card}", flush=True)
+    census = next(st["census"] for st in r0["steps"]
+                  if st["world"] == WORLD_RANKS)
+    print(f"fsdp census of one fsdp2 step, rank 0 (gloo, handed the CUDA "
+          f"tensors as they are): {json.dumps(census)}", flush=True)
+    fops = census.get("fsdp", {}).get("ops", {})
+    if fops.get("all-gather") != 1 or fops.get("reduce-scatter") != 1:
+        failures.append(f"census {census}")
+    losses = [st["loss"] for st in r0["steps"]]
+    diff = [abs(a - b) for a, b in zip(losses, control)]
+    print(f"fsdp losses {[round(x, 6) for x in losses]} control "
+          f"{[round(x, 6) for x in control]} max |fsdp - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL})", flush=True)
+    if not all(np.isfinite(losses)) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {losses} vs control {control}")
+    if r0["resized"] != [True, True] or r1["resized"] != [True, True]:
+        failures.append(f"resizes {r0['resized']} {r1['resized']}")
+    if r0["kept"] != [True, True]:
+        failures.append(f"full params kept through the resizes "
+                        f"{r0['kept']}")
+    for i, (a, b) in enumerate(zip(r0["steps"], r1["steps"])):
+        if a["world"] > 1 and a["loss"] != b["loss"]:
+            failures.append(f"step {i}: the ranks' losses differ")
+        for rank, st in enumerate((a, b)):
+            want = per_step if st["live"] else {k: 0 for k in FLASH}
+            if st["launches"] != want:
+                failures.append(f"step {i} rank {rank}: launches "
+                                f"{st['launches']}, want {want}")
+    print(f"fsdp launches {[rec['launches'] for rec in recs]}", flush=True)
+    if failures:
+        raise AssertionError("phase (l): " + "; ".join(failures))
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
 
 
@@ -1453,11 +1622,14 @@ def main() -> int:
                             "bert_base")
     virtual_rows = phase_flash(VIRTUAL_MICRO_BATCH, S, H, HK, D, (True,),
                                "flagship_virtual")
+    world_rows = phase_flash(B // WORLD_RANKS, S, H, HK, D, (True,),
+                             "flagship_world")
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
     phase_serving()
     paths["flagship_world"] = phase_world(card)
     paths["flagship_virtual"] = phase_virtual(card)
+    paths["flagship_fsdp"] = phase_fsdp(card)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1474,6 +1646,8 @@ def main() -> int:
             kernels[-1]["at_bert_base"] = bert_rows[name]
         if name in virtual_rows:
             kernels[-1]["at_flagship_virtual"] = virtual_rows[name]
+        if name in world_rows:
+            kernels[-1]["at_flagship_world"] = world_rows[name]
     print(json.dumps({"kernels": kernels}))
     # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,23 @@ rank's trainer with the virtual-worker job's data; ``resnet_trainer`` and
 256 x 224², BERT-base MLM at 32 x 512).  ``flagship_decode_fleet(device)``
 returns the ``DecodeFleet`` that serves FLAGSHIP token by token.  All run on
 the CUDA device unless ``device`` says otherwise, with the kernels on.
+
+``dryrun_multichip(n, device)`` is the twin of
+``__graft_entry__.dryrun_multichip``: one sharded train step of TINY over n
+ranks (on the card unless ``device`` says otherwise), with the
+sharding-economy and per-axis collective claims checked; also
+``python -m edl_tpu_torch.entry dryrun N [--device cpu]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import sys
+import tempfile
+import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -27,7 +39,8 @@ from edl_tpu_torch.device import resolve
 from edl_tpu_torch.models import bert
 from edl_tpu_torch.models import resnet
 from edl_tpu_torch.models import transformer as tfm
-from edl_tpu_torch.runtime import optim
+from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
+from edl_tpu_torch.runtime import elastic, optim
 from edl_tpu_torch.runtime.data import ShardRegistry
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 from edl_tpu_torch.runtime.serving import DecodeFleet
@@ -76,16 +89,21 @@ def flagship_elastic_world(rank: int, world: int, store_path,
                            backend: Optional[str] = None,
                            cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                            initial_world_size: Optional[int] = None,
-                           accum_mode: str = "dp"):
+                           accum_mode: str = "dp",
+                           param_sharding: str = "replicated",
+                           spec: Optional[MeshSpec] = None):
     """(trainer, (tokens, targets)) for rank ``rank`` of a ``world``-rank
     job: :func:`flagship_trainer`'s model, optimizer and global batch on
     this rank's device, its ``ElasticTrainer`` over the job's process group
     (joined by :func:`_join_world`).  Every rank calls this with the same
     arguments but its rank; the first world is the whole group unless
-    ``initial_world_size`` says fewer; ``accum_mode`` is the trainer's."""
+    ``initial_world_size`` says fewer; ``accum_mode``, ``param_sharding``
+    and ``spec`` (default: dp absorbs every rank) are the trainer's."""
     dev = _join_world(rank, world, store_path, device, backend)
     trainer = _flagship(cfg, dev, initial_world_size=initial_world_size,
-                        accum_mode=accum_mode)
+                        accum_mode=accum_mode,
+                        param_sharding=param_sharding,
+                        spec=spec or MeshSpec(dp=-1))
     return trainer, _flagship_data(cfg, batch, seq, dev)
 
 
@@ -203,3 +221,194 @@ def flagship_decode_fleet(device="cuda",
     dev = resolve(device)
     model = tfm.Transformer(cfg, device=dev, seed=0)
     return DecodeFleet(model, cfg, device=dev, **{**DECODE_DEFAULTS, **kw})
+
+
+# -- the multi-rank dryrun ----------------------------------------------------
+
+#: dryrun_multichip's layouts, the reference's (``__graft_entry__.py``): n 2
+#: is fsdp alone, n 4 dp x fsdp; the larger ones need tp and sp
+DRYRUN_SPECS = {2: MeshSpec(dp=1, fsdp=-1), 4: MeshSpec(dp=-1, fsdp=2)}
+#: what the step's collective census must hold on each axis of more than
+#: one rank: dp syncs gradients; fsdp gathers params (its reduce may fold
+#: into an all-reduce)
+DRYRUN_EXPECTED = {"dp": ("all-reduce",), "fsdp": ("all-gather",)}
+DRYRUN_DEADLINE_S = 240
+
+
+def _spec_shard_factor(spec: tuple, shape: MeshShape) -> int:
+    """Product of the mesh axis sizes a partition spec shards on."""
+    sizes, k = shape.axis_sizes(), 1
+    for part in spec:
+        for ax in (() if part is None else
+                   (part,) if isinstance(part, str) else part):
+            k *= sizes[ax]
+    return k
+
+
+def _check_sharding_economy(shards: dict, leaves: dict, specs: dict,
+                            shape: MeshShape) -> dict:
+    """Every leaf the specs shard holds exactly 1/k of its bytes on this
+    rank (a copy of the reference's check).  Returns this rank's byte
+    table; raises on a leaf placed replicated against its spec."""
+    mine = total = sharded_total = 0
+    for name, shard in shards.items():
+        nbytes = leaves[name]
+        k = _spec_shard_factor(specs[name], shape)
+        total += nbytes
+        mine += shard.nbytes
+        if k <= 1:
+            continue
+        sharded_total += nbytes
+        if shard.nbytes != nbytes // k:
+            raise AssertionError(
+                f"sharding economy violated at {name}: spec {specs[name]} "
+                f"promises {nbytes // k} B/device (1/{k} of {nbytes} B) but "
+                f"a device holds {shard.nbytes} B — a "
+                "replicated-instead-of-sharded layout regression")
+    return {"device": mine, "total": total, "sharded_total": sharded_total}
+
+
+def _dryrun_rank(rank: int, n: int, store: str, out: str,
+                 inject: Optional[str], device: str) -> None:
+    """One rank of :func:`dryrun_multichip`: the step, its checks and this
+    rank's record (or its error) as JSON in ``out``."""
+    try:
+        torch.set_num_threads(1)
+        dev = _join_world(rank, n, store, device)
+        cfg = dataclasses.replace(tfm.TINY, one_hot_embed=True)
+        model = tfm.Transformer(cfg, device=dev, seed=0)
+        nbytes = {k: p.nbytes for k, p in model.named_parameters()}
+        trainer = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
+                                 spec=DRYRUN_SPECS[n], param_sharding="fsdp",
+                                 devices=[dev])
+        shape = trainer.shape
+        # the canonical layout CLAIM, which the economy check holds the
+        # placement to whatever the injection below does
+        specs = tfm.param_partition_specs(cfg)
+        placed = specs
+        if inject == "replicate":
+            # the deliberate layout regression of the negative control
+            placed = {k: (None,) * len(v) for k, v in specs.items()}
+        trainer._place({k: v.index("fsdp") if "fsdp" in v else None
+                        for k, v in placed.items()})
+        rows = max(shape.dp * shape.fsdp, 2)
+        batch = (torch.zeros((rows, 16), dtype=torch.int64, device=dev),
+                 torch.ones((rows, 16), dtype=torch.int64, device=dev))
+        elastic.reset_census()
+        loss = trainer.step(batch)
+        census = elastic.collective_census()
+        if not np.isfinite(loss):
+            raise AssertionError(f"non-finite loss in dryrun: {loss}")
+        mem = _check_sharding_economy(trainer.shards, nbytes, specs, shape)
+        rec = dict(rank=rank, loss=loss, census=census, mem=mem,
+                   mesh=shape.axis_sizes())
+    except Exception:
+        rec = dict(rank=rank, error=traceback.format_exc())
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def dryrun_multichip(n: int, device="cuda") -> dict:
+    """One sharded train step of TINY (one-hot embedding, adam(1e-3)) over
+    ``n`` ranks on ``device`` (ranks that share one card, or the CPU, talk
+    gloo: :func:`_join_world`), the parameters placed by the model's
+    partition specs (tp 1) over the reference's layout for ``n``
+    (:data:`DRYRUN_SPECS`), with its claims checked as the reference checks
+    them:
+
+    * every leaf the specs shard holds exactly 1/k of its bytes on each rank
+      ("sharding economy violated" otherwise; ``EDL_DRYRUN_INJECT=
+      replicate`` places every leaf replicated while the claim stays the
+      specs, and must fail);
+    * the step's collectives, counted by the trainer's choke points, hold
+      an all-reduce on dp, and an all-gather and a reduce (reduce-scatter or
+      all-reduce) on fsdp.
+
+    Prints one ``DRYRUN_COMM {json}`` line with the reference's keys and
+    returns its record; raises on any failed check."""
+    if n not in DRYRUN_SPECS:
+        raise ValueError(
+            f"dryrun_multichip({n}): the port lays out n 2 (fsdp) and 4 "
+            "(dp x fsdp); n 8 needs tp (ROADMAP.md queue 1 item 1b) and n 16 "
+            "sp (item 9)")
+    device = str(resolve(device))
+    inject = os.environ.get("EDL_DRYRUN_INJECT")
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(n)]
+        procs = [ctx.Process(target=_dryrun_rank,
+                             args=(r, n, os.path.join(tmp, "store"), outs[r],
+                                   inject, device))
+                 for r in range(n)]
+        try:
+            for p in procs:
+                p.start()
+            end = time.monotonic() + DRYRUN_DEADLINE_S
+            for p in procs:
+                p.join(max(end - time.monotonic(), 0.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        recs = []
+        for r, out in enumerate(outs):
+            if not os.path.exists(out):
+                raise RuntimeError(f"dryrun rank {r} exited "
+                                   f"{procs[r].exitcode} without a record")
+            with open(out) as f:
+                recs.append(json.load(f))
+    errors = [r["error"] for r in recs if "error" in r]
+    if errors:
+        raise AssertionError("dryrun_multichip failed:\n" + errors[0])
+    census = recs[0]["census"]
+    mesh = recs[0]["mesh"]
+
+    def axis_ops(axis: str) -> dict:
+        ops: dict[str, int] = {}
+        for label, slot in census.items():
+            if axis in label.split("+"):
+                for op, c in slot["ops"].items():
+                    ops[op] = ops.get(op, 0) + c
+        return ops
+
+    for axis, wanted in DRYRUN_EXPECTED.items():
+        if mesh[axis] <= 1:
+            continue
+        for op in wanted:
+            if axis_ops(axis).get(op, 0) < 1:
+                raise AssertionError(
+                    f"the step has no {op} on mesh axis '{axis}' (size "
+                    f"{mesh[axis]}): collective census {census}")
+    if mesh["fsdp"] > 1:
+        fops = axis_ops("fsdp")
+        if fops.get("reduce-scatter", 0) + fops.get("all-reduce", 0) < 1:
+            raise AssertionError(f"fsdp axis gathers but never reduces: "
+                                 f"{fops}")
+    per_rank = [r["mem"]["device"] for r in recs]
+    record = {
+        "n": n,
+        "mesh": mesh,
+        "collectives": {label: {"ops": slot["ops"],
+                                "bytes": int(slot["bytes"])}
+                        for label, slot in sorted(census.items())},
+        "comm_bytes_per_step": int(sum(s["bytes"]
+                                       for s in census.values())),
+        "param_bytes_total": recs[0]["mem"]["total"],
+        "param_bytes_sharded": recs[0]["mem"]["sharded_total"],
+        "param_bytes_per_device_max": max(per_rank),
+        "param_bytes_per_device_min": min(per_rank),
+    }
+    print("DRYRUN_COMM " + json.dumps(record), flush=True)
+    return record
+
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    if args[:1] != ["dryrun"] or len(args) not in (2, 4) or (
+            len(args) == 4 and args[2] != "--device"):
+        sys.exit("usage: python -m edl_tpu_torch.entry dryrun N "
+                 "[--device DEVICE]")
+    dryrun_multichip(int(args[1]), device=args[3] if len(args) == 4
+                     else "cuda")
+    print(f"dryrun_multichip({args[1]}) ok")

@@ -8,8 +8,8 @@ card when ``use_flash`` is set).  The parameters keep the JAX tree's names
 (``embed``, ``pos``, ``layers.{i}.wq``, …, ``norm``) and its ``[in, out]``
 orientation, live in fp32 and compute in ``cfg.dtype``; the MLM decoder is
 the tied embedding.  The JAX package's sharding constraints are no-ops on
-one device and are left out; its ``param_partition_specs`` waits for the
-multi-device trainer.
+one device and are left out; :func:`param_partition_specs` gives the
+reference's per-parameter specs.
 """
 
 from __future__ import annotations
@@ -97,6 +97,22 @@ class Bert(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return apply(self, tokens)
+
+
+def param_partition_specs(cfg: BertConfig) -> dict[str, tuple]:
+    """The reference's partition specs, by parameter name: for each
+    dimension the mesh axis it is sharded over, or None (the transformer's
+    rules; ``pos`` is replicated)."""
+    layer = {
+        "attn_norm": (None,), "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+        "wv": ("fsdp", "tp"), "wo": ("tp", "fsdp"), "mlp_norm": (None,),
+        "w1": ("fsdp", "tp"), "w2": ("tp", "fsdp"),
+    }
+    specs = {"embed": ("tp", "fsdp"), "pos": (None, None)}
+    for i in range(cfg.n_layers):
+        specs.update((f"layers.{i}.{k}", v) for k, v in layer.items())
+    specs["norm"] = (None,)
+    return specs
 
 
 def apply(model: Bert, tokens: torch.Tensor,

@@ -137,6 +137,39 @@ class Transformer(nn.Module):
         return apply(self, tokens)
 
 
+# -- sharding rules ----------------------------------------------------------
+
+
+def param_partition_specs(cfg: TransformerConfig) -> dict[str, tuple]:
+    """The reference's partition specs, by parameter name: for each
+    dimension the mesh axis it is sharded over, or None.
+
+    Column-parallel (output dim over tp): wq/wk/wv, w1/w3.  Row-parallel
+    (input dim over tp): wo, w2.  The fsdp axis shards the other dim
+    (ZeRO-3); embed and lm_head shard vocab over tp."""
+    layer = {
+        "attn_norm": (None,),
+        "wq": ("fsdp", "tp"),
+        "wk": ("fsdp", "tp"),
+        "wv": ("fsdp", "tp"),
+        "wo": ("tp", "fsdp"),
+        "mlp_norm": (None,),
+        "w1": ("fsdp", "tp"),
+        "w3": ("fsdp", "tp"),
+        "w2": ("tp", "fsdp"),
+    }
+    specs = {"embed": ("tp", "fsdp")}
+    for i in range(cfg.n_layers):
+        specs.update((f"layers.{i}.{k}", v) for k, v in layer.items())
+    specs.update(norm=(None,), lm_head=("fsdp", "tp"))
+    return specs
+
+
+def batch_partition_spec() -> tuple:
+    """[batch, seq] inputs: batch over dp+fsdp, sequence over sp."""
+    return (("dp", "fsdp"), "sp")
+
+
 # -- building blocks ---------------------------------------------------------
 
 

@@ -12,12 +12,18 @@ initialised a mesh spans a rank prefix ``(0, …, n-1)`` of the default
 process group, and carries the process group over that prefix
 (:func:`rank_group`, built once per prefix size).  Without a process group a
 mesh is a tuple of this process's devices, as before.
+
+Ranks are laid out row-major over the axes in declaration order, as the
+reference lays out devices: at dp2×fsdp2 over ranks 0-3 the fsdp groups
+are {0, 1} and {2, 3} and the dp groups {0, 2} and {1, 3}
+(:func:`axis_groups`).  :func:`fsdp_sharding` is the reference's fsdp rule,
+giving the dimension of a leaf that is sharded, or None.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -126,14 +132,17 @@ class Mesh:
     """Devices laid out row-major over the axes in declaration order.
 
     Under a process group, ``ranks`` is the rank prefix the mesh spans,
-    ``group`` the process group over it, and ``devices`` this process's
-    device; without one, ``ranks`` is empty and ``group`` None."""
+    ``group`` the process group over it, ``groups`` this rank's process
+    group along each axis of more than one rank (:func:`axis_groups`), and
+    ``devices`` this process's device; without one, ``ranks`` is empty,
+    ``group`` None and ``groups`` empty."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...]
     axis_shape: tuple[int, ...]
     ranks: tuple[int, ...] = ()
     group: Any = field(default=None, compare=False)
+    groups: Mapping[str, Any] = field(default_factory=dict, compare=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -142,6 +151,42 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.ranks) if self.ranks else len(self.devices)
+
+    def label(self, axes: Sequence[str]) -> str:
+        """The census label of a collective over ``axes``: those of more
+        than one rank joined by ``+`` (``"dp+fsdp"``), the reference's
+        convention."""
+        return "+".join(a for a in axes if self.shape.get(a, 1) > 1)
+
+
+def fsdp_sharding(shape: MeshShape, x: Any) -> Optional[int]:
+    """The reference's fsdp rule (ZeRO-3-style): the largest dimension of
+    ``x`` (anything with ``.shape``) that the fsdp axis of ``shape``
+    divides is sharded over it; a scalar, a leaf with no such dimension, or
+    a mesh with no fsdp axis keeps it replicated (None)."""
+    return fsdp_dim(tuple(getattr(x, "shape", ()) or ()), shape.fsdp)
+
+
+def fsdp_dim(dims: Sequence[int], n: int) -> Optional[int]:
+    """:func:`fsdp_sharding` on a shape ``dims`` over an fsdp axis of
+    ``n``."""
+    if n <= 1 or not dims:
+        return None
+    best = max(range(len(dims)),
+               key=lambda i: dims[i] if dims[i] % n == 0 else -1)
+    return best if dims[best] % n == 0 else None
+
+
+def tree_shardings(shape: MeshShape, tree: Mapping[str, Any],
+                   kind: str = "replicated") -> dict[str, Optional[int]]:
+    """Per-leaf sharded dimension of ``tree`` (path -> anything with
+    ``.shape``) on ``shape``: ``"replicated"`` (None everywhere) or
+    ``"fsdp"`` (:func:`fsdp_sharding`)."""
+    if kind == "replicated":
+        return {k: None for k in tree}
+    if kind == "fsdp":
+        return {k: fsdp_sharding(shape, x) for k, x in tree.items()}
+    raise ValueError(f"unknown sharding kind {kind!r}")
 
 
 def distributed() -> bool:
@@ -166,6 +211,52 @@ def rank_group(n: int):
     if (world, n) not in _groups:
         _groups[world, n] = dist.new_group(list(range(n)))
     return _groups[world, n]
+
+
+def axis_ranks(shape: MeshShape, axis: str, rank: int) -> tuple[int, ...]:
+    """The ranks of ``shape``'s mesh (row-major over :data:`AXES`) that
+    differ from ``rank`` in the ``axis`` coordinate alone, in order."""
+    sizes = list(shape.axis_sizes().values())
+    i = AXES.index(axis)
+    stride = 1
+    for s in sizes[i + 1:]:
+        stride *= s
+    base = rank - (rank // stride) % sizes[i] * stride
+    return tuple(base + j * stride for j in range(sizes[i]))
+
+
+#: axis_groups' cache: (default group, shape key) -> {axis: group}
+_axis_groups: dict[tuple[Any, tuple], dict[str, Any]] = {}
+
+
+def axis_groups(shape: MeshShape) -> dict[str, Any]:
+    """This rank's process group along each axis of ``shape`` that has
+    more than one rank, over the rank prefix of ``shape.size``: the
+    prefix's own group when the axis spans it (:func:`rank_group`), else
+    one ``dist.new_group`` per line of the axis.  ``new_group`` is
+    collective over the default group, so every rank builds every line, in
+    the same order, the first time ``shape`` is asked for; a rank outside
+    a line (or the prefix) keeps no group for it.  Cached by shape."""
+    world = dist.group.WORLD
+    key = (world, shape.key())
+    if key not in _axis_groups:
+        rank, groups = dist.get_rank(), {}
+        for axis, n in shape.axis_sizes().items():
+            if n == 1:
+                continue
+            if n == shape.size:
+                group = rank_group(n)
+                if rank < n:
+                    groups[axis] = group
+                continue
+            lines = sorted({axis_ranks(shape, axis, r)
+                            for r in range(shape.size)})
+            for line in lines:
+                group = dist.new_group(list(line))
+                if rank in line:
+                    groups[axis] = group
+        _axis_groups[key] = groups
+    return _axis_groups[key]
 
 
 def local_device() -> torch.device:
@@ -194,8 +285,10 @@ def make_mesh(n_devices: Optional[int] = None,
                              f"{world}")
         sizes = (spec or MeshSpec(dp=-1)).resolve(n)
         dev = torch.device(devices[0]) if devices else local_device()
+        group = rank_group(n)
         return Mesh((dev,), tuple(sizes), tuple(sizes.values()),
-                    ranks=tuple(range(n)), group=rank_group(n))
+                    ranks=tuple(range(n)), group=group,
+                    groups=axis_groups(MeshShape(**sizes)))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device; pass devices=")

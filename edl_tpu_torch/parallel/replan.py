@@ -28,7 +28,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Sequence
 
-from edl_tpu_torch.parallel.mesh import MeshShape
+from edl_tpu_torch.parallel.mesh import MeshShape, fsdp_dim
 
 # -- placements ---------------------------------------------------------------
 
@@ -70,17 +70,14 @@ class Placement:
 
 
 def fsdp_placement(shape: Sequence[int], mesh: MeshShape) -> Placement:
-    """The reference's fsdp rule: the largest dimension the fsdp axis
+    """The reference's fsdp rule (:func:`~edl_tpu_torch.parallel.mesh.
+    fsdp_sharding`) as a placement: the largest dimension the fsdp axis
     divides is sharded over it; a scalar, or a leaf with no such
     dimension, is replicated."""
-    n = mesh.fsdp
-    if n <= 1 or not shape:
+    dim = fsdp_dim(shape, mesh.fsdp)
+    if dim is None:
         return Placement.replicated(shape, mesh.size)
-    best = max(range(len(shape)),
-               key=lambda i: shape[i] if shape[i] % n == 0 else -1)
-    if shape[best] % n:
-        return Placement.replicated(shape, mesh.size)
-    return Placement.sharded(shape, best, mesh)
+    return Placement.sharded(shape, dim, mesh)
 
 
 def tree_placements(tree: Mapping[str, Any], mesh: MeshShape,

@@ -1,51 +1,69 @@
 """The elastic trainer — the port of edl_tpu.runtime.elastic as an SPMD
-data-parallel trainer.
+trainer, data parallel or fully sharded.
 
 The reference is a single controller over a prefix of ``jax.devices()``.
 Torch runs one process a rank, so here every rank of the default process
 group constructs the same :class:`ElasticTrainer`, and a world is a rank
-prefix ``[0, n)`` of that group (:mod:`edl_tpu_torch.parallel.mesh`).  Ranks
-past the prefix stand by: they hold a copy of the model but compute nothing
-until a resize takes them in.  Without a process group the world is one
-device.
+prefix ``[0, n)`` of that group, laid out as a dp×fsdp mesh
+(:mod:`edl_tpu_torch.parallel.mesh`).  Ranks past the prefix stand by:
+they compute nothing until a resize takes them in.  Without a process group
+the world is one device.
+
+Parameters are replicated (``param_sharding="replicated"``, pure data
+parallelism) or sharded over the mesh's fsdp axis (``"fsdp"``, ZeRO-3
+style): a live rank then holds, of every leaf the reference's rule shards
+(:func:`~edl_tpu_torch.parallel.mesh.fsdp_sharding`: the largest dimension
+the fsdp size divides), only its 1/k block, and Adam's moments likewise;
+a leaf with no such dimension stays replicated.  The optimizer steps on
+these blocks (:attr:`ElasticTrainer.shards`), since Adam is elementwise;
+the module's parameters hold nothing between steps.
 
 A step: every rank is handed the same global batch; each live rank takes
-its contiguous slice of the batch dim, runs the loss and its backward (the
-flash kernels on the card), and the gradients and the loss are averaged
-over the live group by one all-reduce per dtype before one optimizer update
-on every live rank.  Parameters and optimizer state are replicated, and
-every live rank applies the same reduced gradient, so they stay bitwise
-equal across ranks.
+its contiguous slice of the batch dim (the batch splits over dp×fsdp),
+gathers the full parameters over its fsdp group (one all-gather per dtype;
+the full tensors live for the step only), runs the loss and its backward
+(the flash kernels on the card), and reduces the gradients: a sharded
+leaf's by a reduce-scatter over the fsdp group and an all-reduce over the
+dp group, a replicated leaf's and the loss by one all-reduce over the live
+group, each as a flat buffer per dtype; then 1/N and one optimizer update.
+Replicated state stays bitwise equal across ranks.
 
 A resize is transactional and agreed.  Every rank of the default group
 calls ``resize`` with the same target at the same step boundary:
 
-1. stage: the process group of the new prefix (built once per size), rank
-   0's layout of params and optimizer state, the move priced by
-   :func:`~edl_tpu_torch.parallel.replan.plan_reshard`, and fresh receive
-   buffers on the ranks of the new prefix; a ready vote, since a rank that
-   could not allocate cannot enter a broadcast; then params and optimizer
-   state broadcast from rank 0 into those buffers.  Live state is not
-   written, and ranks that stay keep their own tensors: replicated state
-   does not move.
+1. stage: the mesh of the new layout with its process groups (built once
+   per (size, shape) and kept in ``_step_cache``), rank 0's layout of the
+   state, the move priced by :func:`~edl_tpu_torch.parallel.replan.
+   plan_reshard` over the kind's placements, and fresh buffers for every
+   block a rank will hold and does not hold now; a ready vote, since a
+   rank that could not allocate cannot enter a broadcast; then the blocks
+   move.  Each block a rank lacks comes from the lowest rank of the old
+   world that holds it, by one broadcast per (source rank, dtype) over the
+   prefix spanning both worlds, so a shrink sends the leaving ranks'
+   blocks before they stand by; a block a rank holds is copied locally.
+   Live state is not written; a rank whose block does not change keeps its
+   tensor.
 2. agree: one ``all_reduce(MIN)`` of an ok flag over the whole default
    group.
 3. commit (pure assignments) only if every rank staged; otherwise every
-   rank rolls back, keeps stepping on the old world, returns False and
+   rank rolls back, keeps stepping on the old layout, returns False and
    counts ``resizes_failed``.
 
 Each successful resize appends the reference's ``resize_events`` record and
 feeds the ``resize_phase_seconds`` histogram, the goodput ledger and the
 ``reshard_seconds`` calibration predictor under the reference's names.
-Every collective of the trainer goes through :func:`_broadcast` or
-:func:`_all_reduce`.
+Every collective of the trainer goes through one of four choke points,
+:func:`_broadcast`, :func:`_all_reduce`, :func:`_all_gather` and
+:func:`_reduce_scatter`, each counting its op and bytes by mesh axis
+(:func:`collective_census`; ``"world"`` for the default group's votes).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import pickle
 import time
-from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
@@ -59,36 +77,86 @@ from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import get_registry
 from edl_tpu_torch.observability.tracing import get_tracer
 from edl_tpu_torch.parallel.mesh import (
+    AXIS_DP,
+    AXIS_FSDP,
     Mesh,
     MeshShape,
     MeshSpec,
     distributed,
     local_device,
     make_mesh,
+    rank_group,
+    tree_shardings,
 )
-from edl_tpu_torch.parallel.replan import plan_reshard, tree_placements
+from edl_tpu_torch.parallel.replan import Placement, plan_reshard
 from edl_tpu_torch.runtime.optim import OptimizerFactory
 
 log = get_logger("runtime.elastic")
 
+#: the axes a batch and a gradient reduction span
+DATA_AXES = (AXIS_DP, AXIS_FSDP)
 
-def _broadcast(t: torch.Tensor, src: int, group) -> None:
+#: collective_census's counts: {axis label: {"ops": {op: n}, "bytes": n}}
+_census: dict[str, dict] = {}
+
+
+def collective_census() -> dict[str, dict]:
+    """Every collective this process ran through the choke points since
+    :func:`reset_census`, by axis label (``"dp"``, ``"fsdp"``,
+    ``"dp+fsdp"`` for the live group, ``"world"`` for the default group):
+    ``{"ops": {op: count}, "bytes": result bytes}``, ops named as the
+    reference's HLO census names them.  Gloo takes CUDA tensors for all
+    four ops and stages them through host memory itself."""
+    return copy.deepcopy(_census)
+
+
+def reset_census() -> None:
+    _census.clear()
+
+
+def _count(op: str, axis: str, nbytes: int) -> None:
+    slot = _census.setdefault(axis, {"ops": {}, "bytes": 0})
+    slot["ops"][op] = slot["ops"].get(op, 0) + 1
+    slot["bytes"] += int(nbytes)
+
+
+def _broadcast(t: torch.Tensor, src: int, group, axis: str) -> None:
     """Every broadcast of the trainer (the seam tests plant faults in):
     ``t`` of rank ``src`` into ``t`` of every rank of ``group`` (None: the
     default group)."""
     dist.broadcast(t, src, group=group)
+    _count("broadcast", axis, t.nbytes)
 
 
-def _all_reduce(t: torch.Tensor, op, group) -> None:
+def _all_reduce(t: torch.Tensor, op, group, axis: str) -> None:
     """Every all-reduce of the trainer, in place over ``group`` (None: the
     default group)."""
     dist.all_reduce(t, op=op, group=group)
+    _count("all-reduce", axis, t.nbytes)
+
+
+def _all_gather(out: torch.Tensor, t: torch.Tensor, group,
+                axis: str) -> None:
+    """Every all-gather of the trainer: ``out`` (flat, k times ``t``'s
+    elements) ← the flat ``t`` of each of the k ranks of ``group``, in
+    rank order."""
+    dist.all_gather_into_tensor(out, t, group=group)
+    _count("all-gather", axis, out.nbytes)
+
+
+def _reduce_scatter(out: torch.Tensor, t: torch.Tensor, group,
+                    axis: str) -> None:
+    """Every reduce-scatter of the trainer: ``out`` ← this rank's chunk
+    (its rank's k-th of the elements) of the sum over ``group`` of each
+    rank's flat ``t``."""
+    dist.reduce_scatter_tensor(out, t, group=group)
+    _count("reduce-scatter", axis, out.nbytes)
 
 
 def _fresh(shape: tuple, dtype: torch.dtype,
            device: torch.device) -> torch.Tensor:
-    """A receive buffer of a resize (the seam tests plant an allocation
-    failure in)."""
+    """A buffer of a resize (the seam tests plant an allocation failure
+    in)."""
     return torch.empty(shape, dtype=dtype, device=device)
 
 
@@ -109,27 +177,81 @@ class TrainState:
 
 @dataclass(frozen=True)
 class _Buffer:
-    """A tensor of rank 0's state that a resize sends by broadcast: its
-    shape and dtype (a leaf of the reshard plan)."""
+    """A leaf of the state as a resize prices and moves it: its full shape
+    and dtype."""
 
     shape: tuple
     dtype: torch.dtype
 
 
+#: one block of a leaf: ((start, stop), ...) per dimension
+Block = tuple
+
+
+def _meet(a: Block, b: Block) -> Optional[Block]:
+    out = tuple((max(a0, b0), min(a1, b1)) for (a0, a1), (b0, b1)
+                in zip(a, b))
+    return out if all(lo < hi for lo, hi in out) else None
+
+
+def _within(block: Block, origin: Block) -> tuple:
+    """Index of ``block`` in a tensor holding block ``origin``."""
+    return tuple(slice(lo - o, hi - o)
+                 for (lo, hi), (o, _) in zip(block, origin))
+
+
+def _placements(tree: dict, dims: dict,
+                shape: MeshShape) -> dict[str, Placement]:
+    """Each leaf of ``tree`` (name -> anything with ``.shape``) on
+    ``shape``, its dimension ``dims[name]`` split over the fsdp axis (None:
+    replicated).  The one place that decides which block a rank holds: the
+    trainer's own block, a resize's moves and its price all read it."""
+    out = {}
+    for name, leaf in tree.items():
+        full, d = tuple(getattr(leaf, "shape", ()) or ()), dims[name]
+        out[name] = (Placement.replicated(full, shape.size) if d is None
+                     else Placement.sharded(full, d, shape))
+    return out
+
+
+def _numel(block: Block) -> int:
+    n = 1
+    for lo, hi in block:
+        n *= hi - lo
+    return n
+
+
+@dataclass
+class _Moves:
+    """A resize's transfer as this rank sees it: the broadcasts, the same
+    in the same order on every rank of the prefix spanning both worlds,
+    each ``(source rank, leaf, block)``; those whose bytes this rank takes;
+    the blocks it copies locally; and the new block of each leaf it
+    rebuilds."""
+
+    sends: list = field(default_factory=list)
+    takes: set = field(default_factory=set)
+    local: list = field(default_factory=list)
+    new: dict = field(default_factory=dict)
+
+
 @dataclass
 class _Staged:
-    """The new world, staged: committed as a unit or dropped."""
+    """The new layout, staged: committed as a unit or dropped."""
 
     mesh: Mesh
     layout: dict
+    dims: dict
     split: dict
-    #: on a rank that joins: rank 0's params and optimizer state, received
-    params: Optional[list] = None
-    opt: dict = field(default_factory=dict)
+    moves: _Moves
+    #: this rank's fresh buffers: its new blocks, and the broadcasts it
+    #: cannot send from its state or receive into a new block in place
+    blocks: dict = field(default_factory=dict)
+    wire: dict = field(default_factory=dict)
 
 
 class ElasticTrainer:
-    """SPMD elastic data-parallel trainer.
+    """SPMD elastic trainer, data parallel or fully sharded.
 
     ``loss_fn(params, batch) -> scalar tensor`` defines the model;
     ``optimizer`` is a factory from :mod:`edl_tpu_torch.runtime.optim`.
@@ -137,8 +259,10 @@ class ElasticTrainer:
     same arguments; the first world is the whole group, or its first
     ``initial_world_size`` ranks.  ``devices`` names this rank's device
     (default: ``cuda:(rank mod device count)``; without a process group,
-    the first CUDA device).  Parameters are replicated
-    (``param_sharding="replicated"``, pure data parallel).
+    the first CUDA device).  ``param_sharding`` is ``"replicated"`` (pure
+    data parallel) or ``"fsdp"`` (params and optimizer state sharded over
+    the fsdp axis — give the spec one, e.g. ``MeshSpec(dp=1, fsdp=-1)``),
+    as in the reference.
 
     ``accum_mode`` places :meth:`step_accumulate`'s micro-batches, as in the
     reference: ``"dp"`` packs them into rounds of the world's width,
@@ -162,15 +286,14 @@ class ElasticTrainer:
         accum_mode: str = "dp",
         rng_in_loss: bool = False,
     ) -> None:
-        if param_sharding != "replicated":
-            raise ValueError(
-                f"param_sharding {param_sharding!r}: this trainer replicates "
-                "every parameter; fsdp sharding is a later item of the port "
-                "(ROADMAP.md, queue 1 item 1)")
+        if param_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"unknown param_sharding {param_sharding!r}: "
+                             "'replicated' or 'fsdp'")
         if accum_mode not in ("dp", "replicated"):
             raise ValueError(f"unknown accum_mode {accum_mode!r}")
         self.loss_fn = loss_fn
         self.spec = spec
+        self.param_sharding_kind = param_sharding
         self.accum_mode = accum_mode
         self.rng_in_loss = rng_in_loss
         if distributed():
@@ -184,15 +307,31 @@ class ElasticTrainer:
         self.resizes_failed = 0
         #: one record per successful resize, with the reference's fields
         self.resize_events: list[dict] = []
+        #: the mesh of every layout seen, by (size, shape): oscillating
+        #: between layouts builds no new process group
+        self._step_cache: dict[tuple, Mesh] = {}
         self.mesh: Mesh = self._mesh_for(self._resolve_target(
             initial_world_size or group_size))
         params.to(self._device)
-        self.state = TrainState(params=params,
-                                opt_state=optimizer(params.parameters()))
+        #: each leaf's full shape and dtype
+        self._leaves = {n: _Buffer(tuple(p.shape), p.dtype)
+                        for n, p in params.named_parameters()}
         if self.live and self.world_size > 1:
             # replicas start from rank 0's weights, whatever each rank drew
             for p in params.parameters():
-                _broadcast(p.detach(), 0, self.mesh.group)
+                _broadcast(p.detach(), 0, self.mesh.group, self._data_label)
+        self._dims = tree_shardings(self.shape, self._leaves,
+                                    param_sharding)
+        self._shards: dict[str, nn.Parameter] = {}
+        if self.sharded:
+            for n, p in params.named_parameters():
+                self._shards[n] = nn.Parameter(
+                    self._own_block(p.detach(), n).clone()
+                    if self.live else self._empty(p.dtype))
+                p.data = self._empty(p.dtype)
+        self.state = TrainState(params=params, opt_state=optimizer(
+            list(self._shards.values()) if self.sharded
+            else list(params.parameters())))
 
     # -- public API --------------------------------------------------------
 
@@ -214,6 +353,50 @@ class ElasticTrainer:
         """The live mesh's concrete axis split."""
         return MeshShape.of_mesh(self.mesh)
 
+    @property
+    def sharded(self) -> bool:
+        """True for an fsdp trainer (whatever the live layout)."""
+        return self.param_sharding_kind == "fsdp"
+
+    @property
+    def shards(self) -> dict[str, nn.Parameter]:
+        """What the optimizer steps, by parameter name: this rank's block
+        of each leaf (an fsdp trainer), or the module's parameters."""
+        if self.sharded:
+            return self._shards
+        return dict(self.state.params.named_parameters())
+
+    def full_shapes(self) -> dict[str, tuple]:
+        """Each leaf's full shape, by parameter name."""
+        return {n: b.shape for n, b in self._leaves.items()}
+
+    def sharded_dims(self) -> dict[str, Optional[int]]:
+        """Each leaf's sharded dimension on the live layout (None:
+        replicated)."""
+        return dict(self._dims)
+
+    def full_params(self) -> dict[str, torch.Tensor]:
+        """Every parameter whole, as the reference's global arrays read:
+        gathered over the fsdp group on a live rank (collective over the
+        live group), a copy of this rank's on one standing by."""
+        if not self.live:
+            return {n: s.detach().clone() for n, s in self.shards.items()}
+        with self._gathered():
+            return {n: p.detach().clone() for n, p in self._module.items()}
+
+    def _place(self, dims: dict[str, Optional[int]]) -> None:
+        """Lay this fsdp trainer's blocks out along ``dims`` (each leaf's
+        sharded dimension, or None) in place of the fsdp rule's, before its
+        first step: the dryrun places the model by its partition specs, as
+        the reference's dryrun does.  Collective over the live group."""
+        if self.state.opt_state.state:
+            raise RuntimeError("a trainer is placed before its first step")
+        full = self.full_params()
+        self._dims = dict(dims)
+        if self.live:
+            for n, s in self._shards.items():
+                s.data = self._own_block(full[n], n).clone()
+
     def _resolve_target(self, target) -> MeshShape:
         return MeshShape.resolve(target, spec=self.spec)
 
@@ -226,11 +409,12 @@ class ElasticTrainer:
             return False
 
     def resize(self, target) -> bool:
-        """Move to ``target`` (an int world size or a MeshShape); every
-        rank calls it with the same target at the same step boundary.
-        Returns True when the live mesh has that layout afterwards.  On any
-        failure, on any rank, every rank keeps the current world, counts
-        ``resizes_failed`` and returns False."""
+        """Move to ``target`` (an int world size through the spec, or a
+        MeshShape: a live dp×fsdp re-split); every rank calls it with the
+        same target at the same step boundary.  Returns True when the live
+        mesh has that layout afterwards.  On any failure, on any rank,
+        every rank keeps the current layout, counts ``resizes_failed`` and
+        returns False."""
         try:
             shape = self._resolve_target(target)
         except Exception as exc:  # an unresolvable target soft-fails
@@ -291,11 +475,15 @@ class ElasticTrainer:
             return None
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.state.params, self._local(batch))
-        loss.backward()
-        loss = loss.detach()
-        self._mean_over_world([*self._grads(), loss])
+        with self._gathered():
+            loss = self.loss_fn(self.state.params, self._local(batch))
+            loss.backward()
+            loss = loss.detach()
+            self._reduce_grads([loss])
+        if self.world_size > 1:
+            self._scale([*self._shard_grads(), loss], 1.0 / self.world_size)
         opt.step()
+        opt.zero_grad(set_to_none=True)  # no gradient is kept at rest
         self.state.step += 1
         return float(loss)
 
@@ -304,9 +492,11 @@ class ElasticTrainer:
         (None on a rank standing by)."""
         if not self.live:
             return None
-        with torch.no_grad():
+        with torch.no_grad(), self._gathered():
             loss = self.loss_fn(self.state.params, self._local(batch))
-            self._mean_over_world([loss])
+        if self.world_size > 1:
+            self._sum_over(self.mesh.group, self._data_label, [loss])
+            self._scale([loss], 1.0 / self.world_size)
         return float(loss)
 
     def step_accumulate(self, micro_batches: Sequence,
@@ -320,12 +510,13 @@ class ElasticTrainer:
 
         ``accum_mode="dp"`` packs the micro-batches into ⌈V/N⌉ rounds of the
         world's width N, rank r taking micro-batch ``k·N + r`` of round k,
-        and sums the gradients over the live group once; it needs N to
+        and reduces the gradients over the live group once; it needs N to
         divide V (else, as in the reference, the micro-batches run as in
         ``"replicated"``), and equals one device's result within float
         bounds.  ``"replicated"`` runs every micro-batch on every live rank
-        with no reduction, so the update is bitwise the same at any world
-        size.
+        on the gathered parameters with no reduction (each rank keeps its
+        block of the summed gradient), so the update is bitwise the same at
+        any world size and layout.
 
         ``abort_after=k`` raises :class:`AccumulationAborted` after k
         micro-batches, before the update: state is untouched.
@@ -348,29 +539,156 @@ class ElasticTrainer:
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
         lsum, done = 0.0, 0
-        for v, mb in enumerate(mine):
-            args = (rng_keys[v],) if self.rng_in_loss else ()
-            loss = self.loss_fn(self.state.params, self._to_device(mb),
-                                *args)
-            loss.backward()  # .grad accumulates the sum
-            lsum += float(loss.detach())
-            done += n if use_dp else 1
-            if abort_after is not None and done >= abort_after:
-                raise AccumulationAborted(
-                    f"injected kill after {done}/{V} micro-batches "
-                    f"at step {self.state.step}")
-        grads = self._grads()
-        total = torch.tensor(lsum, dtype=torch.float64, device=self.device)
-        if use_dp:
-            self._sum_over_world([*grads, total])
-        with torch.no_grad():
-            for g in grads:
-                g.mul_(1.0 / V)
+        with self._gathered():
+            for v, mb in enumerate(mine):
+                args = (rng_keys[v],) if self.rng_in_loss else ()
+                loss = self.loss_fn(self.state.params, self._to_device(mb),
+                                    *args)
+                loss.backward()  # .grad accumulates the sum
+                lsum += float(loss.detach())
+                done += n if use_dp else 1
+                if abort_after is not None and done >= abort_after:
+                    raise AccumulationAborted(
+                        f"injected kill after {done}/{V} micro-batches "
+                        f"at step {self.state.step}")
+            total = torch.tensor(lsum, dtype=torch.float64,
+                                 device=self.device)
+            if use_dp:
+                self._reduce_grads([total])
+            else:
+                self._keep_own_grads()
+        self._scale(self._shard_grads(), 1.0 / V)
         opt.step()
+        opt.zero_grad(set_to_none=True)
         self.state.step += 1
         return float(total) / V
 
     # -- the step's collectives --------------------------------------------
+
+    @property
+    def _module(self) -> dict[str, nn.Parameter]:
+        """The module's parameters by name: what the forward reads."""
+        return dict(self.state.params.named_parameters())
+
+    @property
+    def _data_label(self) -> str:
+        return self.mesh.label(DATA_AXES)
+
+    def _empty(self, dtype: torch.dtype) -> torch.Tensor:
+        return torch.empty(0, dtype=dtype, device=self.device)
+
+    def _own_block(self, full: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's block of the full tensor of leaf ``name`` (a view)."""
+        if self._dims[name] is None:
+            return full
+        block = _placements({name: full}, self._dims,
+                            self.shape)[name].blocks[self.rank]
+        return full[tuple(slice(lo, hi) for lo, hi in block)]
+
+    def _by_dtype(self, names) -> dict[torch.dtype, list[str]]:
+        out: dict[torch.dtype, list[str]] = {}
+        for n in names:
+            out.setdefault(self._leaves[n].dtype, []).append(n)
+        return out
+
+    @contextlib.contextmanager
+    def _gathered(self):
+        """The module's parameters whole for the body: on an fsdp trainer
+        each sharded leaf is all-gathered over the fsdp group (one flat
+        buffer per dtype) and each replicated one bound to its shard; on
+        exit the full tensors and their gradients are dropped again."""
+        if not self.sharded:
+            yield
+            return
+        module = self._module
+        try:
+            split = [n for n in module if self._dims[n] is not None]
+            for n, p in module.items():
+                if self._dims[n] is None:
+                    p.data = self._shards[n].data
+            if split:
+                k, group = self.shape.fsdp, self.mesh.groups[AXIS_FSDP]
+                for dtype, names in self._by_dtype(split).items():
+                    parts = [self._shards[n].detach()
+                             .movedim(self._dims[n], 0).reshape(-1)
+                             for n in names]
+                    flat = torch.cat(parts)
+                    out = torch.empty(k * flat.numel(), dtype=dtype,
+                                      device=self.device)
+                    _all_gather(out, flat, group, AXIS_FSDP)
+                    rows, off = out.view(k, -1), 0
+                    for n, part in zip(names, parts):
+                        d, full = self._dims[n], self._leaves[n].shape
+                        moved = (full[d], *full[:d], *full[d + 1:])
+                        module[n].data = (
+                            rows[:, off:off + part.numel()].reshape(moved)
+                            .movedim(0, d).contiguous())
+                        off += part.numel()
+            yield
+        finally:
+            for p in module.values():
+                p.grad = None
+                p.data = self._empty(p.dtype)
+
+    def _shard_grads(self) -> list[torch.Tensor]:
+        return [s.grad for s in self.shards.values() if s.grad is not None]
+
+    def _scale(self, tensors: list[torch.Tensor], factor: float) -> None:
+        with torch.no_grad():
+            for t in tensors:
+                t.mul_(factor)
+
+    def _keep_own_grads(self) -> None:
+        """Each shard's gradient ← its block of the module's full gradient
+        (no reduction: every rank computed the same sum)."""
+        if not self.sharded:
+            return
+        for n, p in self._module.items():
+            if p.grad is not None:
+                self._shards[n].grad = (p.grad if self._dims[n] is None else
+                                        self._own_block(p.grad, n).clone())
+
+    def _reduce_grads(self, extra: list[torch.Tensor]) -> None:
+        """Each shard's gradient ← its block of the gradient summed over the
+        live group, and each tensor of ``extra`` ← its sum over the group:
+        a sharded leaf by a reduce-scatter over the fsdp group then an
+        all-reduce over the dp group, a replicated leaf and ``extra`` by an
+        all-reduce over the live group."""
+        grads = {n: p.grad for n, p in self._module.items()
+                 if p.grad is not None}
+        split = [n for n in grads if self._dims[n] is not None]
+        blocks = self._scatter(grads, split) if split else {}
+        if blocks and self.shape.dp > 1:
+            self._sum_over(self.mesh.groups[AXIS_DP], AXIS_DP,
+                           list(blocks.values()))
+        whole = [g for n, g in grads.items() if n not in blocks]
+        if self.world_size > 1:
+            self._sum_over(self.mesh.group, self._data_label,
+                           whole + extra)
+        if self.sharded:
+            for n, g in grads.items():
+                self._shards[n].grad = blocks.get(n, g)
+
+    def _scatter(self, grads: dict, names: list[str]) -> dict:
+        """The fsdp reduce-scatter of the full gradients of ``names``: one
+        flat buffer per dtype, each leaf's k blocks laid out by rank."""
+        k, group = self.shape.fsdp, self.mesh.groups[AXIS_FSDP]
+        out = {}
+        for dtype, group_names in self._by_dtype(names).items():
+            rows = [grads[n].movedim(self._dims[n], 0).reshape(k, -1)
+                    for n in group_names]
+            flat = torch.cat(rows, dim=1).reshape(-1)
+            mine = torch.empty(flat.numel() // k, dtype=dtype,
+                               device=self.device)
+            _reduce_scatter(mine, flat, group, AXIS_FSDP)
+            off = 0
+            for n, r in zip(group_names, rows):
+                d, full = self._dims[n], self._leaves[n].shape
+                moved = (full[d] // k, *full[:d], *full[d + 1:])
+                out[n] = (mine[off:off + r.shape[1]].view(moved)
+                          .movedim(0, d).contiguous())
+                off += r.shape[1]
+        return out
 
     def _local(self, batch):
         """This rank's contiguous slice of the global batch's leading dim,
@@ -392,32 +710,19 @@ class ElasticTrainer:
             return type(batch)(self._to_device(x) for x in batch)
         return torch.as_tensor(batch).to(self.device, non_blocking=True)
 
-    def _grads(self) -> list[torch.Tensor]:
-        return [p.grad for p in self.state.params.parameters()
-                if p.grad is not None]
-
-    def _sum_over_world(self, tensors: list[torch.Tensor]) -> None:
-        """Each tensor ← its sum over the live group, in place: one
-        all-reduce of a flat buffer per dtype (nothing on a world of one)."""
-        if self.world_size == 1:
-            return
+    def _sum_over(self, group, axis: str,
+                  tensors: list[torch.Tensor]) -> None:
+        """Each tensor ← its sum over ``group``, in place: one all-reduce
+        of a flat buffer per dtype."""
         by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
         with torch.no_grad():
             for ts in by_dtype.values():
                 flat = torch.cat([t.reshape(-1) for t in ts])
-                _all_reduce(flat, dist.ReduceOp.SUM, self.mesh.group)
+                _all_reduce(flat, dist.ReduceOp.SUM, group, axis)
                 for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                     t.copy_(part.view_as(t))
-
-    def _mean_over_world(self, tensors: list[torch.Tensor]) -> None:
-        if self.world_size == 1:
-            return
-        self._sum_over_world(tensors)
-        with torch.no_grad():
-            for t in tensors:
-                t.mul_(1.0 / self.world_size)
 
     # -- resize internals --------------------------------------------------
 
@@ -433,45 +738,51 @@ class ElasticTrainer:
         get_counters().inc("resizes_failed")
 
     def _mesh_for(self, shape: MeshShape) -> Mesh:
-        """The mesh of a pure-dp ``shape`` over the rank prefix of its
-        size (building its process group on first use: collective)."""
-        if shape.size != shape.dp:
+        """The dp×fsdp mesh of ``shape`` over the rank prefix of its size,
+        from ``_step_cache`` or built (its process groups on first use:
+        collective)."""
+        later = [a for a in ("tp", "sp", "ep") if getattr(shape, a) > 1]
+        if later:
             raise ValueError(
-                f"{shape.describe()}: this trainer is pure data parallel; "
-                "fsdp, tp, sp and ep axes are later items of the port")
+                f"{shape.describe()}: this trainer lays out dp and fsdp "
+                f"only; the {', '.join(later)} axes are later items of the "
+                "port (ROADMAP.md queue 1: tp item 1b, sp item 9)")
         if shape.size > 1 and not distributed():
             raise ValueError(f"a world of {shape.size} needs a process group "
                              f"of {shape.size} ranks; none is initialised")
-        return make_mesh(shape.size, shape.to_spec(), devices=[self.device])
+        key = (shape.size, shape.key())
+        if key not in self._step_cache:
+            self._step_cache[key] = make_mesh(shape.size, shape.to_spec(),
+                                              devices=[self.device])
+        return self._step_cache[key]
 
     def _agree(self, ok: bool) -> bool:
         """True when every rank of the default group says ``ok``."""
         if not distributed():
             return ok
         flag = torch.tensor([int(ok)], dtype=torch.int32, device=self.device)
-        _all_reduce(flag, dist.ReduceOp.MIN, None)
+        _all_reduce(flag, dist.ReduceOp.MIN, None, "world")
         return bool(flag.item())
 
     def _layout(self) -> dict:
-        """What a joining rank needs to know of rank 0's state before the
-        bytes move: each parameter's shape and dtype, the optimizer state
-        (a :class:`_Buffer` for each tensor on the device, sent by
-        broadcast; anything else, such as Adam's host step counts, by
-        value), the optimizer's hyperparameters and the step."""
-        params = list(self.state.params.parameters())
+        """What every rank needs to know of rank 0's state before the bytes
+        move: each leaf's full shape and dtype, the optimizer state (a
+        :class:`_Buffer` of the leaf's full shape for each tensor shaped
+        as its block, on the device; anything else, such as Adam's step
+        counts, by value),
+        the optimizer's hyperparameters and the step."""
         opt = self.state.opt_state
 
-        def entry(v):
-            if isinstance(v, torch.Tensor) and v.device == self.device:
-                return _Buffer(tuple(v.shape), v.dtype)
+        def entry(name, shard, v):
+            if (isinstance(v, torch.Tensor) and v.device == self.device
+                    and v.shape == shard.shape):
+                return _Buffer(self._leaves[name].shape, v.dtype)
             return v
 
         return dict(
-            step=self.state.step,
-            params=[(name, _Buffer(tuple(p.shape), p.dtype)) for name, p in
-                    self.state.params.named_parameters()],
-            opt={i: {k: entry(v) for k, v in opt.state[p].items()}
-                 for i, p in enumerate(params) if p in opt.state},
+            step=self.state.step, params=list(self._leaves.items()),
+            opt={n: {k: entry(n, s, v) for k, v in opt.state[s].items()}
+                 for n, s in self.shards.items() if s in opt.state},
             groups=[{k: v for k, v in g.items() if k != "params"}
                     for g in opt.param_groups])
 
@@ -486,57 +797,131 @@ class ElasticTrainer:
             size = torch.tensor([data.numel()], device=self.device)
         else:
             size = torch.zeros(1, dtype=torch.int64, device=self.device)
-        _broadcast(size, 0, None)
+        _broadcast(size, 0, None, "world")
         if self.rank != 0:
             data = torch.empty(int(size), dtype=torch.uint8,
                                device=self.device)
-        _broadcast(data, 0, None)
+        _broadcast(data, 0, None, "world")
         if self.rank == 0:
             return layout
         # bytes rank 0 of this job pickled a moment ago
         return pickle.loads(data.cpu().numpy().tobytes())
 
+    @staticmethod
+    def _priced_tree(layout: dict, dims: dict) -> tuple[dict, dict]:
+        """The state as the plan prices it, leaf for leaf the reference's
+        (params, optax state): each parameter, each optimizer tensor of a
+        parameter, and each other optimizer entry once (Adam's step count,
+        optax's one ``count``, replicated); with each entry's sharded
+        dimension, its parameter's in ``dims``."""
+        tree = {f"params.{n}": b for n, b in layout["params"]}
+        tree_dims = {f"params.{n}": dims[n] for n, _ in layout["params"]}
+        for n, entries in layout["opt"].items():
+            for k, v in entries.items():
+                if isinstance(v, _Buffer):
+                    tree[f"opt.{k}.{n}"] = v
+                    tree_dims[f"opt.{k}.{n}"] = dims[n]
+                else:
+                    tree.setdefault(f"opt.{k}", v)
+                    tree_dims[f"opt.{k}"] = None
+        return tree, tree_dims
+
+    def _moves(self, layout: dict, old: MeshShape, new: MeshShape,
+               new_dims: dict) -> _Moves:
+        """The transfer of a resize from ``old`` to ``new``.  A leaf's
+        distinct old blocks partition it; for each rank of the new world
+        whose block changes, each piece of its new block comes from its own
+        old block (a local copy) or else from the lowest rank holding it
+        (one broadcast, shared by every rank that needs it)."""
+        tensors = [("param", n) for n, _ in layout["params"]]
+        tensors += [(k, n) for n, entries in layout["opt"].items()
+                    for k, v in entries.items() if isinstance(v, _Buffer)]
+        full = dict(layout["params"])
+        olds = _placements(full, self._dims, old)
+        news = _placements(full, new_dims, new)
+        moves, me, sent = _Moves(), self.rank, set()
+        for tid in tensors:
+            was, will = olds[tid[1]].blocks, news[tid[1]].blocks
+            pieces: dict = {}
+            for r in range(old.size):
+                pieces.setdefault(was[r], r)
+            for r in range(new.size):
+                ob = was.get(r) if r < old.size else None
+                nb = will[r]
+                if ob == nb:
+                    continue
+                if r == me:
+                    moves.new[tid] = nb
+                for piece, owner in pieces.items():
+                    atom = _meet(piece, nb)
+                    if atom is None:
+                        continue
+                    if piece == ob:
+                        if r == me:
+                            moves.local.append((tid, atom))
+                        continue
+                    if (tid, atom) not in sent:
+                        sent.add((tid, atom))
+                        moves.sends.append((owner, tid, atom))
+                    if r == me:
+                        moves.takes.add((tid, atom))
+        return moves
+
+    def _live_tensor(self, tid: tuple) -> torch.Tensor:
+        key, name = tid
+        shard = self.shards[name]
+        if key == "param":
+            return shard.detach()
+        return self.state.opt_state.state[shard][key]
+
     def _stage(self, shape: MeshShape) -> _Staged:
-        """Everything the new world needs, without writing live state.
+        """Everything the new layout needs, without writing live state.
         Raises — on every rank alike — unless every rank of the default
         group staged it (the ready and commit votes)."""
-        old_n, new_n = self.world_size, shape.size
+        old = self.shape
+        union = max(old.size, shape.size)
         error: Optional[Exception] = None
         t0 = time.perf_counter()
         try:
             mesh = self._mesh_for(shape)
+            group = rank_group(union) if union > 1 else None
         except Exception as exc:  # voted on below, with every rank
             error = exc
         t1 = t2 = t3 = time.perf_counter()
-        staged, sending = None, []
+        staged = None
         if error is None:
             try:
                 layout = self._broadcast_layout()
                 t2 = time.perf_counter()
-                tree = {f"params.{name}": b for name, b in layout["params"]}
-                tree.update((f"opt.{i}.{k}", v)
-                            for i, entries in layout["opt"].items()
-                            for k, v in entries.items())
+                full = dict(layout["params"])
+                dims = tree_shardings(shape, full, self.param_sharding_kind)
+                tree, old_dims = self._priced_tree(layout, self._dims)
+                _, new_dims = self._priced_tree(layout, dims)
                 plan = plan_reshard(
-                    tree, tree_placements(tree, self.shape),
-                    tree_placements(tree, shape),
-                    old_shape=self.shape, new_shape=shape)
+                    tree, _placements(tree, old_dims, old),
+                    _placements(tree, new_dims, shape),
+                    old_shape=old, new_shape=shape)
                 t3 = time.perf_counter()
-                staged = _Staged(mesh=mesh, layout=layout, split=dict(
-                    compile_ms=round((t1 - t0) * 1000, 2),
-                    replan_ms=round((t3 - t2) * 1000, 3),
-                    prewarm_hit=False, shape=shape.describe(),
-                    bytes_moved=plan.bytes_moved, bytes_ici=plan.bytes_ici,
-                    bytes_dcn=plan.bytes_dcn, bytes_naive=plan.bytes_naive,
-                    transfer="device"))
-                sending = self._receive_buffers(staged, old_n, new_n)
+                staged = _Staged(
+                    mesh=mesh, layout=layout, dims=dims,
+                    moves=self._moves(layout, old, shape, dims),
+                    split=dict(
+                        compile_ms=round((t1 - t0) * 1000, 2),
+                        replan_ms=round((t3 - t2) * 1000, 3),
+                        prewarm_hit=False, shape=shape.describe(),
+                        bytes_moved=plan.bytes_moved,
+                        bytes_ici=plan.bytes_ici, bytes_dcn=plan.bytes_dcn,
+                        bytes_naive=plan.bytes_naive, transfer="device"))
+                self._fresh_buffers(staged, union)
             except Exception as exc:
                 error = exc
         if not self._agree(error is None):
             raise error or RuntimeError("another rank could not stage the "
                                         "resize")
-        if sending:
-            error = self._transfer(sending, mesh.group)
+        if self.rank < union:
+            error = self._transfer(staged, group,
+                                   (mesh if shape.size == union
+                                    else self.mesh).label(DATA_AXES))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t4 = time.perf_counter()
@@ -552,64 +937,110 @@ class ElasticTrainer:
                                 / 1e9, 3) if reshard_s > 0 else 0.0))
         return staged
 
-    def _receive_buffers(self, staged: _Staged, old_n: int,
-                         new_n: int) -> list[torch.Tensor]:
-        """The tensors this rank takes to the state broadcast, in order:
-        on rank 0 its live params and optimizer buffers, on every other
-        rank of a growing prefix fresh buffers (kept by a rank that joins,
-        dropped by one that stays); none when nothing joins."""
-        if new_n <= old_n or self.rank >= new_n:
-            return []
-        layout = staged.layout
-        if self.rank == 0:
-            params = list(self.state.params.parameters())
-            opt = self.state.opt_state.state
-            return ([p.detach() for p in params]
-                    + [opt[params[i]][k] for i, entries in layout["opt"]
-                       .items() for k, v in entries.items()
-                       if isinstance(v, _Buffer)])
+    def _fresh_buffers(self, staged: _Staged, union: int) -> None:
+        """This rank's buffers for the move: each new block it rebuilds,
+        and a wire buffer for each broadcast it cannot serve from a
+        contiguous block of its state (as the source) or receive into a new
+        block whole."""
+        if self.rank >= union:
+            return
+        moves = staged.moves
+        full = dict(staged.layout["params"])
+        for tid, nb in moves.new.items():
+            staged.blocks[tid] = _fresh(
+                tuple(hi - lo for lo, hi in nb), full[tid[1]].dtype,
+                self.device)
+        old_block = self._old_blocks(staged)
+        for owner, tid, atom in moves.sends:
+            if owner == self.rank:
+                if self._source(tid, atom, old_block).is_contiguous():
+                    continue
+            elif (tid, atom) in moves.takes and atom == moves.new[tid]:
+                continue
+            staged.wire[tid, atom] = _fresh(
+                tuple(hi - lo for lo, hi in atom), full[tid[1]].dtype,
+                self.device)
 
-        def fresh(b: _Buffer) -> torch.Tensor:
-            return _fresh(b.shape, b.dtype, self.device)
+    def _source(self, tid: tuple, atom: Block, old_block: dict
+                ) -> torch.Tensor:
+        """The block ``atom`` of leaf ``tid`` in this rank's live state."""
+        return self._live_tensor(tid)[_within(atom, old_block[tid[1]])]
 
-        params = [fresh(b) for _, b in layout["params"]]
-        opt = {i: {k: fresh(v) if isinstance(v, _Buffer) else v
-                   for k, v in entries.items()}
-               for i, entries in layout["opt"].items()}
-        if self.rank >= old_n:  # joining: these become this rank's state
-            staged.params, staged.opt = params, opt
-        return params + [v for i, entries in layout["opt"].items()
-                         for k, v in opt[i].items()
-                         if isinstance(entries[k], _Buffer)]
-
-    def _transfer(self, tensors: list[torch.Tensor],
-                  group) -> Optional[Exception]:
-        """Broadcast each tensor from rank 0 over ``group``, in order.  A
+    def _transfer(self, staged: _Staged, group,
+                  axis: str) -> Optional[Exception]:
+        """The blocks' move, in order: each broadcast from its source rank
+        over the prefix spanning both worlds (sent from the live state,
+        which it only reads, or a contiguous copy; received into the new
+        block, or a wire buffer copied into it), then the local copies.  A
         rank whose broadcast raises still takes part in the rest, so that
         no peer waits on it, and returns its first error for the commit
         vote."""
         error = None
-        for t in tensors:
+        moves, me = staged.moves, self.rank
+        old_block = self._old_blocks(staged)
+        for owner, tid, atom in moves.sends:
+            buf = staged.wire.get((tid, atom))
             try:
-                _broadcast(t, 0, group)
+                if me == owner:
+                    src = self._source(tid, atom, old_block)
+                    if buf is None:
+                        buf = src
+                    else:
+                        buf.copy_(src)
+                elif buf is None:
+                    buf = staged.blocks[tid]
             except Exception as exc:
                 error = error or exc
+            try:
+                _broadcast(buf, owner, group, axis)
+                if ((tid, atom) in moves.takes
+                        and buf is not staged.blocks.get(tid)):
+                    staged.blocks[tid][_within(atom, moves.new[tid])].copy_(
+                        buf)
+            except Exception as exc:
+                error = error or exc
+        try:
+            for tid, atom in moves.local:
+                staged.blocks[tid][_within(atom, moves.new[tid])].copy_(
+                    self._source(tid, atom, old_block))
+        except Exception as exc:
+            error = error or exc
         return error
 
+    def _old_blocks(self, staged: _Staged) -> dict:
+        """The block of each leaf this rank holds now (the live layout)."""
+        if not self.live:
+            return {}
+        full = dict(staged.layout["params"])
+        return {n: p.blocks[self.rank] for n, p
+                in _placements(full, self._dims, self.shape).items()}
+
     def _commit(self, staged: _Staged) -> None:
-        """The commit point: pure assignments.  A rank that joins takes
-        rank 0's params, optimizer state, hyperparameters and step."""
+        """The commit point: pure assignments.  Each rank of the new world
+        takes its rebuilt blocks, rank 0's optimizer entries that are not
+        tensors, its hyperparameters and its step; a rank of an fsdp
+        trainer that stands by drops its blocks."""
         self.mesh = staged.mesh
-        if staged.params is None:
-            return
-        params = list(self.state.params.parameters())
-        for p, new in zip(params, staged.params):
-            p.data = new
+        self._dims = staged.dims
+        layout, blocks = staged.layout, staged.blocks
         opt = self.state.opt_state
-        state = defaultdict(dict)
-        for i, entries in staged.opt.items():
-            state[params[i]] = entries
-        opt.state = state
-        for group, hyper in zip(opt.param_groups, staged.layout["groups"]):
+        if not self.live:
+            if self.sharded:
+                for s in self._shards.values():
+                    opt.state.pop(s, None)
+                    s.data = self._empty(s.dtype)
+            return
+        for name, shard in self.shards.items():
+            if ("param", name) in blocks:
+                shard.data = blocks["param", name]
+            entries = layout["opt"].get(name)
+            if entries is None:
+                continue
+            held = opt.state.get(shard, {})
+            opt.state[shard] = {
+                k: (blocks[k, name] if (k, name) in blocks else held[k])
+                if isinstance(v, _Buffer) else v
+                for k, v in entries.items()}
+        for group, hyper in zip(opt.param_groups, layout["groups"]):
             group.update(hyper)
-        self.state.step = staged.layout["step"]
+        self.state.step = layout["step"]

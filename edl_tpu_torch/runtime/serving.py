@@ -186,6 +186,12 @@ class DecodeSession:
 
     # -- replica-side transitions -------------------------------------------
 
+    def span_tokens(self) -> int:
+        """The KV span a session reserves in full: its prompt and every
+        token it may generate (a resumed session's history lies inside
+        it)."""
+        return len(self.prompt) + self.max_new_tokens
+
     def resume_tokens(self) -> list[int]:
         """Tokens whose K/V a (re)prefill must cover: the prompt plus every
         generated token but the newest (the next decode input)."""
@@ -543,8 +549,7 @@ class DecodeReplica:
         blocks it still lacks."""
         with self._cond:
             queued = sum(
-                max(self.pool._blocks_for(len(s.resume_tokens())
-                                          + s.max_new_tokens)
+                max(self.pool._blocks_for(s.span_tokens())
                     - self.pool.blocks_held(s.id), 0)
                 for s in self._queue)
         need = self.pool._blocks_for(int(prompt_len) + int(max_new))
@@ -709,9 +714,9 @@ class DecodeReplica:
         :class:`KVPoolExhausted`); the scatter waits for the loop."""
         blocks = None
         if host_kv is not None:
-            total = len(sess.resume_tokens()) + sess.max_new_tokens
             try:
-                blocks = self.pool.ensure_capacity(sess.id, total)
+                blocks = self.pool.ensure_capacity(sess.id,
+                                                   sess.span_tokens())
             except KVPoolExhausted:
                 self.pool.free_session(sess.id)
                 raise
@@ -724,10 +729,9 @@ class DecodeReplica:
         rest of the full span) and placed on this device now; the scatter
         waits for the loop.  Raises typed (:class:`KVPoolExhausted`, or
         ``ValueError`` on a storage-mode mismatch) with nothing held."""
-        total = len(sess.resume_tokens()) + sess.max_new_tokens
         blocks = self.pool.reserve_import_device(sess.id, payload)
         try:
-            self.pool.ensure_capacity(sess.id, total)
+            self.pool.ensure_capacity(sess.id, sess.span_tokens())
         except KVPoolExhausted:
             self.pool.free_session(sess.id)
             raise
@@ -735,12 +739,14 @@ class DecodeReplica:
 
     # -- the iteration loop --------------------------------------------------
 
-    def _admit_locked(self) -> None:
+    def _admit_locked(self) -> list[DecodeSession]:
         """Move queued sessions into free slots, reserving full KV spans.
         A session whose span cannot fit stays queued; one whose span can
-        NEVER fit fails typed.  A session whose imported cache has a
+        NEVER fit leaves the queue and is returned, for :meth:`_refuse`
+        once the lock is released.  A session whose imported cache has a
         scatter pending is not admitted until the drain applies it."""
         pending = {sid for sid, _, _ in self._pending_imports}
+        refused = []
         for i in range(self.slots):
             if self._slots[i] is not None:
                 continue
@@ -748,15 +754,11 @@ class DecodeReplica:
                         None)
             if sess is None:
                 break  # nothing admissible until the next drain
-            total = len(sess.resume_tokens()) + sess.max_new_tokens
+            total = sess.span_tokens()
             if (self.pool._blocks_for(total)
                     > self.pool.max_blocks_per_session):
                 self._queue.remove(sess)
-                sess.fail(KVPoolExhausted(
-                    f"session {sess.id}: {total} tokens exceed the "
-                    f"per-session KV cap"))
-                self._counters.inc("serving_sessions", job=self.job,
-                                   outcome="failed")
+                refused.append(sess)
                 continue
             try:
                 if (sess.cached == 0 and not sess.generated
@@ -775,6 +777,20 @@ class DecodeReplica:
                 sess.state = S_PREFILL
                 self.sched.stamp(sess)
             self._slots[i] = sess
+        return refused
+
+    def _refuse(self, sess: DecodeSession) -> None:
+        """Fail a session whose span can never fit, typed, through the
+        fleet's accounting (not under the replica's lock: the fleet's
+        callback takes its own)."""
+        self.pool.free_session(sess.id)
+        self._counters.inc("serving_sessions", job=self.job,
+                           outcome="failed")
+        sess.fail(KVPoolExhausted(
+            f"session {sess.id}: {sess.span_tokens()} tokens exceed the "
+            f"per-session KV cap"))
+        if self.on_session_done is not None:
+            self.on_session_done(sess)
 
     def _park_for_work(self) -> bool:
         """Wait until there is something to do (or quiesce/stop).  Returns
@@ -807,11 +823,13 @@ class DecodeReplica:
             self._maybe_swap()
             self._drain_imports()
             with self._cond:
-                self._admit_locked()
+                refused = self._admit_locked()
                 prefilling = [s for s in self._slots
                               if s is not None and s.state == S_PREFILL]
                 decoding = [s for s in self._slots
                             if s is not None and s.state == S_DECODING]
+            for sess in refused:
+                self._refuse(sess)
             if not prefilling and not decoding:
                 # queued sessions could not admit (pool full): park briefly
                 time.sleep(0.001)
@@ -1152,7 +1170,7 @@ class DecodeFleet:
         sess.on_token = on_token
         # a session that can NEVER fit rejects at the door
         bs = self._rep_kw["kv_block_size"]
-        need = -(-(len(sess.prompt) + sess.max_new_tokens) // bs)
+        need = -(-sess.span_tokens() // bs)
         if need > self._rep_kw["max_blocks_per_session"]:
             self._counters.inc("serving_kv_admission_rejects", job=self.job)
             raise KVPoolExhausted(

@@ -15,7 +15,7 @@ from edl_tpu_torch import interop
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.tracing import get_tracer
-from edl_tpu_torch.parallel.mesh import MeshShape
+from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 
@@ -97,8 +97,8 @@ def test_step_accumulate_equals_one_step_on_the_concatenated_batch():
 
 def test_resize_beyond_the_devices_rolls_back_and_training_goes_on():
     """With no process group the group is this one process: a resize past
-    it, or to a layout this trainer does not build, rolls back and
-    training goes on on the world of one."""
+    it (an fsdp layout too), or to a layout this trainer does not build,
+    rolls back and training goes on on the world of one."""
     t = _port_trainer()
     batch = _batch(4)
     first = t.step(batch)
@@ -111,7 +111,8 @@ def test_resize_beyond_the_devices_rolls_back_and_training_goes_on():
     assert "process group" in get_tracer().events()[-1].args["error"]
     assert t.world_size == 1 and t.shape == MeshShape()
     assert t.resize(MeshShape(dp=1, fsdp=2)) is False
-    assert t.resizes_failed == 2
+    assert t.resize(MeshShape(tp=2)) is False
+    assert t.resizes_failed == 3
     second = t.step(batch)
     assert np.isfinite(second) and second < first
     assert t.state.step == 2 and t.resize_events == []
@@ -134,12 +135,29 @@ def test_more_devices_than_one_start_a_world_of_one():
 
 
 def test_unsupported_modes_are_refused():
-    """fsdp parameter sharding is refused, naming the later item; both of
-    the reference's accumulation modes are taken, "dp" by default."""
+    """tp, sp and ep layouts are refused, naming their later items, as are
+    an unknown sharding kind and an fsdp world of two with no process
+    group; both of the reference's accumulation modes are taken, "dp" by
+    default."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
-    with pytest.raises(ValueError, match="fsdp sharding is a later item"):
+    for axis in ("tp", "sp", "ep"):
+        with pytest.raises(ValueError, match=f"the {axis} axes are later "
+                           "items.*item 1b.*item 9"):
+            ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
+                           devices=CPU, spec=MeshSpec(**{axis: 1}),
+                           initial_world_size=MeshShape(**{axis: 2}))
+    with pytest.raises(ValueError, match="param_sharding 'zero2'"):
         ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
-                       param_sharding="fsdp")
+                       param_sharding="zero2")
+    with pytest.raises(ValueError, match="process group"):
+        ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
+                       param_sharding="fsdp", spec=MeshSpec(dp=1, fsdp=-1),
+                       initial_world_size=2)
+    fsdp1 = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
+                           param_sharding="fsdp",
+                           spec=MeshSpec(dp=1, fsdp=-1))
+    assert fsdp1.shape == MeshShape() and fsdp1.sharded
+    assert set(fsdp1.sharded_dims().values()) == {None}
     with pytest.raises(ValueError, match="accum_mode"):
         ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
                        accum_mode="rounds")

@@ -13,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "edl_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "edl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "edl_tpu", "__graft_entry__"}
 
 
 def _port_modules():
@@ -54,7 +54,7 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    from edl_tpu_torch.entry import (bert_trainer, entry,
+    from edl_tpu_torch.entry import (bert_trainer, dryrun_multichip, entry,
                                      flagship_elastic_world, flagship_trainer,
                                      resnet_trainer)
     from edl_tpu_torch.models import bert, resnet
@@ -71,6 +71,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):  # before joining a group
         flagship_elastic_world(0, 1, tmp_path / "store", cfg=tfm.TINY)
     assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):  # before spawning ranks
+        dryrun_multichip(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         resnet_trainer(batch=2, hw=32, cfg=resnet.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -204,3 +206,26 @@ def test_durable_loop_raises_without_cuda(monkeypatch, tmp_path):
         vw_key(0, 0, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         vw_keys(0, 8, 0)
+
+
+def test_fsdp_dryrun_and_choke_points_stand_alone():
+    """The dryrun and the trainer's collective choke points import nothing
+    of JAX, the JAX package or ``__graft_entry__``: with those blocked,
+    ``dryrun_multichip(2)`` runs (its ranks import the same modules) and
+    prints its record."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'edl_tpu',"
+        " '__graft_entry__'):\n"
+        "    sys.modules[name] = None\n"
+        "from edl_tpu_torch.runtime.elastic import (_all_gather,"
+        " _all_reduce, _broadcast, _reduce_scatter, collective_census)\n"
+        "from edl_tpu_torch.entry import dryrun_multichip\n"
+        "if __name__ == '__main__':\n"
+        "    dryrun_multichip(2, device='cpu')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "DRYRUN_COMM " in proc.stdout
+    assert {"edl_tpu_torch.entry", "edl_tpu_torch.runtime.elastic",
+            "edl_tpu_torch.parallel.mesh"} <= set(_port_modules())

@@ -14,6 +14,8 @@ docstrings state, not a timing."""
 
 from __future__ import annotations
 
+import threading
+import time
 
 import jax
 import numpy as np
@@ -236,6 +238,42 @@ class TestLiveResize:
             assert fleet.sessions_failed == 0
             assert fleet.sessions_completed == len(ps)
             assert fleet.migrations >= 1
+        finally:
+            fleet.stop()
+
+    @fleet_test
+    def test_scale_down_after_many_tokens_reserves_the_full_span(self):
+        """A session holding 20 generated tokens on the leaving replica
+        migrates reserving its prompt plus its max_new_tokens — not its
+        resumed history plus max_new_tokens, 19 tokens over the per-session
+        cap of 64 here — and finishes token-equal; no session fails, and
+        completed + failed equals submitted.  The session's loop is held at
+        its 20th token until the scale-down asks the replica to park, so it
+        migrates with exactly 20."""
+        fleet = make_fleet(roles={"decode": 2}, kv_blocks=64)
+        try:
+            victim = [r for r in fleet._replicas if r.role == "decode"][-1]
+            reached, at_park = threading.Event(), []
+
+            def hold_at_20(s, tok):
+                if len(s.generated) == 20:
+                    reached.set()
+                    while not victim._quiesce_req:
+                        time.sleep(0.001)
+                    at_park.append(len(s.generated))
+
+            ps = prompts(2, 6, 10)
+            stay = fleet.submit(ps[0], max_new_tokens=40)
+            moved = fleet.submit(ps[1], max_new_tokens=40,
+                                 on_token=hold_at_20)
+            assert reached.wait(60)
+            assert fleet.scale_to(1) == 1
+            assert [stay.wait(60), moved.wait(60)] == ref_decode_many(ps, 40)
+            assert at_park == [20]
+            assert (stay.migrations, moved.migrations) == (0, 1)
+            assert fleet.sessions_failed == 0
+            assert (fleet.sessions_completed + fleet.sessions_failed
+                    == fleet.sessions_submitted == 2)
         finally:
             fleet.stop()
 

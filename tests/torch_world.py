@@ -26,7 +26,7 @@ import torch.distributed as dist
 from edl_tpu_torch import interop
 from edl_tpu_torch.models import mlp
 from edl_tpu_torch.models import transformer as tfm
-from edl_tpu_torch.parallel.mesh import MeshShape
+from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
 from edl_tpu_torch.runtime import elastic, optim
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 
@@ -136,12 +136,13 @@ def params_numpy(trainer: ElasticTrainer) -> dict:
             for n, p in trainer.state.params.named_parameters()}
 
 
-def tiny_trainer(params: dict, **kw) -> ElasticTrainer:
+def tiny_trainer(params: dict, optimizer=None, **kw) -> ElasticTrainer:
     """The port's TINY transformer holding the JAX params ``params`` (a
-    numpy tree), under adamw(1e-3) on the CPU."""
+    numpy tree), under ``optimizer`` (default adamw(1e-3)) on the CPU."""
     model = interop.params_from_numpy(tfm.Transformer(tfm.TINY, device="cpu"),
                                       params)
-    return ElasticTrainer(tfm.loss_fn, model, optim.adamw(1e-3),
+    return ElasticTrainer(tfm.loss_fn, model,
+                          optimizer or optim.adamw(1e-3),
                           devices=[torch.device("cpu")], **kw)
 
 
@@ -324,9 +325,9 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
         def failing_fresh(*a, **k):
             raise RuntimeError("injected: out of memory staging the resize")
 
-        def failing_after_bcast(t_, src, group):
-            real_bcast(t_, src, group)
-            if group is not None:  # the state transfer, not the layout
+        def failing_after_bcast(t_, src, group, axis):
+            real_bcast(t_, src, group, axis)
+            if axis != "world":  # the state transfer, not the layout
                 raise RuntimeError("injected: transfer failed after bytes")
 
         for name, seam, real, bad, on in (
@@ -427,7 +428,7 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
         got = dict(matches=[t.matches(v) for v in (0, "abc", 3, 4)])
         got["soft"] = [t.resize(v) for v in (0, "abc")]
         got["failed_soft"] = t.resizes_failed
-        got["staged"] = [t.resize(v) for v in (8, MeshShape(dp=2, fsdp=2))]
+        got["staged"] = [t.resize(v) for v in (8, MeshShape(dp=2, tp=2))]
         got.update(failed=t.resizes_failed, world=t.world_size,
                    loss=t.step((x[:64], y[:64])), landed=t.resize(3),
                    world_after=t.world_size)
@@ -693,4 +694,295 @@ def suite_virtual(rank: int, world: int, store: str, mlp_params: dict,
         rank)
 
 
-SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual}
+# -- the fsdp suites ----------------------------------------------------------
+
+
+def shard_digest(trainer: ElasticTrainer) -> str:
+    """sha256 of this rank's blocks of every parameter and optimizer-state
+    tensor."""
+    h = hashlib.sha256()
+    opt = trainer.state.opt_state.state
+    for name, s in trainer.shards.items():
+        h.update(name.encode())
+        h.update(s.detach().cpu().numpy().tobytes())
+        for k, v in sorted(opt[s].items()) if s in opt else ():
+            h.update(k.encode())
+            h.update(torch.as_tensor(v).detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def full_numpy(trainer: ElasticTrainer) -> dict:
+    """The whole parameters (collective over the live group)."""
+    return {n: p.numpy() for n, p in trainer.full_params().items()}
+
+
+def blocks(trainer: ElasticTrainer) -> dict:
+    """This rank's blocks of each parameter and of Adam's moments, with the
+    sharded dim and the rank's index on the fsdp axis."""
+    opt = trainer.state.opt_state.state
+    return dict(
+        dims=trainer.sharded_dims(),
+        index=trainer.rank % trainer.shape.fsdp, fsdp=trainer.shape.fsdp,
+        params={n: s.detach().numpy().copy()
+                for n, s in trainer.shards.items()},
+        opt={n: {k: v.numpy().copy() for k, v in opt[s].items()
+                 if v.shape == s.shape}
+             for n, s in trainer.shards.items() if s in opt},
+        shapes=trainer.full_shapes())
+
+
+def fsdp_tiny(params: dict, spec: MeshSpec, n0: int, **kw) -> ElasticTrainer:
+    return tiny_trainer(params, param_sharding="fsdp", spec=spec,
+                        initial_world_size=n0, **kw)
+
+
+FSDP = MeshSpec(dp=1, fsdp=-1)
+#: plain SGD's step size in the fsdp parity scenario: unlike Adam's, its
+#: update scales with the gradient, so a wrong 1/N or a sum taken twice
+#: shows in the parameters
+SGD_LR = 0.1
+
+
+def sgd(params):
+    return torch.optim.SGD(params, lr=SGD_LR)
+
+
+def suite_fsdp_four(rank: int, world: int, store: str, tiny_params: dict,
+                    batches: list, micro: list) -> dict:
+    """fsdp on four ranks: JAX parity of fsdp 4 and dp2×fsdp2, the live
+    re-splits of tests/test_replan.py on the MLP, fsdp 2 ↔ 4, replicated
+    accumulation across layouts, and ranks standing by."""
+    _join(rank, world, store)
+    x, y = synthetic_classification()
+
+    def matches(rank):
+        got = {}
+        for label, spec in (("fsdp4", FSDP), ("dp2xfsdp2",
+                                               MeshSpec(dp=2, fsdp=-1))):
+            t = fsdp_tiny(tiny_params, spec, 4)
+            elastic.reset_census()
+            losses = [t.step(batches[0])]
+            census = elastic.collective_census()
+            losses += [t.step(b) for b in batches[1:]]
+            got[label] = dict(losses=losses, census=census,
+                              blocks=blocks(t), full=full_numpy(t))
+            t = fsdp_tiny(tiny_params, spec, 4, optimizer=sgd)
+            losses = [t.step(batches[0])]
+            first = full_numpy(t)
+            losses += [t.step(b) for b in batches[1:]]
+            got[f"{label}_sgd"] = dict(losses=losses, first=first,
+                                       full=full_numpy(t))
+        t = tiny_trainer(tiny_params, initial_world_size=4)
+        got["replicated"] = dict(losses=[t.step(b) for b in batches],
+                                 full=params_numpy(t))
+        t = fsdp_tiny(tiny_params, FSDP, 4)
+        got["accum_dp"] = dict(
+            losses=[t.step_accumulate(micro) for _ in range(2)],
+            full=full_numpy(t))
+        return got
+
+    def mlp_fsdp(n0=4, spec=MeshSpec(dp=-1), sizes=(16, 32, 4)):
+        return ElasticTrainer(mlp.loss_fn,
+                              mlp.MLP(list(sizes), device="cpu"),
+                              optim.adam(1e-2), spec=spec,
+                              param_sharding="fsdp",
+                              devices=[torch.device("cpu")],
+                              initial_world_size=n0)
+
+    def live_4x1_to_2x2(rank):
+        t = mlp_fsdp()
+        for i in range(8):
+            t.step((x[i * 64:(i + 1) * 64], y[i * 64:(i + 1) * 64]))
+        got = dict(ev_before=t.eval_loss((x, y)), before=full_numpy(t),
+                   shape_before=t.shape)
+        got["ok"] = t.resize(MeshShape(dp=2, fsdp=2))
+        got.update(shape=t.shape, size=t.world_size, after=full_numpy(t),
+                   ev_after=t.eval_loss((x, y)), event=t.resize_events[-1],
+                   w0=(t.shards["w0"].nbytes,
+                       t.state.opt_state.state[t.shards["w0"]]["exp_avg"]
+                       .nbytes), dims=t.sharded_dims())
+        for i in range(10):
+            t.step((x[i * 32:(i + 1) * 32], y[i * 32:(i + 1) * 32]))
+        got["trained"] = t.eval_loss((x, y))
+        held = full_numpy(t)
+        got["back"] = t.resize(4)
+        got.update(back_event=t.resize_events[-1], back_shape=t.shape,
+                   back_same=all(np.array_equal(held[k], v) for k, v in
+                                 full_numpy(t).items()))
+        return got
+
+    def distinct_cache(rank):
+        calls = []
+        real = dist.new_group
+
+        def counting(*a, **k):
+            calls.append(a)
+            return real(*a, **k)
+
+        dist.new_group = counting
+        try:
+            t = mlp_fsdp()
+            t.step((x[:64], y[:64]))
+            ok = [t.resize(MeshShape(dp=2, fsdp=2))]
+            t.step((x[:64], y[:64]))
+            ok.append(t.resize(4))
+            built = len(calls)
+            keys = sorted(t._step_cache)
+            mesh_22 = t._step_cache[(4, MeshShape(dp=2, fsdp=2).key())]
+            ok.append(t.resize(MeshShape(dp=2, fsdp=2)))
+            ok.append(t.resize(4))
+            ok.append(t.resize(MeshShape(dp=2, fsdp=2)))
+        finally:
+            dist.new_group = real
+        return dict(ok=ok, keys=keys, same_mesh=t.mesh is mesh_22,
+                    built=built, built_after=len(calls),
+                    groups=sorted(t.mesh.groups))
+
+    def rollback(rank):
+        t = mlp_fsdp()
+        t.step((x[:64], y[:64]))
+        real_fresh, real_bcast = elastic._fresh, elastic._broadcast
+
+        def failing_fresh(*a, **k):
+            raise RuntimeError("injected: out of memory staging the resize")
+
+        def failing_after_bcast(t_, src, group, axis):
+            real_bcast(t_, src, group, axis)
+            if axis != "world":  # the blocks' move, not a vote
+                raise RuntimeError("injected: transfer failed after bytes")
+
+        got = {}
+        for name, target, seam, bad, on in (
+                ("alloc", MeshShape(dp=2, fsdp=2), "_fresh", failing_fresh,
+                 2),
+                ("transfer", MeshShape(dp=4), "_broadcast",
+                 failing_after_bcast, 1)):
+            if name == "transfer":
+                got["landed"] = t.resize(MeshShape(dp=2, fsdp=2))
+            old_mesh, old_shape = t.mesh, t.shape
+            before = shard_digest(t)
+            ev0 = t.eval_loss((x[:64], y[:64]))
+            if rank == on:
+                setattr(elastic, seam, bad)
+            try:
+                ok = t.resize(target)
+            finally:
+                elastic._fresh, elastic._broadcast = real_fresh, real_bcast
+            got[name] = dict(
+                ok=ok, same_mesh=t.mesh is old_mesh, shape=t.shape,
+                old_shape=old_shape, failed=t.resizes_failed,
+                untouched=shard_digest(t) == before,
+                ev=(ev0, t.eval_loss((x[:64], y[:64]))),
+                loss=t.step((x[:64], y[:64])))
+            got[name]["retry"] = t.resize(target)
+            got[name]["retry_shape"] = t.shape
+        return got
+
+    def fsdp_2_4(rank):
+        resized = fsdp_tiny(tiny_params, FSDP, 2)
+        control = fsdp_tiny(tiny_params, FSDP, 2)
+        got = dict(resized=[], control=[], kept=[], evals=[])
+        for phase, target in ((0, 4), (1, 2), (2, None)):
+            for b in batches:
+                got["resized"].append(resized.step(b))
+                got["control"].append(control.step(b))
+            if target is not None:
+                before = full_numpy(resized)
+                ev = resized.eval_loss(batches[0])
+                ok = resized.resize(target)
+                got["kept"].append(all(
+                    np.array_equal(before[k], v)
+                    for k, v in full_numpy(resized).items()))
+                got["evals"].append((ok, ev, resized.eval_loss(batches[0])))
+        # a leaf whose sharded dim changes with the fsdp size: [6, 4] splits
+        # its 6 rows in 2 and its 4 columns in 4
+        m = mlp_fsdp(n0=2, spec=FSDP, sizes=(6, 4, 4))
+        m.step((x[:64, :6], y[:64]))
+        dims, before = [m.sharded_dims()["w0"]], full_numpy(m)
+        moved = [m.resize(4)]
+        dims.append(m.sharded_dims()["w0"])
+        kept = [all(np.array_equal(before[k], v)
+                    for k, v in full_numpy(m).items())]
+        m.step((x[:64, :6], y[:64]))
+        before = full_numpy(m)
+        moved.append(m.resize(2))
+        dims.append(m.sharded_dims()["w0"])
+        kept.append(all(np.array_equal(before[k], v)
+                        for k, v in full_numpy(m).items()))
+        got["mlp"] = dict(dims=dims, moved=moved, kept=kept,
+                          loss=m.step((x[:64, :6], y[:64])))
+        return got
+
+    def replicated_accum(rank):
+        got = {}
+        for label, spec, n in (("1", FSDP, 1), ("fsdp2", FSDP, 2),
+                               ("dp2xfsdp2", MeshSpec(dp=2, fsdp=-1), 4)):
+            t = fsdp_tiny(tiny_params, spec, n, accum_mode="replicated")
+            losses = [t.step_accumulate(micro) for _ in range(2)]
+            got[label] = dict(losses=losses, live=t.live,
+                              blocks=blocks(t) if t.live else None)
+        return got
+
+    def standby(rank):
+        t = fsdp_tiny(tiny_params, FSDP, 2)
+        before = shard_digest(t)
+        got = dict(step=t.step(micro[0]), eval=t.eval_loss(micro[0]),
+                   accum=t.step_accumulate(micro), live=t.live)
+        got["untouched"] = shard_digest(t) == before
+        got["steps"] = t.state.step
+        got["held"] = sum(s.numel() for s in t.shards.values())
+        return got
+
+    return _run_scenarios(
+        [matches, live_4x1_to_2x2, distinct_cache, rollback, fsdp_2_4,
+         replicated_accum, standby], rank)
+
+
+def suite_fsdp_two(rank: int, world: int, store: str, tiny_params: dict,
+                   batches: list, flagship_kw: dict) -> dict:
+    """fsdp on two ranks: the entry point behind chip_smoke's phase (l),
+    then the JAX-parity 1→2 scenario on the same group."""
+    from edl_tpu_torch.entry import flagship_elastic_world
+
+    out = {}
+    try:
+        trainer, batch = flagship_elastic_world(
+            rank, world, store, device="cpu", param_sharding="fsdp",
+            spec=FSDP, **flagship_kw)
+        seen = dict(world=trainer.world_size, live=trainer.live,
+                    losses=[], resized=[], kept=[], shares=None)
+        for target in (None, 2, None, 1, None):
+            if target is None:
+                seen["losses"].append(trainer.step(batch))
+                continue
+            before = full_numpy(trainer)
+            seen["resized"].append(trainer.resize(target))
+            seen["kept"].append(all(
+                np.array_equal(before[k], v)
+                for k, v in full_numpy(trainer).items()))
+            if trainer.world_size == 2:
+                b = blocks(trainer)
+                seen["shares"] = sorted({
+                    a.size / int(np.prod(b["shapes"][n]))
+                    for n, a in b["params"].items()} | {
+                    a.size / int(np.prod(b["shapes"][n]))
+                    for n, e in b["opt"].items() for a in e.values()})
+        out["flagship_world"] = seen
+    except Exception:
+        out["flagship_world"] = ScenarioFailed(traceback.format_exc())
+        return out
+
+    def parity_1_2(rank):
+        t = fsdp_tiny(tiny_params, FSDP, 1)
+        losses = [t.step(batches[0])]
+        resized = t.resize(2)
+        losses += [t.step(b) for b in batches[1:]]
+        return dict(losses=losses, resized=resized, full=full_numpy(t),
+                    events=t.resize_events, digest=shard_digest(t))
+
+    out.update(_run_scenarios([parity_1_2], rank))
+    return out
+
+
+SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
+          "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two}
