@@ -32,8 +32,9 @@ Phases, each of which raises on failure:
     timed capped at 8;
 (f) the flash kernels at the BERT-base shape (b 32, s 512, h = hk = 12,
     d 64, non-causal), at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk and
-    d, causal) and at the local batch of a live rank of (j) and (l) on a
-    world of 2 (b 8), checked and timed as in (b);
+    d, causal), at the local batch of a live rank of (j) and (l) on a
+    world of 2 (b 8), and at a rank's heads on (m)'s tp 2 (b 16, h 4,
+    hk 1), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -99,6 +100,25 @@ Phases, each of which raises on failure:
     live rank launching every flash kernel once per layer a step and one
     standing by none; every loss within ``WORLD_LOSS_ATOL`` of the
     one-rank control.
+(m) Megatron tp: two spawned ranks share the card over gloo
+    (``entry.flagship_tp_world``: FLAGSHIP laid out by its partition specs
+    over ``MeshSpec(tp=-1)``, the global batch of (c)) through (j)'s
+    schedule of worlds 1→2→1.  On the world of 2 each rank holds half of
+    every matrix (the attention and MLP weights by heads and hidden
+    columns, embed and lm_head by vocabulary) and of its Adam moments, and
+    the whole norms; the flash kernels see 4 query and 1 kv head a rank
+    (checked at that shape in (f)).  Gates: every split leaf and moment at
+    exactly half its bytes on each rank of 2; the norms bitwise equal
+    across the ranks after every world-2 step; the whole params bitwise
+    kept through each resize; each resize's broadcast bytes the plan's
+    ``bytes_moved`` less Adam's 4-byte count at most; every loss within
+    ``WORLD_LOSS_ATOL`` of the one-rank control; each live rank launching
+    every flash kernel once per layer a step and one standing by none; a
+    world-2 step's census tp all-reduces alone (its count printed).
+(n) ``entry.dryrun_multichip(2)``, ``(4)`` and ``(8)`` on the card: n
+    ranks share it over gloo and take one step of TINY placed by its
+    partition specs (fsdp 2, dp2×fsdp2, dp2×fsdp2×tp2), each printing its
+    ``DRYRUN_COMM`` line.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -128,10 +148,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edl_tpu_torch.entry import (DECODE_DEFAULTS, bert_trainer, entry,
+from edl_tpu_torch.entry import (DECODE_DEFAULTS, bert_trainer,
+                                 dryrun_multichip, entry,
                                  flagship_decode_fleet, flagship_elastic_world,
-                                 flagship_trainer, flagship_virtual_world,
-                                 resnet_trainer)
+                                 flagship_tp_world, flagship_trainer,
+                                 flagship_virtual_world, resnet_trainer)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
@@ -219,6 +240,8 @@ WORLD_CHILD_TIMEOUT_S = 600
 WORLD_LOSS_ATOL = 2e-2
 #: phase (l): the fsdp trainer's layout (every rank on the fsdp axis)
 FSDP_SPEC = MeshSpec(dp=1, fsdp=-1)
+#: phase (n): the dryrun's sizes, the reference's layouts for each
+DRYRUN_SIZES = (2, 4, 8)
 #: phase (k): steps of the job, its checkpoint cadence, the step the first
 #: loop stops at (the kill lands in the next one), the stall watchdog's
 #: deadline floor, and the ranks' join deadline
@@ -1178,14 +1201,21 @@ def phase_world(card: str) -> dict:
 # -- phase (l): fsdp over two ranks sharing the card --------------------------
 
 
+def split_leaves(trainer) -> set:
+    """The leaves some axis of the live mesh splits."""
+    return {n for n, spec in trainer.partition_specs().items()
+            if any(e is not None and getattr(trainer.shape, e) > 1
+                   for e in spec)}
+
+
 def resting_state(trainer) -> dict:
-    """(l): what this rank holds at rest: its blocks of the parameters and
-    of Adam's moments (bytes summed, and each sharded leaf's share of its
-    full bytes), what a replicated trainer's rank holds of the same leaves
-    (each at its full shape), and what the caching allocator holds in this
-    process."""
+    """(l) and (m): what this rank holds at rest: its blocks of the
+    parameters and of Adam's moments (bytes summed, and each split leaf's
+    share of its full bytes), what a replicated trainer's rank holds of the
+    same leaves (each at its full shape), and what the caching allocator
+    holds in this process."""
     opt = trainer.state.opt_state.state
-    dims, shapes = trainer.sharded_dims(), trainer.full_shapes()
+    split, shapes = split_leaves(trainer), trainer.full_shapes()
     nbytes, replicated, shares = 0, 0, set()
     for name, shard in trainer.shards.items():
         for t in [shard] + [v for v in opt.get(shard, {}).values()
@@ -1193,11 +1223,11 @@ def resting_state(trainer) -> dict:
             full = math.prod(shapes[name]) * t.element_size()
             nbytes += t.nbytes
             replicated += full
-            if dims[name] is not None:
+            if name in split:
                 shares.add(t.nbytes / full)
     return dict(state_bytes=nbytes, replicated_bytes=replicated,
                 shares=sorted(shares),
-                replicated=[n for n, d in dims.items() if d is None],
+                replicated=sorted(set(shapes) - split),
                 allocated=torch.cuda.memory_allocated(trainer.device))
 
 
@@ -1318,6 +1348,151 @@ def phase_fsdp(card: str) -> dict:
     if failures:
         raise AssertionError("phase (l): " + "; ".join(failures))
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
+# -- phase (m): Megatron tp over two ranks sharing the card -------------------
+
+
+def tp_rank(rank: int, store: str, out: str) -> None:
+    """(m), one rank of the job: WORLD_SCHEDULE on a trainer laid out by
+    FLAGSHIP's partition specs over tp, with what one rank can see of it
+    written as JSON to ``out``."""
+    from edl_tpu_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer, batch = flagship_tp_world(
+        rank, WORLD_RANKS, store, batch=B, seq=S,
+        initial_world_size=WORLD_SCHEDULE[0])
+    norms = [n for n, spec in trainer.partition_specs().items()
+             if not any(spec)]
+    rec = dict(rank=rank, steps=[], resized=[], moved=[], kept=[])
+    fa.reset_launches()
+    for world in WORLD_SCHEDULE:
+        if world != trainer.world_size:
+            # rank 0, live on every world, fingerprints the whole params
+            full = checksum(trainer.full_params().values())
+            elastic.reset_census()
+            rec["resized"].append(trainer.resize(world))
+            rec["moved"].append(elastic.collective_census())
+            after = checksum(trainer.full_params().values())
+            rec["kept"].append(full == after if rank == 0 else None)
+        before = dict(fa.launches)
+        elastic.reset_census()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        rec["steps"].append(dict(
+            world=trainer.world_size, live=trainer.live, loss=loss,
+            ms=1e3 * (time.perf_counter() - t0),
+            launches={k: fa.launches[k] - before[k] for k in fa.launches},
+            census=elastic.collective_census(),
+            norms=(checksum(trainer.shards[n] for n in norms)
+                   if trainer.world_size > 1 else None)))
+        if trainer.world_size == WORLD_RANKS and "rest" not in rec:
+            torch.cuda.synchronize()
+            rec["rest"] = resting_state(trainer)
+    rec["launches"] = dict(fa.launches)
+    rec["events"] = trainer.resize_events
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_tp(card: str) -> dict:
+    """(m): FLAGSHIP with Megatron tp over two ranks sharing the card
+    through 1→2→1, against a one-rank control; returns the launches of
+    both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(tp_rank, "m", WORLD_CHILD_TIMEOUT_S)
+    control = world_control()
+    n = tfm.FLAGSHIP.n_layers
+    per_step = {k: n for k in FLASH}
+    r0, r1 = recs
+    failures = []
+    for rec in recs:
+        for evt, moved, kept in zip(rec["events"], rec["moved"],
+                                    rec["kept"]):
+            sent = sum(slot["bytes"] for label, slot in moved.items()
+                       if label != "world")
+            print(f"tp rank {rec['rank']} resize to {evt['shape']}: "
+                  f"bytes_moved {evt['bytes_moved']} (plan; bytes_naive "
+                  f"{evt['bytes_naive']}), broadcast {sent} bytes, "
+                  f"reshard_ms {evt['reshard_ms']}, full params bitwise "
+                  f"kept {kept}", flush=True)
+            # the plan counts Adam's step count, which travels by value
+            if kept is False or not 0 <= evt["bytes_moved"] - sent <= 4:
+                failures.append(f"rank {rec['rank']} resize {evt}: "
+                                f"broadcast {sent}, kept {kept}")
+    for rec in recs:
+        rest = rec["rest"]
+        print(f"tp rank {rec['rank']} resting state on tp2: "
+              f"{rest['state_bytes'] / 1e9:.4f} GB of params and Adam "
+              f"moments (a replicated trainer's rank: "
+              f"{rest['replicated_bytes'] / 1e9:.4f} GB), each split "
+              f"leaf's share {rest['shares']}, whole leaves "
+              f"{rest['replicated']}, torch.cuda.memory_allocated "
+              f"{rest['allocated'] / 1e9:.4f} GB on {card}", flush=True)
+        if rest["shares"] != [0.5]:
+            failures.append(f"rank {rec['rank']}: shares {rest['shares']}")
+    for world in sorted(set(WORLD_SCHEDULE)):
+        ms = {rec["rank"]: [round(st["ms"], 2) for st in rec["steps"]
+                            if st["world"] == world and st["live"]]
+              for rec in recs}
+        print(f"tp world {world} step_ms by rank {ms} median after the "
+              f"first {float(np.median(ms[0][1:])):.2f} (b{B} s{S} global "
+              f"batch; two ranks share one card: not a scaling figure) on "
+              f"{card}", flush=True)
+    census = next(st["census"] for st in r0["steps"]
+                  if st["world"] == WORLD_RANKS)
+    reduces = census.get("tp", {}).get("ops", {}).get("all-reduce", 0)
+    print(f"tp census of one tp2 step, rank 0 (gloo, handed the CUDA "
+          f"tensors as they are): {reduces} tp all-reduces, "
+          f"{json.dumps(census)}", flush=True)
+    if set(census) != {"tp"} or set(census["tp"]["ops"]) != {"all-reduce"}:
+        failures.append(f"census {census}")
+    losses = [st["loss"] for st in r0["steps"]]
+    diff = [abs(a - b) for a, b in zip(losses, control)]
+    print(f"tp losses {[round(x, 6) for x in losses]} control "
+          f"{[round(x, 6) for x in control]} max |tp - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL})", flush=True)
+    if not all(np.isfinite(losses)) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {losses} vs control {control}")
+    if r0["resized"] != [True, True] or r1["resized"] != [True, True]:
+        failures.append(f"resizes {r0['resized']} {r1['resized']}")
+    if r0["kept"] != [True, True]:
+        failures.append(f"full params kept through the resizes "
+                        f"{r0['kept']}")
+    equal = []
+    for i, (a, b) in enumerate(zip(r0["steps"], r1["steps"])):
+        if a["world"] > 1:
+            equal.append(a["norms"] == b["norms"])
+            if a["loss"] != b["loss"] or a["norms"] != b["norms"]:
+                failures.append(f"step {i}: the ranks' losses or norms "
+                                "differ")
+        for rank, st in enumerate((a, b)):
+            want = per_step if st["live"] else {k: 0 for k in FLASH}
+            if st["launches"] != want:
+                failures.append(f"step {i} rank {rank}: launches "
+                                f"{st['launches']}, want {want}")
+    print(f"tp norms bitwise equal across the ranks after each world-2 "
+          f"step: {equal}; launches {[rec['launches'] for rec in recs]}",
+          flush=True)
+    if failures:
+        raise AssertionError("phase (m): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
+def phase_dryrun() -> None:
+    """(n): the sharded dryrun on the card at each of DRYRUN_SIZES; each
+    raises on a failed check and prints its DRYRUN_COMM line."""
+    for n in DRYRUN_SIZES:
+        t0 = time.perf_counter()
+        rec = dryrun_multichip(n)
+        print(f"dryrun_multichip({n}) ok on the card in "
+              f"{time.perf_counter() - t0:.1f} s: mesh {rec['mesh']}, "
+              f"{rec['param_bytes_per_device_max']} of "
+              f"{rec['param_bytes_total']} param bytes a rank", flush=True)
 
 
 # -- phase (k): the durable virtual-worker loop -------------------------------
@@ -1624,12 +1799,16 @@ def main() -> int:
                                "flagship_virtual")
     world_rows = phase_flash(B // WORLD_RANKS, S, H, HK, D, (True,),
                              "flagship_world")
+    tp_rows = phase_flash(B, S, H // WORLD_RANKS, HK // WORLD_RANKS, D,
+                          (True,), "flagship_tp")
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
     phase_serving()
     paths["flagship_world"] = phase_world(card)
     paths["flagship_virtual"] = phase_virtual(card)
     paths["flagship_fsdp"] = phase_fsdp(card)
+    paths["flagship_tp"] = phase_tp(card)
+    phase_dryrun()
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1648,6 +1827,8 @@ def main() -> int:
             kernels[-1]["at_flagship_virtual"] = virtual_rows[name]
         if name in world_rows:
             kernels[-1]["at_flagship_world"] = world_rows[name]
+        if name in tp_rows:
+            kernels[-1]["at_flagship_tp"] = tp_rows[name]
     print(json.dumps({"kernels": kernels}))
     # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``__graft_entry__.entry``.  ``flagship_trainer(device)`` returns the
 ``ElasticTrainer`` and batch that ``chip_smoke.py`` and
 ``edl_tpu_torch.profile_step`` drive, ``flagship_elastic_world`` the
-same for one rank of a multi-rank job, and ``flagship_virtual_world`` that
+same for one rank of a multi-rank job (``flagship_tp_world`` laid out by
+the model's partition specs over tp), and ``flagship_virtual_world`` that
 rank's trainer with the virtual-worker job's data; ``resnet_trainer`` and
 ``bert_trainer`` do the same for bench.py's model-zoo leg (ResNet-50 at
 256 x 224², BERT-base MLM at 32 x 512).  ``flagship_decode_fleet(device)``
@@ -90,7 +91,7 @@ def flagship_elastic_world(rank: int, world: int, store_path,
                            cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                            initial_world_size: Optional[int] = None,
                            accum_mode: str = "dp",
-                           param_sharding: str = "replicated",
+                           param_sharding="replicated",
                            spec: Optional[MeshSpec] = None):
     """(trainer, (tokens, targets)) for rank ``rank`` of a ``world``-rank
     job: :func:`flagship_trainer`'s model, optimizer and global batch on
@@ -105,6 +106,22 @@ def flagship_elastic_world(rank: int, world: int, store_path,
                         param_sharding=param_sharding,
                         spec=spec or MeshSpec(dp=-1))
     return trainer, _flagship_data(cfg, batch, seq, dev)
+
+
+def flagship_tp_world(rank: int, world: int, store_path, device="cuda",
+                      batch: int = 16, seq: int = 1024,
+                      cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                      initial_world_size: Optional[int] = None):
+    """(trainer, (tokens, targets)) for rank ``rank`` of a ``world``-rank
+    job, as :func:`flagship_elastic_world` builds them, with every world
+    tensor parallel (``MeshSpec(tp=-1)``) and the parameters laid out by
+    ``cfg``'s partition specs (``param_partition_specs``): each rank of a
+    world holds its tp block of every matrix, embed and lm_head by
+    vocabulary, and the whole norms."""
+    return flagship_elastic_world(
+        rank, world, store_path, device=device, batch=batch, seq=seq,
+        cfg=cfg, initial_world_size=initial_world_size,
+        param_sharding=tfm.param_partition_specs(cfg), spec=MeshSpec(tp=-1))
 
 
 def _join_world(rank: int, world: int, store_path, device,
@@ -226,12 +243,14 @@ def flagship_decode_fleet(device="cuda",
 # -- the multi-rank dryrun ----------------------------------------------------
 
 #: dryrun_multichip's layouts, the reference's (``__graft_entry__.py``): n 2
-#: is fsdp alone, n 4 dp x fsdp; the larger ones need tp and sp
-DRYRUN_SPECS = {2: MeshSpec(dp=1, fsdp=-1), 4: MeshSpec(dp=-1, fsdp=2)}
+#: is fsdp alone, n 4 dp x fsdp, n 8 dp x fsdp x tp; n 16 needs sp
+DRYRUN_SPECS = {2: MeshSpec(dp=1, fsdp=-1), 4: MeshSpec(dp=-1, fsdp=2),
+                8: MeshSpec(dp=-1, fsdp=2, tp=2)}
 #: what the step's collective census must hold on each axis of more than
 #: one rank: dp syncs gradients; fsdp gathers params (its reduce may fold
-#: into an all-reduce)
-DRYRUN_EXPECTED = {"dp": ("all-reduce",), "fsdp": ("all-gather",)}
+#: into an all-reduce); tp sums the row-parallel matmuls' partial sums
+DRYRUN_EXPECTED = {"dp": ("all-reduce",), "fsdp": ("all-gather",),
+                   "tp": ("all-reduce",)}
 DRYRUN_DEADLINE_S = 240
 
 
@@ -278,10 +297,6 @@ def _dryrun_rank(rank: int, n: int, store: str, out: str,
         cfg = dataclasses.replace(tfm.TINY, one_hot_embed=True)
         model = tfm.Transformer(cfg, device=dev, seed=0)
         nbytes = {k: p.nbytes for k, p in model.named_parameters()}
-        trainer = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
-                                 spec=DRYRUN_SPECS[n], param_sharding="fsdp",
-                                 devices=[dev])
-        shape = trainer.shape
         # the canonical layout CLAIM, which the economy check holds the
         # placement to whatever the injection below does
         specs = tfm.param_partition_specs(cfg)
@@ -289,8 +304,10 @@ def _dryrun_rank(rank: int, n: int, store: str, out: str,
         if inject == "replicate":
             # the deliberate layout regression of the negative control
             placed = {k: (None,) * len(v) for k, v in specs.items()}
-        trainer._place({k: v.index("fsdp") if "fsdp" in v else None
-                        for k, v in placed.items()})
+        trainer = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
+                                 spec=DRYRUN_SPECS[n], param_sharding=placed,
+                                 devices=[dev])
+        shape = trainer.shape
         rows = max(shape.dp * shape.fsdp, 2)
         batch = (torch.zeros((rows, 16), dtype=torch.int64, device=dev),
                  torch.ones((rows, 16), dtype=torch.int64, device=dev))
@@ -312,7 +329,7 @@ def dryrun_multichip(n: int, device="cuda") -> dict:
     """One sharded train step of TINY (one-hot embedding, adam(1e-3)) over
     ``n`` ranks on ``device`` (ranks that share one card, or the CPU, talk
     gloo: :func:`_join_world`), the parameters placed by the model's
-    partition specs (tp 1) over the reference's layout for ``n``
+    partition specs over the reference's layout for ``n``
     (:data:`DRYRUN_SPECS`), with its claims checked as the reference checks
     them:
 
@@ -321,16 +338,16 @@ def dryrun_multichip(n: int, device="cuda") -> dict:
       replicate`` places every leaf replicated while the claim stays the
       specs, and must fail);
     * the step's collectives, counted by the trainer's choke points, hold
-      an all-reduce on dp, and an all-gather and a reduce (reduce-scatter or
-      all-reduce) on fsdp.
+      an all-reduce on dp, an all-gather and a reduce (reduce-scatter or
+      all-reduce) on fsdp, and an all-reduce on tp.
 
     Prints one ``DRYRUN_COMM {json}`` line with the reference's keys and
     returns its record; raises on any failed check."""
     if n not in DRYRUN_SPECS:
         raise ValueError(
-            f"dryrun_multichip({n}): the port lays out n 2 (fsdp) and 4 "
-            "(dp x fsdp); n 8 needs tp (ROADMAP.md queue 1 item 1b) and n 16 "
-            "sp (item 9)")
+            f"dryrun_multichip({n}): the port lays out n 2 (fsdp), 4 "
+            "(dp x fsdp) and 8 (dp x fsdp x tp); n 16 needs sp (ROADMAP.md "
+            "queue 1 item 9)")
     device = str(resolve(device))
     inject = os.environ.get("EDL_DRYRUN_INJECT")
     ctx = torch.multiprocessing.get_context("spawn")

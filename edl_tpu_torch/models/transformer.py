@@ -7,6 +7,16 @@ The parameters keep the JAX tree's names (``embed``, ``layers.{i}.wq``, …,
 (:mod:`edl_tpu_torch.interop`).  Parameters live in fp32; compute runs in
 ``cfg.dtype``.  Attention goes through :func:`edl_tpu_torch.ops.attention`:
 the hand-written flash kernels on the card when ``use_flash`` is set.
+
+Inside a tp context (:mod:`edl_tpu_torch.parallel.tensor_parallel`, which
+the trainer enters for a model placed by :func:`param_partition_specs` on a
+mesh with tp > 1) the functions run on this rank's blocks, as the
+reference's do under GSPMD: the head counts are read from the blocks'
+shapes (``h/tp`` query and ``kv/tp`` kv heads, the contiguous columns that
+keep GQA's grouping), each block's normed input goes through
+``copy_to_tp`` and its wo and w2 outputs through ``reduce_from_tp``, the
+embedding and the loss are vocab-parallel, and :func:`apply` returns this
+rank's columns of the logits.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from torch.utils.checkpoint import (
 from edl_tpu_torch.device import resolve
 from edl_tpu_torch.ops.embedding import embed_lookup
 from edl_tpu_torch.ops.flash_attention import attention as flash_attention
+from edl_tpu_torch.parallel import tensor_parallel as tpar
 
 
 @dataclass(frozen=True)
@@ -199,12 +210,27 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def _local_heads(p: Layer, cfg: TransformerConfig,
+                 tp: "tpar.TPContext | None") -> tuple[int, int]:
+    """The query and kv heads of ``p``'s blocks (all of them outside a tp
+    context).  Query heads ``[i·h/tp, (i+1)·h/tp)`` keep their kv heads
+    ``[i·kv/tp, …)`` only when tp divides the kv heads."""
+    if tp is not None and cfg.n_kv_heads % tp.size:
+        raise ValueError(f"tp {tp.size} does not divide the model's "
+                         f"{cfg.n_kv_heads} kv heads: GQA's query groups "
+                         "would straddle two ranks")
+    return p.wq.shape[1] // cfg.head_dim, p.wk.shape[1] // cfg.head_dim
+
+
 def _attention_block(p: Layer, x: torch.Tensor, angles: torch.Tensor,
                      cfg: TransformerConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = tpar.current()
+    (h, kv), hd = _local_heads(p, cfg, tp), cfg.head_dim
     dt = cfg.dtype
     xn = rms_norm(x, p.attn_norm, cfg.norm_eps)
+    if tp is not None:
+        xn = tpar.copy_to_tp(xn, tp)
     q = (xn @ p.wq.to(dt)).reshape(b, s, h, hd)
     k = (xn @ p.wk.to(dt)).reshape(b, s, kv, hd)
     v = (xn @ p.wv.to(dt)).reshape(b, s, kv, hd)
@@ -212,16 +238,25 @@ def _attention_block(p: Layer, x: torch.Tensor, angles: torch.Tensor,
     k = apply_rope(k, angles).to(dt)
     # GQA: the flash path takes the unrepeated kv heads
     o = flash_attention(q, k, v, causal=True, use_pallas=cfg.use_flash)
-    return x + (o.reshape(b, s, h * hd) @ p.wo.to(dt))
+    out = o.reshape(b, s, h * hd) @ p.wo.to(dt)
+    if tp is not None:
+        out = tpar.reduce_from_tp(out, tp)
+    return x + out
 
 
 def _mlp_block(p: Layer, x: torch.Tensor, cfg: TransformerConfig
                ) -> torch.Tensor:
+    tp = tpar.current()
     dt = cfg.dtype
     xn = rms_norm(x, p.mlp_norm, cfg.norm_eps)
+    if tp is not None:
+        xn = tpar.copy_to_tp(xn, tp)
     gate = F.silu(xn @ p.w1.to(dt))
     up = xn @ p.w3.to(dt)
-    return x + ((gate * up) @ p.w2.to(dt))
+    out = (gate * up) @ p.w2.to(dt)
+    if tp is not None:
+        out = tpar.reduce_from_tp(out, tp)
+    return x + out
 
 
 def _block(p: Layer, x: torch.Tensor, angles: torch.Tensor,
@@ -238,10 +273,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def apply(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [b, s] int → logits [b, s, vocab] (fp32)."""
+    """tokens [b, s] int → logits [b, s, vocab] (fp32); in a tp context,
+    this rank's ``vocab/tp`` columns of them."""
     cfg = model.cfg
-    x = embed_lookup(model.embed, tokens, one_hot=cfg.one_hot_embed,
-                     dtype=cfg.dtype)
+    tp = tpar.current()
+    if tp is None:
+        x = embed_lookup(model.embed, tokens, one_hot=cfg.one_hot_embed,
+                         dtype=cfg.dtype)
+    else:
+        x = tpar.vocab_parallel_embed(model.embed, tokens, tp,
+                                      one_hot=cfg.one_hot_embed,
+                                      dtype=cfg.dtype)
     angles = rope_freqs(cfg, torch.arange(tokens.shape[1],
                                           device=tokens.device))
     for p in model.layers:
@@ -255,6 +297,8 @@ def apply(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
         else:
             x = _block(p, x, angles, cfg)
     x = rms_norm(x, model.norm, cfg.norm_eps)
+    if tp is not None:
+        x = tpar.copy_to_tp(x, tp)
     return (x @ model.lm_head.to(cfg.dtype)).float()
 
 
@@ -263,9 +307,13 @@ def loss_fn(model: Transformer, batch: tuple[torch.Tensor, torch.Tensor]
     """Next-token cross entropy; batch = (tokens[b,s], targets[b,s]).
 
     logsumexp(logits) − logits[target], as in the JAX package: the
-    [b, s, vocab] log-probabilities never materialize."""
+    [b, s, vocab] log-probabilities never materialize.  In a tp context
+    the logits are this rank's columns and the loss vocab-parallel."""
     tokens, targets = batch
     logits = apply(model, tokens)
+    tp = tpar.current()
+    if tp is not None:
+        return tpar.vocab_parallel_cross_entropy(logits, targets, tp)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt).mean()

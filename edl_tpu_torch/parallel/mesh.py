@@ -16,14 +16,17 @@ mesh is a tuple of this process's devices, as before.
 Ranks are laid out row-major over the axes in declaration order, as the
 reference lays out devices: at dp2×fsdp2 over ranks 0-3 the fsdp groups
 are {0, 1} and {2, 3} and the dp groups {0, 2} and {1, 3}
-(:func:`axis_groups`).  :func:`fsdp_sharding` is the reference's fsdp rule,
-giving the dimension of a leaf that is sharded, or None.
+(:func:`axis_groups`); at dp2×fsdp2×tp2 over ranks 0-7 the tp groups are
+{0, 1}, {2, 3}, … and the data groups (dp+fsdp, :func:`data_group`) {0, 2,
+4, 6} and {1, 3, 5, 7}.  :func:`fsdp_sharding` is the reference's fsdp
+rule and :func:`tree_shardings` gives each leaf's layout, each as a
+partition spec (one entry a dimension).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -134,8 +137,9 @@ class Mesh:
     Under a process group, ``ranks`` is the rank prefix the mesh spans,
     ``group`` the process group over it, ``groups`` this rank's process
     group along each axis of more than one rank (:func:`axis_groups`), and
-    ``devices`` this process's device; without one, ``ranks`` is empty,
-    ``group`` None and ``groups`` empty."""
+    ``data`` its group over the data axes dp+fsdp (:func:`data_group`),
+    and ``devices`` this process's device; without one, ``ranks`` is
+    empty, ``group`` and ``data`` None and ``groups`` empty."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...]
@@ -143,6 +147,8 @@ class Mesh:
     ranks: tuple[int, ...] = ()
     group: Any = field(default=None, compare=False)
     groups: Mapping[str, Any] = field(default_factory=dict, compare=False)
+    #: this rank's process group over the data axes (:func:`data_group`)
+    data: Any = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -159,17 +165,20 @@ class Mesh:
         return "+".join(a for a in axes if self.shape.get(a, 1) > 1)
 
 
-def fsdp_sharding(shape: MeshShape, x: Any) -> Optional[int]:
-    """The reference's fsdp rule (ZeRO-3-style): the largest dimension of
-    ``x`` (anything with ``.shape``) that the fsdp axis of ``shape``
-    divides is sharded over it; a scalar, a leaf with no such dimension, or
-    a mesh with no fsdp axis keeps it replicated (None)."""
-    return fsdp_dim(tuple(getattr(x, "shape", ()) or ()), shape.fsdp)
+def fsdp_sharding(shape: MeshShape, x: Any) -> tuple:
+    """The reference's fsdp rule (ZeRO-3-style) as a partition spec: the
+    largest dimension of ``x`` (anything with ``.shape``) that the fsdp
+    axis of ``shape`` divides is sharded over it (``"fsdp"``), every other
+    is None; a scalar, a leaf with no such dimension, or a mesh with no
+    fsdp axis keeps it replicated (None everywhere)."""
+    dims = tuple(getattr(x, "shape", ()) or ())
+    d = fsdp_dim(dims, shape.fsdp)
+    return tuple(AXIS_FSDP if i == d else None for i in range(len(dims)))
 
 
 def fsdp_dim(dims: Sequence[int], n: int) -> Optional[int]:
-    """:func:`fsdp_sharding` on a shape ``dims`` over an fsdp axis of
-    ``n``."""
+    """The dimension :func:`fsdp_sharding` shards of a shape ``dims`` over
+    an fsdp axis of ``n``, or None."""
     if n <= 1 or not dims:
         return None
     best = max(range(len(dims)),
@@ -178,15 +187,37 @@ def fsdp_dim(dims: Sequence[int], n: int) -> Optional[int]:
 
 
 def tree_shardings(shape: MeshShape, tree: Mapping[str, Any],
-                   kind: str = "replicated") -> dict[str, Optional[int]]:
-    """Per-leaf sharded dimension of ``tree`` (path -> anything with
-    ``.shape``) on ``shape``: ``"replicated"`` (None everywhere) or
-    ``"fsdp"`` (:func:`fsdp_sharding`)."""
+                   kind: Union[str, Mapping[str, Any]] = "replicated"
+                   ) -> dict[str, tuple]:
+    """Per-leaf layout of ``tree`` (path -> anything with ``.shape``) on
+    ``shape``, as a partition spec with one entry a dimension (an axis
+    name, a tuple of them, or None): ``"replicated"`` (None everywhere),
+    ``"fsdp"`` (:func:`fsdp_sharding`), or the model's own specs by path
+    (e.g. ``param_partition_specs(cfg)``; a shorter spec is padded with
+    None, as a ``PartitionSpec`` is)."""
+    def ndim(x):
+        return len(tuple(getattr(x, "shape", ()) or ()))
+
+    if isinstance(kind, Mapping):
+        missing = [k for k in tree if k not in kind]
+        if missing:
+            raise ValueError(f"no partition spec for {missing[:3]}")
+        out = {}
+        for k, x in tree.items():
+            spec = tuple(kind[k] or ())
+            out[k] = spec + (None,) * (ndim(x) - len(spec))
+        return out
     if kind == "replicated":
-        return {k: None for k in tree}
+        return {k: (None,) * ndim(x) for k, x in tree.items()}
     if kind == "fsdp":
         return {k: fsdp_sharding(shape, x) for k, x in tree.items()}
     raise ValueError(f"unknown sharding kind {kind!r}")
+
+
+def data_coordinate(shape: MeshShape, rank: int) -> int:
+    """``rank``'s index over the data axes dp×fsdp (row-major, the batch's
+    split): ``rank // (tp·sp·ep)``."""
+    return rank // (shape.tp * shape.sp * shape.ep)
 
 
 def distributed() -> bool:
@@ -259,6 +290,35 @@ def axis_groups(shape: MeshShape) -> dict[str, Any]:
     return _axis_groups[key]
 
 
+#: data_group's cache: (default group, shape key) -> group or None
+_data_groups: dict[tuple[Any, tuple], Any] = {}
+
+
+def data_group(shape: MeshShape):
+    """This rank's process group over the data axes (dp+fsdp: the ranks
+    of ``shape``'s mesh that differ from it in those coordinates alone,
+    one group a tp line): the prefix's own group when the data axes span
+    it, None when they have one rank or this rank is outside the prefix.
+    Built like :func:`axis_groups`: collectively, every line in order,
+    once per shape."""
+    world = dist.group.WORLD
+    key = (world, shape.key())
+    if key not in _data_groups:
+        rank, width = dist.get_rank(), shape.dp * shape.fsdp
+        group = None
+        if width == shape.size:
+            group = rank_group(width) if width > 1 else None
+        elif width > 1:
+            inner = shape.size // width
+            for j in range(inner):
+                line = list(range(j, shape.size, inner))
+                g = dist.new_group(line)
+                if rank in line:
+                    group = g
+        _data_groups[key] = group if rank < shape.size else None
+    return _data_groups[key]
+
+
 def local_device() -> torch.device:
     """This rank's CUDA device: ``cuda:(rank mod device count)``; raises
     when there is none."""
@@ -286,9 +346,10 @@ def make_mesh(n_devices: Optional[int] = None,
         sizes = (spec or MeshSpec(dp=-1)).resolve(n)
         dev = torch.device(devices[0]) if devices else local_device()
         group = rank_group(n)
+        shape = MeshShape(**sizes)
         return Mesh((dev,), tuple(sizes), tuple(sizes.values()),
                     ranks=tuple(range(n)), group=group,
-                    groups=axis_groups(MeshShape(**sizes)))
+                    groups=axis_groups(shape), data=data_group(shape))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device; pass devices=")

@@ -26,9 +26,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence, Union
 
-from edl_tpu_torch.parallel.mesh import MeshShape, fsdp_dim
+from edl_tpu_torch.parallel.mesh import AXES, MeshShape, fsdp_dim
 
 # -- placements ---------------------------------------------------------------
 
@@ -49,24 +49,60 @@ class Placement:
         return cls({r: full for r in range(n)})
 
     @classmethod
+    def of_spec(cls, shape: Sequence[int], spec: Optional[Sequence],
+                mesh: MeshShape) -> "Placement":
+        """The leaf laid out by a partition spec: for each dimension an
+        axis name, a tuple of axis names or None; a spec shorter than the
+        leaf (or None) leaves the other dimensions whole, as a
+        ``PartitionSpec`` does.  A dimension is split in equal blocks over
+        the axes it names, the first of a tuple major, and replicated over
+        the axes no dimension names; ranks are row-major over
+        :data:`~edl_tpu_torch.parallel.mesh.AXES`, as a mesh's devices are,
+        so the blocks are those ``NamedSharding(mesh, P(*spec))`` gives
+        the devices (rank r standing for device r)."""
+        shape = tuple(shape)
+        spec = tuple(spec or ())
+        if len(spec) > len(shape):
+            raise ValueError(f"spec {spec} has more entries than {shape} "
+                             "has dimensions")
+        sizes = mesh.axis_sizes()
+        per_dim, seen = [], set()
+        for d, entry in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+            axes = (() if entry is None else
+                    (entry,) if isinstance(entry, str) else tuple(entry))
+            for a in axes:
+                if a not in sizes or a in seen:
+                    raise ValueError(f"spec {spec}: axis {a!r} is unknown or "
+                                     "named twice")
+                seen.add(a)
+            parts = math.prod(sizes[a] for a in axes)
+            if d % parts:
+                raise ValueError(f"spec {spec}: a dimension of {d} of "
+                                 f"{shape} does not split in {parts}")
+            per_dim.append((axes, d // parts))
+        strides, stride = {}, 1
+        for a in reversed(AXES):
+            strides[a] = stride
+            stride *= sizes[a]
+        blocks = {}
+        for r in range(mesh.size):
+            block = []
+            for axes, step in per_dim:
+                j = 0
+                for a in axes:
+                    j = j * sizes[a] + (r // strides[a]) % sizes[a]
+                block.append((j * step, (j + 1) * step))
+            blocks[r] = tuple(block)
+        return cls(blocks)
+
+    @classmethod
     def sharded(cls, shape: Sequence[int], dim: int,
                 mesh: MeshShape) -> "Placement":
         """Dimension ``dim`` split in equal blocks over the fsdp axis of
-        ``mesh``, replicated over its other axes; ranks are laid out
-        row-major over the axes in declaration order, as a mesh's devices
-        are."""
-        parts = mesh.fsdp
-        if shape[dim] % parts:
-            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
-                             f"in {parts}")
-        inner = mesh.tp * mesh.sp * mesh.ep  # axes after fsdp
-        step = shape[dim] // parts
-        blocks = {}
-        for r in range(mesh.size):
-            j = (r // inner) % parts
-            blocks[r] = tuple((j * step, (j + 1) * step) if i == dim
-                              else (0, d) for i, d in enumerate(shape))
-        return cls(blocks)
+        ``mesh``, replicated over its other axes: :meth:`of_spec` with
+        ``"fsdp"`` at ``dim``."""
+        return cls.of_spec(shape, tuple("fsdp" if i == dim else None
+                                        for i in range(len(shape))), mesh)
 
 
 def fsdp_placement(shape: Sequence[int], mesh: MeshShape) -> Placement:
@@ -81,9 +117,14 @@ def fsdp_placement(shape: Sequence[int], mesh: MeshShape) -> Placement:
 
 
 def tree_placements(tree: Mapping[str, Any], mesh: MeshShape,
-                    kind: str = "replicated") -> dict[str, Placement]:
+                    kind: Union[str, Mapping[str, Any]] = "replicated"
+                    ) -> dict[str, Placement]:
     """Per-leaf placements of ``tree`` (path -> anything with ``.shape``)
-    on ``mesh``: ``"replicated"`` or ``"fsdp"``."""
+    on ``mesh``: ``"replicated"``, ``"fsdp"``, or a partition spec per
+    path (:meth:`Placement.of_spec`)."""
+    if isinstance(kind, Mapping):
+        return {k: Placement.of_spec(_shape(x), kind[k], mesh)
+                for k, x in tree.items()}
     if kind == "replicated":
         return {k: Placement.replicated(_shape(x), mesh.size)
                 for k, x in tree.items()}

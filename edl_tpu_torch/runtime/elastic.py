@@ -1,10 +1,11 @@
 """The elastic trainer — the port of edl_tpu.runtime.elastic as an SPMD
-trainer, data parallel or fully sharded.
+trainer, data parallel, fully sharded, or laid out by the model's partition
+specs with Megatron tensor parallelism.
 
 The reference is a single controller over a prefix of ``jax.devices()``.
 Torch runs one process a rank, so here every rank of the default process
 group constructs the same :class:`ElasticTrainer`, and a world is a rank
-prefix ``[0, n)`` of that group, laid out as a dp×fsdp mesh
+prefix ``[0, n)`` of that group, laid out as a dp×fsdp×tp mesh
 (:mod:`edl_tpu_torch.parallel.mesh`).  Ranks past the prefix stand by:
 they compute nothing until a resize takes them in.  Without a process group
 the world is one device.
@@ -14,19 +15,30 @@ parallelism) or sharded over the mesh's fsdp axis (``"fsdp"``, ZeRO-3
 style): a live rank then holds, of every leaf the reference's rule shards
 (:func:`~edl_tpu_torch.parallel.mesh.fsdp_sharding`: the largest dimension
 the fsdp size divides), only its 1/k block, and Adam's moments likewise;
-a leaf with no such dimension stays replicated.  The optimizer steps on
+a leaf with no such dimension stays replicated.  On a mesh with tp > 1
+both kinds replicate every leaf over tp, as the reference's trainer does.
+``param_sharding`` may instead be the model's partition specs by parameter
+name (``param_partition_specs(cfg)``: a dimension over ``"fsdp"``, over
+``"tp"``, or None), the layout the reference's dryrun jits its step with;
+each rank then holds its N-D block of every leaf.  The optimizer steps on
 these blocks (:attr:`ElasticTrainer.shards`), since Adam is elementwise;
 the module's parameters hold nothing between steps.
 
 A step: every rank is handed the same global batch; each live rank takes
-its contiguous slice of the batch dim (the batch splits over dp×fsdp),
-gathers the full parameters over its fsdp group (one all-gather per dtype;
-the full tensors live for the step only), runs the loss and its backward
-(the flash kernels on the card), and reduces the gradients: a sharded
-leaf's by a reduce-scatter over the fsdp group and an all-reduce over the
-dp group, a replicated leaf's and the loss by one all-reduce over the live
-group, each as a flat buffer per dtype; then 1/N and one optimizer update.
-Replicated state stays bitwise equal across ranks.
+its contiguous slice of the batch dim (the batch splits over the data axes
+dp×fsdp, by the rank's data coordinate; the ranks of one tp group take the
+same slice), gathers its parameters over its fsdp group (one all-gather
+per dtype; the gathered tensors, whole or this rank's tp block, live for
+the step only), runs the loss and its backward (the flash kernels on the
+card) — in a tp context (:mod:`edl_tpu_torch.parallel.tensor_parallel`)
+when a leaf is split over tp, so that the model writes out the Megatron
+all-reduces — and reduces the gradients over the data axes: a leaf split
+over fsdp by a reduce-scatter over the fsdp group and an all-reduce over
+the dp group, any other leaf's and the loss by one all-reduce over the
+data group (dp+fsdp), each as a flat buffer per dtype; then 1/(dp·fsdp)
+and one optimizer update.  The ranks of a tp group hold the same gradient
+of a leaf not split over tp, so nothing is summed over tp.  Replicated
+state stays bitwise equal across ranks.
 
 A resize is transactional and agreed.  Every rank of the default group
 calls ``resize`` with the same target at the same step boundary:
@@ -55,7 +67,8 @@ feeds the ``resize_phase_seconds`` histogram, the goodput ledger and the
 Every collective of the trainer goes through one of four choke points,
 :func:`_broadcast`, :func:`_all_reduce`, :func:`_all_gather` and
 :func:`_reduce_scatter`, each counting its op and bytes by mesh axis
-(:func:`collective_census`; ``"world"`` for the default group's votes).
+(:func:`collective_census`; ``"world"`` for the default group's votes,
+``"tp"`` for the model's tp collectives).
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ import copy
 import pickle
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -76,12 +89,16 @@ from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import get_registry
 from edl_tpu_torch.observability.tracing import get_tracer
+from edl_tpu_torch.parallel import tensor_parallel
 from edl_tpu_torch.parallel.mesh import (
+    AXES,
     AXIS_DP,
     AXIS_FSDP,
+    AXIS_TP,
     Mesh,
     MeshShape,
     MeshSpec,
+    data_coordinate,
     distributed,
     local_device,
     make_mesh,
@@ -102,8 +119,8 @@ _census: dict[str, dict] = {}
 
 def collective_census() -> dict[str, dict]:
     """Every collective this process ran through the choke points since
-    :func:`reset_census`, by axis label (``"dp"``, ``"fsdp"``,
-    ``"dp+fsdp"`` for the live group, ``"world"`` for the default group):
+    :func:`reset_census`, by axis label (``"dp"``, ``"fsdp"``, ``"tp"``,
+    ``"dp+fsdp"`` for the data group, ``"world"`` for the default group):
     ``{"ops": {op: count}, "bytes": result bytes}``, ops named as the
     reference's HLO census names them.  Gloo takes CUDA tensors for all
     four ops and stages them through host memory itself."""
@@ -200,18 +217,15 @@ def _within(block: Block, origin: Block) -> tuple:
                  for (lo, hi), (o, _) in zip(block, origin))
 
 
-def _placements(tree: dict, dims: dict,
+def _placements(tree: dict, specs: dict,
                 shape: MeshShape) -> dict[str, Placement]:
     """Each leaf of ``tree`` (name -> anything with ``.shape``) on
-    ``shape``, its dimension ``dims[name]`` split over the fsdp axis (None:
+    ``shape``, laid out by its partition spec ``specs[name]`` (None:
     replicated).  The one place that decides which block a rank holds: the
     trainer's own block, a resize's moves and its price all read it."""
-    out = {}
-    for name, leaf in tree.items():
-        full, d = tuple(getattr(leaf, "shape", ()) or ()), dims[name]
-        out[name] = (Placement.replicated(full, shape.size) if d is None
-                     else Placement.sharded(full, d, shape))
-    return out
+    return {name: Placement.of_spec(tuple(getattr(leaf, "shape", ()) or ()),
+                                    specs[name], shape)
+            for name, leaf in tree.items()}
 
 
 def _numel(block: Block) -> int:
@@ -241,7 +255,7 @@ class _Staged:
 
     mesh: Mesh
     layout: dict
-    dims: dict
+    specs: dict
     split: dict
     moves: _Moves
     #: this rank's fresh buffers: its new blocks, and the broadcasts it
@@ -251,7 +265,8 @@ class _Staged:
 
 
 class ElasticTrainer:
-    """SPMD elastic trainer, data parallel or fully sharded.
+    """SPMD elastic trainer: data parallel, fully sharded, or laid out by
+    the model's partition specs (fsdp and Megatron tp).
 
     ``loss_fn(params, batch) -> scalar tensor`` defines the model;
     ``optimizer`` is a factory from :mod:`edl_tpu_torch.runtime.optim`.
@@ -262,7 +277,11 @@ class ElasticTrainer:
     the first CUDA device).  ``param_sharding`` is ``"replicated"`` (pure
     data parallel) or ``"fsdp"`` (params and optimizer state sharded over
     the fsdp axis — give the spec one, e.g. ``MeshSpec(dp=1, fsdp=-1)``),
-    as in the reference.
+    as in the reference, both replicated over tp; or a dict of partition
+    specs by parameter name, each dimension over ``"fsdp"``, ``"tp"`` or
+    None (``param_partition_specs(cfg)``, e.g. with ``MeshSpec(tp=-1)``),
+    which every layout, a resize's too, is derived from.  A leaf split
+    over tp needs a loss that reads the tp context (the transformer's).
 
     ``accum_mode`` places :meth:`step_accumulate`'s micro-batches, as in the
     reference: ``"dp"`` packs them into rounds of the world's width,
@@ -280,20 +299,36 @@ class ElasticTrainer:
         params: nn.Module,
         optimizer: OptimizerFactory,
         spec: MeshSpec = MeshSpec(dp=-1),
-        param_sharding: str = "replicated",
+        param_sharding: Union[str, Mapping[str, tuple]] = "replicated",
         devices: Optional[Sequence[torch.device]] = None,
         initial_world_size: Optional[int] = None,
         accum_mode: str = "dp",
         rng_in_loss: bool = False,
     ) -> None:
-        if param_sharding not in ("replicated", "fsdp"):
+        if isinstance(param_sharding, Mapping):
+            bad = {n: s for n, s in param_sharding.items()
+                   if any(e not in (None, AXIS_FSDP, AXIS_TP)
+                          for e in tuple(s or ()))}
+            if bad:
+                raise ValueError(
+                    "this trainer splits a dimension over fsdp or tp alone; "
+                    f"specs {dict(list(bad.items())[:3])} name other axes")
+            param_sharding = {n: tuple(s or ())
+                              for n, s in param_sharding.items()}
+            kind = "specs"
+        elif param_sharding in ("replicated", "fsdp"):
+            kind = param_sharding
+        else:
             raise ValueError(f"unknown param_sharding {param_sharding!r}: "
-                             "'replicated' or 'fsdp'")
+                             "'replicated', 'fsdp' or a dict of partition "
+                             "specs")
         if accum_mode not in ("dp", "replicated"):
             raise ValueError(f"unknown accum_mode {accum_mode!r}")
         self.loss_fn = loss_fn
         self.spec = spec
-        self.param_sharding_kind = param_sharding
+        #: "replicated", "fsdp", or "specs" (laid out by partition specs)
+        self.param_sharding_kind = kind
+        self._sharding = param_sharding
         self.accum_mode = accum_mode
         self.rng_in_loss = rng_in_loss
         if distributed():
@@ -319,9 +354,10 @@ class ElasticTrainer:
         if self.live and self.world_size > 1:
             # replicas start from rank 0's weights, whatever each rank drew
             for p in params.parameters():
-                _broadcast(p.detach(), 0, self.mesh.group, self._data_label)
-        self._dims = tree_shardings(self.shape, self._leaves,
-                                    param_sharding)
+                _broadcast(p.detach(), 0, self.mesh.group,
+                           self.mesh.label(AXES))
+        #: each leaf's partition spec on the live layout
+        self._specs = self._specs_for(self.shape, self._leaves)
         self._shards: dict[str, nn.Parameter] = {}
         if self.sharded:
             for n, p in params.named_parameters():
@@ -355,8 +391,10 @@ class ElasticTrainer:
 
     @property
     def sharded(self) -> bool:
-        """True for an fsdp trainer (whatever the live layout)."""
-        return self.param_sharding_kind == "fsdp"
+        """True for an fsdp trainer or one placed by partition specs
+        (whatever the live layout): it keeps its blocks in
+        :attr:`shards`."""
+        return self.param_sharding_kind != "replicated"
 
     @property
     def shards(self) -> dict[str, nn.Parameter]:
@@ -371,31 +409,29 @@ class ElasticTrainer:
         return {n: b.shape for n, b in self._leaves.items()}
 
     def sharded_dims(self) -> dict[str, Optional[int]]:
-        """Each leaf's sharded dimension on the live layout (None:
-        replicated)."""
-        return dict(self._dims)
+        """Each leaf's dimension split over the fsdp axis on the live
+        layout (None: none is)."""
+        return {n: self._axis_dim(n, AXIS_FSDP) for n in self._specs}
+
+    def partition_specs(self) -> dict[str, tuple]:
+        """Each leaf's partition spec on the live layout, one entry a
+        dimension."""
+        return dict(self._specs)
 
     def full_params(self) -> dict[str, torch.Tensor]:
         """Every parameter whole, as the reference's global arrays read:
-        gathered over the fsdp group on a live rank (collective over the
-        live group), a copy of this rank's on one standing by."""
+        gathered over the fsdp and tp groups on a live rank (collective
+        over the live group), a copy of this rank's on one standing by."""
         if not self.live:
             return {n: s.detach().clone() for n, s in self.shards.items()}
         with self._gathered():
-            return {n: p.detach().clone() for n, p in self._module.items()}
-
-    def _place(self, dims: dict[str, Optional[int]]) -> None:
-        """Lay this fsdp trainer's blocks out along ``dims`` (each leaf's
-        sharded dimension, or None) in place of the fsdp rule's, before its
-        first step: the dryrun places the model by its partition specs, as
-        the reference's dryrun does.  Collective over the live group."""
-        if self.state.opt_state.state:
-            raise RuntimeError("a trainer is placed before its first step")
-        full = self.full_params()
-        self._dims = dict(dims)
-        if self.live:
-            for n, s in self._shards.items():
-                s.data = self._own_block(full[n], n).clone()
+            module = self._module
+            split = {n: d for n in module
+                     if (d := self._axis_dim(n, AXIS_TP)) is not None}
+            whole = (self._gather({n: module[n] for n in split}, split,
+                                  AXIS_TP) if split else {})
+            return {n: whole[n] if n in whole else p.detach().clone()
+                    for n, p in module.items()}
 
     def _resolve_target(self, target) -> MeshShape:
         return MeshShape.resolve(target, spec=self.spec)
@@ -476,12 +512,13 @@ class ElasticTrainer:
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
         with self._gathered():
-            loss = self.loss_fn(self.state.params, self._local(batch))
-            loss.backward()
+            with self._tp():
+                loss = self.loss_fn(self.state.params, self._local(batch))
+                loss.backward()
             loss = loss.detach()
             self._reduce_grads([loss])
-        if self.world_size > 1:
-            self._scale([*self._shard_grads(), loss], 1.0 / self.world_size)
+        if self._width > 1:
+            self._scale([*self._shard_grads(), loss], 1.0 / self._width)
         opt.step()
         opt.zero_grad(set_to_none=True)  # no gradient is kept at rest
         self.state.step += 1
@@ -492,11 +529,11 @@ class ElasticTrainer:
         (None on a rank standing by)."""
         if not self.live:
             return None
-        with torch.no_grad(), self._gathered():
+        with torch.no_grad(), self._gathered(), self._tp():
             loss = self.loss_fn(self.state.params, self._local(batch))
-        if self.world_size > 1:
-            self._sum_over(self.mesh.group, self._data_label, [loss])
-            self._scale([loss], 1.0 / self.world_size)
+        if self._width > 1:
+            self._sum_over(self.mesh.data, self._data_label, [loss])
+            self._scale([loss], 1.0 / self._width)
         return float(loss)
 
     def step_accumulate(self, micro_batches: Sequence,
@@ -509,8 +546,9 @@ class ElasticTrainer:
         rank standing by).
 
         ``accum_mode="dp"`` packs the micro-batches into ⌈V/N⌉ rounds of the
-        world's width N, rank r taking micro-batch ``k·N + r`` of round k,
-        and reduces the gradients over the live group once; it needs N to
+        world's width N (its data axes dp·fsdp), the ranks of data
+        coordinate r taking micro-batch ``k·N + r`` of round k, and reduces
+        the gradients over the data group once; it needs N to
         divide V (else, as in the reference, the micro-batches run as in
         ``"replicated"``), and equals one device's result within float
         bounds.  ``"replicated"`` runs every micro-batch on every live rank
@@ -532,25 +570,27 @@ class ElasticTrainer:
                              "micro-batch")
         if not self.live:
             return None
-        n = self.world_size
+        n = self._width
         use_dp = (self.accum_mode == "dp" and not self.rng_in_loss and n > 1
                   and V % n == 0)
-        mine = micro_batches[self.rank::n] if use_dp else micro_batches
+        mine = (micro_batches[self._data_index::n] if use_dp
+                else micro_batches)
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
         lsum, done = 0.0, 0
         with self._gathered():
-            for v, mb in enumerate(mine):
-                args = (rng_keys[v],) if self.rng_in_loss else ()
-                loss = self.loss_fn(self.state.params, self._to_device(mb),
-                                    *args)
-                loss.backward()  # .grad accumulates the sum
-                lsum += float(loss.detach())
-                done += n if use_dp else 1
-                if abort_after is not None and done >= abort_after:
-                    raise AccumulationAborted(
-                        f"injected kill after {done}/{V} micro-batches "
-                        f"at step {self.state.step}")
+            with self._tp():
+                for v, mb in enumerate(mine):
+                    args = (rng_keys[v],) if self.rng_in_loss else ()
+                    loss = self.loss_fn(self.state.params,
+                                        self._to_device(mb), *args)
+                    loss.backward()  # .grad accumulates the sum
+                    lsum += float(loss.detach())
+                    done += n if use_dp else 1
+                    if abort_after is not None and done >= abort_after:
+                        raise AccumulationAborted(
+                            f"injected kill after {done}/{V} micro-batches "
+                            f"at step {self.state.step}")
             total = torch.tensor(lsum, dtype=torch.float64,
                                  device=self.device)
             if use_dp:
@@ -574,16 +614,63 @@ class ElasticTrainer:
     def _data_label(self) -> str:
         return self.mesh.label(DATA_AXES)
 
+    @property
+    def _width(self) -> int:
+        """The ranks of the live mesh's data axes, dp·fsdp: the batch's
+        split."""
+        return self.shape.dp * self.shape.fsdp
+
+    @property
+    def _data_index(self) -> int:
+        """This rank's coordinate over the data axes: its slice of the
+        batch."""
+        return data_coordinate(self.shape, self.rank)
+
+    def _axis_dim(self, name: str, axis: str) -> Optional[int]:
+        """The dimension of leaf ``name`` split over ``axis`` on the live
+        layout (None: none is, or the axis has one rank)."""
+        spec = self._specs[name]
+        if getattr(self.shape, axis) == 1 or axis not in spec:
+            return None
+        return spec.index(axis)
+
+    def _specs_for(self, shape: MeshShape, tree: dict) -> dict:
+        """Each leaf's partition spec on ``shape``: the fsdp rule's, all
+        None, or the trainer's specs."""
+        return tree_shardings(shape, tree, self._sharding)
+
+    def _tp(self):
+        """The tp context of a step on the live layout (a null context
+        when no leaf is split over tp): every tp collective of the model
+        goes through :func:`_all_reduce` over this rank's tp group,
+        counted under ``"tp"``."""
+        if all(self._axis_dim(n, AXIS_TP) is None for n in self._specs):
+            return contextlib.nullcontext()
+        group, shape = self.mesh.groups[AXIS_TP], self.shape
+
+        def reduce(t: torch.Tensor, op) -> None:
+            _all_reduce(t, op, group, AXIS_TP)
+
+        return tensor_parallel.tp_context(tensor_parallel.TPContext(
+            size=shape.tp, rank=self.rank // (shape.sp * shape.ep) % shape.tp,
+            reduce=reduce))
+
     def _empty(self, dtype: torch.dtype) -> torch.Tensor:
         return torch.empty(0, dtype=dtype, device=self.device)
 
     def _own_block(self, full: torch.Tensor, name: str) -> torch.Tensor:
         """This rank's block of the full tensor of leaf ``name`` (a view)."""
-        if self._dims[name] is None:
-            return full
-        block = _placements({name: full}, self._dims,
+        block = _placements({name: full}, self._specs,
                             self.shape)[name].blocks[self.rank]
         return full[tuple(slice(lo, hi) for lo, hi in block)]
+
+    def _fsdp_block(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """This rank's fsdp block of ``t`` (a leaf gathered over the fsdp
+        group) along its dimension ``d`` (a view)."""
+        k = self.shape.fsdp
+        j = self._data_index % k
+        m = t.shape[d] // k
+        return t.narrow(d, j * m, m)
 
     def _by_dtype(self, names) -> dict[torch.dtype, list[str]]:
         out: dict[torch.dtype, list[str]] = {}
@@ -593,42 +680,54 @@ class ElasticTrainer:
 
     @contextlib.contextmanager
     def _gathered(self):
-        """The module's parameters whole for the body: on an fsdp trainer
-        each sharded leaf is all-gathered over the fsdp group (one flat
-        buffer per dtype) and each replicated one bound to its shard; on
-        exit the full tensors and their gradients are dropped again."""
+        """The module's parameters for the body, whole or this rank's tp
+        block: on a sharded trainer each leaf split over fsdp is
+        all-gathered over the fsdp group (one flat buffer per dtype) and
+        each other one bound to its shard; on exit the gathered tensors and
+        their gradients are dropped again."""
         if not self.sharded:
             yield
             return
         module = self._module
         try:
-            split = [n for n in module if self._dims[n] is not None]
+            split = {n: d for n in module
+                     if (d := self._axis_dim(n, AXIS_FSDP)) is not None}
             for n, p in module.items():
-                if self._dims[n] is None:
+                if n not in split:
                     p.data = self._shards[n].data
             if split:
-                k, group = self.shape.fsdp, self.mesh.groups[AXIS_FSDP]
-                for dtype, names in self._by_dtype(split).items():
-                    parts = [self._shards[n].detach()
-                             .movedim(self._dims[n], 0).reshape(-1)
-                             for n in names]
-                    flat = torch.cat(parts)
-                    out = torch.empty(k * flat.numel(), dtype=dtype,
-                                      device=self.device)
-                    _all_gather(out, flat, group, AXIS_FSDP)
-                    rows, off = out.view(k, -1), 0
-                    for n, part in zip(names, parts):
-                        d, full = self._dims[n], self._leaves[n].shape
-                        moved = (full[d], *full[:d], *full[d + 1:])
-                        module[n].data = (
-                            rows[:, off:off + part.numel()].reshape(moved)
-                            .movedim(0, d).contiguous())
-                        off += part.numel()
+                gathered = self._gather({n: self._shards[n] for n in split},
+                                        split, AXIS_FSDP)
+                for n, t in gathered.items():
+                    module[n].data = t
             yield
         finally:
             for p in module.values():
                 p.grad = None
                 p.data = self._empty(p.dtype)
+
+    def _gather(self, parts: dict[str, torch.Tensor], dims: dict[str, int],
+                axis: str) -> dict[str, torch.Tensor]:
+        """Each tensor of ``parts`` concatenated, along its dimension
+        ``dims[name]``, with those of the other ranks of this rank's
+        ``axis`` group, in rank order: one all-gather a dtype."""
+        k, group = getattr(self.shape, axis), self.mesh.groups[axis]
+        out = {}
+        for dtype, names in self._by_dtype(parts).items():
+            flats = [parts[n].detach().movedim(dims[n], 0).reshape(-1)
+                     for n in names]
+            flat = torch.cat(flats)
+            buf = torch.empty(k * flat.numel(), dtype=dtype,
+                              device=self.device)
+            _all_gather(buf, flat, group, axis)
+            rows, off = buf.view(k, -1), 0
+            for n, part in zip(names, flats):
+                d, shape = dims[n], parts[n].shape
+                moved = (k * shape[d], *shape[:d], *shape[d + 1:])
+                out[n] = (rows[:, off:off + part.numel()].reshape(moved)
+                          .movedim(0, d).contiguous())
+                off += part.numel()
+        return out
 
     def _shard_grads(self) -> list[torch.Tensor]:
         return [s.grad for s in self.shards.values() if s.grad is not None]
@@ -639,61 +738,65 @@ class ElasticTrainer:
                 t.mul_(factor)
 
     def _keep_own_grads(self) -> None:
-        """Each shard's gradient ← its block of the module's full gradient
-        (no reduction: every rank computed the same sum)."""
+        """Each shard's gradient ← its block of the module's gradient (no
+        reduction: every rank computed the same sum)."""
         if not self.sharded:
             return
         for n, p in self._module.items():
             if p.grad is not None:
-                self._shards[n].grad = (p.grad if self._dims[n] is None else
-                                        self._own_block(p.grad, n).clone())
+                d = self._axis_dim(n, AXIS_FSDP)
+                self._shards[n].grad = (p.grad if d is None else
+                                        self._fsdp_block(p.grad, d).clone())
 
     def _reduce_grads(self, extra: list[torch.Tensor]) -> None:
         """Each shard's gradient ← its block of the gradient summed over the
-        live group, and each tensor of ``extra`` ← its sum over the group:
-        a sharded leaf by a reduce-scatter over the fsdp group then an
-        all-reduce over the dp group, a replicated leaf and ``extra`` by an
-        all-reduce over the live group."""
+        data axes, and each tensor of ``extra`` ← its sum over them: a leaf
+        split over fsdp by a reduce-scatter over the fsdp group then an
+        all-reduce over the dp group, any other leaf and ``extra`` by an
+        all-reduce over the data group.  Nothing is summed over tp: the
+        ranks of a tp group hold the same gradient of a leaf it does not
+        split, and each its own block's of one it does."""
         grads = {n: p.grad for n, p in self._module.items()
                  if p.grad is not None}
-        split = [n for n in grads if self._dims[n] is not None]
+        split = {n: d for n in grads
+                 if (d := self._axis_dim(n, AXIS_FSDP)) is not None}
         blocks = self._scatter(grads, split) if split else {}
         if blocks and self.shape.dp > 1:
             self._sum_over(self.mesh.groups[AXIS_DP], AXIS_DP,
                            list(blocks.values()))
         whole = [g for n, g in grads.items() if n not in blocks]
-        if self.world_size > 1:
-            self._sum_over(self.mesh.group, self._data_label,
-                           whole + extra)
+        if self._width > 1:
+            self._sum_over(self.mesh.data, self._data_label, whole + extra)
         if self.sharded:
             for n, g in grads.items():
                 self._shards[n].grad = blocks.get(n, g)
 
-    def _scatter(self, grads: dict, names: list[str]) -> dict:
-        """The fsdp reduce-scatter of the full gradients of ``names``: one
-        flat buffer per dtype, each leaf's k blocks laid out by rank."""
+    def _scatter(self, grads: dict, dims: dict[str, int]) -> dict:
+        """The fsdp reduce-scatter of the gradients of ``dims``' leaves
+        along those dimensions: one flat buffer per dtype, each leaf's k
+        blocks laid out by rank."""
         k, group = self.shape.fsdp, self.mesh.groups[AXIS_FSDP]
         out = {}
-        for dtype, group_names in self._by_dtype(names).items():
-            rows = [grads[n].movedim(self._dims[n], 0).reshape(k, -1)
-                    for n in group_names]
+        for dtype, names in self._by_dtype(dims).items():
+            rows = [grads[n].movedim(dims[n], 0).reshape(k, -1)
+                    for n in names]
             flat = torch.cat(rows, dim=1).reshape(-1)
             mine = torch.empty(flat.numel() // k, dtype=dtype,
                                device=self.device)
             _reduce_scatter(mine, flat, group, AXIS_FSDP)
             off = 0
-            for n, r in zip(group_names, rows):
-                d, full = self._dims[n], self._leaves[n].shape
-                moved = (full[d] // k, *full[:d], *full[d + 1:])
+            for n, r in zip(names, rows):
+                d, shape = dims[n], grads[n].shape
+                moved = (shape[d] // k, *shape[:d], *shape[d + 1:])
                 out[n] = (mine[off:off + r.shape[1]].view(moved)
                           .movedim(0, d).contiguous())
                 off += r.shape[1]
         return out
 
     def _local(self, batch):
-        """This rank's contiguous slice of the global batch's leading dim,
-        on the device."""
-        n, r = self.world_size, self.rank
+        """This rank's contiguous slice of the global batch's leading dim
+        (by its data coordinate over dp×fsdp), on the device."""
+        n, r = self._width, self._data_index
         if isinstance(batch, (tuple, list)):
             return type(batch)(self._local(x) for x in batch)
         x = torch.as_tensor(batch)
@@ -738,15 +841,15 @@ class ElasticTrainer:
         get_counters().inc("resizes_failed")
 
     def _mesh_for(self, shape: MeshShape) -> Mesh:
-        """The dp×fsdp mesh of ``shape`` over the rank prefix of its size,
-        from ``_step_cache`` or built (its process groups on first use:
-        collective)."""
-        later = [a for a in ("tp", "sp", "ep") if getattr(shape, a) > 1]
+        """The dp×fsdp×tp mesh of ``shape`` over the rank prefix of its
+        size, from ``_step_cache`` or built (its process groups on first
+        use: collective)."""
+        later = [a for a in ("sp", "ep") if getattr(shape, a) > 1]
         if later:
             raise ValueError(
-                f"{shape.describe()}: this trainer lays out dp and fsdp "
+                f"{shape.describe()}: this trainer lays out dp, fsdp and tp "
                 f"only; the {', '.join(later)} axes are later items of the "
-                "port (ROADMAP.md queue 1: tp item 1b, sp item 9)")
+                "port (ROADMAP.md queue 1 item 9)")
         if shape.size > 1 and not distributed():
             raise ValueError(f"a world of {shape.size} needs a process group "
                              f"of {shape.size} ranks; none is initialised")
@@ -808,26 +911,26 @@ class ElasticTrainer:
         return pickle.loads(data.cpu().numpy().tobytes())
 
     @staticmethod
-    def _priced_tree(layout: dict, dims: dict) -> tuple[dict, dict]:
+    def _priced_tree(layout: dict, specs: dict) -> tuple[dict, dict]:
         """The state as the plan prices it, leaf for leaf the reference's
         (params, optax state): each parameter, each optimizer tensor of a
         parameter, and each other optimizer entry once (Adam's step count,
-        optax's one ``count``, replicated); with each entry's sharded
-        dimension, its parameter's in ``dims``."""
+        optax's one ``count``, replicated); with each entry's partition
+        spec, its parameter's in ``specs``."""
         tree = {f"params.{n}": b for n, b in layout["params"]}
-        tree_dims = {f"params.{n}": dims[n] for n, _ in layout["params"]}
+        tree_specs = {f"params.{n}": specs[n] for n, _ in layout["params"]}
         for n, entries in layout["opt"].items():
             for k, v in entries.items():
                 if isinstance(v, _Buffer):
                     tree[f"opt.{k}.{n}"] = v
-                    tree_dims[f"opt.{k}.{n}"] = dims[n]
+                    tree_specs[f"opt.{k}.{n}"] = specs[n]
                 else:
                     tree.setdefault(f"opt.{k}", v)
-                    tree_dims[f"opt.{k}"] = None
-        return tree, tree_dims
+                    tree_specs[f"opt.{k}"] = None
+        return tree, tree_specs
 
     def _moves(self, layout: dict, old: MeshShape, new: MeshShape,
-               new_dims: dict) -> _Moves:
+               new_specs: dict) -> _Moves:
         """The transfer of a resize from ``old`` to ``new``.  A leaf's
         distinct old blocks partition it; for each rank of the new world
         whose block changes, each piece of its new block comes from its own
@@ -837,8 +940,8 @@ class ElasticTrainer:
         tensors += [(k, n) for n, entries in layout["opt"].items()
                     for k, v in entries.items() if isinstance(v, _Buffer)]
         full = dict(layout["params"])
-        olds = _placements(full, self._dims, old)
-        news = _placements(full, new_dims, new)
+        olds = _placements(full, self._specs, old)
+        news = _placements(full, new_specs, new)
         moves, me, sent = _Moves(), self.rank, set()
         for tid in tensors:
             was, will = olds[tid[1]].blocks, news[tid[1]].blocks
@@ -893,18 +996,17 @@ class ElasticTrainer:
             try:
                 layout = self._broadcast_layout()
                 t2 = time.perf_counter()
-                full = dict(layout["params"])
-                dims = tree_shardings(shape, full, self.param_sharding_kind)
-                tree, old_dims = self._priced_tree(layout, self._dims)
-                _, new_dims = self._priced_tree(layout, dims)
+                specs = self._specs_for(shape, dict(layout["params"]))
+                tree, old_specs = self._priced_tree(layout, self._specs)
+                _, new_specs = self._priced_tree(layout, specs)
                 plan = plan_reshard(
-                    tree, _placements(tree, old_dims, old),
-                    _placements(tree, new_dims, shape),
+                    tree, _placements(tree, old_specs, old),
+                    _placements(tree, new_specs, shape),
                     old_shape=old, new_shape=shape)
                 t3 = time.perf_counter()
                 staged = _Staged(
-                    mesh=mesh, layout=layout, dims=dims,
-                    moves=self._moves(layout, old, shape, dims),
+                    mesh=mesh, layout=layout, specs=specs,
+                    moves=self._moves(layout, old, shape, specs),
                     split=dict(
                         compile_ms=round((t1 - t0) * 1000, 2),
                         replan_ms=round((t3 - t2) * 1000, 3),
@@ -921,7 +1023,7 @@ class ElasticTrainer:
         if self.rank < union:
             error = self._transfer(staged, group,
                                    (mesh if shape.size == union
-                                    else self.mesh).label(DATA_AXES))
+                                    else self.mesh).label(AXES))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t4 = time.perf_counter()
@@ -1013,15 +1115,15 @@ class ElasticTrainer:
             return {}
         full = dict(staged.layout["params"])
         return {n: p.blocks[self.rank] for n, p
-                in _placements(full, self._dims, self.shape).items()}
+                in _placements(full, self._specs, self.shape).items()}
 
     def _commit(self, staged: _Staged) -> None:
         """The commit point: pure assignments.  Each rank of the new world
         takes its rebuilt blocks, rank 0's optimizer entries that are not
-        tensors, its hyperparameters and its step; a rank of an fsdp
+        tensors, its hyperparameters and its step; a rank of a sharded
         trainer that stands by drops its blocks."""
         self.mesh = staged.mesh
-        self._dims = staged.dims
+        self._specs = staged.specs
         layout, blocks = staged.layout, staged.blocks
         opt = self.state.opt_state
         if not self.live:

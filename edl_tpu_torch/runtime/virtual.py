@@ -43,8 +43,8 @@ raises on every rank unless all of them restored that same step.
 The KV store is anything with ``kv_set(key, bytes)`` and
 ``kv_get(key) -> bytes | None``.  The SDC defense plane (``sdc=``) and its
 rollback are a later item of the port (ROADMAP.md, queue 1 item 7), as is
-the checkpoint of an fsdp trainer's sharded state (item 1f): the loop
-refuses such a trainer.
+the checkpoint of a sharded trainer's state (fsdp, or placed by partition
+specs; item 1f): the loop refuses such a trainer.
 """
 
 from __future__ import annotations
@@ -494,12 +494,13 @@ class VirtualWorkerLoop:
                 "the SDC defense plane and its rollback are not ported yet "
                 "(ROADMAP.md, queue 1 item 7)")
         if trainer.sharded:
-            # rank 0 saves and restores the whole state; an fsdp trainer's
-            # rank 0 holds one block of it
+            # rank 0 saves and restores the whole state; a sharded
+            # trainer's rank 0 holds one block of it
             raise NotImplementedError(
                 "the durable loop checkpoints replicated state from rank 0; "
-                "saving an fsdp trainer's sharded state is not ported yet "
-                "(ROADMAP.md, queue 1 item 1f)")
+                "saving a sharded trainer's state (fsdp, or placed by "
+                "partition specs) is not ported yet (ROADMAP.md, queue 1 "
+                "item 1f)")
         self.trainer = trainer
         self.cfg = cfg
         self.batches = batches

@@ -10,6 +10,11 @@ with the card's name and power limit:
 
     PYTHONPATH=. python scripts/time_world.py --ranks 4
 
+With ``--tp T`` the wide world is dp×tp (``MeshSpec(dp=-1, tp=T)``) and
+the parameters are laid out by FLAGSHIP's partition specs: each rank holds
+its tp block of every matrix, the ranks of one tp index hold the same
+blocks, and every rank the same norms, which is what is checked then.
+
 ``chip_smoke.py`` phase (j) runs the same trainer on two ranks sharing one
 card, with the kernel launch counts and a one-rank control.
 """
@@ -28,42 +33,57 @@ import numpy as np
 import torch
 
 from edl_tpu_torch.entry import flagship_elastic_world
+from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.ops import _build
+from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
 
 B, S = 16, 1024
 CHILD_TIMEOUT_S = 600
 
 
-def fingerprint(trainer) -> list[int]:
-    """The params' words as int32, summed and position-weighted, per
-    parameter (mod 2^64): equal across ranks iff bitwise equal, but for a
+def fingerprint(tensors) -> list[int]:
+    """The words as int32 of each tensor, summed and position-weighted
+    (mod 2^64): equal across ranks iff bitwise equal, but for a
     collision."""
     out = []
-    for p in trainer.state.params.parameters():
+    for p in tensors:
         w = p.detach().contiguous().view(torch.int32).reshape(-1).long()
         pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
         out += [int(w.sum()), int((w * pos).sum())]
     return out
 
 
-def rank_main(rank: int, ranks: int, store: str, out: str) -> None:
+def rank_main(rank: int, ranks: int, store: str, out: str,
+              tp: int = 1) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
+    one, kw = 1, {}
+    if tp > 1:
+        # a world of one is no dp×tp split of the spec: its shape is named
+        one = MeshShape()
+        kw = dict(spec=MeshSpec(dp=-1, tp=tp),
+                  param_sharding=tfm.param_partition_specs(tfm.FLAGSHIP))
     trainer, batch = flagship_elastic_world(rank, ranks, store, batch=B,
-                                            seq=S, initial_world_size=1)
-    rec = dict(rank=rank, steps=[], resized=[])
-    for world, steps in ((1, 3), (ranks, 6), (1, 2)):
-        if trainer.world_size != world:
+                                            seq=S, initial_world_size=one,
+                                            **kw)
+    norms = [n for n, spec in trainer.partition_specs().items()
+             if not any(spec)]
+    rec = dict(rank=rank, tp_index=rank % tp, steps=[], resized=[])
+    for world, steps in ((one, 3), (ranks, 6), (one, 2)):
+        if not trainer.matches(world):
             rec["resized"].append(trainer.resize(world))
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss = trainer.step(batch)
             torch.cuda.synchronize()
+            wide = trainer.live and trainer.world_size > 1
             rec["steps"].append(dict(
                 world=trainer.world_size, loss=loss,
                 ms=1e3 * (time.perf_counter() - t0),
-                params=fingerprint(trainer) if trainer.live
-                and trainer.world_size > 1 else None))
+                params=(fingerprint(trainer.shards.values()) if wide
+                        else None),
+                norms=(fingerprint(trainer.shards[n] for n in norms)
+                       if wide else None)))
     rec["events"] = trainer.resize_events
     rec["backend"] = torch.distributed.get_backend()
     torch.distributed.destroy_process_group()
@@ -74,6 +94,7 @@ def rank_main(rank: int, ranks: int, store: str, out: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--tp", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_world: no CUDA device", file=sys.stderr)
@@ -87,7 +108,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(args.ranks)]
         procs = [ctx.Process(target=rank_main, args=(
-            r, args.ranks, os.path.join(tmp, "store"), outs[r]))
+            r, args.ranks, os.path.join(tmp, "store"), outs[r], args.tp))
             for r in range(args.ranks)]
         try:
             for p in procs:
@@ -113,12 +134,17 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
     failures = []
     for i, steps in enumerate(zip(*(rec["steps"] for rec in recs))):
-        live = [s for s in steps if s["loss"] is not None]
-        if len(live) != steps[0]["world"] or not np.isfinite(live[0]["loss"]):
+        live = [(rec["tp_index"], s) for rec, s in zip(recs, steps)
+                if s["loss"] is not None]
+        if (len(live) != steps[0]["world"]
+                or not np.isfinite(live[0][1]["loss"])):
             failures.append(f"step {i}: live ranks {len(live)}")
-        if len({s["loss"] for s in live}) != 1 or (
-                steps[0]["params"] is not None
-                and any(s["params"] != steps[0]["params"] for s in live)):
+        blocks: dict[int, set] = {}
+        for t, s in live:
+            blocks.setdefault(t, set()).add(str(s["params"]))
+        if (len({s["loss"] for _, s in live}) != 1
+                or any(len(b) != 1 for b in blocks.values())
+                or len({str(s["norms"]) for _, s in live}) != 1):
             failures.append(f"step {i}: the live ranks differ")
     if not all(all(rec["resized"]) for rec in recs):
         failures.append("a resize failed")
@@ -126,7 +152,7 @@ def main(argv=None) -> int:
     for s in recs[0]["steps"]:
         by_world.setdefault(s["world"], []).append(round(s["ms"], 2))
     print(json.dumps(dict(
-        ranks=args.ranks, backend=recs[0]["backend"], card=card,
+        ranks=args.ranks, tp=args.tp, backend=recs[0]["backend"], card=card,
         cards=torch.cuda.device_count(), step_ms_rank0=by_world,
         median_step_ms={w: float(np.median(ms[1:]))
                         for w, ms in by_world.items()},

@@ -125,13 +125,16 @@ def test_fsdp_sharding_picks_divisible_dim(n):
         mesh.MeshShape(fsdp=n),
         {k: torch.empty(s, device="meta") for k, s in shapes.items()},
         "fsdp")
+    meta = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
     for k, s in shapes.items():
-        dims = _spec_dims(want[k].spec, len(s))
-        assert dims == tuple("fsdp" if i == got[k] else None
-                             for i in range(len(s))), k
-    assert got["w"] == 0 and got["b"] is None and got["s"] is None
-    assert set(mesh.tree_shardings(mesh.MeshShape(fsdp=n), shapes,
-                                   "replicated").values()) == {None}
+        assert got[k] == _spec_dims(want[k].spec, len(s)), k
+        assert got[k] == mesh.fsdp_sharding(mesh.MeshShape(fsdp=n),
+                                            meta[k]), k
+    assert got["w"] == ("fsdp", None) and got["b"] == (None,)
+    assert got["s"] == ()
+    assert mesh.tree_shardings(mesh.MeshShape(fsdp=n), meta,
+                               "replicated") == {
+        k: (None,) * len(s) for k, s in shapes.items()}
     with pytest.raises(ValueError, match="unknown sharding kind"):
         mesh.tree_shardings(mesh.MeshShape(fsdp=n), shapes, "tp")
 
@@ -423,11 +426,12 @@ def _reference_dryrun(n, capsys, monkeypatch) -> dict:
     return json.loads(line[len("DRYRUN_COMM "):])
 
 
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 def test_dryrun_multichip_matches_the_reference(n, capsys, monkeypatch):
     """The port's dryrun passes and prints DRYRUN_COMM with the reference's
-    keys, mesh and parameter bytes; its census holds the reference's
-    per-axis expectations."""
+    keys, mesh and parameter bytes and its set of collective labels; its
+    census holds the reference's per-axis expectations (at n 8 the tp
+    axis' all-reduces among them)."""
     got = entry.dryrun_multichip(n, device="cpu")
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("DRYRUN_COMM ")]
@@ -438,9 +442,11 @@ def test_dryrun_multichip_matches_the_reference(n, capsys, monkeypatch):
                 "param_bytes_per_device_max", "param_bytes_per_device_min"):
         assert got[key] == want[key], key
     assert set(got["collectives"]) == set(want["collectives"])
-    # each rank: every replicated leaf and half of every sharded one
+    # each rank: every replicated leaf and 1/(fsdp·tp) of every sharded one
+    k = got["mesh"]["fsdp"] * got["mesh"]["tp"]
     assert got["param_bytes_per_device_max"] == (
-        got["param_bytes_total"] - got["param_bytes_sharded"] // 2)
+        got["param_bytes_total"] - got["param_bytes_sharded"]
+        + got["param_bytes_sharded"] // k)
     fsdp = got["collectives"]["fsdp"]["ops"]
     assert fsdp.get("all-gather") == 1 and fsdp.get("reduce-scatter") == 1
     if n == 4:
@@ -448,6 +454,9 @@ def test_dryrun_multichip_matches_the_reference(n, capsys, monkeypatch):
         # the replicated leaves' sum over the live group, byte for byte
         assert got["collectives"]["dp"]["bytes"] == \
             want["collectives"]["dp"]["bytes"]
+    if n == 8:
+        assert set(got["collectives"]) == {"dp", "dp+fsdp", "fsdp", "tp"}
+        assert got["collectives"]["tp"]["ops"].get("all-reduce", 0) >= 1
 
 
 def test_dryrun_injected_replicate_exits_non_zero():
@@ -463,9 +472,22 @@ def test_dryrun_injected_replicate_exits_non_zero():
     assert "DRYRUN_COMM" not in out.stdout
 
 
-@pytest.mark.parametrize("n", [1, 3, 8])
+def test_dryrun_injected_replicate_exits_non_zero_at_8():
+    """The negative control on the dp2×fsdp2×tp2 layout: a replicated
+    placement fails the economy check the tp specs promise."""
+    env = dict(os.environ, EDL_DRYRUN_INJECT="replicate")
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch.entry",
+                          "dryrun", "8", "--device", "cpu"],
+                         capture_output=True, text=True,
+                         timeout=200, env=env, cwd=str(ROOT))
+    assert out.returncode != 0
+    assert "sharding economy violated" in out.stderr
+    assert "DRYRUN_COMM" not in out.stdout
+
+
+@pytest.mark.parametrize("n", [1, 3, 16])
 def test_dryrun_refuses_other_sizes(n):
-    with pytest.raises(ValueError, match="item 1b.*item 9"):
+    with pytest.raises(ValueError, match="item 9"):
         entry.dryrun_multichip(n)
 
 

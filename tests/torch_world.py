@@ -428,7 +428,7 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
         got = dict(matches=[t.matches(v) for v in (0, "abc", 3, 4)])
         got["soft"] = [t.resize(v) for v in (0, "abc")]
         got["failed_soft"] = t.resizes_failed
-        got["staged"] = [t.resize(v) for v in (8, MeshShape(dp=2, tp=2))]
+        got["staged"] = [t.resize(v) for v in (8, MeshShape(dp=2, sp=2))]
         got.update(failed=t.resizes_failed, world=t.world_size,
                    loss=t.step((x[:64], y[:64])), landed=t.resize(3),
                    world_after=t.world_size)
@@ -984,5 +984,229 @@ def suite_fsdp_two(rank: int, world: int, store: str, tiny_params: dict,
     return out
 
 
+# -- the tensor-parallel suites ----------------------------------------------
+
+#: every world tensor parallel, and the reference dryrun's layout at n 8
+TP, TP3D = MeshSpec(tp=-1), MeshSpec(dp=-1, fsdp=2, tp=2)
+#: the parameter whose gradient blocks are held to the reference's
+GRAD_LEAF = "layers.0.wq"
+
+
+def tp_tiny(params: dict, spec: MeshSpec, n0: int, **kw) -> ElasticTrainer:
+    """The TINY trainer laid out by the transformer's partition specs."""
+    return tiny_trainer(params, param_sharding=tfm.param_partition_specs(
+        tfm.TINY), spec=spec, initial_world_size=n0, **kw)
+
+
+def step_seeing_grads(trainer: ElasticTrainer, batch, names) -> tuple:
+    """(loss, {name: this rank's reduced gradient block}) of one step: the
+    blocks as the optimizer is handed them."""
+    opt, seen = trainer.state.opt_state, {}
+    real = opt.step
+
+    def step(*a, **k):
+        for n in names:
+            seen[n] = trainer.shards[n].grad.detach().numpy().copy()
+        return real(*a, **k)
+
+    opt.step = step
+    try:
+        loss = trainer.step(batch)
+    finally:
+        del opt.step
+    return loss, seen
+
+
+def norms(trainer: ElasticTrainer) -> dict:
+    """This rank's copies of the leaves no axis splits (the norms)."""
+    return {n: s.detach().numpy().copy() for n, s in trainer.shards.items()
+            if set(trainer.partition_specs()[n]) <= {None}}
+
+
+def tp_parity(trainer: ElasticTrainer, batches: list) -> dict:
+    """The eval loss at init, three steps (the first's census and
+    gradient blocks), and what each rank holds after them."""
+    got = dict(eval=trainer.eval_loss(batches[0]))
+    elastic.reset_census()
+    loss, grads = step_seeing_grads(trainer, batches[0], [GRAD_LEAF])
+    got.update(census=elastic.collective_census(), grad=grads[GRAD_LEAF])
+    got["losses"] = [loss] + [trainer.step(b) for b in batches[1:]]
+    got.update(full=full_numpy(trainer), norms=norms(trainer),
+               specs=trainer.partition_specs(),
+               shapes={n: tuple(s.shape) for n, s in trainer.shards.items()},
+               opt_shapes={n: sorted(tuple(v.shape) for v in
+                                     trainer.state.opt_state.state[s].values()
+                                     if v.dim())
+                           for n, s in trainer.shards.items()})
+    return got
+
+
+def tp_accumulate(params: dict, spec: MeshSpec, n0: int, micro: list
+                  ) -> dict:
+    got = {}
+    for mode in ("dp", "replicated"):
+        t = tp_tiny(params, spec, n0, accum_mode=mode)
+        got[mode] = dict(losses=[t.step_accumulate(micro) for _ in range(2)],
+                         full=full_numpy(t))
+    return got
+
+
+def suite_tp_two(rank: int, world: int, store: str, tiny_params: dict,
+                 batches: list, micro: list, flagship_kw: dict) -> dict:
+    """tp 2 on two ranks: the entry point behind chip_smoke's phase (m) at
+    TINY, then the tp collectives, JAX parity, accumulation and an abort
+    on the same group."""
+    from edl_tpu_torch.entry import flagship_tp_world
+    from edl_tpu_torch.parallel import tensor_parallel as tpar
+    from edl_tpu_torch.runtime.elastic import AccumulationAborted
+
+    out = {}
+    try:
+        trainer, batch = flagship_tp_world(rank, world, store, device="cpu",
+                                           **flagship_kw)
+        seen = dict(world=trainer.world_size, live=trainer.live, losses=[],
+                    resized=[], kept=[], sent=[], norms=[], census=None,
+                    shares=None)
+        for target in (1, 1, 2, 2, 1, 1):
+            if target != trainer.world_size:
+                before = full_numpy(trainer)
+                elastic.reset_census()
+                seen["resized"].append(trainer.resize(target))
+                seen["sent"].append(sum(
+                    slot["bytes"] for label, slot in
+                    elastic.collective_census().items() if label != "world"))
+                seen["kept"].append(all(
+                    np.array_equal(before[k], v)
+                    for k, v in full_numpy(trainer).items()))
+            elastic.reset_census()
+            seen["losses"].append(trainer.step(batch))
+            if trainer.world_size == 2:
+                seen["census"] = seen["census"] or elastic.collective_census()
+                seen["norms"].append(norms(trainer))
+                full, opt = trainer.full_shapes(), trainer.state.opt_state
+                seen["shares"] = sorted({
+                    t.numel() / int(np.prod(full[n]))
+                    for n, s in trainer.shards.items()
+                    for t in [s] + [v for v in opt.state[s].values()
+                                    if v.dim()]
+                    if any(trainer.partition_specs()[n])})
+        seen["events"] = trainer.resize_events
+        out["flagship_world"] = seen
+    except Exception:
+        out["flagship_world"] = ScenarioFailed(traceback.format_exc())
+        return out
+
+    def primitives(rank):
+        """Each collective piece on its own, on inputs every rank draws
+        alike from one seed; rank r holds block r of whatever is split."""
+        ctx = tpar.TPContext(2, rank, lambda t, op: dist.all_reduce(t, op))
+        g = torch.Generator().manual_seed(0)
+        x, w = torch.randn(3, 5, generator=g), torch.randn(2, 3, 5,
+                                                            generator=g)
+        got = dict(x=x.numpy(), w=w.numpy())
+        xc = x.clone().requires_grad_()
+        y = tpar.copy_to_tp(xc, ctx)
+        (y * w[rank]).sum().backward()
+        got["copy"] = (y.detach().numpy(), xc.grad.numpy())
+        parts = torch.randn(2, 3, 5, generator=g)
+        pc = parts[rank].clone().requires_grad_()
+        z = tpar.reduce_from_tp(pc, ctx)
+        (z * w[0]).sum().backward()
+        got.update(parts=parts.numpy(),
+                   reduce=(z.detach().numpy(), pc.grad.numpy()))
+        table = torch.randn(16, 4, generator=g)
+        tokens = torch.randint(0, 16, (2, 6), generator=g)
+        dy = torch.randn(2, 6, 4, generator=g)
+        got.update(table=table.numpy(), tokens=tokens.numpy(),
+                   dy=dy.numpy())
+        for hot in (False, True):
+            local = table[rank * 8:(rank + 1) * 8].clone().requires_grad_()
+            e = tpar.vocab_parallel_embed(local, tokens, ctx, one_hot=hot,
+                                          dtype=torch.float32)
+            (e * dy).sum().backward()
+            got[f"embed_{hot}"] = (e.detach().numpy(), local.grad.numpy())
+        logits = 3 * torch.randn(2, 6, 16, generator=g)
+        targets = torch.randint(0, 16, (2, 6), generator=g)
+        lc = logits[..., rank * 8:(rank + 1) * 8].clone().requires_grad_()
+        loss = tpar.vocab_parallel_cross_entropy(lc, targets, ctx)
+        loss.backward()
+        got.update(logits=logits.numpy(), targets=targets.numpy(),
+                   ce=(float(loss), lc.grad.numpy()))
+        return got
+
+    def parity_tp2(rank):
+        return tp_parity(tp_tiny(tiny_params, TP, 2), batches)
+
+    def accumulate(rank):
+        got = tp_accumulate(tiny_params, TP, 2, micro)
+        t = tp_tiny(tiny_params, TP, 2)
+        before = shard_digest(t)
+        try:
+            t.step_accumulate(micro, abort_after=2)
+            aborted = False
+        except AccumulationAborted:
+            aborted = True
+        got["abort"] = dict(aborted=aborted,
+                            untouched=shard_digest(t) == before,
+                            closed=tpar.current() is None,
+                            loss=t.step(batches[0]))
+        return got
+
+    out.update(_run_scenarios([primitives, parity_tp2, accumulate], rank))
+    return out
+
+
+def suite_tp_eight(rank: int, world: int, store: str, tiny_params: dict,
+                   batches: list, micro: list) -> dict:
+    """tp on eight ranks: the reference dryrun's dp2×fsdp2×tp2 against
+    JAX, the fsdp and replicated kinds on tp meshes, accumulation, and live
+    resizes between spec layouts."""
+    _join(rank, world, store)
+
+    def parity_3d(rank):
+        return tp_parity(tp_tiny(tiny_params, TP3D, 8), batches)
+
+    def kinds(rank):
+        got = {}
+        for label, spec, kind, opt in (
+                ("dp2xtp2 fsdp", MeshSpec(dp=2, tp=2), "fsdp", None),
+                ("dp2xtp2 replicated", MeshSpec(dp=2, tp=2), "replicated",
+                 None),
+                ("fsdp2xtp2 fsdp sgd", MeshSpec(fsdp=2, tp=2), "fsdp", sgd)):
+            t = tiny_trainer(tiny_params, opt, param_sharding=kind,
+                             spec=spec, initial_world_size=4)
+            elastic.reset_census()
+            losses = [t.step(batches[0])]
+            census = elastic.collective_census()
+            losses += [t.step(b) for b in batches[1:]]
+            got[label] = dict(
+                losses=losses, live=t.live, census=census,
+                full=full_numpy(t), digest=shard_digest(t),
+                specs=t.partition_specs(),
+                shapes={n: tuple(s.shape) for n, s in t.shards.items()})
+        return got
+
+    def accum_3d(rank):
+        return tp_accumulate(tiny_params, TP3D, 8, micro)
+
+    def resize_3d(rank):
+        t = tp_tiny(tiny_params, TP, 2)
+        got = dict(losses=[t.step(batches[0])], kept=[], shapes=[])
+        for b, target in zip(batches[1:], (MeshShape(dp=2, fsdp=2, tp=2),
+                                           MeshShape(fsdp=4))):
+            before = full_numpy(t)
+            ok = t.resize(target)
+            got["kept"].append(ok and all(
+                np.array_equal(before[k], v)
+                for k, v in full_numpy(t).items()))
+            got["shapes"].append(t.shape)
+            got["losses"].append(t.step(b))
+        got["events"] = t.resize_events
+        return got
+
+    return _run_scenarios([parity_3d, kinds, accum_3d, resize_3d], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
-          "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two}
+          "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
+          "tp_two": suite_tp_two, "tp_eight": suite_tp_eight}
