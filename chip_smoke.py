@@ -33,8 +33,9 @@ Phases, each of which raises on failure:
 (f) the flash kernels at the BERT-base shape (b 32, s 512, h = hk = 12,
     d 64, non-causal), at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk and
     d, causal), at the local batch of a live rank of (j) and (l) on a
-    world of 2 (b 8), and at a rank's heads on (m)'s tp 2 (b 16, h 4,
-    hk 1), checked and timed as in (b);
+    world of 2 (b 8), at a rank's heads on (m)'s tp 2 (b 16, h 4,
+    hk 1), and at (o)'s tp-2 micro-batch (b 2, h 4, hk 1), checked and
+    timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -119,6 +120,28 @@ Phases, each of which raises on failure:
     ranks share it over gloo and take one step of TINY placed by its
     partition specs (fsdp 2, dp2×fsdp2, dp2×fsdp2×tp2), each printing its
     ``DRYRUN_COMM`` line.
+(o) the sharded lineage.  (o-1): (k)'s job on fsdp trainers
+    (``entry.flagship_virtual_world`` with ``param_sharding="fsdp"`` and
+    ``MeshSpec(dp=1, fsdp=-1)``, world 2 being fsdp 2): each save gathers
+    the whole state leaf by leaf to rank 0's host memory; the kill after
+    step 9, the restore on fresh fsdp trainers and steps 10-12.  Gates: the
+    12 losses bitwise (k)'s control, every row once, 64 launches of each
+    flash kernel a step on a live rank and none on one standing by, and a
+    torn newest step falling back to 9 on both ranks.  (o-2): a tp-2
+    trainer (two ranks, FLAGSHIP's partition specs) and a world-1
+    replicated trainer (this process) restore step 12: gathered, each
+    holds the fsdp job's final params and Adam moments bitwise, with its
+    count and step; each takes step 13, the tp loss within
+    ``WORLD_LOSS_ATOL`` of the world-1 one; and the world-1 trainer's save
+    of that state has the fsdp run's manifest fingerprint.  (o-3): a
+    FLAGSHIP ``DecodeFleet`` from seed-0 weights reloads the lineage's
+    newest step, and four prompts decode as on a fresh fleet built from the
+    restored weights; ``watch_lineage`` ships the world-1 trainer's step 13
+    within ``LINEAGE_PICKUP_S`` while sessions decode, dropping none; a
+    step with a forged manifest is skipped and counted.  Prints the
+    gather's census bytes, time and peak ``memory_allocated``, the sharded
+    save's ``save_ms``, GB/s and ``save_async`` pause beside (k)'s, each
+    ``restore_ms`` and the fleet's ``reload_ms``.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -142,6 +165,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -254,6 +278,15 @@ VIRTUAL_CHILD_TIMEOUT_S = 900
 #: workers (entry.flagship_virtual_world's defaults); the flash kernels
 #: are held against their plain versions at this batch too
 VIRTUAL_MICRO_BATCH = B // 8
+#: phase (o-2): the tp trainer's layout, (m)'s
+TP_SPEC = MeshSpec(tp=-1)
+#: phase (o-3): the prompts decoded on the reloaded and a fresh fleet and
+#: their new tokens; the watcher's poll, the seconds it may take to ship a
+#: step once saved, and the sessions kept decoding meanwhile (a new one
+#: submitted whenever fewer are in flight)
+LINEAGE_PROMPT_LENS, LINEAGE_NEW_TOKENS = (64, 192, 320, 512), 32
+LINEAGE_POLL_S, LINEAGE_PICKUP_S = 0.5, 5.0
+WATCH_SESSIONS, WATCH_PROMPT_LEN, WATCH_NEW_TOKENS = 4, 64, 256
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -1677,7 +1710,8 @@ def virtual_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
 def phase_virtual(card: str) -> dict:
     """(k): the durable virtual-worker loop on two ranks sharing the card,
     against a one-process control; returns the launches of the ranks and
-    the control summed."""
+    the control summed, the control's losses and rank 0's checkpoint
+    drills."""
     torch.cuda.empty_cache()
     fa.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1769,8 +1803,480 @@ def phase_virtual(card: str) -> dict:
         failures.append(f"control launches {control_launches}")
     if failures:
         raise AssertionError("phase (k): " + "; ".join(failures))
-    return {k: control_launches[k] + sum(rec["launches"][k] for rec in recs)
-            for k in FLASH}
+    return dict(launches={k: control_launches[k] + sum(
+        rec["launches"][k] for rec in recs) for k in FLASH},
+        control=control, drills=d)
+
+
+# -- phase (o): the sharded lineage -------------------------------------------
+
+
+def trainer_tree(trainer) -> dict:
+    return {"params": trainer.state.params, "opt": trainer.state.opt_state}
+
+
+def state_digest(trainer):
+    """{checkpoint path: checksum} of the trainer's whole state, each leaf
+    summed on the card (collective over the live group): rank 0's, None
+    on the other ranks."""
+    tree = type(trainer).whole_state(trainer)
+    if tree is None:
+        return None
+    return {k: checksum([torch.as_tensor(v).to("cuda")])[0]
+            for k, v in sorted(ckpt._flatten(tree).items())}
+
+
+def instrument_gather(trainer, record: list) -> None:
+    """Record every ``whole_state`` of ``trainer`` (a save's gather) into
+    ``record``: its step and world, its host ms between two
+    ``synchronize()``s, the bytes and all-gathers of its census label, and
+    ``memory_allocated`` before it and at its peak."""
+    from edl_tpu_torch.runtime import elastic
+
+    real = trainer.whole_state
+
+    def timed():
+        torch.cuda.synchronize()
+        elastic.reset_census()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tree = real()
+        torch.cuda.synchronize()
+        slot = elastic.collective_census().get(
+            elastic.CHECKPOINT_LABEL, {"ops": {}, "bytes": 0})
+        record.append(dict(
+            step=trainer.state.step, world=trainer.world_size,
+            ms=1e3 * (time.perf_counter() - t0), bytes=slot["bytes"],
+            gathers=slot["ops"].get("all-gather", 0), allocated=base,
+            peak=torch.cuda.max_memory_allocated()))
+        return tree
+
+    trainer.whole_state = timed
+
+
+def instrument_saves(ck, record: list) -> None:
+    """Record every ``save`` of ``ck`` (rank 0's) into ``record``: its step,
+    its host ms (the gather included) and the bytes it wrote."""
+    real = ck.save
+
+    def timed(step, tree, **kw):
+        t0 = time.perf_counter()
+        ok = real(step, tree, **kw)
+        record.append(dict(step=step, ms=1e3 * (time.perf_counter() - t0),
+                           bytes=sum(os.path.getsize(f) for f in
+                                     step_files(str(ck.directory), step))))
+        return ok
+
+    ck.save = timed
+
+
+def tear_copy(directory: str, copy: str) -> int:
+    """``copy``: the lineage at ``directory`` as hard links, with its newest
+    step's largest file replaced by the first half of its bytes (the
+    lineage itself untouched); returns that step."""
+    shutil.copytree(directory, copy, copy_function=os.link)
+    newest = max(int(p) for p in os.listdir(copy) if p.isdigit())
+    victim = max(step_files(copy, newest), key=os.path.getsize)
+    with open(victim, "rb") as src, open(victim + ".torn", "wb") as dst:
+        dst.write(src.read(os.path.getsize(victim) // 2))
+    os.replace(victim + ".torn", victim)
+    return newest
+
+
+def forge_step(directory: str, step: int, forged: int) -> None:
+    """Step ``forged`` of the lineage: ``step``'s files (hard links) under
+    ``step``'s manifest with the fold of ``['params']['embed']`` changed,
+    so its files verify and its leaves do not."""
+    shutil.copytree(os.path.join(directory, str(step)),
+                    os.path.join(directory, str(forged)),
+                    copy_function=os.link)
+    mdir = os.path.join(directory, ".integrity")
+    with open(os.path.join(mdir, f"{step}.json")) as f:
+        manifest = json.load(f)
+    key = "['params']['embed']"
+    manifest["step"] = forged
+    manifest["leaves"][key] = f"{int(manifest['leaves'][key], 16) ^ 1:016x}"
+    with open(os.path.join(mdir, f"{forged}.json"), "w") as f:
+        json.dump(manifest, f)
+
+
+def durable_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
+    """(o-1), one rank of the fsdp job: (k)'s schedule with its kill and
+    restore, each save's gather and rank 0's saves recorded, one sharded
+    ``save_async`` after step 9, the final state's digest, and a torn
+    newest step restored on both ranks; written as JSON to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = dict(rank=rank, steps=[], gathers=[], saves=[])
+    fa.reset_launches()
+
+    def job(n0: int):
+        trainer, reg, ids, cfg = flagship_virtual_world(
+            rank, WORLD_RANKS, store, initial_world_size=n0,
+            param_sharding="fsdp", spec=FSDP_SPEC)
+        instrument(trainer, rec["steps"])
+        instrument_gather(trainer, rec["gathers"])
+        ck = ElasticCheckpointer(ckpt_dir)
+        instrument_saves(ck, rec["saves"])
+        return trainer, cfg, VirtualBatches(cfg, ids, reg.get), ck
+
+    trainer, cfg, batches, ck = job(virtual_world(0))
+    first = VirtualWorkerLoop(trainer, cfg, batches, checkpointer=ck,
+                              ckpt_every=VIRTUAL_CKPT_EVERY).run(
+        max_steps=VIRTUAL_KILL_AFTER, world_size_for=virtual_world)
+    if rank == 0:
+        pause_dir = ckpt_dir + "-pause"
+        pk = ElasticCheckpointer(pause_dir, max_to_keep=1)
+        t0 = time.perf_counter()
+        rec["pause_ms"] = 1e3 * pk.save_async(VIRTUAL_KILL_AFTER,
+                                              trainer.whole_state)
+        pk.wait_pending()
+        rec["persist_ms"] = 1e3 * (time.perf_counter() - t0)
+        pk.finalize()
+        rec["async_verified"] = pk.latest_verified_step()
+        rec["async_same_print"] = (
+            pk.manifest(VIRTUAL_KILL_AFTER)["tree_hash"]
+            == ck.manifest(VIRTUAL_KILL_AFTER)["tree_hash"])
+        shutil.rmtree(pause_dir)
+    else:
+        trainer.whole_state()
+    before = dict(fa.launches)
+    rec["kill_world"] = trainer.world_size
+    try:
+        trainer.step_accumulate(batches.next_step(), abort_after=3)
+        rec["killed"] = False
+    except AccumulationAborted:
+        rec["killed"] = True
+    rec["kill_launches"] = {k: fa.launches[k] - before[k] for k in FLASH}
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    trainer, cfg, batches, ck = job(WORLD_RANKS)
+    loop = VirtualWorkerLoop(trainer, cfg, batches, checkpointer=ck,
+                             ckpt_every=VIRTUAL_CKPT_EVERY)
+    t0 = time.perf_counter()
+    rec["restored"] = loop.restore_latest()
+    torch.cuda.synchronize()
+    rec["restore_ms"] = 1e3 * (time.perf_counter() - t0)
+    second = loop.run(max_steps=VIRTUAL_STEPS - VIRTUAL_KILL_AFTER,
+                      world_size_for=virtual_world)
+    rec.update(losses=first.losses + second.losses,
+               resizes=[first.resizes, second.resizes],
+               rows=rows_once([first, second]), final=state_digest(trainer),
+               launches=dict(fa.launches))
+
+    torch.distributed.barrier()
+    drill = ckpt_dir + "-torn"
+    if rank == 0:
+        rec["torn"] = tear_copy(ckpt_dir, drill)
+    torch.distributed.barrier()
+    counters = get_counters()
+    c0 = (counters.get("checkpoint_corruption_detected"),
+          counters.get("recoveries_completed", type="corrupt_checkpoint"))
+    fresh = ElasticCheckpointer(drill)
+    t0 = time.perf_counter()
+    fresh.restore(trainer_tree(trainer), shardings=trainer)
+    torch.cuda.synchronize()
+    rec["drill"] = dict(
+        fallback=fresh.last_restored_step, hash_ok=fresh.last_restore_hash_ok,
+        ms=1e3 * (time.perf_counter() - t0),
+        corruption=counters.get("checkpoint_corruption_detected") - c0[0],
+        recoveries=counters.get("recoveries_completed",
+                                type="corrupt_checkpoint") - c0[1])
+    torch.distributed.barrier()
+    if rank == 0:
+        shutil.rmtree(drill)
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def tp_restore_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
+    """(o-2), one rank of a tp-2 trainer laid out by FLAGSHIP's partition
+    specs: the lineage's newest step restored, its digest, and step 13;
+    written as JSON to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = dict(rank=rank, steps=[])
+    trainer, reg, ids, cfg = flagship_virtual_world(
+        rank, WORLD_RANKS, store, initial_world_size=WORLD_RANKS,
+        param_sharding=tfm.param_partition_specs(tfm.FLAGSHIP),
+        spec=TP_SPEC)
+    fa.reset_launches()
+    loop = VirtualWorkerLoop(trainer, cfg, VirtualBatches(cfg, ids, reg.get),
+                             checkpointer=ElasticCheckpointer(ckpt_dir))
+    t0 = time.perf_counter()
+    rec["restored"] = loop.restore_latest()
+    torch.cuda.synchronize()
+    rec.update(restore_ms=1e3 * (time.perf_counter() - t0),
+               state_step=trainer.state.step, digest=state_digest(trainer))
+    instrument(trainer, rec["steps"])
+    rec["losses"] = loop.run(max_steps=1).losses
+    rec["launches"] = dict(fa.launches)
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def decode_all(fleet, prompts: list, new_tokens: int) -> list:
+    sessions = [fleet.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    return [s.wait(600) for s in sessions]
+
+
+def keep_decoding(fleet, rng, sessions: list,
+                  stop: threading.Event) -> threading.Thread:
+    """A thread that keeps WATCH_SESSIONS sessions in flight on ``fleet``
+    until ``stop``, each appended to ``sessions`` when submitted."""
+    def feed():
+        while not stop.is_set():
+            if fleet.sessions_active() < WATCH_SESSIONS:
+                sessions.append(fleet.submit(rng.integers(
+                    1, tfm.FLAGSHIP.vocab_size, WATCH_PROMPT_LEN).tolist(),
+                    max_new_tokens=WATCH_NEW_TOKENS))
+            else:
+                time.sleep(0.01)
+
+    thread = threading.Thread(target=feed, name="lineage-feed", daemon=True)
+    thread.start()
+    return thread
+
+
+def phase_durable(card: str, control: list, k_drills: dict) -> dict:
+    """(o): the sharded lineage: the fsdp job on two ranks sharing the
+    card, its newest step restored into a tp-2 and a world-1 trainer, and
+    a FLAGSHIP decode fleet reloading the lineage; returns the launches of
+    the fsdp job and of the restored trainers' step."""
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        lineage_dir = os.path.join(tmp, "lineage")
+        recs = run_ranks(durable_rank, "o-1", VIRTUAL_CHILD_TIMEOUT_S,
+                         lineage_dir)
+        tp_recs = run_ranks(tp_restore_rank, "o-2", VIRTUAL_CHILD_TIMEOUT_S,
+                            lineage_dir)
+        torch.cuda.empty_cache()
+
+        # (o-2) in this process: a world-1 replicated trainer
+        trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+        lineage = ElasticCheckpointer(lineage_dir)
+        loop = VirtualWorkerLoop(trainer, cfg,
+                                 VirtualBatches(cfg, ids, reg.get),
+                                 checkpointer=lineage, ckpt_every=1)
+        t0 = time.perf_counter()
+        w1 = dict(restored=loop.restore_latest())
+        torch.cuda.synchronize()
+        w1.update(restore_ms=1e3 * (time.perf_counter() - t0),
+                  state_step=trainer.state.step,
+                  digest=state_digest(trainer))
+        again = ElasticCheckpointer(os.path.join(tmp, "world1"))
+        t0 = time.perf_counter()
+        again.save(w1["restored"], trainer.whole_state)
+        w1["save_ms"] = 1e3 * (time.perf_counter() - t0)
+        w1["same_print"] = (again.manifest(w1["restored"])["tree_hash"]
+                            == lineage.manifest(w1["restored"])["tree_hash"])
+        shutil.rmtree(again.directory)
+
+        # (o-3): a fleet from seed-0 weights reloads the lineage
+        fleet = flagship_decode_fleet(job="lineage")
+        t0 = time.perf_counter()
+        sv = dict(reloaded=fleet.reload_from_lineage(
+            ElasticCheckpointer(lineage_dir)))
+        sv.update(reload_ms=1e3 * (time.perf_counter() - t0),
+                  generation=fleet.generation)
+        prompts = [rng.integers(1, tfm.FLAGSHIP.vocab_size, n).tolist()
+                   for n in LINEAGE_PROMPT_LENS]
+        sv["tokens"] = decode_all(fleet, prompts, LINEAGE_NEW_TOKENS)
+        weights = lineage.restore({"params": llama.param_template(
+            tfm.FLAGSHIP)}, step=sv["reloaded"])["params"]
+        fresh = flagship_decode_fleet(params=weights, job="lineage-fresh")
+        del weights
+        sv["fresh_tokens"] = decode_all(fresh, prompts, LINEAGE_NEW_TOKENS)
+        fresh.stop()
+        del fresh
+        torch.cuda.empty_cache()
+
+        # the world-1 trainer takes step 13 and saves it while sessions
+        # decode on the watched fleet
+        watcher = fleet.watch_lineage(ElasticCheckpointer(lineage_dir),
+                                      poll_s=LINEAGE_POLL_S)
+        sessions: list = []
+        stop = threading.Event()
+        feeder = keep_decoding(fleet, rng, sessions, stop)
+        while len(sessions) < WATCH_SESSIONS:
+            time.sleep(0.01)
+        for sess in sessions[:WATCH_SESSIONS]:
+            sess.wait_first_token(600)
+        w1_steps: list = []
+        instrument(trainer, w1_steps)
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        w1["losses"] = loop.run(max_steps=1).losses
+        sv["step_and_save_ms"] = 1e3 * (time.perf_counter() - t0)
+        w1["launches"] = {k: fa.launches[k] - before[k] for k in FLASH}
+        newer = trainer.state.step
+        t0 = time.perf_counter()
+        while (fleet.generation != newer
+               and time.perf_counter() - t0 < 4 * LINEAGE_PICKUP_S):
+            time.sleep(0.01)
+        sv.update(pickup_s=time.perf_counter() - t0,
+                  watched=fleet.generation, newer=newer,
+                  active_at_pickup=fleet.sessions_active())
+        stop.set()
+        feeder.join()
+        sv["watch_tokens"] = sorted({len(sess.wait(600))
+                                     for sess in sessions})
+        sv.update(watch_sessions=len(sessions),
+                  failed=fleet.sessions_failed)
+        watcher.stop()
+        forge_step(lineage_dir, newer, newer + 1)
+        skipped = get_counters().get("serving_reload_skipped_unverified")
+        sv["forged"] = fleet.reload_from_lineage(
+            ElasticCheckpointer(lineage_dir))
+        sv.update(forged_skipped=get_counters().get(
+            "serving_reload_skipped_unverified") - skipped,
+            after_forged=fleet.generation)
+        fleet.stop()
+        del fleet, trainer, loop
+        torch.cuda.empty_cache()
+
+    r0, r1 = recs
+    failures = []
+    n = tfm.FLAGSHIP.n_layers * cfg.vw_count
+    print(f"lineage phase (o): FLAGSHIP, V {cfg.vw_count}, global batch "
+          f"{cfg.global_batch} x {S}, fsdp 2 on two ranks sharing the card "
+          f"over gloo, on {card}", flush=True)
+    bitwise = r0["losses"] == control
+    print(f"lineage fsdp losses {r0['losses']} bitwise (k)'s control "
+          f"{bitwise}; rows duplicated {r0['rows']['duplicated']} missing "
+          f"{r0['rows']['missing']} of {VIRTUAL_STEPS * cfg.global_batch}; "
+          f"resizes {r0['resizes']}; restored step {r0['restored']}",
+          flush=True)
+    for rec in recs:
+        for g in rec["gathers"]:
+            print(f"lineage gather rank {rec['rank']} step {g['step']} world "
+                  f"{g['world']}: {g['gathers']} all-gathers of "
+                  f"{g['bytes']} bytes (census 'checkpoint') in "
+                  f"{g['ms']:.2f} ms, memory_allocated "
+                  f"{g['allocated'] / 1e9:.4f} GB before, peak "
+                  f"{g['peak'] / 1e9:.4f} GB during, on {card}", flush=True)
+    kgbps = k_drills["file_bytes"] / k_drills["save_ms"] / 1e6
+    for sv_ in r0["saves"]:
+        print(f"lineage save step {sv_['step']}: save_ms {sv_['ms']:.2f} "
+              f"(gather included) bytes {sv_['bytes']} GB/s "
+              f"{sv_['bytes'] / sv_['ms'] / 1e6:.3f}; (k)'s replicated "
+              f"save_ms {k_drills['save_ms']:.2f} GB/s {kgbps:.3f} on {card}",
+              flush=True)
+    print(f"lineage save_async pause_ms {r0['pause_ms']:.2f} (gather "
+          f"included) persist_ms {r0['persist_ms']:.2f}; (k)'s replicated "
+          f"pause_ms {k_drills['pause_ms']:.2f} persist_ms "
+          f"{k_drills['persist_ms']:.2f} on {card}", flush=True)
+    print(f"lineage restore_ms fsdp2 {r0['restore_ms']:.2f} (rank 0) "
+          f"{r1['restore_ms']:.2f} (rank 1); tp2 "
+          f"{tp_recs[0]['restore_ms']:.2f} {tp_recs[1]['restore_ms']:.2f}; "
+          f"world1 {w1['restore_ms']:.2f}; "
+          f"torn {r0.get('torn')} -> {[r['drill']['fallback'] for r in recs]} "
+          f"in {[round(r['drill']['ms'], 2) for r in recs]} ms on {card}",
+          flush=True)
+    for rec in recs:
+        got = sorted({(st["live"], tuple(st["launches"].values()))
+                      for st in rec["steps"]})
+        print(f"lineage launches rank {rec['rank']}: (live, per step) {got}; "
+              f"kill {rec['kill_launches']}; total {rec['launches']}",
+              flush=True)
+        for st in rec["steps"]:
+            want = n if st["live"] else 0
+            if set(st["launches"].values()) != {want}:
+                failures.append(f"rank {rec['rank']} launches {st}")
+        if not rec["killed"] or rec["kill_world"] != 2:
+            failures.append(f"rank {rec['rank']}: kill {rec['killed']} on "
+                            f"world {rec['kill_world']}")
+        if rec["restored"] != VIRTUAL_KILL_AFTER:
+            failures.append(f"rank {rec['rank']} restored {rec['restored']}")
+        d = rec["drill"]
+        drill = (d["fallback"], d["corruption"], d["recoveries"],
+                 d["hash_ok"])
+        if drill != (VIRTUAL_KILL_AFTER, 1, 1, True):
+            failures.append(f"rank {rec['rank']} torn drill {d}")
+    if not bitwise:
+        failures.append(f"fsdp losses {r0['losses']} vs control {control}")
+    if r0["rows"]["duplicated"] or r0["rows"]["missing"]:
+        failures.append(f"rows {r0['rows']}")
+    if r0["torn"] != VIRTUAL_STEPS:
+        failures.append(f"tore step {r0['torn']}")
+    if not any(g["world"] == WORLD_RANKS and g["gathers"]
+               for g in r0["gathers"]):
+        failures.append("no save gathered over fsdp 2")
+    if (r0["async_verified"], r0["async_same_print"]) != (
+            VIRTUAL_KILL_AFTER, True):
+        failures.append(f"save_async {r0['async_verified']} fingerprint "
+                        f"equal {r0['async_same_print']}")
+
+    final = r0["final"]
+    tp_loss, w1_loss = tp_recs[0]["losses"], w1["losses"]
+    print(f"lineage restored into tp2 (step {tp_recs[0]['restored']}, "
+          f"counter {tp_recs[0]['state_step']}) bitwise the fsdp job's "
+          f"final state {tp_recs[0]['digest'] == final}; into world1 (step "
+          f"{w1['restored']}, counter {w1['state_step']}) "
+          f"{w1['digest'] == final}; world1 save of it in "
+          f"{w1['save_ms']:.2f} ms, manifest fingerprint the fsdp run's "
+          f"{w1['same_print']}; step 13 losses tp2 {tp_loss} world1 "
+          f"{w1_loss} (limit {WORLD_LOSS_ATOL})", flush=True)
+    for rec in tp_recs:
+        if (rec["restored"], rec["state_step"]) != (VIRTUAL_STEPS,) * 2:
+            failures.append(f"tp rank {rec['rank']} restored "
+                            f"{rec['restored']} at {rec['state_step']}")
+        for st in rec["steps"]:
+            if set(st["launches"].values()) != {n}:
+                failures.append(f"tp rank {rec['rank']} launches {st}")
+    if tp_recs[0]["digest"] != final or w1["digest"] != final:
+        failures.append("a restored state differs from the fsdp job's")
+    if (w1["restored"], w1["state_step"]) != (VIRTUAL_STEPS,) * 2:
+        failures.append(f"world1 restored {w1['restored']} at "
+                        f"{w1['state_step']}")
+    if not w1["same_print"]:
+        failures.append("the world-1 save's fingerprint differs")
+    if (len(tp_loss) != 1 or len(w1_loss) != 1
+            or abs(tp_loss[0] - w1_loss[0]) > WORLD_LOSS_ATOL):
+        failures.append(f"step 13 losses tp {tp_loss} world1 {w1_loss}")
+    if set(w1["launches"].values()) != {n}:
+        failures.append(f"world1 launches {w1['launches']}")
+
+    equal = sv["tokens"] == sv["fresh_tokens"]
+    print(f"lineage fleet reload_from_lineage -> {sv['reloaded']} "
+          f"(generation {sv['generation']}) in {sv['reload_ms']:.2f} ms; "
+          f"{len(prompts)} prompts of {list(LINEAGE_PROMPT_LENS)} tokens, "
+          f"{LINEAGE_NEW_TOKENS} new, token-equal to a fresh fleet on the "
+          f"restored weights {equal}; watch_lineage(poll_s="
+          f"{LINEAGE_POLL_S}) shipped step {sv['watched']} (saved "
+          f"{sv['newer']}) {sv['pickup_s']:.3f} s after the save, "
+          f"{sv['active_at_pickup']} sessions decoding then, "
+          f"{sv['watch_sessions']} sessions through the step and the save "
+          f"with {sv['watch_tokens']} tokens each, sessions failed "
+          f"{sv['failed']}; forged "
+          f"step {sv['newer'] + 1} -> {sv['forged']}, "
+          f"serving_reload_skipped_unverified +{sv['forged_skipped']}, "
+          f"generation {sv['after_forged']} on {card}", flush=True)
+    if (sv["reloaded"], sv["generation"]) != (VIRTUAL_STEPS,) * 2:
+        failures.append(f"reload {sv['reloaded']} generation "
+                        f"{sv['generation']}")
+    if not equal:
+        failures.append(f"reloaded tokens {sv['tokens']} vs fresh "
+                        f"{sv['fresh_tokens']}")
+    if (sv["watched"] != sv["newer"] or sv["pickup_s"] > LINEAGE_PICKUP_S
+            or not sv["active_at_pickup"] or sv["failed"]
+            or sv["watch_tokens"] != [WATCH_NEW_TOKENS]):
+        failures.append(f"watch {sv}")
+    if (sv["forged"], sv["forged_skipped"], sv["after_forged"]) != (
+            None, 1, sv["newer"]):
+        failures.append(f"forged step shipped or uncounted: {sv}")
+    if failures:
+        raise AssertionError("phase (o): " + "; ".join(failures))
+    return dict(fsdp={k: r0["launches"][k] + r1["launches"][k]
+                      for k in FLASH},
+                restore={k: sum(r["launches"][k] for r in tp_recs)
+                         + w1["launches"][k] for k in FLASH})
 
 
 def main() -> int:
@@ -1801,14 +2307,21 @@ def main() -> int:
                              "flagship_world")
     tp_rows = phase_flash(B, S, H // WORLD_RANKS, HK // WORLD_RANKS, D,
                           (True,), "flagship_tp")
+    durable_tp_rows = phase_flash(VIRTUAL_MICRO_BATCH, S, H // WORLD_RANKS,
+                                  HK // WORLD_RANKS, D, (True,),
+                                  "flagship_durable_tp")
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
     phase_serving()
     paths["flagship_world"] = phase_world(card)
-    paths["flagship_virtual"] = phase_virtual(card)
+    virtual = phase_virtual(card)
+    paths["flagship_virtual"] = virtual["launches"]
     paths["flagship_fsdp"] = phase_fsdp(card)
     paths["flagship_tp"] = phase_tp(card)
     phase_dryrun()
+    durable = phase_durable(card, virtual["control"], virtual["drills"])
+    paths["flagship_durable_fsdp"] = durable["fsdp"]
+    paths["flagship_durable_restore"] = durable["restore"]
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1829,6 +2342,8 @@ def main() -> int:
             kernels[-1]["at_flagship_world"] = world_rows[name]
         if name in tp_rows:
             kernels[-1]["at_flagship_tp"] = tp_rows[name]
+        if name in durable_tp_rows:
+            kernels[-1]["at_flagship_durable_tp"] = durable_tp_rows[name]
     print(json.dumps({"kernels": kernels}))
     # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {

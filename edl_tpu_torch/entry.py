@@ -8,11 +8,13 @@ the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``edl_tpu_torch.profile_step`` drive, ``flagship_elastic_world`` the
 same for one rank of a multi-rank job (``flagship_tp_world`` laid out by
 the model's partition specs over tp), and ``flagship_virtual_world`` that
-rank's trainer with the virtual-worker job's data; ``resnet_trainer`` and
-``bert_trainer`` do the same for bench.py's model-zoo leg (ResNet-50 at
-256 x 224², BERT-base MLM at 32 x 512).  ``flagship_decode_fleet(device)``
-returns the ``DecodeFleet`` that serves FLAGSHIP token by token.  All run on
-the CUDA device unless ``device`` says otherwise, with the kernels on.
+rank's trainer (replicated, fsdp or tp) with the virtual-worker job's
+data; ``resnet_trainer`` and ``bert_trainer`` do the same for bench.py's
+model-zoo leg (ResNet-50 at 256 x 224², BERT-base MLM at 32 x 512).
+``flagship_decode_fleet(device)`` returns the ``DecodeFleet`` that serves
+FLAGSHIP token by token, from seed-0 weights or the ones it is given.  All
+run on the CUDA device unless ``device`` says otherwise, with the kernels
+on.
 
 ``dryrun_multichip(n, device)`` is the twin of
 ``__graft_entry__.dryrun_multichip``: one sharded train step of TINY over n
@@ -157,10 +159,15 @@ def flagship_virtual_world(rank: int, world: int, store_path,
                            cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                            vw_count: int = 8, global_batch: int = 16,
                            seq: int = 1024, accum_mode: str = "replicated",
-                           initial_world_size: Optional[int] = None):
+                           initial_world_size: Optional[int] = None,
+                           param_sharding="replicated",
+                           spec: Optional[MeshSpec] = None):
     """(trainer, registry, shard_ids, VirtualConfig) for rank ``rank`` of a
     ``world``-rank virtual-worker job: the trainer as
-    :func:`flagship_elastic_world` builds it (with ``accum_mode``), and a
+    :func:`flagship_elastic_world` builds it (with ``accum_mode``,
+    ``param_sharding`` and ``spec``: ``"fsdp"`` with ``MeshSpec(dp=1,
+    fsdp=-1)``, or ``param_partition_specs(cfg)`` with ``MeshSpec(tp=-1)``
+    as :func:`flagship_tp_world` lays it out), and a
     :class:`~edl_tpu_torch.runtime.data.ShardRegistry` of
     :data:`VIRTUAL_ROWS` rows of ``seq`` tokens from seed 1 (the targets
     shifted by one) in :data:`VIRTUAL_SHARDS` shards, for ``vw_count``
@@ -175,7 +182,8 @@ def flagship_virtual_world(rank: int, world: int, store_path,
     else:
         dev = _join_world(rank, world, store_path, device)
     trainer = _flagship(cfg, dev, initial_world_size=initial_world_size,
-                        accum_mode=accum_mode)
+                        accum_mode=accum_mode, param_sharding=param_sharding,
+                        spec=spec or MeshSpec(dp=-1))
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (VIRTUAL_ROWS, seq), dtype=np.int64)
     registry = ShardRegistry()
@@ -230,14 +238,17 @@ DECODE_DEFAULTS = dict(slots=8, prefill_chunk=64, kv_block_size=16,
 
 def flagship_decode_fleet(device="cuda",
                           cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
-                          **kw) -> DecodeFleet:
-    """A ``DecodeFleet`` serving ``cfg`` (FLAGSHIP, bf16) with random
-    weights from seed 0 on ``device``; ``kw`` overrides
-    :data:`DECODE_DEFAULTS` and passes any other fleet argument (``roles``,
-    ``spec_tokens``, ``job``, ...)."""
+                          params=None, **kw) -> DecodeFleet:
+    """A ``DecodeFleet`` serving ``cfg`` (FLAGSHIP, bf16) on ``device``
+    with ``params`` (a ``Transformer``, or its weights nested as a
+    checkpoint restores them: ``llama.param_tree``), by default random
+    weights from seed 0; ``kw`` overrides :data:`DECODE_DEFAULTS` and
+    passes any other fleet argument (``roles``, ``spec_tokens``, ``job``,
+    ...)."""
     dev = resolve(device)
-    model = tfm.Transformer(cfg, device=dev, seed=0)
-    return DecodeFleet(model, cfg, device=dev, **{**DECODE_DEFAULTS, **kw})
+    if params is None:
+        params = tfm.Transformer(cfg, device=dev, seed=0)
+    return DecodeFleet(params, cfg, device=dev, **{**DECODE_DEFAULTS, **kw})
 
 
 # -- the multi-rank dryrun ----------------------------------------------------

@@ -54,6 +54,7 @@ from edl_tpu_torch.models.transformer import (  # noqa: F401  (re-exports)
 from edl_tpu_torch.ops.embedding import embed_lookup
 
 _MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+_NORMS = ("attn_norm", "mlp_norm")
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -130,26 +131,65 @@ class DecodeParams:
         return self.embed.device
 
     @classmethod
-    @torch.no_grad()
     def from_model(cls, model: Transformer, device=None) -> "DecodeParams":
-        cfg, dt = model.cfg, model.cfg.dtype
-        dev = model.embed.device if device is None else resolve(device)
+        return cls.from_tree(model.cfg, param_tree(model),
+                             model.embed.device if device is None
+                             else device)
+
+    @classmethod
+    @torch.no_grad()
+    def from_tree(cls, cfg: TransformerConfig, tree, device
+                  ) -> "DecodeParams":
+        """From the weights of ``cfg`` as :func:`param_tree` nests them (a
+        checkpoint's ``['params']`` restored; a layer index a list's or an
+        int key), wherever they are, onto ``device``."""
+        dev, dt = resolve(device), cfg.dtype
+        if tuple(tree["embed"].shape) != (cfg.vocab_size, cfg.d_model):
+            raise ValueError(f"embed {tuple(tree['embed'].shape)} is not "
+                             f"that of this config")
         layers = []
-        for p in model.layers:
-            layer = {name: getattr(p, name).detach().to(dev, dt)
+        for i in range(cfg.n_layers):
+            p = tree["layers"][i]
+            layer = {name: p[name].detach().to(dev, dt)
                      for name in _MATMUL_WEIGHTS}
-            layer["attn_norm"] = p.attn_norm.detach().to(dev)
-            layer["mlp_norm"] = p.mlp_norm.detach().to(dev)
+            layer.update((name, p[name].detach().to(dev)) for name in _NORMS)
             layers.append(layer)
-        return cls(cfg, model.embed.detach().to(dev, dt), layers,
-                   model.norm.detach().to(dev),
-                   model.lm_head.detach().to(dev, dt))
+        return cls(cfg, tree["embed"].detach().to(dev, dt), layers,
+                   tree["norm"].detach().to(dev),
+                   tree["lm_head"].detach().to(dev, dt))
 
 
-def as_decode_params(params, device=None) -> DecodeParams:
-    """``params`` (a :class:`Transformer`, or :class:`DecodeParams` already
-    on ``device``) as :class:`DecodeParams` on ``device`` (default: where
-    they are)."""
+def param_tree(model: Transformer) -> dict:
+    """The model's parameters nested as a checkpoint stores them under
+    ``['params']``: ``{"embed", "layers": [{"wq", ...}], "norm",
+    "lm_head"}``."""
+    return {"embed": model.embed,
+            "layers": [{name: getattr(p, name)
+                        for name in _MATMUL_WEIGHTS + _NORMS}
+                       for p in model.layers],
+            "norm": model.norm, "lm_head": model.lm_head}
+
+
+def param_template(cfg: TransformerConfig) -> dict:
+    """:func:`param_tree`'s paths for ``cfg`` with empty host tensors as
+    leaves: what a checkpoint restore reads the weights into (it gives
+    each leaf the saved shape)."""
+    empty = torch.empty(0)
+    return {"embed": empty, "norm": empty, "lm_head": empty,
+            "layers": [dict.fromkeys(_MATMUL_WEIGHTS + _NORMS, empty)
+                       for _ in range(cfg.n_layers)]}
+
+
+def as_decode_params(params, device=None,
+                     cfg: Optional[TransformerConfig] = None
+                     ) -> DecodeParams:
+    """``params`` (a :class:`Transformer`, :func:`param_tree`'s nesting of
+    ``cfg``'s weights, or :class:`DecodeParams` already on ``device``) as
+    :class:`DecodeParams` on ``device`` (default: where they are)."""
+    if isinstance(params, dict):
+        if cfg is None:
+            raise ValueError("a tree of weights needs its config")
+        return DecodeParams.from_tree(cfg, params, device or "cuda")
     if not isinstance(params, DecodeParams):
         return DecodeParams.from_model(params, device)
     if device is not None and not same_device(params.device,

@@ -20,6 +20,10 @@ byte on the same shapes and layouts (ranks standing for jax device ids).
 
 :func:`candidate_shapes`, :func:`choose_shape` and :func:`propose_shape`
 pick the axis split of a resize by the same arithmetic.
+:func:`total_collective_counts` flattens a per-axis collective census, the
+trainer's :func:`~edl_tpu_torch.runtime.elastic.collective_census` (the
+port's ``collective_stats``: torch has no HLO to count, so the trainer
+counts at its four collective choke points).
 """
 
 from __future__ import annotations
@@ -408,3 +412,15 @@ def propose_shape(n_devices: int, state_bytes: int,
                 <= max_bytes_per_device):
             return MeshShape(dp=rem // fsdp, fsdp=fsdp, tp=tp, sp=sp, ep=ep)
     return MeshShape(dp=1, fsdp=rem, tp=tp, sp=sp, ep=ep)
+
+
+def total_collective_counts(stats: dict) -> dict[str, int]:
+    """Flatten a per-axis collective census, ``{axis label: {"ops": {op:
+    count}, "bytes": n}}`` (the trainer's
+    :func:`~edl_tpu_torch.runtime.elastic.collective_census`, the port's
+    ``collective_stats``), to ``{op: count}`` totals."""
+    out: dict[str, int] = {}
+    for slot in stats.values():
+        for op, n in slot["ops"].items():
+            out[op] = out.get(op, 0) + n
+    return out

@@ -20,6 +20,15 @@ only then loads it in place: into the module's own parameters and, through
 ``Optimizer.load_state_dict`` (which builds the state a fresh optimizer does
 not have yet), into the optimizer, on the parameters' device.
 
+A sharded trainer's rank holds one block of each leaf, so its state is
+saved whole: :meth:`~edl_tpu_torch.runtime.elastic.ElasticTrainer.
+whole_state` gathers it leaf by leaf to rank 0's host memory under the same
+paths (a :class:`Snapshot`), so a step is layout-free and byte for byte a
+replicated trainer's save of the same state.  ``restore(...,
+shardings=trainer)`` reads a step whole and verified, then every rank of
+the trainer takes its own block of each leaf under its live layout — the
+reference's restore onto other shardings, into any world size and kind.
+
 On top of the step store, as in the reference:
 
 * **Torn/corrupt steps** — every completed save is fingerprinted into a
@@ -95,15 +104,32 @@ def _fingerprint_tree(root: Path) -> dict[str, list]:
     return out
 
 
+def _stat_signature(root: Path) -> tuple:
+    """(relative path, size, mtime, inode) of every regular file under
+    root: what changes when a file is written, replaced or torn."""
+    out = []
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for fn in filenames:
+            p = Path(dirpath) / fn
+            st = p.stat()
+            out.append((str(p.relative_to(root)), st.st_size,
+                        st.st_mtime_ns, st.st_ino))
+    return tuple(sorted(out))
+
+
 class CheckpointCorruption(RuntimeError):
     """No step in the store survives integrity verification + restore."""
 
 
-class _Flat(dict):
-    """A tree already flattened to ``{keystr path: leaf}`` (a snapshot)."""
+class Snapshot(dict):
+    """A tree already flattened to ``{keystr path: leaf}`` whose leaves are
+    host tensors it alone holds (a save's copy, or a sharded trainer's
+    gathered state): saved as it is, without another host copy."""
 
 
-def _split(name: str) -> tuple:
+def param_path(name: str) -> tuple:
+    """A parameter's dotted name as its path: ``"layers.0.wq"`` →
+    ``("layers", 0, "wq")``."""
     return tuple(int(p) if p.isdigit() else p for p in name.split("."))
 
 
@@ -113,7 +139,7 @@ def _param_paths(tree: Any) -> dict[int, tuple]:
     out: dict[int, tuple] = {}
     if isinstance(tree, nn.Module):
         for name, p in tree.named_parameters():
-            out[id(p)] = _split(name)
+            out[id(p)] = param_path(name)
     elif isinstance(tree, dict):
         for sub in tree.values():
             out.update(_param_paths(sub))
@@ -128,17 +154,17 @@ def _optimizer_params(opt: torch.optim.Optimizer) -> list:
 
 
 def _flatten(tree: Any, path: tuple = (),
-             names: Optional[dict] = None) -> _Flat:
+             names: Optional[dict] = None) -> dict:
     """``{keystr path: leaf}`` of every leaf of ``tree`` (see the module
     docstring for modules and optimizers)."""
-    if isinstance(tree, _Flat):
+    if isinstance(tree, Snapshot):
         return tree
     if names is None:
         names = _param_paths(tree)
-    out = _Flat()
+    out: dict = {}
     if isinstance(tree, nn.Module):
         for name, p in tree.named_parameters():
-            out[keystr(path + _split(name))] = p.detach()
+            out[keystr(path + param_path(name))] = p.detach()
     elif isinstance(tree, torch.optim.Optimizer):
         for p in _optimizer_params(tree):
             if id(p) not in names:
@@ -158,6 +184,17 @@ def _flatten(tree: Any, path: tuple = (),
     return out
 
 
+def _without_optimizers(tree: Any) -> Any:
+    """``tree`` with each optimizer left out."""
+    if isinstance(tree, torch.optim.Optimizer):
+        return {}
+    if isinstance(tree, dict):
+        return {k: _without_optimizers(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_without_optimizers(v) for v in tree)
+    return tree
+
+
 def _as_tensor(leaf: Any) -> torch.Tensor:
     """A leaf as a tensor (a numpy leaf is copied)."""
     if isinstance(leaf, torch.Tensor):
@@ -165,13 +202,27 @@ def _as_tensor(leaf: Any) -> torch.Tensor:
     return _to_tensor(np.asarray(leaf))
 
 
-def _host_copy(flat: dict) -> _Flat:
+def _host_copy(flat: dict) -> Snapshot:
     """A host copy of every leaf, complete when this returns: a background
     persist must never see later steps' in-place updates (on the CPU,
     ``t.cpu()`` would return ``t`` itself)."""
-    return _Flat({k: (v.detach().to("cpu", copy=True)
+    return Snapshot({k: (v.detach().to("cpu", copy=True)
                       if isinstance(v, torch.Tensor) else _as_tensor(v))
                   for k, v in flat.items()})
+
+
+def _snapshot(tree: Any) -> Snapshot:
+    """``tree`` in host memory no later step can write: a
+    :class:`Snapshot` as it is, anything else flattened and copied."""
+    return tree if isinstance(tree, Snapshot) else _host_copy(_flatten(tree))
+
+
+def _resolve(tree: Any) -> Any:
+    """The tree of a save: ``tree``, or what ``tree()`` returns when it is
+    a function (a sharded trainer's gather)."""
+    if callable(tree) and not isinstance(tree, nn.Module):
+        return tree()
+    return tree
 
 
 def _unwrap(exc: BaseException) -> BaseException:
@@ -262,6 +313,9 @@ class ElasticCheckpointer:
         self._async_error: Optional[BaseException] = None
         #: step-loop pause of each save_async call, for percentiles
         self.async_pauses_s: list[float] = []
+        #: verify()'s last answer for each step, with the stat signature of
+        #: the files and the manifest it read
+        self._verified: dict[int, tuple] = {}
 
     # -- fault injection (chaos drills) ------------------------------------
 
@@ -391,20 +445,34 @@ class ElasticCheckpointer:
     def verify(self, step: int) -> bool:
         """True iff the step's on-disk files match its manifest.  A step
         without a manifest verifies vacuously — restore() still catches a
-        torn read when DCP fails to parse it."""
+        torn read when DCP fails to parse it.  The CRCs are taken again
+        only when a file or the manifest changed (by size, mtime or inode)
+        since this checkpointer last took them, so a watcher polling the
+        lineage, and a restore right after ``latest_verified_step``, do not
+        read an unchanged step twice."""
         mpath = self._manifest_path(step)
         if not mpath.exists():
             return True
         try:
             with open(mpath) as f:
                 manifest = json.load(f)
+            stamp = mpath.stat().st_mtime_ns
         except (OSError, ValueError):
             return True  # unreadable manifest is no evidence against data
+        try:
+            signature = (_stat_signature(self._step_dir(step)), stamp)
+        except OSError:
+            return False  # files listed in the manifest are unreadable
+        seen = self._verified.get(step)
+        if seen is not None and seen[0] == signature:
+            return seen[1]
         try:
             found = _fingerprint_tree(self._step_dir(step))
         except OSError:
             return False  # files listed in the manifest are unreadable
-        return found == manifest["files"]
+        ok = found == manifest["files"]
+        self._verified[step] = (signature, ok)
+        return ok
 
     def manifest(self, step: int) -> Optional[dict]:
         """The step's integrity manifest, or None (absent/unreadable)."""
@@ -457,8 +525,14 @@ class ElasticCheckpointer:
         which finalizes each step itself.
 
         ``meta`` is the training-meta sidecar (data cursors, RNG lineage);
-        read it back with :meth:`load_meta`."""
+        read it back with :meth:`load_meta`.
+
+        ``tree`` may be a function returning the tree, such as a sharded
+        trainer's :meth:`~edl_tpu_torch.runtime.elastic.ElasticTrainer.
+        whole_state`: it is called first, whatever happens after (its peers
+        gather with it), and its time is part of the save's pause."""
         t0 = time.monotonic()
+        tree = _resolve(tree)
         self.wait_pending()  # one persist pipeline: saves never overlap
         try:
             # meta passed only when present: test seams wrap _persist with
@@ -479,7 +553,7 @@ class ElasticCheckpointer:
         one thread at a time (callers serialize through
         :meth:`wait_pending`).  The tree is copied to the host once; the
         files and the folds are made from that copy."""
-        flat = tree if isinstance(tree, _Flat) else _host_copy(_flatten(tree))
+        flat = _snapshot(tree)
         try:
             if self._injected_save_failures > 0:
                 self._injected_save_failures -= 1
@@ -545,7 +619,7 @@ class ElasticCheckpointer:
             shutil.rmtree(tmp, ignore_errors=True)
         self._prune_steps()
 
-    def _write_bg(self, step: int, snap: _Flat) -> None:
+    def _write_bg(self, step: int, snap: Snapshot) -> None:
         try:
             self._write_files(step, snap)
         except BaseException as exc:  # surfaced at the next sync point
@@ -566,8 +640,13 @@ class ElasticCheckpointer:
         it has, unless ``skip_if_busy``: then the tick is dropped (counted
         ``checkpoint_async_skipped``).  Returns the seconds this call
         paused the caller.  A background failure without ``best_effort``
-        re-raises at the next sync point (any save/restore/wait/close)."""
+        re-raises at the next sync point (any save/restore/wait/close).
+
+        ``tree`` may be a function returning the tree, as for :meth:`save`:
+        a sharded trainer's gather is then part of the pause (and runs even
+        when the tick is dropped, since its peers gather with it)."""
         t0 = time.monotonic()
+        tree = _resolve(tree)
         if skip_if_busy:
             t = self._inflight
             if t is not None and t.is_alive():
@@ -577,7 +656,7 @@ class ElasticCheckpointer:
                 goodput.note_span(goodput.CHECKPOINT_PAUSE, pause)
                 return pause
         self.wait_pending()
-        host_tree = _host_copy(_flatten(tree))
+        host_tree = _snapshot(tree)
         # non-daemon: a persist mid-write at interpreter exit is joined
         t = threading.Thread(target=self._persist_bg,
                              args=(step, host_tree, best_effort, meta),
@@ -594,7 +673,7 @@ class ElasticCheckpointer:
         goodput.note_span(goodput.CHECKPOINT_PAUSE, pause)
         return pause
 
-    def _persist_bg(self, step: int, host_tree: _Flat,
+    def _persist_bg(self, step: int, host_tree: Snapshot,
                     best_effort: bool, meta: Optional[dict] = None) -> None:
         t0 = time.monotonic()
         try:
@@ -657,12 +736,22 @@ class ElasticCheckpointer:
         return None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                parse_fallback: bool = True) -> Any:
+                shardings: Any = None, parse_fallback: bool = True) -> Any:
         """Restore the newest good step (or ``step``, or the newest good
         one before it) into ``tree_like``: a module's parameters and an
         optimizer's state are loaded in place and the same objects
         returned; a tensor or numpy leaf comes back as a new one of its
         kind and device.
+
+        ``shardings`` is the layout to restore onto, which may differ from
+        the one that saved: an
+        :class:`~edl_tpu_torch.runtime.elastic.ElasticTrainer` of any world
+        size and kind, ``tree_like`` its ``{"params": module, "opt":
+        optimizer}``.  The step is read whole (the module's leaves and every
+        saved entry of the optimizer) and verified, then each rank of the
+        trainer takes its own block of every leaf under its live layout
+        (:meth:`~edl_tpu_torch.runtime.elastic.ElasticTrainer.
+        load_whole_state`); ``tree_like`` is returned.
 
         A torn or corrupt step (manifest mismatch, DCP failing to parse it,
         or a parsed tree whose folds differ from the manifest's) is skipped
@@ -737,7 +826,11 @@ class ElasticCheckpointer:
                 fell_back = True
                 manifest_failed = True
                 continue
-            restored = _load_into(tree_like, host)
+            if shardings is None:
+                restored = _load_into(tree_like, host)
+            else:
+                shardings.load_whole_state(host)
+                restored = tree_like
             if fell_back:
                 flush_deferred()  # a later step restored — those WERE torn
                 log.warn("restored from fallback checkpoint after "
@@ -765,13 +858,14 @@ class ElasticCheckpointer:
 
     def _read(self, step: int, tree_like: Any) -> dict[str, torch.Tensor]:
         """The leaves ``tree_like`` needs from ``step``, in host memory:
-        its own leaves, and every saved state entry of its optimizers."""
+        its own leaves, and every saved state entry of its optimizers
+        (whatever state they hold now: a sharded trainer's optimizer steps
+        blocks that no module of the tree holds)."""
         root = self._step_dir(step)
-        keys = list(_flatten(tree_like))
+        keys = list(_flatten(_without_optimizers(tree_like)))
         opts = _optimizer_prefixes(tree_like)
         if opts:
-            keys += [k for k in _saved_keys(root)
-                     if k not in keys and k.startswith(opts)]
+            keys += [k for k in _saved_keys(root) if k.startswith(opts)]
         return _read_step(root, keys)
 
     def close(self) -> None:
@@ -807,7 +901,7 @@ def _load_into(tree: Any, host: dict, path: tuple = (),
     if isinstance(tree, nn.Module):
         with torch.no_grad():
             for name, p in tree.named_parameters():
-                p.copy_(host[keystr(path + _split(name))])
+                p.copy_(host[keystr(path + param_path(name))])
         return tree
     if isinstance(tree, torch.optim.Optimizer):
         prefix = keystr(path)

@@ -61,6 +61,13 @@ calls ``resize`` with the same target at the same step boundary:
    rank rolls back, keeps stepping on the old layout, returns False and
    counts ``resizes_failed``.
 
+The whole state leaves a sharded trainer for a checkpoint through
+:meth:`ElasticTrainer.whole_state` (every leaf gathered over fsdp, then tp,
+one leaf at a time, to rank 0's host memory, under the paths a replicated
+trainer's state is saved under) and comes back into any layout through
+:meth:`ElasticTrainer.load_whole_state` (each rank takes its own block of
+every leaf).
+
 Each successful resize appends the reference's ``resize_events`` record and
 feeds the ``resize_phase_seconds`` histogram, the goodput ledger and the
 ``reshard_seconds`` calibration predictor under the reference's names.
@@ -68,7 +75,8 @@ Every collective of the trainer goes through one of four choke points,
 :func:`_broadcast`, :func:`_all_reduce`, :func:`_all_gather` and
 :func:`_reduce_scatter`, each counting its op and bytes by mesh axis
 (:func:`collective_census`; ``"world"`` for the default group's votes,
-``"tp"`` for the model's tp collectives).
+``"tp"`` for the model's tp collectives, ``"checkpoint"`` for the gathers of
+:meth:`ElasticTrainer.whole_state`).
 """
 
 from __future__ import annotations
@@ -84,6 +92,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from edl_tpu_torch.interop import keystr
 from edl_tpu_torch.observability import calib, goodput
 from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.logging import get_logger
@@ -106,12 +115,15 @@ from edl_tpu_torch.parallel.mesh import (
     tree_shardings,
 )
 from edl_tpu_torch.parallel.replan import Placement, plan_reshard
+from edl_tpu_torch.runtime.checkpoint import Snapshot, param_path
 from edl_tpu_torch.runtime.optim import OptimizerFactory
 
 log = get_logger("runtime.elastic")
 
 #: the axes a batch and a gradient reduction span
 DATA_AXES = (AXIS_DP, AXIS_FSDP)
+#: the census label of whole_state's gathers
+CHECKPOINT_LABEL = "checkpoint"
 
 #: collective_census's counts: {axis label: {"ops": {op: n}, "bytes": n}}
 _census: dict[str, dict] = {}
@@ -420,18 +432,93 @@ class ElasticTrainer:
 
     def full_params(self) -> dict[str, torch.Tensor]:
         """Every parameter whole, as the reference's global arrays read:
-        gathered over the fsdp and tp groups on a live rank (collective
-        over the live group), a copy of this rank's on one standing by."""
+        gathered leaf by leaf over the fsdp and tp groups on a live rank
+        (collective over the live group), a copy of this rank's on one
+        standing by."""
         if not self.live:
             return {n: s.detach().clone() for n, s in self.shards.items()}
-        with self._gathered():
-            module = self._module
-            split = {n: d for n in module
-                     if (d := self._axis_dim(n, AXIS_TP)) is not None}
-            whole = (self._gather({n: module[n] for n in split}, split,
-                                  AXIS_TP) if split else {})
-            return {n: whole[n] if n in whole else p.detach().clone()
-                    for n, p in module.items()}
+        whole = {n: self._whole(n, self.shards[n]) for n in sorted(
+            self._leaves)}
+        return {n: whole[n] for n in self.shards}
+
+    def whole_state(self) -> Optional[dict]:
+        """The whole training state for a checkpoint, flattened to the
+        paths a replicated trainer's ``{"params": module, "opt":
+        optimizer}`` is saved under (``['params']['layers'][0]['wq']``,
+        ``['opt']['layers'][0]['wq']['exp_avg']``, ``…['exp_avg_sq']``,
+        ``…['step']``, Adam's count by value); the hyperparameters stay
+        the optimizer's, as in a replicated restore.
+
+        Collective over the live group: every live rank calls it (a rank
+        standing by need not, and gets None).  Each leaf, the parameter and
+        then each of its moments, in the order of the leaves' names, is
+        gathered over the fsdp group and then the tp group (census label
+        ``"checkpoint"``) and copied to rank 0's host memory before the
+        next, so no device holds a second whole state.  Returns the
+        :class:`~edl_tpu_torch.runtime.checkpoint.Snapshot` on rank 0 and
+        None on the other ranks.  A replicated trainer's rank 0 holds the
+        whole state already and returns its module and optimizer (which a
+        save copies)."""
+        if not self.live:
+            return None
+        if not self.sharded:
+            return ({"params": self.state.params,
+                     "opt": self.state.opt_state} if self.rank == 0 else None)
+        opt, writer = self.state.opt_state, self.rank == 0
+        flat = Snapshot()
+        for name in sorted(self._leaves):
+            shard = self._shards[name]
+            path = param_path(name)
+            leaves = [(("params",) + path, shard)]
+            for key, v in sorted(opt.state.get(shard, {}).items()):
+                leaves.append((("opt",) + path + (key,), v))
+            for where, t in leaves:
+                if self._is_block(t, shard):
+                    t = self._whole(name, t, CHECKPOINT_LABEL)
+                if writer:
+                    flat[keystr(where)] = t.detach().to("cpu", copy=True)
+        return flat if writer else None
+
+    def load_whole_state(self, flat: Mapping) -> None:
+        """``flat`` (whole leaves by the paths :meth:`whole_state` gives
+        them, as a checkpoint restores them) into this trainer's live
+        layout, on every rank of the default group: a live rank of a
+        sharded trainer takes its own block of each parameter and moment
+        (cut by this trainer's partition specs, whatever layout saved
+        them), a replicated trainer's rank all of them, and a sharded
+        trainer's rank standing by drops its blocks.  Entries not shaped as
+        the leaf (Adam's count) are taken by value; the hyperparameters and
+        the step counter stay this trainer's.  Raises on a leaf whose shape
+        is not this trainer's."""
+        opt = self.state.opt_state
+        if self.sharded and not self.live:
+            for s in self._shards.values():
+                opt.state.pop(s, None)
+                s.data = self._empty(s.dtype)
+            return
+
+        def place(name: str, whole: torch.Tensor) -> torch.Tensor:
+            if tuple(whole.shape) != self._leaves[name].shape:
+                raise ValueError(
+                    f"checkpoint leaf {name} has shape {tuple(whole.shape)}, "
+                    f"this trainer's {self._leaves[name].shape}")
+            block = self._own_block(whole, name) if self.sharded else whole
+            return block.to(self.device, copy=True,
+                            memory_format=torch.contiguous_format)
+
+        for name, shard in self.shards.items():
+            path = param_path(name)
+            shard.data = place(name, flat[keystr(("params",) + path)])
+            pre = keystr(("opt",) + path) + "['"
+            entries = {k[len(pre):-2]: v for k, v in flat.items()
+                       if k.startswith(pre) and "[" not in k[len(pre):]}
+            if not entries:
+                opt.state.pop(shard, None)
+                continue
+            opt.state[shard] = {
+                k: (place(name, v) if tuple(v.shape) ==
+                    self._leaves[name].shape else v.clone())
+                for k, v in entries.items()}
 
     def _resolve_target(self, target) -> MeshShape:
         return MeshShape.resolve(target, spec=self.spec)
@@ -664,6 +751,26 @@ class ElasticTrainer:
                             self.shape)[name].blocks[self.rank]
         return full[tuple(slice(lo, hi) for lo, hi in block)]
 
+    def _is_block(self, t, shard: torch.Tensor) -> bool:
+        """True when ``t`` (an optimizer entry of ``shard``'s leaf, or the
+        shard) is shaped as this rank's block of the leaf."""
+        return isinstance(t, torch.Tensor) and t.shape == shard.shape \
+            and t.device == self.device
+
+    def _whole(self, name: str, block: torch.Tensor,
+               label: Optional[str] = None) -> torch.Tensor:
+        """Leaf ``name`` whole (a new tensor) from this rank's ``block`` of
+        it, the parameter's or a moment's: gathered over the fsdp group,
+        then the tp group, under the census ``label`` (default: the
+        axis)."""
+        t, gathered = block.detach(), False
+        for axis in (AXIS_FSDP, AXIS_TP):
+            d = self._axis_dim(name, axis)
+            if d is not None:
+                t = self._gather({name: t}, {name: d}, axis, label)[name]
+                gathered = True
+        return t if gathered else t.clone()
+
     def _fsdp_block(self, t: torch.Tensor, d: int) -> torch.Tensor:
         """This rank's fsdp block of ``t`` (a leaf gathered over the fsdp
         group) along its dimension ``d`` (a view)."""
@@ -707,10 +814,12 @@ class ElasticTrainer:
                 p.data = self._empty(p.dtype)
 
     def _gather(self, parts: dict[str, torch.Tensor], dims: dict[str, int],
-                axis: str) -> dict[str, torch.Tensor]:
+                axis: str, label: Optional[str] = None
+                ) -> dict[str, torch.Tensor]:
         """Each tensor of ``parts`` concatenated, along its dimension
         ``dims[name]``, with those of the other ranks of this rank's
-        ``axis`` group, in rank order: one all-gather a dtype."""
+        ``axis`` group, in rank order: one all-gather a dtype, counted under
+        ``label`` (default: the axis)."""
         k, group = getattr(self.shape, axis), self.mesh.groups[axis]
         out = {}
         for dtype, names in self._by_dtype(parts).items():
@@ -719,7 +828,7 @@ class ElasticTrainer:
             flat = torch.cat(flats)
             buf = torch.empty(k * flat.numel(), dtype=dtype,
                               device=self.device)
-            _all_gather(buf, flat, group, axis)
+            _all_gather(buf, flat, group, label or axis)
             rows, off = buf.view(k, -1), 0
             for n, part in zip(names, flats):
                 d, shape = dims[n], parts[n].shape
@@ -877,8 +986,7 @@ class ElasticTrainer:
         opt = self.state.opt_state
 
         def entry(name, shard, v):
-            if (isinstance(v, torch.Tensor) and v.device == self.device
-                    and v.shape == shard.shape):
+            if self._is_block(v, shard):
                 return _Buffer(self._leaves[name].shape, v.dtype)
             return v
 

@@ -17,6 +17,10 @@ edl_tpu.runtime.serving, on one torch device.
 * Speculative decode: each slot feeds its next token plus n-gram drafts
   through one verify step, accepted by the strict greedy rule, so the
   continuation equals single-token greedy decode.
+* Weights reload live from a training job's checkpoint lineage
+  (:meth:`DecodeFleet.reload_from_lineage`, :meth:`DecodeFleet.
+  watch_lineage`): only a verified step ships, each replica swapping at an
+  iteration boundary with its sessions' caches kept.
 
 Each replica's loop runs on its own thread and launches on its device's
 current stream; it reads the device once an iteration (the argmax of every
@@ -28,7 +32,8 @@ Scrape names (``edl_`` prefix): ``serving_ttft_seconds`` /
 ``serving_decode_tokens_total`` / ``serving_prefill_chunks_total`` /
 ``serving_sessions_total{outcome=}`` / ``serving_session_migrations_total``
 / ``serving_ttft_slo_violations_total`` / ``serving_tpot_slo_violations_total``
-/ ``serving_reloads_total`` / ``decode_spec_*`` (counters),
+/ ``serving_reloads_total`` / ``serving_reload_skipped_unverified_total``
+/ ``decode_spec_*`` (counters),
 ``serving_sessions_active`` / ``serving_chips`` (gauges) and the KV-pool
 series of kvcache.py.
 """
@@ -1068,9 +1073,10 @@ class DecodeFleet:
     ``params`` is a :class:`~edl_tpu_torch.models.transformer.Transformer`
     (or :class:`~edl_tpu_torch.models.llama.DecodeParams`) of ``cfg``;
     ``roles`` maps role → replica count, e.g. ``{"decode": 2}`` or
-    ``{"prefill": 1, "decode": 2}``.  Every replica runs on ``device``: the
-    JAX package's own wrap-around when a host has fewer devices than
-    replicas."""
+    ``{"prefill": 1, "decode": 2}``; ``params`` may also be the weights
+    nested as a checkpoint holds them (:func:`~edl_tpu_torch.models.llama.
+    param_tree`).  Every replica runs on ``device``: the JAX package's own
+    wrap-around when a host has fewer devices than replicas."""
 
     def __init__(self, params: Any, cfg, *, job: str = "job",
                  roles: Optional[dict] = None, slots: int = 4,
@@ -1084,7 +1090,7 @@ class DecodeFleet:
                  kv_quantize: Optional[str] = None,
                  max_queued_sessions: int = 64, window: int = 4096,
                  device="cuda") -> None:
-        self._gen_params = llama.as_decode_params(params, device)
+        self._gen_params = llama.as_decode_params(params, device, cfg)
         if self._gen_params.cfg != cfg:
             raise ValueError("params were built for another config")
         self.cfg = cfg
@@ -1105,6 +1111,8 @@ class DecodeFleet:
         self._tpot_budget_ms = float(tpot_budget_ms)
         self.max_queued_sessions = int(max_queued_sessions)
         self.generation = 0
+        #: the lineage watcher of :meth:`watch_lineage`, stopped by stop()
+        self._watcher: Optional[_WeightWatcher] = None
         self._lock = threading.RLock()
         self._ids = itertools.count(1)
         self._replicas: list[DecodeReplica] = []
@@ -1401,7 +1409,7 @@ class DecodeFleet:
         """Swap every replica to ``generation`` one at a time, each at its
         own ITERATION BOUNDARY, every in-flight session's KV cache kept.
         The weights are cast once for the fleet's device."""
-        params = llama.as_decode_params(params, self.device)
+        params = llama.as_decode_params(params, self.device, self.cfg)
         self._gen_params = params
         swapped = 0
         with self._lock:
@@ -1413,6 +1421,57 @@ class DecodeFleet:
         log.info("decode rolling reload complete", job=self.job,
                  generation=generation, replicas=swapped)
         return swapped
+
+    def reload_from_lineage(self, checkpointer) -> Optional[int]:
+        """Roll onto the newest VERIFIED step of a training job's lineage
+        (an :class:`~edl_tpu_torch.runtime.checkpoint.ElasticCheckpointer`
+        on its directory, whatever layout saved it): None when there is no
+        step newer than :attr:`generation`; a step whose manifest lacks the
+        verified bit, or whose restore fell back to another step (its
+        leaves failing the manifest's folds), is skipped and counted
+        (``serving_reload_skipped_unverified``).  A step whose manifest has
+        not landed yet (its writer is still fingerprinting it) is left for
+        a later call, uncounted: the reference ships it unverified.  Only
+        the parameters are read, into host memory, then cast once for the
+        device and swapped in by :meth:`rolling_reload`.  Returns the step
+        shipped."""
+        refresh = getattr(checkpointer, "refresh", None)
+        if refresh is not None:
+            refresh()
+        step = checkpointer.latest_verified_step()
+        if step is None or step <= self.generation:
+            return None
+        verified_fn = getattr(checkpointer, "manifest_verified", None)
+        verified = verified_fn(step) if verified_fn is not None else True
+        if verified is None:
+            return None
+        if verified is False:
+            log.warn("decode reload SKIPPED unverified generation",
+                     job=self.job, generation=step)
+            self._counters.inc("serving_reload_skipped_unverified")
+            return None
+        restored = checkpointer.restore(
+            {"params": llama.param_template(self.cfg)}, step=step)
+        landed = getattr(checkpointer, "last_restored_step", step)
+        if landed is not None and landed != step:
+            log.warn("decode reload SKIPPED generation that failed "
+                     "verification at restore", job=self.job,
+                     generation=step, landed=landed)
+            self._counters.inc("serving_reload_skipped_unverified")
+            return None
+        params = llama.as_decode_params(restored.pop("params"), self.device,
+                                        self.cfg)
+        self.rolling_reload(params, step)
+        return step
+
+    def watch_lineage(self, checkpointer,
+                      poll_s: float = 5.0) -> "_WeightWatcher":
+        """Start the reload driver: a thread that, every ``poll_s``, calls
+        :meth:`reload_from_lineage` (a failure is logged and the next poll
+        tries again).  :meth:`stop` stops it."""
+        self._watcher = _WeightWatcher(self, checkpointer, poll_s)
+        self._watcher.start()
+        return self._watcher
 
     # -- observation ---------------------------------------------------------
 
@@ -1488,7 +1547,39 @@ class DecodeFleet:
                               else 0.0))
 
     def stop(self, drain: bool = True) -> None:
+        if self._watcher is not None:
+            self._watcher.stop()
+            self._watcher = None
         with self._lock:
             replicas, self._replicas = list(self._replicas), []
         for r in replicas:
             r.stop(drain=drain)
+
+
+class _WeightWatcher(threading.Thread):
+    """:meth:`DecodeFleet.watch_lineage`'s thread: sleeps ``poll_s`` (at
+    least 0.1 s), then scans the lineage, until :meth:`stop`.  This is the
+    reference watcher's path without a coordinator; its long-poll of the
+    fleet's generation key, which skips scans while nothing changed, waits
+    for the port's coordinator (ROADMAP.md, queue 1 item 4)."""
+
+    def __init__(self, fleet: DecodeFleet, checkpointer,
+                 poll_s: float) -> None:
+        super().__init__(name=f"serving-reload-{fleet.job}", daemon=True)
+        self.fleet = fleet
+        self.checkpointer = checkpointer
+        self.poll_s = max(float(poll_s), 0.1)
+        # not named _stop: threading.Thread has a _stop method
+        self._halt = threading.Event()
+
+    def run(self) -> None:
+        while not self._halt.wait(self.poll_s):
+            try:
+                self.fleet.reload_from_lineage(self.checkpointer)
+            except Exception as exc:  # keep watching; the step is skipped
+                log.warn("lineage reload failed", job=self.fleet.job,
+                         error=str(exc)[:200])
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(timeout=30)

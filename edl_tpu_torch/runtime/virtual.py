@@ -35,16 +35,18 @@ world at the same step boundary (a resize is a collective of every rank).
 A rank standing by gets None from ``step_accumulate``: it advances its
 cursors like the others, but appends no loss and commits no rows, so rank
 0's report is the job's report.  Only rank 0 — live in every world — writes
-the checkpoint, the KV cursors and the ownership map.  Every rank restores
-from the same store the step rank 0 picks, once rank 0 has reached the
-restore (so no rank reads a step rank 0 is still writing), and the restore
-raises on every rank unless all of them restored that same step.
+the checkpoint, the KV cursors and the ownership map; a sharded trainer's
+(fsdp, or placed by partition specs) live ranks gather its whole state to
+rank 0 for each save (:meth:`ElasticTrainer.whole_state`), so a step is the
+same whatever layout wrote it.  Every rank restores from the same store the
+step rank 0 picks, once rank 0 has reached the restore (so no rank reads a
+step rank 0 is still writing), into the trainer's live layout, which may
+differ from the one that saved; the restore raises on every rank unless all
+of them restored that same step.
 
 The KV store is anything with ``kv_set(key, bytes)`` and
 ``kv_get(key) -> bytes | None``.  The SDC defense plane (``sdc=``) and its
-rollback are a later item of the port (ROADMAP.md, queue 1 item 7), as is
-the checkpoint of a sharded trainer's state (fsdp, or placed by partition
-specs; item 1f): the loop refuses such a trainer.
+rollback are a later item of the port (ROADMAP.md, queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -493,14 +495,6 @@ class VirtualWorkerLoop:
             raise NotImplementedError(
                 "the SDC defense plane and its rollback are not ported yet "
                 "(ROADMAP.md, queue 1 item 7)")
-        if trainer.sharded:
-            # rank 0 saves and restores the whole state; a sharded
-            # trainer's rank 0 holds one block of it
-            raise NotImplementedError(
-                "the durable loop checkpoints replicated state from rank 0; "
-                "saving a sharded trainer's state (fsdp, or placed by "
-                "partition specs) is not ported yet (ROADMAP.md, queue 1 "
-                "item 1f)")
         self.trainer = trainer
         self.cfg = cfg
         self.batches = batches
@@ -552,9 +546,12 @@ class VirtualWorkerLoop:
         it, has come this far); every rank restores it, and the ranks
         then agree on the step each actually restored — a rank whose read
         fell back alone would train on other weights than its peers, so
-        any disagreement raises on every rank.  The step counter, the
-        meta and the cursors are those of the step restored, which is
-        older than the one asked for when the restore fell back."""
+        any disagreement raises on every rank.  Each rank takes its blocks
+        for the trainer's current layout
+        (:meth:`ElasticTrainer.load_whole_state`), whatever layout wrote
+        the step.  The step counter, the meta and the cursors are those of
+        the step restored, which is older than the one asked for when the
+        restore fell back."""
         if self.checkpointer is None:
             return None
         group = dist.is_available() and dist.is_initialized()
@@ -569,7 +566,8 @@ class VirtualWorkerLoop:
                 "opt": self.trainer.state.opt_state}
         error: Optional[BaseException] = None
         try:
-            restored = self.checkpointer.restore(tree, step=step)
+            restored = self.checkpointer.restore(tree, step=step,
+                                                 shardings=self.trainer)
             got = self.checkpointer.last_restored_step
         except Exception as exc:  # re-raised below, after the agreement
             error, got = exc, -1
@@ -677,13 +675,14 @@ class VirtualWorkerLoop:
             self.report.losses.append(float(loss))
             self.report.world_sizes.append(self.trainer.world_size)
             if (self.checkpointer is not None and self.ckpt_every
-                    and self.writer
                     and self.batches.step % self.ckpt_every == 0):
-                self.checkpointer.save(
-                    self.batches.step,
-                    {"params": self.trainer.state.params,
-                     "opt": self.trainer.state.opt_state},
-                    meta=self._meta())
+                if self.writer:
+                    self.checkpointer.save(self.batches.step,
+                                           self.trainer.whole_state,
+                                           meta=self._meta())
+                elif self.trainer.sharded:
+                    self.trainer.whole_state()  # this rank's gathers
+
             if on_step is not None:
                 on_step(self.batches.step, float(loss),
                         self.trainer.world_size)

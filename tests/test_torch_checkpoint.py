@@ -282,6 +282,29 @@ def test_restore_falls_back_on_flipped_bytes(tmp_path):
     ck.close()
 
 
+def test_verify_reads_an_unchanged_step_once(tmp_path, monkeypatch):
+    """A second verify of a step whose files and manifest did not change
+    takes no CRC again; a flip of one byte (a write, so a new mtime) is
+    still caught."""
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+
+    ck = _ckpt_with_steps(tmp_path)
+    reads = []
+    real = ckpt._fingerprint_tree
+    monkeypatch.setattr(ckpt, "_fingerprint_tree",
+                        lambda root: reads.append(root) or real(root))
+    assert ck.verify(3) and ck.verify(3) and ck.latest_verified_step() == 3
+    assert len(reads) == 1
+    victim = _largest_file(ck, 3)
+    data = bytearray(victim.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    time.sleep(0.01)
+    victim.write_bytes(bytes(data))
+    assert not ck.verify(3) and len(reads) == 2
+    assert ck.latest_verified_step() == 2
+    ck.close()
+
+
 def test_restore_falls_back_on_truncated_file(tmp_path):
     ck = _ckpt_with_steps(tmp_path)
     victim = _largest_file(ck, 3)

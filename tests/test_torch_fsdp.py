@@ -495,13 +495,14 @@ def test_dryrun_refuses_other_sizes(n):
 
 
 def test_durable_loop_refuses_an_fsdp_trainer():
-    """The loop checkpoints replicated state from rank 0; until the
-    sharded checkpoint lands it refuses an fsdp trainer, naming the
-    item."""
+    """The loop takes an fsdp trainer (its whole state is gathered to rank
+    0 for a save and restored into any layout); what it still refuses on
+    one is the SDC plane, naming that item."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
     cfg = VirtualConfig(vw_count=2, global_batch=4)
     t = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                        devices=[torch.device("cpu")], param_sharding="fsdp",
                        spec=mesh.MeshSpec(dp=1, fsdp=-1))
-    with pytest.raises(NotImplementedError, match="item 1f"):
-        VirtualWorkerLoop(t, cfg, batches=None)
+    assert VirtualWorkerLoop(t, cfg, batches=None).trainer is t
+    with pytest.raises(NotImplementedError, match="item 7"):
+        VirtualWorkerLoop(t, cfg, batches=None, sdc=object())

@@ -17,6 +17,7 @@ from edl_tpu_torch.parallel.replan import (
     choose_shape,
     plan_reshard,
     propose_shape,
+    total_collective_counts,
     tree_placements,
 )
 
@@ -209,3 +210,21 @@ def test_propose_shape_uses_ceil_division_at_the_budget_boundary():
                              reserved_bytes_per_device=reserved).key() == \
             jreplan.propose_shape(n, b, budget,
                                   reserved_bytes_per_device=reserved).key()
+
+
+def test_total_collective_counts_flattens_a_census_as_the_reference():
+    """The trainer's census of a one-rank step (no collective), and a
+    dp2×fsdp2×tp2 step's shape of census, flattened alike by both
+    packages."""
+    from edl_tpu_torch.runtime import elastic
+
+    census = {"dp": {"ops": {"all-reduce": 2}, "bytes": 64},
+              "fsdp": {"ops": {"all-gather": 1, "reduce-scatter": 1},
+                       "bytes": 96},
+              "tp": {"ops": {"all-reduce": 37}, "bytes": 1 << 20},
+              "checkpoint": {"ops": {"all-gather": 75}, "bytes": 1 << 24}}
+    assert total_collective_counts(census) == \
+        jreplan.total_collective_counts(census) == {
+            "all-reduce": 39, "all-gather": 76, "reduce-scatter": 1}
+    elastic.reset_census()
+    assert total_collective_counts(elastic.collective_census()) == {}

@@ -6,24 +6,35 @@ adaptive-scheduler classes.  Every continuation is held token-equal to the
 JAX package's full-context greedy ``apply``; speculative decode to the
 port's single-token decode.
 
-Left out: ``reload_from_lineage`` (the checkpointer is not ported), the
-/generate front door, LB affinity and the serving scaler (not ported).
+``reload_from_lineage`` and ``watch_lineage`` read real lineages: one that
+an fsdp-2 trainer wrote on a spawned gloo world of two ranks
+(tests/torch_world.py, ``suite_lineage``), decoded token-equal to the JAX
+package's ``apply`` on the weights it saved, and ones a one-process trainer
+writes while a watcher polls.  Left out: the /generate front door, LB
+affinity and the serving scaler (not ported).
 The two import-admission scenarios park the source replica at a chosen
 point instead of racing its loop, so they hold the contract their
 docstrings state, not a timing."""
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 
 import jax
 import numpy as np
 import pytest
+import torch
 
+import torch_world as tw
 from edl_tpu.observability.metrics import iter_samples, parse_exposition
-from edl_tpu_torch.models import transformer as tfm
+from edl_tpu_torch.models import llama, transformer as tfm
+from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.metrics import get_registry
+from edl_tpu_torch.runtime import optim
+from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+from edl_tpu_torch.runtime.elastic import ElasticTrainer
 from edl_tpu_torch.runtime.kvcache import KVPoolExhausted
 from edl_tpu_torch.runtime.serving import (
     PRI_HIGH,
@@ -42,6 +53,7 @@ from tests.torch_decode_ref import (
     port_model,
     ref_decode,
     ref_decode_many,
+    ref_decode_with,
 )
 
 RNG = np.random.default_rng(7)
@@ -438,6 +450,202 @@ class TestRollingReload:
             assert fleet.sessions_failed == 0
         finally:
             fleet.stop()
+
+
+class TestReloadFromLineage:
+    """The reference's lineage reloads (test_decode.py::TestRollingReload),
+    and the same on real lineages."""
+
+    @fleet_test
+    def test_reload_from_lineage_verified_only(self):
+        class FakeCkpt:
+            def latest_verified_step(self):
+                return 5
+
+            def manifest_verified(self, step):
+                return True
+
+            def restore(self, template, step=None):
+                self.last_restored_step = step
+                return {"params": llama.param_tree(MODEL)}
+
+        fleet = make_fleet()
+        try:
+            ck = FakeCkpt()
+            assert fleet.reload_from_lineage(ck) == 5
+            assert fleet.generation == 5
+            # not newer → no-op
+            assert fleet.reload_from_lineage(ck) is None
+        finally:
+            fleet.stop()
+
+    @fleet_test
+    def test_reload_skips_unverified(self):
+        class BadCkpt:
+            def latest_verified_step(self):
+                return 9
+
+            def manifest_verified(self, step):
+                return False
+
+            def restore(self, template, step=None):  # pragma: no cover
+                raise AssertionError("must not restore unverified")
+
+        fleet = make_fleet()
+        skipped = get_counters().get("serving_reload_skipped_unverified")
+        try:
+            assert fleet.reload_from_lineage(BadCkpt()) is None
+            assert fleet.generation == 0
+            assert get_counters().get(
+                "serving_reload_skipped_unverified") == skipped + 1
+        finally:
+            fleet.stop()
+
+    @pytest.mark.timeout_s(240)
+    def test_reload_from_an_fsdp_lineage_decodes_token_equal(self,
+                                                           tmp_path):
+        """An fsdp-2 trainer's lineage (two steps from the JAX init): the
+        fleet ships its newest step and decodes as the JAX package's
+        ``apply`` does on the weights saved."""
+        directory = tmp_path / "lineage"
+        saved = tw.scenario(tw.run(
+            "lineage", 2, tmp_path, 180, tiny_params=tw_params(),
+            batches=[_rows(1), _rows(2)], directory=str(directory)),
+            "write")[0]
+        jparams = jax.tree_util.tree_map_with_path(
+            lambda path, _: saved["['params']" + jax.tree_util.keystr(path)],
+            PARAMS)
+        fleet = make_fleet()
+        try:
+            assert fleet.reload_from_lineage(
+                ElasticCheckpointer(directory)) == 2
+            assert fleet.generation == 2
+            assert all(r.generation == 2 for r in fleet._replicas)
+            ps = prompts(4, 5, 9)
+            ss = [fleet.submit(p, max_new_tokens=10) for p in ps]
+            got = [s.wait(60) for s in ss]
+            assert got == ref_decode_with(jparams, ps, 10)
+            assert got != ref_decode_many(ps, 10)  # the weights changed
+        finally:
+            fleet.stop()
+
+    @fleet_test
+    def test_watch_lineage_picks_up_a_step_while_sessions_decode(
+            self, tmp_path):
+        ck = ElasticCheckpointer(tmp_path)
+        fleet = make_fleet(roles={"decode": 2}, max_blocks_per_session=12)
+        try:
+            watcher = fleet.watch_lineage(ElasticCheckpointer(tmp_path),
+                                          poll_s=0.1)
+            # each token waits 5 ms on its replica's loop: the sessions
+            # outlast the save and the pickup
+            ss = [fleet.submit(p, max_new_tokens=80,
+                               on_token=lambda s, tok: time.sleep(0.005))
+                  for p in prompts(4, 5, 9)]
+            for s in ss:
+                s.wait_first_token(60)
+            t = _trainer()
+            t.step(_rows(1))
+            ck.save(1, t.whole_state)
+            t0 = time.monotonic()
+            while fleet.generation != 1 and time.monotonic() - t0 < 5:
+                time.sleep(0.02)
+            assert fleet.generation == 1
+            assert any(not s.done for s in ss)  # picked up mid-decode
+            for s in ss:
+                assert len(s.wait(60)) == 80
+            assert fleet.sessions_failed == 0
+            assert all(r.generation == 1 for r in fleet._replicas)
+        finally:
+            fleet.stop()
+        assert not watcher.is_alive()  # the fleet's stop stopped it
+
+    @fleet_test
+    def test_step_without_its_manifest_yet_is_left_for_later(self,
+                                                             tmp_path):
+        """A step whose files are down but whose manifest is still owed
+        (its writer has not fingerprinted it) is neither shipped nor
+        counted; once the manifest lands it ships."""
+        ck = ElasticCheckpointer(tmp_path)
+        t = _trainer()
+        t.step(_rows(1))
+        ck.save(1, t.whole_state, wait=False)
+        ck.wait_pending()
+        assert (tmp_path / "1").is_dir() and ck.manifest(1) is None
+        fleet = make_fleet()
+        skipped = get_counters().get("serving_reload_skipped_unverified")
+        try:
+            assert fleet.reload_from_lineage(ElasticCheckpointer(tmp_path)) \
+                is None
+            assert fleet.generation == 0
+            ck.finalize()
+            assert fleet.reload_from_lineage(ElasticCheckpointer(tmp_path)) \
+                == 1
+            assert get_counters().get(
+                "serving_reload_skipped_unverified") == skipped
+        finally:
+            fleet.stop()
+
+    @fleet_test
+    def test_forged_step_is_not_shipped(self, tmp_path):
+        """A step whose manifest claims other leaves than its files hold
+        restores as the step before it, so it is skipped and counted."""
+        ck = ElasticCheckpointer(tmp_path)
+        t = _trainer()
+        fleet = make_fleet()
+        try:
+            for step in (1, 2):
+                t.step(_rows(step))
+                ck.save(step, t.whole_state)
+                if step == 1:
+                    assert fleet.reload_from_lineage(ck) == 1
+            path = tmp_path / ".integrity" / "2.json"
+            manifest = json.loads(path.read_text())
+            key = "['params']['embed']"
+            forged = int(manifest["leaves"][key], 16) ^ 1
+            manifest["leaves"][key] = f"{forged:016x}"
+            path.write_text(json.dumps(manifest))
+            skipped = get_counters().get("serving_reload_skipped_unverified")
+            assert fleet.reload_from_lineage(ck) is None
+            assert fleet.generation == 1
+            assert get_counters().get(
+                "serving_reload_skipped_unverified") == skipped + 1
+        finally:
+            fleet.stop()
+
+
+@fleet_test
+def test_flagship_decode_fleet_serves_the_weights_it_is_given():
+    """The entry point takes a model's weights nested as a checkpoint
+    restores them."""
+    from edl_tpu_torch.entry import flagship_decode_fleet
+
+    fleet = flagship_decode_fleet(device="cpu", cfg=tfm.TINY,
+                                  params=llama.param_tree(MODEL), slots=4,
+                                  prefill_chunk=8, kv_block_size=8,
+                                  max_blocks_per_session=8, kv_blocks=32)
+    try:
+        ps = prompts(3, 5, 9)
+        assert [fleet.submit(p, max_new_tokens=8).wait(60) for p in ps] \
+            == ref_decode_many(ps, 8)
+    finally:
+        fleet.stop()
+
+
+def tw_params():
+    return jax.tree.map(np.asarray, PARAMS)
+
+
+def _rows(seed, b=4, s=32):
+    tokens = np.random.default_rng(seed).integers(0, 256, (b, s),
+                                                  dtype=np.int64)
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def _trainer() -> ElasticTrainer:
+    """A one-process trainer on the fleet's TINY weights."""
+    return ElasticTrainer(tfm.loss_fn, port_model(), optim.adamw(1e-3),
+                          devices=[torch.device("cpu")])
 
 
 class TestKillDrill:

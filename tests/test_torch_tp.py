@@ -528,12 +528,15 @@ def test_spec_trainer_refuses_axes_it_cannot_split():
 
 def test_durable_loop_refuses_a_spec_placed_trainer():
     """A trainer placed by partition specs holds blocks, as an fsdp one
-    does; the loop refuses it, naming the sharded checkpoint's item."""
+    does; the loop takes it (its whole state is gathered to rank 0 for a
+    save and restored into any layout) and still refuses the SDC plane on
+    it, naming that item."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
     t = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                        devices=[torch.device("cpu")], param_sharding=SPECS,
                        spec=mesh.MeshSpec(tp=-1))
     assert t.sharded and t.param_sharding_kind == "specs"
-    with pytest.raises(NotImplementedError, match="item 1f"):
-        VirtualWorkerLoop(t, VirtualConfig(vw_count=2, global_batch=4),
-                          batches=None)
+    cfg = VirtualConfig(vw_count=2, global_batch=4)
+    assert VirtualWorkerLoop(t, cfg, batches=None).trainer is t
+    with pytest.raises(NotImplementedError, match="item 7"):
+        VirtualWorkerLoop(t, cfg, batches=None, sdc=object())

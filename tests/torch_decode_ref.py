@@ -50,3 +50,24 @@ def ref_decode_many(prompts, n: int) -> list[list[int]]:
 
 def ref_decode(prompt, n: int) -> list[int]:
     return ref_decode_many([prompt], n)[0]
+
+
+_apply_with = jax.jit(lambda params, toks: apply(params, toks, TINY))
+
+
+def ref_decode_with(params, prompts, n: int) -> list[list[int]]:
+    """:func:`ref_decode_many` on other weights ``params`` (a JAX TINY
+    tree), uncached."""
+    out = []
+    for lo in range(0, len(prompts), _REF_SHAPE[0]):
+        seqs = [list(p) for p in prompts[lo:lo + _REF_SHAPE[0]]]
+        lens = [len(s) for s in seqs]
+        for _ in range(n):
+            toks = np.zeros(_REF_SHAPE, np.int32)
+            for i, s in enumerate(seqs):
+                toks[i, :len(s)] = s
+            logits = np.asarray(_apply_with(params, toks))
+            for i, s in enumerate(seqs):
+                s.append(int(logits[i, len(s) - 1].argmax()))
+        out += [s[k:] for s, k in zip(seqs, lens)]
+    return out

@@ -1207,6 +1207,292 @@ def suite_tp_eight(rank: int, world: int, store: str, tiny_params: dict,
     return _run_scenarios([parity_3d, kinds, accum_3d, resize_3d], rank)
 
 
+# -- the sharded checkpoint suites --------------------------------------------
+
+
+def flat_state(trainer: ElasticTrainer):
+    """The whole state (collective over the live group) as numpy by
+    checkpoint path, on rank 0; None on the other ranks."""
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+
+    tree = trainer.whole_state()
+    if tree is None:
+        return None
+    return {k: torch.as_tensor(v).numpy().copy()
+            for k, v in ckpt._flatten(tree).items()}
+
+
+def same_state(a: dict, b: dict) -> bool:
+    """Two :func:`flat_state`s bitwise equal, leaf for leaf."""
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def save_whole(trainer: ElasticTrainer, ck, step: int) -> None:
+    """Every rank: the trainer's whole state saved at ``step`` by rank 0,
+    the other live ranks gathering with it."""
+    if trainer.rank == 0:
+        ck.save(step, trainer.whole_state)
+    else:
+        trainer.whole_state()
+    dist.barrier()
+
+
+def hyper(trainer: ElasticTrainer) -> list:
+    return [{k: v for k, v in g.items() if k != "params"}
+            for g in trainer.state.opt_state.param_groups]
+
+
+def trainer_tree(trainer: ElasticTrainer) -> dict:
+    return {"params": trainer.state.params, "opt": trainer.state.opt_state}
+
+
+def tiny_fresh(**kw) -> ElasticTrainer:
+    """The port's TINY transformer from another seed than the saved state,
+    under adamw(1e-3) on the CPU: what a restore must overwrite."""
+    return ElasticTrainer(tfm.loss_fn,
+                          tfm.Transformer(tfm.TINY, device="cpu", seed=7),
+                          optim.adamw(1e-3), devices=[torch.device("cpu")],
+                          **kw)
+
+
+#: the layouts a state is saved from: (initial world, trainer keywords)
+SAVE_LAYOUTS = {
+    "replicated1": (1, {}),
+    "fsdp2": (2, dict(param_sharding="fsdp", spec=FSDP)),
+    "tp2": (2, dict(param_sharding=tfm.param_partition_specs(tfm.TINY),
+                    spec=MeshSpec(tp=-1))),
+    "dp2xfsdp2": (4, dict(param_sharding=tfm.param_partition_specs(tfm.TINY),
+                          spec=MeshSpec(dp=-1, fsdp=2))),
+}
+#: the layouts a state is restored into
+RESTORE_LAYOUTS = ("replicated1", "fsdp2", "tp2")
+
+
+def suite_sharded(rank: int, world: int, store: str, tiny_params: dict,
+                  batches: list, tokens: tuple, mlp_params: dict,
+                  data: tuple, seed: int) -> dict:
+    """The sharded trainer's checkpoint lineage on eight ranks: a TINY
+    state saved from every layout and restored into every other, the
+    manifests of one state saved by three layouts, a torn newest step on an
+    fsdp trainer, a tp job's kill and restore, and the durable loop's
+    scenarios of tests/test_accuracy_elasticity.py on fsdp MLP trainers."""
+    from edl_tpu_torch.observability.collector import get_counters
+    from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.elastic import AccumulationAborted
+    from edl_tpu_torch.runtime.virtual import (VirtualBatches, VirtualConfig,
+                                               VirtualWorkerLoop)
+
+    _join(rank, world, store)
+    tmp = Path(store).parent
+
+    def saver(label: str) -> ElasticTrainer:
+        n0, kw = SAVE_LAYOUTS[label]
+        return tiny_trainer(tiny_params, initial_world_size=n0, **kw)
+
+    def target(label: str) -> ElasticTrainer:
+        n0, kw = SAVE_LAYOUTS[label]
+        return tiny_fresh(initial_world_size=n0, **kw)
+
+    def matrix(rank):
+        """Each saver takes two steps and saves; each target restores that
+        step, and its gathered state is held to the saved one."""
+        got = {}
+        for label in SAVE_LAYOUTS:
+            t = saver(label)
+            for b in batches[:2]:
+                t.step(b)
+            saved = flat_state(t)
+            ck = ElasticCheckpointer(tmp / f"matrix-{label}")
+            save_whole(t, ck, t.state.step)
+            for into in RESTORE_LAYOUTS:
+                u = target(into)
+                ck.restore(trainer_tree(u), shardings=u)
+                mine = flat_state(u)
+                got[label, into] = dict(
+                    live=u.live, step=ck.last_restored_step,
+                    hash_ok=ck.last_restore_hash_ok,
+                    hyper=hyper(u) == hyper(t),
+                    equal=None if mine is None else same_state(saved, mine),
+                    counts=None if mine is None else sorted(
+                        {float(v) for k, v in mine.items()
+                         if k.endswith("['step']")}))
+        return got
+
+    def manifests(rank):
+        """One state (two steps of the replicated trainer), saved again by
+        an fsdp-2 and a tp-2 trainer that restored it."""
+        t = saver("replicated1")
+        for b in batches[:2]:
+            t.step(b)
+        state = flat_state(t)
+        ck = ElasticCheckpointer(tmp / "manifest-replicated1")
+        save_whole(t, ck, 2)
+        got = dict(state=state, manifests={
+            "replicated1": ck.manifest(2) if rank == 0 else None})
+        for label in ("fsdp2", "tp2"):
+            u = target(label)
+            ck.restore(trainer_tree(u), shardings=u)
+            again = ElasticCheckpointer(tmp / f"manifest-{label}")
+            save_whole(u, again, 2)
+            got["manifests"][label] = again.manifest(2) if rank == 0 else None
+        return got
+
+    def torn(rank):
+        """An fsdp-2 trainer saves steps 1 and 2; rank 0 tears step 2; a
+        fresh fsdp-2 trainer's restore falls back to 1 on every rank."""
+        t = tiny_trainer(tiny_params, initial_world_size=2,
+                         param_sharding="fsdp", spec=FSDP)
+        directory = tmp / "torn"
+        ck = ElasticCheckpointer(directory)
+        t.step(batches[0])
+        first = flat_state(t)
+        save_whole(t, ck, 1)
+        t.step(batches[1])
+        save_whole(t, ck, 2)
+        if rank == 0:
+            files = [p for p in (directory / "2").rglob("*") if p.is_file()]
+            victim = max(files, key=lambda p: p.stat().st_size)
+            with open(victim, "r+b") as f:
+                f.truncate(victim.stat().st_size // 2)
+        dist.barrier()
+        counters = get_counters()
+        c0 = (counters.get("checkpoint_corruption_detected"),
+              counters.get("recoveries_completed", type="corrupt_checkpoint"))
+        u = tiny_fresh(initial_world_size=2, param_sharding="fsdp", spec=FSDP)
+        fresh = ElasticCheckpointer(directory)
+        fresh.restore(trainer_tree(u), shardings=u)
+        mine = flat_state(u)
+        return dict(
+            step=fresh.last_restored_step, hash_ok=fresh.last_restore_hash_ok,
+            corruption=counters.get("checkpoint_corruption_detected") - c0[0],
+            recoveries=counters.get("recoveries_completed",
+                                    type="corrupt_checkpoint") - c0[1],
+            equal=None if mine is None else same_state(first, mine),
+            live=u.live)
+
+    treg = ShardRegistry()
+    tids = treg.register_arrays(tokens, num_shards=8)
+    tcfg = VirtualConfig(vw_count=4, global_batch=8, job_seed=seed)
+
+    def tp_kill(rank):
+        """A tp-2 job killed mid-accumulation after step 4 and restored at
+        the same layout, against the same schedule unkilled."""
+        def job():
+            return tiny_trainer(tiny_params, initial_world_size=2,
+                                accum_mode="replicated",
+                                **SAVE_LAYOUTS["tp2"][1])
+
+        def batches_():
+            return VirtualBatches(tcfg, tids, treg.get)
+
+        control = VirtualWorkerLoop(job(), tcfg, batches_()).run(
+            max_steps=6).losses
+        ck = ElasticCheckpointer(tmp / "tp-kill")
+        t, vb = job(), batches_()
+        first = VirtualWorkerLoop(t, tcfg, vb, checkpointer=ck,
+                                  ckpt_every=2).run(max_steps=4)
+        try:
+            t.step_accumulate(vb.next_step(), abort_after=2)
+            killed = False
+        except AccumulationAborted:
+            killed = True
+        loop = VirtualWorkerLoop(job(), tcfg, batches_(), checkpointer=ck,
+                                 ckpt_every=2)
+        restored = loop.restore_latest()
+        second = loop.run(max_steps=2)
+        return dict(control=control, stitched=first.losses + second.losses,
+                    restored=restored, killed=killed, live=t.live)
+
+    # the durable loop on fsdp MLP trainers, as suite_virtual runs it on
+    # replicated ones
+    cfg = VirtualConfig(vw_count=8, global_batch=64, job_seed=seed)
+    reg = ShardRegistry()
+    ids = reg.register_arrays(data, num_shards=16)
+    walk_4_2_8 = lambda s: 4 if s < 7 else (2 if s < 14 else 8)  # noqa
+    control_4 = lambda s: 4  # noqa: E731
+
+    def mlp_job(n, sharding):
+        model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                          mlp_params)
+        kw = (dict(param_sharding="fsdp", spec=FSDP) if sharding == "fsdp"
+              else {})
+        return ElasticTrainer(mlp.loss_fn, model, optim.adam(1e-2),
+                              devices=[torch.device("cpu")],
+                              initial_world_size=n, accum_mode="replicated",
+                              **kw)
+
+    def vbatches():
+        return VirtualBatches(cfg, ids, reg.get, passes=2)
+
+    def rows_of(*reps) -> dict:
+        rows: dict[int, int] = {}
+        for rep in reps:
+            for gid, c in rep.rows_trained.items():
+                rows[gid] = rows.get(gid, 0) + c
+        return rows
+
+    def durable_fsdp(rank):
+        """The replicated control on world 4; the 4→2→8 walk on fsdp; and
+        the kill mid-accumulation after step 10 on fsdp 2, restored on
+        fresh fsdp trainers of 2 and run to step 20 through 2→8."""
+        control = VirtualWorkerLoop(mlp_job(4, "replicated"), cfg,
+                                    vbatches()).run(
+            max_steps=20, world_size_for=control_4)
+        walk = VirtualWorkerLoop(mlp_job(4, "fsdp"), cfg, vbatches()).run(
+            max_steps=20, world_size_for=walk_4_2_8)
+        ck = ElasticCheckpointer(tmp / "fsdp-kill")
+        t, vb = mlp_job(4, "fsdp"), vbatches()
+        first = VirtualWorkerLoop(t, cfg, vb, checkpointer=ck,
+                                  ckpt_every=5).run(
+            max_steps=10, world_size_for=walk_4_2_8)
+        try:
+            t.step_accumulate(vb.next_step(), abort_after=3)
+            killed = False
+        except AccumulationAborted:
+            killed = True
+        loop = VirtualWorkerLoop(mlp_job(2, "fsdp"), cfg, vbatches(),
+                                 checkpointer=ck, ckpt_every=5)
+        restored = loop.restore_latest()
+        second = loop.run(max_steps=10, world_size_for=walk_4_2_8)
+        ck.close()
+        return dict(
+            control=control.losses, control_rows=control.rows_trained,
+            walk=walk.losses, walk_worlds=walk.world_sizes,
+            walk_resizes=walk.resizes, walk_rows=rows_of(walk),
+            killed=killed, live=t.live, restored=restored,
+            stitched=first.losses + second.losses, rows=rows_of(first, second),
+            saved=sorted(int(p.name) for p in (tmp / "fsdp-kill").iterdir()
+                         if p.name.isdigit()))
+
+    return _run_scenarios([matrix, manifests, torn, tp_kill, durable_fsdp],
+                          rank)
+
+
+def suite_lineage(rank: int, world: int, store: str, tiny_params: dict,
+                  batches: list, directory: str) -> dict:
+    """Two ranks: an fsdp-2 TINY trainer takes a step, saves it as step 1
+    of the lineage at ``directory``, takes another and saves step 2; rank
+    0 returns the weights it saved last, by checkpoint path."""
+    from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+
+    _join(rank, world, store)
+
+    def write(rank):
+        t = tiny_trainer(tiny_params, param_sharding="fsdp", spec=FSDP)
+        ck = ElasticCheckpointer(directory)
+        for step, b in enumerate(batches[:2], 1):
+            t.step(b)
+            save_whole(t, ck, step)
+        state = flat_state(t)
+        return None if state is None else {
+            k: v for k, v in state.items() if k.startswith("['params']")}
+
+    return _run_scenarios([write], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
-          "tp_two": suite_tp_two, "tp_eight": suite_tp_eight}
+          "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
+          "sharded": suite_sharded, "lineage": suite_lineage}
