@@ -142,6 +142,29 @@ Phases, each of which raises on failure:
     gather's census bytes, time and peak ``memory_allocated``, the sharded
     save's ``save_ms``, GB/s and ``save_async`` pause beside (k)'s, each
     ``restore_ms`` and the fleet's ``reload_ms``.
+(p) the SDC defense plane on (k)'s job (``entry.flagship_virtual_world``),
+    ``SDC_STEPS`` steps against (k)'s one-process control, each run with an
+    ``SdcPlane`` (device-fold fingerprints, the anomaly gate, a shadow
+    recompute on a fresh world-1 trainer).  (p-1): one process, a
+    checkpoint every ``SDC_CKPT_EVERY`` steps, ``flip_param_bits`` on the
+    final norm's first scale after step ``SDC_STRIKE_STEP`` (bit 30 makes it
+    inf or NaN, so the next loss is NaN): the gate trips, the shadow
+    confirms, the loop rolls back to the last verified step and replays;
+    losses bitwise the control's, every row once, a flight record with the
+    verdict trail.  (p-2): ``PoisonLoss`` refuted, no rollback, the repaired
+    loss bitwise the control's.  (p-3): two one-rank workers in this
+    process sharing a ``MemoryKV``; ``CorruptGradient`` strikes one, the
+    fingerprints split, the shadow names and quarantines it, and both
+    trajectories are the control's.  (p-4): two spawned ranks on a
+    replicated world of 2 over gloo; the flip lands on both replicas, rank
+    0 judges, both ranks take one verdict and roll back to one step, both
+    bitwise the control's.  (p-5): the same ranks, fresh trainers on a
+    world of 1: ``prewarm([2])``, ``prewarm_quiesce()``, ``resize(2)`` is a
+    prewarm hit, and the state after it is bitwise a cold ``resize(2)``'s.
+    Also checks the device fold against the host fold on every leaf of the
+    1.86 GB state, and prints the fingerprint's step-loop pause by each
+    fold, the shadow's and the rollback's ms, both resizes' ``compile_ms``
+    and the flash launches a step.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
@@ -186,6 +209,11 @@ from edl_tpu_torch.runtime import checkpoint as ckpt
 from edl_tpu_torch.runtime import serving
 from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
 from edl_tpu_torch.runtime.elastic import AccumulationAborted
+from edl_tpu_torch.runtime.faults import (CorruptGradient, FaultContext,
+                                          FaultPlan, FaultPlanEngine,
+                                          PoisonLoss)
+from edl_tpu_torch.runtime import sdc
+from edl_tpu_torch.observability.tracing import get_tracer
 from edl_tpu_torch.runtime.kvcache import KVBlockPool
 from edl_tpu_torch.runtime.virtual import (DEFAULT_LOSS_ATOL,
                                            DEFAULT_LOSS_RTOL, VirtualBatches,
@@ -287,6 +315,14 @@ TP_SPEC = MeshSpec(tp=-1)
 LINEAGE_PROMPT_LENS, LINEAGE_NEW_TOKENS = (64, 192, 320, 512), 32
 LINEAGE_POLL_S, LINEAGE_PICKUP_S = 0.5, 5.0
 WATCH_SESSIONS, WATCH_PROMPT_LEN, WATCH_NEW_TOKENS = 4, 64, 256
+#: phase (p): steps of each drill, the checkpoint cadence, the step after
+#: which a strike lands (the next step is the first to carry it), and the
+#: flip: bit 30 of the final norm's first scale (the last leaf in flatten
+#: order), the exponent's top bit of a value near 1.0, which makes it inf
+#: or NaN; the fingerprint pauses are each the median of SDC_PAUSE_REPS
+SDC_STEPS, SDC_CKPT_EVERY, SDC_STRIKE_STEP = 5, 3, 4
+SDC_FLIP = dict(leaf=-1, bit=30)
+SDC_PAUSE_REPS = 3
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -2279,6 +2315,310 @@ def phase_durable(card: str, control: list, k_drills: dict) -> dict:
                          + w1["launches"][k] for k in FLASH})
 
 
+# -- phase (p): the SDC defense plane -----------------------------------------
+
+
+def sdc_rig(make_trainer, cfg, reg, ids, ck=None, kv=None, worker="w0",
+            flight_dir=None, job="sdc"):
+    """An SdcPlane whose shadow replays on ``make_trainer()``."""
+    shadow = sdc.ShadowRecompute(
+        make_trainer, lambda: VirtualBatches(cfg, ids, reg.get), cfg,
+        checkpointer=ck)
+    return sdc.SdcPlane(
+        fingerprinter=sdc.UpdateFingerprinter(kv=kv, job=job, worker=worker),
+        detector=sdc.AnomalyDetector(), shadow=shadow, checkpointer=ck,
+        flight_dir=flight_dir)
+
+
+def verdicts(plane) -> list:
+    """Each verdict as every rank holds it."""
+    return [dict(step=v.step, trigger=v.trigger, outcome=v.outcome,
+                 rollback=v.rollback_step, quarantined=v.quarantined)
+            for v in plane.verdicts]
+
+
+def trace_ms(name: str) -> list:
+    """The ``elapsed_ms`` of every ``name`` trace event of this process:
+    ``sdc_shadow_recompute`` (the judging rank's restore, replay and
+    fingerprint) and ``sdc_rollback``."""
+    return [e.args["elapsed_ms"] for e in get_tracer().events()
+            if e.name == name]
+
+
+def state_leaves(trainer) -> dict:
+    """The trainer's whole state as a tree of tensors on the card."""
+    opt = trainer.state.opt_state.state
+    return {"params": trainer.state.params,
+            "opt": {n: [v for _, v in sorted(opt[p].items())
+                        if torch.is_tensor(v) and v.is_cuda]
+                    for n, p in trainer.state.params.named_parameters()}}
+
+
+def fold_drill(trainer) -> dict:
+    """The device fold against the host fold on every leaf of the state,
+    and the fingerprint's step-loop pause by each, on the card."""
+    tree = state_leaves(trainer)
+    leaves = list(sdc._leaves_with_path(tree))
+    words = sdc.device_tree_folds(tree)
+    agree = sum(sdc._mix_tail(w, sdc._nbytes(x), sdc._dtype_name(x))
+                == sdc.leaf_fold(x) for (_, x), w in zip(leaves, words))
+    pauses = {}
+    for name, device in (("device", True), ("host", False)):
+        fp = sdc.UpdateFingerprinter()
+        fp._prefer_device = device
+        fp.record(0, tree)  # the device path's one check against the host
+        for i in range(SDC_PAUSE_REPS):
+            fp.record(i + 1, tree)
+        pauses[name] = 1e3 * float(np.median(fp.pauses_s[1:]))
+    return dict(leaves=len(leaves), agree=agree,
+                bytes=sum(sdc._nbytes(x) for _, x in leaves), **pauses)
+
+
+def sdc_single(tmp: str) -> dict:
+    """(p-1) in this process: the flip, rolled back."""
+    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+    ck = ElasticCheckpointer(os.path.join(tmp, "p1"))
+    plane = sdc_rig(lambda: flagship_virtual_world(0, 1, None)[0], cfg, reg,
+                    ids, ck=ck, flight_dir=os.path.join(tmp, "fr"))
+    steps: list = []
+    instrument(trainer, steps)
+    loop = VirtualWorkerLoop(trainer, cfg, VirtualBatches(cfg, ids, reg.get),
+                             checkpointer=ck, ckpt_every=SDC_CKPT_EVERY,
+                             sdc=plane)
+
+    def strike(step, loss, world):
+        if step == SDC_STRIKE_STEP and plane.healthy():
+            trainer.flip_param_bits(**SDC_FLIP)
+
+    before = [len(trace_ms(n)) for n in ("sdc_shadow_recompute",
+                                          "sdc_rollback")]
+    rep = loop.run(max_steps=SDC_STEPS, on_step=strike)
+    recs = [f for f in os.listdir(os.path.join(tmp, "fr"))
+            if f.endswith(".json")]
+    trail = []
+    if recs:
+        with open(os.path.join(tmp, "fr", recs[0])) as f:
+            trail = json.load(f)["extra"]["sdc_verdict_trail"]
+    got = dict(losses=rep.losses, rows=rows_once([rep]),
+               rollbacks=rep.rollbacks, verdicts=verdicts(plane),
+               shadow_ms=trace_ms("sdc_shadow_recompute")[before[0]:],
+               rollback_ms=trace_ms("sdc_rollback")[before[1]:], trail=trail,
+               launches=[st["launches"] for st in steps],
+               folds=fold_drill(trainer))
+    ck.close()
+    return got
+
+
+def sdc_poison() -> dict:
+    """(p-2) in this process: a poisoned loss report, refuted."""
+    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+    plane = sdc_rig(lambda: flagship_virtual_world(0, 1, None)[0], cfg, reg,
+                    ids)
+    engine = FaultPlanEngine(
+        FaultPlan(actions=[PoisonLoss(at_step=SDC_STRIKE_STEP - 1)]),
+        FaultContext(trainer=trainer))
+    before = len(trace_ms("sdc_shadow_recompute"))
+    rep = VirtualWorkerLoop(trainer, cfg, VirtualBatches(cfg, ids, reg.get),
+                            sdc=plane).run(max_steps=SDC_STEPS,
+                                           on_step=engine)
+    return dict(losses=rep.losses, rollbacks=rep.rollbacks,
+                verdicts=verdicts(plane),
+                shadow_ms=trace_ms("sdc_shadow_recompute")[before:],
+                recovered=engine.recovered)
+
+
+def sdc_pair(tmp: str) -> dict:
+    """(p-3) in this process: two one-rank workers sharing a MemoryKV, a
+    corrupt gradient on one of them."""
+    kv = sdc.MemoryKV()
+    rigs = {}
+    for worker in ("wA", "wB"):
+        trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+        ck = ElasticCheckpointer(os.path.join(tmp, worker))
+        plane = sdc_rig(lambda: flagship_virtual_world(0, 1, None)[0], cfg,
+                        reg, ids, ck=ck, kv=kv, worker=worker, job="pair")
+        rigs[worker] = (trainer, VirtualWorkerLoop(
+            trainer, cfg, VirtualBatches(cfg, ids, reg.get),
+            checkpointer=ck, ckpt_every=SDC_CKPT_EVERY, sdc=plane), plane, ck)
+    engine = FaultPlanEngine(
+        FaultPlan(actions=[CorruptGradient(at_step=SDC_STRIKE_STEP)]),
+        FaultContext(trainer=rigs["wB"][0]))
+    before = len(trace_ms("sdc_shadow_recompute"))
+    for i in range(1, SDC_STEPS + 1):
+        engine(i)
+        for worker in ("wA", "wB"):
+            rigs[worker][1].run(max_steps=1)
+    got = {w: dict(losses=r[1].report.losses, rollbacks=r[1].report.rollbacks,
+                   verdicts=verdicts(r[2]))
+           for w, r in rigs.items()}
+    got.update(quarantined=sorted(sdc.quarantined_names(kv)),
+               shadow_ms=trace_ms("sdc_shadow_recompute")[before:],
+               recovered=engine.recovered)
+    for r in rigs.values():
+        r[3].close()
+    return got
+
+
+def sdc_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
+    """(p-4) and (p-5), one rank: the flip drill on a replicated world of
+    2, then a prewarmed and a cold resize 1→2 of fresh trainers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_launches()
+    trainer, reg, ids, cfg = flagship_virtual_world(
+        rank, WORLD_RANKS, store, initial_world_size=WORLD_RANKS)
+    ck = ElasticCheckpointer(ckpt_dir)
+    plane = sdc_rig(lambda: flagship_virtual_world(
+        rank, WORLD_RANKS, store, initial_world_size=1)[0], cfg, reg, ids,
+        ck=ck)
+    steps: list = []
+    instrument(trainer, steps)
+    loop = VirtualWorkerLoop(trainer, cfg, VirtualBatches(cfg, ids, reg.get),
+                             checkpointer=ck, ckpt_every=SDC_CKPT_EVERY,
+                             sdc=plane)
+
+    def strike(step, loss, world):
+        if step == SDC_STRIKE_STEP and plane.healthy():
+            trainer.flip_param_bits(**SDC_FLIP)
+
+    rep = loop.run(max_steps=SDC_STEPS, on_step=strike)
+    rec = dict(rank=rank, losses=rep.losses, rows=rows_once([rep]),
+               rollbacks=rep.rollbacks, verdicts=verdicts(plane),
+               shadow_ms=trace_ms("sdc_shadow_recompute"),
+               rollback_ms=trace_ms("sdc_rollback"),
+               launches=[st["launches"] for st in steps])
+    del loop, plane, trainer
+    torch.cuda.empty_cache()
+
+    for name in ("cold", "prewarmed"):
+        trainer, batch = flagship_elastic_world(
+            rank, WORLD_RANKS, store, batch=B, seq=S, initial_world_size=1)
+        trainer.step(batch)
+        if name == "prewarmed":
+            trainer.prewarm([WORLD_RANKS])
+            rec["quiet"] = trainer.prewarm_quiesce(VIRTUAL_CHILD_TIMEOUT_S)
+        rec[name] = dict(resized=trainer.resize(WORLD_RANKS),
+                         event=trainer.resize_events[-1],
+                         state=checksum(state_tensors(trainer, True)))
+        del trainer
+        torch.cuda.empty_cache()
+    rec["total_launches"] = dict(fa.launches)
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_sdc(card: str, control: list) -> dict:
+    """(p): the SDC plane's drills and the prewarmed resize, against (k)'s
+    control; returns the flash launches of the phase."""
+    torch.cuda.empty_cache()
+    want = control[:SDC_STEPS]
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        single = sdc_single(tmp)
+        torch.cuda.empty_cache()
+        poison = sdc_poison()
+        torch.cuda.empty_cache()
+        pair = sdc_pair(tmp)
+        torch.cuda.empty_cache()
+        launches = dict(fa.launches)
+        recs = run_ranks(sdc_rank, "p", VIRTUAL_CHILD_TIMEOUT_S,
+                         os.path.join(tmp, "p4"))
+    torch.cuda.empty_cache()
+    for k in FLASH:
+        launches[k] += sum(r["total_launches"][k] for r in recs)
+    f = single["folds"]
+    print(f"sdc phase (p): FLAGSHIP, V 8, {SDC_STEPS} steps, a checkpoint "
+          f"every {SDC_CKPT_EVERY}, strikes after step {SDC_STRIKE_STEP}, "
+          f"on {card}", flush=True)
+    print(f"sdc device fold vs host fold: {f['agree']} of {f['leaves']} "
+          f"leaves equal over {f['bytes']} bytes of state; fingerprint "
+          f"pause device {f['device']:.2f} ms host {f['host']:.2f} ms "
+          f"(median of {SDC_PAUSE_REPS}) on {card}", flush=True)
+    print(f"sdc (p-1) flip: verdicts {single['verdicts']} shadow_ms "
+          f"{single['shadow_ms']} rollback_ms "
+          f"{single['rollback_ms']} losses {single['losses']} control {want} "
+          f"bitwise {single['losses'] == want}; rows {single['rows']}; "
+          f"trail {[t['outcome'] for t in single['trail']]} on {card}",
+          flush=True)
+    print(f"sdc (p-2) poison: verdicts {poison['verdicts']} shadow_ms "
+          f"{poison['shadow_ms']} losses "
+          f"{poison['losses']} bitwise {poison['losses'] == want}; "
+          f"recovered {poison['recovered']} on {card}", flush=True)
+    print(f"sdc (p-3) pair: wB verdicts {pair['wB']['verdicts']} shadow_ms "
+          f"{pair['shadow_ms']} wA "
+          f"{pair['wA']['verdicts']}; quarantined {pair['quarantined']}; "
+          f"bitwise wA {pair['wA']['losses'] == want} wB "
+          f"{pair['wB']['losses'] == want}; recovered {pair['recovered']} "
+          f"on {card}", flush=True)
+    for r in recs:
+        print(f"sdc (p-4) rank {r['rank']}: verdicts {r['verdicts']} "
+              f"shadow_ms {r['shadow_ms']} rollback_ms {r['rollback_ms']} "
+              f"bitwise "
+              f"{r['losses'] == want}; flash launches a step "
+              f"{sorted({tuple(x.values()) for x in r['launches']})} on "
+              f"{card}", flush=True)
+        for name in ("cold", "prewarmed"):
+            e = r[name]["event"]
+            print(f"sdc (p-5) rank {r['rank']} {name} resize(2): "
+                  f"prewarm_hit {e['prewarm_hit']} compile_ms "
+                  f"{e['compile_ms']} reshard_ms {e['reshard_ms']} "
+                  f"replan_ms {e['replan_ms']} on {card}", flush=True)
+    failures = []
+    n = tfm.FLAGSHIP.n_layers * 8
+    v = single["verdicts"]
+    if (single["rollbacks"] != 1 or len(v) != 1
+            or (v[0]["outcome"], v[0]["rollback"], v[0]["step"])
+            != ("confirmed", SDC_CKPT_EVERY, SDC_STRIKE_STEP + 1)
+            or v[0]["trigger"] not in ("nan", "loss_spike")):
+        failures.append(f"(p-1) {single['verdicts']} {single['rollbacks']}")
+    if (single["losses"] != want or single["rows"]["duplicated"]
+            or single["rows"]["trained"] != SDC_STEPS * B):
+        failures.append(f"(p-1) losses {single['losses']} rows "
+                        f"{single['rows']}")
+    if not single["trail"] or single["trail"][-1]["rollback_step"] != \
+            SDC_CKPT_EVERY:
+        failures.append(f"(p-1) flight record trail {single['trail']}")
+    if any(set(x.values()) != {n} for x in single["launches"]):
+        failures.append(f"(p-1) launches {single['launches']}")
+    if f["agree"] != f["leaves"]:
+        failures.append(f"device fold {f}")
+    pv = poison["verdicts"]
+    if (len(pv) != 1 or (pv[0]["trigger"], pv[0]["outcome"])
+            != ("nan", "refuted") or poison["rollbacks"]
+            or poison["losses"] != want
+            or poison["recovered"] != ["poison_loss"]):
+        failures.append(f"(p-2) {poison}")
+    bv = pair["wB"]["verdicts"]
+    if (len(bv) != 1 or (bv[0]["trigger"], bv[0]["outcome"],
+                         bv[0]["quarantined"])
+            != ("fp_mismatch", "confirmed", "wB")
+            or pair["wA"]["verdicts"] or pair["quarantined"] != ["wB"]
+            or pair["wB"]["rollbacks"] != 1
+            or pair["wA"]["losses"] != want or pair["wB"]["losses"] != want
+            or pair["recovered"] != ["corrupt_gradient"]):
+        failures.append(f"(p-3) {pair}")
+    for r in recs:
+        if ([(x["step"], x["outcome"], x["rollback"]) for x in r["verdicts"]]
+                != [(SDC_STRIKE_STEP + 1, "confirmed", SDC_CKPT_EVERY)]):
+            failures.append(f"(p-4) rank {r['rank']} {r['verdicts']}")
+        if r["rollbacks"] != 1 or r["losses"] != want:
+            failures.append(f"(p-4) rank {r['rank']} {r['losses']}")
+        if any(set(x.values()) != {n} for x in r["launches"]):
+            failures.append(f"(p-4) rank {r['rank']} launches")
+        if (r["cold"]["event"]["prewarm_hit"]
+                or not r["prewarmed"]["event"]["prewarm_hit"]
+                or not (r["cold"]["resized"] and r["prewarmed"]["resized"])
+                or r["cold"]["state"] != r["prewarmed"]["state"]
+                or not r["quiet"]):
+            failures.append(f"(p-5) rank {r['rank']}")
+    if recs[0]["verdicts"] != recs[1]["verdicts"]:
+        failures.append("(p-4) the ranks' verdicts differ")
+    if failures:
+        raise AssertionError("phase (p): " + "; ".join(failures))
+    return {k: launches[k] for k in FLASH}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2322,6 +2662,7 @@ def main() -> int:
     durable = phase_durable(card, virtual["control"], virtual["drills"])
     paths["flagship_durable_fsdp"] = durable["fsdp"]
     paths["flagship_durable_restore"] = durable["restore"]
+    paths["flagship_sdc"] = phase_sdc(card, virtual["control"])
 
     kernels = []
     for name, meta in KERNELS.items():

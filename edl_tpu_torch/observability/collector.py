@@ -23,6 +23,10 @@ class Counters:
     def get(self, name: str, **labels: str) -> int:
         return int(self._registry.counter(name).value(**labels))
 
+    def total(self, name: str) -> int:
+        """Sum over every label combination of ``name``."""
+        return int(sum(self._registry.counter(name).series().values()))
+
     def snapshot(self) -> dict[str, int]:
         """Flat ``name{k=v,...}`` → count view of every counter that has
         counted (flight records, tests)."""

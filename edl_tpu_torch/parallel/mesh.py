@@ -13,6 +13,15 @@ process group, and carries the process group over that prefix
 (:func:`rank_group`, built once per prefix size).  Without a process group a
 mesh is a tuple of this process's devices, as before.
 
+``dist.new_group`` is collective over the whole default group, and every
+rank must call it the same number of times in the same order.  So every
+process group of a mesh is built on one thread of this process, in the
+order the builds were submitted (:func:`submit_build`): a build asked for
+on the caller's thread waits its turn there, and a speculative one
+(``ElasticTrainer.prewarm``) is queued without waiting.  Each rank submits
+in program order, so each rank's build thread calls ``new_group`` in the
+same order, whichever thread asked.
+
 Ranks are laid out row-major over the axes in declaration order, as the
 reference lays out devices: at dp2×fsdp2 over ranks 0-3 the fsdp groups
 are {0, 1} and {2, 3} and the dp groups {0, 2} and {1, 3}
@@ -25,8 +34,10 @@ partition spec (one entry a dimension).
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -225,6 +236,46 @@ def distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+#: the thread every process group of this process is built on, made at
+#: the first build
+_builds: Optional[ThreadPoolExecutor] = None
+_builds_lock = threading.Lock()
+_build_ident: list[Optional[int]] = [None]
+
+
+def _mark_build_thread() -> None:
+    _build_ident[0] = threading.get_ident()
+
+
+def submit_build(fn: Callable, *args) -> Future:
+    """Queue ``fn(*args)`` on this process's group-build thread, after every
+    build submitted before it, with the caller's CUDA device current
+    there; returns its future.  Every rank submits the same builds in the
+    same order (see the module docstring)."""
+    global _builds
+    with _builds_lock:
+        if _builds is None:
+            _builds = ThreadPoolExecutor(1, thread_name_prefix="mesh-build",
+                                          initializer=_mark_build_thread)
+    dev = (torch.cuda.current_device() if torch.cuda.is_initialized()
+           else None)
+
+    def run():
+        if dev is not None:
+            torch.cuda.set_device(dev)
+        return fn(*args)
+
+    return _builds.submit(run)
+
+
+def _on_build_thread(fn: Callable, *args):
+    """``fn(*args)`` on the build thread, waited for (at once when this is
+    the build thread)."""
+    if threading.get_ident() == _build_ident[0]:
+        return fn(*args)
+    return submit_build(fn, *args).result()
+
+
 #: rank_group's cache: (default group, prefix size) -> process group
 _groups: dict[tuple[Any, int], Any] = {}
 
@@ -240,8 +291,13 @@ def rank_group(n: int):
     if n == dist.get_world_size():
         return world
     if (world, n) not in _groups:
-        _groups[world, n] = dist.new_group(list(range(n)))
+        _on_build_thread(_build_rank_group, world, n)
     return _groups[world, n]
+
+
+def _build_rank_group(world, n: int) -> None:
+    if (world, n) not in _groups:  # a build queued earlier made it
+        _groups[world, n] = dist.new_group(list(range(n)))
 
 
 def axis_ranks(shape: MeshShape, axis: str, rank: int) -> tuple[int, ...]:
@@ -268,8 +324,13 @@ def axis_groups(shape: MeshShape) -> dict[str, Any]:
     collective over the default group, so every rank builds every line, in
     the same order, the first time ``shape`` is asked for; a rank outside
     a line (or the prefix) keeps no group for it.  Cached by shape."""
-    world = dist.group.WORLD
-    key = (world, shape.key())
+    key = (dist.group.WORLD, shape.key())
+    if key not in _axis_groups:
+        _on_build_thread(_build_axis_groups, key, shape)
+    return _axis_groups[key]
+
+
+def _build_axis_groups(key: tuple, shape: MeshShape) -> None:
     if key not in _axis_groups:
         rank, groups = dist.get_rank(), {}
         for axis, n in shape.axis_sizes().items():
@@ -287,7 +348,6 @@ def axis_groups(shape: MeshShape) -> dict[str, Any]:
                 if rank in line:
                     groups[axis] = group
         _axis_groups[key] = groups
-    return _axis_groups[key]
 
 
 #: data_group's cache: (default group, shape key) -> group or None
@@ -301,8 +361,13 @@ def data_group(shape: MeshShape):
     it, None when they have one rank or this rank is outside the prefix.
     Built like :func:`axis_groups`: collectively, every line in order,
     once per shape."""
-    world = dist.group.WORLD
-    key = (world, shape.key())
+    key = (dist.group.WORLD, shape.key())
+    if key not in _data_groups:
+        _on_build_thread(_build_data_group, key, shape)
+    return _data_groups[key]
+
+
+def _build_data_group(key: tuple, shape: MeshShape) -> None:
     if key not in _data_groups:
         rank, width = dist.get_rank(), shape.dp * shape.fsdp
         group = None
@@ -316,7 +381,6 @@ def data_group(shape: MeshShape):
                 if rank in line:
                     group = g
         _data_groups[key] = group if rank < shape.size else None
-    return _data_groups[key]
 
 
 def local_device() -> torch.device:

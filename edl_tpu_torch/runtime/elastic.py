@@ -76,11 +76,38 @@ Every collective of the trainer goes through one of four choke points,
 :func:`_reduce_scatter`, each counting its op and bytes by mesh axis
 (:func:`collective_census`; ``"world"`` for the default group's votes,
 ``"tp"`` for the model's tp collectives, ``"checkpoint"`` for the gathers of
-:meth:`ElasticTrainer.whole_state`).
+:meth:`ElasticTrainer.whole_state`, ``"prewarm"`` for the warm-ups below).
+
+**Prewarm.**  What a resize builds before it moves a byte — the layout's
+mesh with its process groups, and the group spanning both worlds — is the
+port's stand-in for the reference's ahead-of-time compile, timed as
+``compile_ms``.  :meth:`ElasticTrainer.prewarm` queues those builds for the
+planner's likely next layouts on the process's group-build thread
+(:func:`~edl_tpu_torch.parallel.mesh.submit_build`), which the resize's own
+builds also go through, so every rank calls ``new_group`` in one order;
+a resize of a layout still building waits for that build instead of
+starting another.  The first collective on each new group (which is when
+NCCL creates its communicator) runs on the caller's thread, never beside
+the step's collectives: :meth:`ElasticTrainer.prewarm_quiesce` at a step
+boundary, or the resize that takes the layout.  Unused prewarmed layouts
+past ``prewarm_cache_limit`` are dropped oldest first (their process
+groups stay in :mod:`~edl_tpu_torch.parallel.mesh`'s caches, so a later
+hint builds nothing); a layout a resize used is exempt.  A resize records
+``prewarm_hit`` and counts ``prewarm_hits``/``prewarm_misses``.
+
+**Chaos seams.**  :meth:`ElasticTrainer.inject_update_corruption`,
+:meth:`~ElasticTrainer.inject_loss_poison` and
+:meth:`~ElasticTrainer.flip_param_bits` are how the SDC drills
+(:mod:`edl_tpu_torch.runtime.faults`) strike.  A flipped bit lands on the
+element the reference's single tree would hold it in, wherever that
+element lives: every live replica flips it on a replicated world, and only
+the rank whose block holds it on a sharded one, so the whole parameters
+afterwards are a replicated trainer's after the same seam.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import pickle
@@ -88,6 +115,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
@@ -112,9 +140,11 @@ from edl_tpu_torch.parallel.mesh import (
     local_device,
     make_mesh,
     rank_group,
+    submit_build,
     tree_shardings,
 )
 from edl_tpu_torch.parallel.replan import Placement, plan_reshard
+from edl_tpu_torch.runtime import sdc
 from edl_tpu_torch.runtime.checkpoint import Snapshot, param_path
 from edl_tpu_torch.runtime.optim import OptimizerFactory
 
@@ -124,6 +154,13 @@ log = get_logger("runtime.elastic")
 DATA_AXES = (AXIS_DP, AXIS_FSDP)
 #: the census label of whole_state's gathers
 CHECKPOINT_LABEL = "checkpoint"
+#: the census label of the collectives that warm a prewarmed layout's groups
+PREWARM_LABEL = "prewarm"
+#: the census label of the SDC fingerprint's gather of block folds
+SDC_LABEL = "sdc"
+#: how long a resize waits for a speculative build of its layout before it
+#: gives up (a wedged build fails the resize, which rolls back)
+BUILD_WAIT_TIMEOUT_S = 300.0
 
 #: collective_census's counts: {axis label: {"ops": {op: n}, "bytes": n}}
 _census: dict[str, dict] = {}
@@ -316,6 +353,7 @@ class ElasticTrainer:
         initial_world_size: Optional[int] = None,
         accum_mode: str = "dp",
         rng_in_loss: bool = False,
+        prewarm_cache_limit: int = 4,
     ) -> None:
         if isinstance(param_sharding, Mapping):
             bad = {n: s for n, s in param_sharding.items()
@@ -350,6 +388,7 @@ class ElasticTrainer:
         else:
             self._device = make_mesh(devices=devices).devices[0]
             self.rank, group_size = 0, 1
+        self._group_size = group_size
         self.resizes = 0
         self.resizes_failed = 0
         #: one record per successful resize, with the reference's fields
@@ -357,8 +396,24 @@ class ElasticTrainer:
         #: the mesh of every layout seen, by (size, shape): oscillating
         #: between layouts builds no new process group
         self._step_cache: dict[tuple, Mesh] = {}
-        self.mesh: Mesh = self._mesh_for(self._resolve_target(
-            initial_world_size or group_size))
+        #: who built each cached layout: "resize" inline, or "prewarm"
+        self._sources: dict[tuple, str] = {}
+        #: speculative builds in flight, by layout, in submission order
+        self._building: dict[tuple, concurrent.futures.Future] = {}
+        #: prewarmed layouts whose groups no collective has touched yet,
+        #: with the group spanning both worlds built beside each (and its
+        #: size)
+        self._cold: dict[tuple, tuple] = {}
+        #: prewarmed layouts no resize has used yet, oldest first: bounded
+        #: by ``prewarm_cache_limit``
+        self._prewarm_unused: list[tuple] = []
+        self.prewarm_cache_limit = max(int(prewarm_cache_limit), 1)
+        #: the SDC seams' pending strikes: (leaf, bit) per corrupt update,
+        #: and the count of poisoned loss reports
+        self._corrupt_updates: list[tuple[int, int]] = []
+        self._poison_losses_pending = 0
+        self.mesh: Mesh = self._acquire(self._resolve_target(
+            initial_world_size or group_size))[0]
         params.to(self._device)
         #: each leaf's full shape and dtype
         self._leaves = {n: _Buffer(tuple(p.shape), p.dtype)
@@ -479,6 +534,42 @@ class ElasticTrainer:
                     flat[keystr(where)] = t.detach().to("cpu", copy=True)
         return flat if writer else None
 
+    def lane_folds(self) -> list[tuple[str, int, int, str]]:
+        """Each parameter's whole-leaf lane xor for the SDC fingerprint
+        (:class:`~edl_tpu_torch.runtime.sdc.BlockFolds`): ``(keystr path,
+        lane xor, byte count, dtype name)`` by the leaves' flatten order,
+        folded where the leaves live.  A sharded trainer's live rank folds
+        its blocks' shares (:func:`~edl_tpu_torch.runtime.sdc.block_words`)
+        and all-gathers them over the live group (census label ``"sdc"``;
+        NCCL has no xor reduce), then xors one rank's share of each distinct
+        block: collective over the live group.  A rank standing by must not
+        call it."""
+        names = sorted(self._leaves, key=param_path)
+        local = self.shards
+        full = dict(self._leaves)
+        places = _placements(full, self._specs, self.shape)
+        words = sdc.lane_xors([
+            sdc.block_words(local[n], places[n].blocks[self.rank],
+                            full[n].shape) for n in names])
+        if self.sharded and self.world_size > 1:
+            mine = torch.tensor(words, dtype=torch.int64, device=self.device)
+            out = torch.empty(self.world_size * len(words),
+                              dtype=torch.int64, device=self.device)
+            _all_gather(out, mine, self.mesh.group, SDC_LABEL)
+            rows = out.view(self.world_size, -1).tolist()
+            for i, n in enumerate(names):
+                blocks, acc = {}, 0
+                for r in range(self.world_size):
+                    blocks.setdefault(places[n].blocks[r], r)
+                for r in blocks.values():
+                    acc ^= rows[r][i]
+                words[i] = acc
+        return [(keystr(param_path(n)), w,
+                 int(np.prod(full[n].shape, dtype=np.int64))
+                 * torch.empty((), dtype=full[n].dtype).element_size(),
+                 str(full[n].dtype).removeprefix("torch."))
+                for n, w in zip(names, words)]
+
     def load_whole_state(self, flat: Mapping) -> None:
         """``flat`` (whole leaves by the paths :meth:`whole_state` gives
         them, as a checkpoint restores them) into this trainer's live
@@ -556,7 +647,8 @@ class ElasticTrainer:
         evt = dict(staged.split, size=shape.size, step=self.state.step)
         self.resize_events.append(evt)
         get_tracer().instant("mesh_resized", category="elastic", **evt)
-        get_counters().inc("prewarm_misses")  # no prewarm in this trainer
+        get_counters().inc("prewarm_hits" if evt["prewarm_hit"]
+                           else "prewarm_misses")
         hist = get_registry().histogram(
             "resize_phase_seconds", help="mesh-resize latency by phase")
         hist.observe(evt["replan_ms"] / 1000.0, phase="replan")
@@ -585,6 +677,67 @@ class ElasticTrainer:
                  reshard_gbps=evt["reshard_gbps"],
                  prewarm_hit=evt["prewarm_hit"], step=self.state.step)
         return True
+
+    def prewarm(self, sizes: Sequence, wait: bool = False
+                ) -> Optional[concurrent.futures.Future]:
+        """Queue the builds of likely next layouts (an int world size
+        through the spec, or a MeshShape) on the group-build thread, so
+        that a later :meth:`resize` to one of them pays only the move.
+        Targets that are invalid, beyond the process group, current,
+        already built or already building are skipped.  Every rank calls
+        it with the same targets at the same step boundary, as it calls
+        ``resize``.  A failed build is logged and counted
+        (``prewarms_failed``) when the trainer next looks, and the resize
+        builds inline.
+
+        Returns the future of the last build queued (None when there was
+        nothing to do); ``wait=True`` waits for the builds and warms their
+        groups on this thread (:meth:`prewarm_quiesce`)."""
+        self._collect()
+        wanted: list[MeshShape] = []
+        for target in sizes:
+            try:
+                shape = self._resolve_target(target)
+                self._check_layout(shape)
+            except (TypeError, ValueError):
+                continue
+            key = self._cache_key(shape)
+            if (shape == self.shape or shape in wanted
+                    or key in self._step_cache or key in self._building):
+                continue
+            wanted.append(shape)
+        future = None
+        for shape in wanted:
+            union = max(self.world_size, shape.size)
+            future = submit_build(self._build_layout, shape, union)
+            self._building[self._cache_key(shape)] = future
+        if wait and future is not None:
+            self.prewarm_quiesce(BUILD_WAIT_TIMEOUT_S)
+        return future
+
+    def is_building(self, target) -> bool:
+        """True while a speculative build for ``target`` is in flight: a
+        loop may keep stepping on the current world and resize a few steps
+        later, when the layout is ready."""
+        try:
+            key = self._cache_key(self._resolve_target(target))
+        except (TypeError, ValueError):
+            return False  # unresolvable target: nothing can be building
+        self._collect()
+        return key in self._building
+
+    def prewarm_quiesce(self, timeout_s: float = 10.0) -> bool:
+        """Wait up to ``timeout_s`` for every speculative build, then run
+        the first collective on each new group of the built layouts, on
+        this thread (NCCL creates a communicator at its group's first
+        collective).  Call it on every rank at the same step boundary.
+        True when nothing is left building."""
+        concurrent.futures.wait(list(self._building.values()),
+                                timeout=timeout_s)
+        self._collect()
+        for key in list(self._cold):
+            self._warm(key)
+        return not self._building
 
     def step(self, batch) -> Optional[float]:
         """One training step on the live world; returns the loss over the
@@ -684,11 +837,95 @@ class ElasticTrainer:
                 self._reduce_grads([total])
             else:
                 self._keep_own_grads()
+        if self._corrupt_updates:
+            # the CorruptGradient seam: ONE bit of the summed gradient
+            # flips before the update — the canonical silent corruption
+            leaf, bit = self._corrupt_updates.pop(0)
+            grads = {}
+            for n, s in self.shards.items():
+                if s.grad is None:
+                    s.grad = torch.zeros_like(s)
+                grads[n] = s.grad
+            self._strike(grads, leaf, bit)
+            log.warn("injected gradient corruption before the update",
+                     step=self.state.step, leaf=leaf, bit=bit)
+            get_tracer().instant("sdc_gradient_corrupted", category="chaos",
+                                 step=self.state.step)
         self._scale(self._shard_grads(), 1.0 / V)
         opt.step()
         opt.zero_grad(set_to_none=True)
         self.state.step += 1
+        if self._poison_losses_pending > 0:
+            # the PoisonLoss seam: the REPORT lies, the params are clean
+            self._poison_losses_pending -= 1
+            log.warn("injected poisoned loss report", step=self.state.step)
+            get_tracer().instant("sdc_loss_poisoned", category="chaos",
+                                 step=self.state.step)
+            return float("nan")
         return float(total) / V
+
+    # -- SDC chaos seams ---------------------------------------------------
+
+    def inject_update_corruption(self, n: int = 1, leaf: int = 0,
+                                 bit: int = 17) -> None:
+        """Flip one bit of the summed gradient of each of the next ``n``
+        :meth:`step_accumulate` calls, before the update — the
+        ``CorruptGradient`` fault.  The bit is bit ``bit % 8`` of byte
+        ``(bit // 8) % nbytes`` of leaf ``leaf`` (leaves counted as the
+        reference flattens its gradient tree; its defaults are 0 and 17).
+        Each live rank calls it, as the seam strikes where the element
+        lives (see the module docstring)."""
+        self._corrupt_updates += [(int(leaf), int(bit))] * int(n)
+
+    def inject_loss_poison(self, n: int = 1) -> None:
+        """Make the next ``n`` :meth:`step_accumulate` calls RETURN a NaN
+        loss while applying the honest update — the ``PoisonLoss`` fault,
+        which the SDC shadow recompute must refute, not roll back."""
+        self._poison_losses_pending += int(n)
+
+    def flip_param_bits(self, leaf: int = 0, bit: int = 17) -> None:
+        """Flip one bit of one live parameter leaf in place — the
+        ``FlipParamBits`` fault: bit ``bit % 8`` of byte ``(bit // 8) %
+        nbytes`` of leaf ``leaf``, counted as the reference's
+        ``flip_tree_bit`` counts them.  Each live rank calls it; the rank
+        holding that byte flips it (every replica, on a replicated world);
+        a rank standing by does nothing."""
+        if not self.live:
+            return
+        with torch.no_grad():
+            self._strike({n: s.detach() for n, s in self.shards.items()},
+                         leaf, bit)
+        log.warn("injected parameter bit flip", step=self.state.step,
+                 leaf=leaf, bit=bit)
+        get_tracer().instant("sdc_param_bits_flipped", category="chaos",
+                             step=self.state.step, leaf=leaf, bit=bit)
+
+    def _strike(self, local: Mapping[str, torch.Tensor], leaf: int,
+                bit: int) -> bool:
+        """Flip bit ``bit % 8`` of byte ``(bit // 8) % nbytes`` of leaf
+        number ``leaf`` (in the flatten order of its full tensor) in
+        ``local[name]``, this rank's block of it, when the block holds that
+        byte; True when it did."""
+        names = sorted(self._leaves, key=param_path)
+        name = names[leaf % len(names)]
+        buf = self._leaves[name]
+        itemsize = torch.empty((), dtype=buf.dtype).element_size()
+        numel = int(np.prod(buf.shape, dtype=np.int64))
+        element, byte = divmod((bit // 8) % (numel * itemsize), itemsize)
+        index = np.unravel_index(element, buf.shape) if buf.shape else ()
+        block = _placements({name: buf}, self._specs,
+                            self.shape)[name].blocks[self.rank]
+        if not all(lo <= i < hi for i, (lo, hi) in zip(index, block)):
+            return False
+        t = local[name]
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: this rank's block is not contiguous")
+        at = int(np.ravel_multi_index(
+            tuple(i - lo for i, (lo, _) in zip(index, block)),
+            tuple(hi - lo for lo, hi in block))) if buf.shape else 0
+        word = t.reshape(-1)[at:at + 1].view(torch.uint8)
+        word[byte:byte + 1].bitwise_xor_(1 << (bit % 8))
+        return True
 
     # -- the step's collectives --------------------------------------------
 
@@ -949,10 +1186,8 @@ class ElasticTrainer:
                              error=str(exc)[:120])
         get_counters().inc("resizes_failed")
 
-    def _mesh_for(self, shape: MeshShape) -> Mesh:
-        """The dp×fsdp×tp mesh of ``shape`` over the rank prefix of its
-        size, from ``_step_cache`` or built (its process groups on first
-        use: collective)."""
+    def _check_layout(self, shape: MeshShape) -> None:
+        """Raise ValueError unless this trainer can lay out ``shape``."""
         later = [a for a in ("sp", "ep") if getattr(shape, a) > 1]
         if later:
             raise ValueError(
@@ -962,11 +1197,107 @@ class ElasticTrainer:
         if shape.size > 1 and not distributed():
             raise ValueError(f"a world of {shape.size} needs a process group "
                              f"of {shape.size} ranks; none is initialised")
-        key = (shape.size, shape.key())
+        if shape.size > self._group_size:
+            raise ValueError(f"want {shape.size} ranks, the process group "
+                             f"has {self._group_size}")
+
+    @staticmethod
+    def _cache_key(shape: MeshShape) -> tuple:
+        return shape.size, shape.key()
+
+    def _acquire(self, shape: MeshShape) -> tuple[Mesh, bool]:
+        """(the dp×fsdp×tp mesh of ``shape`` over the rank prefix of its
+        size, whether prewarm built it), from ``_step_cache`` or built: a
+        layout still building speculatively is waited for, not built
+        twice; a prewarmed one is warmed here if no quiesce has; one never
+        seen is built now, its new process groups on the group-build
+        thread (collective)."""
+        self._check_layout(shape)
+        key = self._cache_key(shape)
+        self._collect()
+        future = self._building.get(key)
+        if future is not None:
+            done, _ = concurrent.futures.wait([future],
+                                              timeout=BUILD_WAIT_TIMEOUT_S)
+            if not done:
+                raise RuntimeError(
+                    f"the build of {shape.describe()} is still in flight "
+                    f"after {BUILD_WAIT_TIMEOUT_S} s; keeping the current "
+                    "world")
+            self._collect()  # a failed build falls through to build inline
         if key not in self._step_cache:
             self._step_cache[key] = make_mesh(shape.size, shape.to_spec(),
                                               devices=[self.device])
-        return self._step_cache[key]
+            self._sources[key] = "resize"
+        if key in self._cold:
+            self._warm(key)
+        if key in self._prewarm_unused:
+            self._prewarm_unused.remove(key)  # used: exempt from eviction
+        return self._step_cache[key], self._sources[key] == "prewarm"
+
+    def _build_layout(self, shape: MeshShape, union: int) -> tuple:
+        """On the group-build thread: the mesh of ``shape``, the group
+        spanning it and a world of ``union`` ranks, and the build's ms."""
+        t0 = time.perf_counter()
+        mesh = make_mesh(shape.size, shape.to_spec(), devices=[self.device])
+        group = rank_group(union) if union > 1 else None
+        return mesh, (group, union), (time.perf_counter() - t0) * 1000
+
+    def _collect(self) -> None:
+        """Take every finished speculative build into the cache, in
+        submission order (a failed one is counted and dropped), then drop
+        the oldest unused prewarmed layouts past the limit."""
+        for key, future in list(self._building.items()):
+            if not future.done():
+                break  # later builds queue behind this one
+            del self._building[key]
+            try:
+                mesh, group, build_ms = future.result()
+            except Exception as exc:
+                log.warn("mesh prewarm failed; a resize will build inline",
+                         shape=dict(key[1]), error=str(exc)[:200])
+                get_counters().inc("prewarms_failed")
+                continue
+            self._step_cache[key] = mesh
+            self._sources[key] = "prewarm"
+            self._cold[key] = group
+            self._prewarm_unused.append(key)
+            get_tracer().instant("mesh_prewarmed", category="elastic",
+                                 size=key[0], shape=MeshShape.of_mesh(
+                                     mesh).describe(),
+                                 compile_ms=round(build_ms, 2))
+            get_counters().inc("mesh_prewarms")
+        while len(self._prewarm_unused) > self.prewarm_cache_limit:
+            victim = self._prewarm_unused.pop(0)
+            if victim == self._cache_key(self.shape):
+                continue
+            self._cold.pop(victim, None)
+            if self._step_cache.pop(victim, None) is not None:
+                self._sources.pop(victim, None)
+                log.info("evicted unused prewarmed mesh", size=victim[0])
+                get_counters().inc("prewarms_evicted")
+
+    def _warm(self, key: tuple) -> None:
+        """One small all-reduce over each group of the prewarmed layout
+        ``key`` this rank belongs to (its prefix, the group spanning both
+        worlds, its axis lines, its data group), in one order on every
+        rank."""
+        union, size = self._cold.pop(key)
+        mesh = self._step_cache[key]
+        groups = []
+        if self.rank < mesh.size:
+            groups.append(mesh.group)
+        if union is not None and self.rank < size:
+            groups.append(union)
+        groups += [mesh.groups[a] for a in AXES if a in mesh.groups]
+        groups.append(mesh.data)
+        seen = set()
+        for group in groups:
+            if group is None or id(group) in seen:
+                continue
+            seen.add(id(group))
+            _all_reduce(torch.zeros(1, device=self.device),
+                        dist.ReduceOp.SUM, group, PREWARM_LABEL)
 
     def _agree(self, ok: bool) -> bool:
         """True when every rank of the default group says ``ok``."""
@@ -1093,8 +1424,9 @@ class ElasticTrainer:
         union = max(old.size, shape.size)
         error: Optional[Exception] = None
         t0 = time.perf_counter()
+        hit = False
         try:
-            mesh = self._mesh_for(shape)
+            mesh, hit = self._acquire(shape)
             group = rank_group(union) if union > 1 else None
         except Exception as exc:  # voted on below, with every rank
             error = exc
@@ -1118,7 +1450,7 @@ class ElasticTrainer:
                     split=dict(
                         compile_ms=round((t1 - t0) * 1000, 2),
                         replan_ms=round((t3 - t2) * 1000, 3),
-                        prewarm_hit=False, shape=shape.describe(),
+                        prewarm_hit=hit, shape=shape.describe(),
                         bytes_moved=plan.bytes_moved,
                         bytes_ici=plan.bytes_ici, bytes_dcn=plan.bytes_dcn,
                         bytes_naive=plan.bytes_naive, transfer="device"))

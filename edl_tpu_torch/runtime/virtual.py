@@ -45,13 +45,28 @@ differ from the one that saved; the restore raises on every rank unless all
 of them restored that same step.
 
 The KV store is anything with ``kv_set(key, bytes)`` and
-``kv_get(key) -> bytes | None``.  The SDC defense plane (``sdc=``) and its
-rollback are a later item of the port (ROADMAP.md, queue 1 item 7).
+``kv_get(key) -> bytes | None``.
+
+**SDC.**  ``sdc=`` takes an :class:`~edl_tpu_torch.runtime.sdc.SdcPlane`,
+consulted after every update on every rank (a rank standing by too, with no
+loss): under a process group the live replicas' fingerprints are
+cross-checked, rank 0 judges and every rank takes its verdict (the plane's
+module docstring).  A confirmed corruption rolls every rank
+back to the verdict's verified checkpoint at the same step boundary — the
+restore :meth:`VirtualWorkerLoop.restore_latest` uses, into the trainer's
+live layout, the cursors of that step, and the ledger and trajectory
+rewound — and the loop replays through the cursors, so the stitched
+trajectory is bitwise an uninjected run's (replicated accumulation).  A
+refuted NaN loss report is replaced by the shadow's honest loss.  A sharded
+trainer's blocks are folded where they live and combined across its live
+ranks (:meth:`ElasticTrainer.lane_folds`), so its fingerprint is the whole
+tree's, a replicated trainer's on the same parameters.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
@@ -60,10 +75,13 @@ import torch
 import torch.distributed as dist
 
 from edl_tpu_torch.device import resolve
+from edl_tpu_torch.interop import keystr
 from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import get_registry
 from edl_tpu_torch.observability.tracing import get_tracer
+from edl_tpu_torch.runtime.checkpoint import param_path
+from edl_tpu_torch.runtime.sdc import BlockFolds
 
 log = get_logger("runtime.virtual")
 
@@ -461,6 +479,8 @@ class VirtualRunReport:
     world_sizes: list[int] = field(default_factory=list)
     resizes: int = 0
     vw_moves: int = 0
+    #: confirmed-corruption rollbacks the loop performed (SDC plane)
+    rollbacks: int = 0
     #: exactly-once ledger: global row id → times an APPLIED update
     #: trained on it (rows consumed by an aborted accumulation are
     #: re-fetched on restore and must appear exactly once here)
@@ -491,10 +511,9 @@ class VirtualWorkerLoop:
                  augment: Optional[Callable[[tuple, Any], tuple]] = None,
                  report: Optional[VirtualRunReport] = None,
                  sdc=None) -> None:
-        if sdc is not None:
-            raise NotImplementedError(
-                "the SDC defense plane and its rollback are not ported yet "
-                "(ROADMAP.md, queue 1 item 7)")
+        if sdc is not None and not callable(getattr(sdc, "after_step",
+                                                    None)):
+            raise TypeError(f"sdc= takes an SdcPlane, not {type(sdc)}")
         self.trainer = trainer
         self.cfg = cfg
         self.batches = batches
@@ -506,6 +525,13 @@ class VirtualWorkerLoop:
         #: → micro_batch, drawn from the VW lineage, so identical at any
         #: world size
         self.augment = augment
+        #: the SDC defense plane (:class:`edl_tpu_torch.runtime.sdc.
+        #: SdcPlane`), consulted after every update
+        self.sdc = sdc
+        #: (step, row ids) of each step this rank committed, kept only
+        #: under an SDC plane so a rollback can rewind the ledger
+        self._committed: Optional[list[tuple[int, list[int]]]] = (
+            [] if sdc is not None else None)
         self.report = report or VirtualRunReport()
         self.ownership: Optional[OwnershipMap] = None
         self.cursors = CursorStore(kv, job) if kv is not None else None
@@ -562,6 +588,13 @@ class VirtualWorkerLoop:
             step = None if step < 0 else step
         if step is None:
             return None
+        return self._restore(step)
+
+    def _restore(self, step: int) -> int:
+        """Every rank: restore ``step`` (or the newest good step before it)
+        into the trainer's live layout, agree that every rank restored the
+        same one, and take its cursors; returns the step restored."""
+        group = dist.is_available() and dist.is_initialized()
         tree = {"params": self.trainer.state.params,
                 "opt": self.trainer.state.opt_state}
         error: Optional[BaseException] = None
@@ -638,11 +671,13 @@ class VirtualWorkerLoop:
             world_size_for: Optional[Callable[[int], int]] = None,
             on_step: Optional[Callable[[int, float, int], None]] = None
             ) -> VirtualRunReport:
-        """Run up to ``max_steps`` steps (every rank counts the steps it
-        took part in, live or not); ``on_step(step, loss, world)`` runs on
-        the live ranks after each applied update."""
-        steps_run = 0
-        while max_steps is None or steps_run < max_steps:
+        """Advance the stream ``max_steps`` steps (every rank counts the
+        steps it took part in, live or not; a rollback takes back the steps
+        it undoes, so they are replayed within the same call);
+        ``on_step(step, loss, world)`` runs on the live ranks after each
+        applied update."""
+        start = self.batches.step
+        while max_steps is None or self.batches.step - start < max_steps:
             step = self.batches.step
             if world_size_for is not None:
                 self._apply_world(world_size_for(step))
@@ -651,7 +686,6 @@ class VirtualWorkerLoop:
             micro = self.batches.next_step()
             if micro is None:
                 break
-            steps_run += 1
             # derive the generators only when something consumes them
             keys = None
             if self.augment is not None or self.trainer.rng_in_loss:
@@ -662,14 +696,35 @@ class VirtualWorkerLoop:
                 micro = [self.augment(mb, k) for mb, k in zip(micro, keys)]
             loss = self.trainer.step_accumulate(
                 micro, rng_keys=keys if self.trainer.rng_in_loss else None)
+            if self.sdc is not None:
+                # the SDC ladder runs BEFORE the step's effects commit: a
+                # confirmed corruption must never reach the ledger, the
+                # trajectory or a verified save
+                verdict = self.sdc.after_step(
+                    self.batches.step, loss, self._fingerprinted(),
+                    gather=self._gather if dist.is_available()
+                    and dist.is_initialized() else None)
+                if verdict is not None:
+                    if verdict.outcome == "confirmed":
+                        if self._rollback(verdict):
+                            continue  # replay from the verified anchor
+                    elif (loss is not None and not np.isfinite(loss)
+                          and np.isfinite(verdict.shadow_loss)):
+                        # refuted NaN: the params are clean and the shadow
+                        # recomputed the honest loss — repair the METRIC
+                        loss = verdict.shadow_loss
+                        get_counters().inc("sdc_losses_repaired")
             if loss is None:
                 continue  # standing by: cursors advanced, nothing applied
             # the update APPLIED: commit this step's rows to the
             # exactly-once ledger and persist the cursors
-            for ids in self.batches.last_step_rows:
-                for gid in ids.tolist():
-                    self.report.rows_trained[gid] = (
-                        self.report.rows_trained.get(gid, 0) + 1)
+            gids = [gid for ids in self.batches.last_step_rows
+                    for gid in ids.tolist()]
+            for gid in gids:
+                self.report.rows_trained[gid] = (
+                    self.report.rows_trained.get(gid, 0) + 1)
+            if self._committed is not None:
+                self._committed.append((self.batches.step, gids))
             if self.cursors is not None and self.writer:
                 self.cursors.save(self.batches.state())
             self.report.losses.append(float(loss))
@@ -686,7 +741,68 @@ class VirtualWorkerLoop:
             if on_step is not None:
                 on_step(self.batches.step, float(loss),
                         self.trainer.world_size)
+        if self.sdc is not None:
+            self.sdc.fingerprinter.drain()
         return self.report
+
+    def _fingerprinted(self):
+        """What the SDC plane fingerprints: the module's parameters, or a
+        sharded trainer's blocks folded in place
+        (:class:`~edl_tpu_torch.runtime.sdc.BlockFolds`)."""
+        tr = self.trainer
+        if not tr.sharded:
+            return tr.state.params
+        return BlockFolds(
+            lanes=tr.lane_folds, device=tr.device, layout=tr.shape,
+            whole=lambda: {keystr(param_path(n)): t
+                           for n, t in tr.full_params().items()})
+
+    def _gather(self, values) -> list[list[float]]:
+        """Every rank's ``values`` (as many on each) on every rank of the
+        default group, by rank."""
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=self.trainer.device)
+        out = torch.empty(dist.get_world_size() * t.numel(),
+                          dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t)
+        return out.view(-1, t.numel()).tolist()
+
+    def _rollback(self, verdict) -> bool:
+        """Every rank: roll the loop back to ``verdict.rollback_step`` (the
+        newest verified checkpoint before the corruption) — the state and
+        the cursors through :meth:`_restore`, then the exactly-once ledger
+        and the recorded trajectory rewound past the step restored — and
+        let :meth:`run` replay.  False when no verified anchor exists (the
+        loop continues damaged: counted, never wedged)."""
+        target = verdict.rollback_step or 0
+        if self.checkpointer is None or target <= 0:
+            log.warn("sdc rollback impossible: no verified checkpoint "
+                     "precedes the corruption", step=verdict.step)
+            get_counters().inc("sdc_rollbacks_skipped")
+            return False
+        t0 = time.monotonic()
+        step = self._restore(target)
+        while self._committed and self._committed[-1][0] > step:
+            _, gids = self._committed.pop()
+            for gid in gids:
+                n = self.report.rows_trained.get(gid, 0) - 1
+                if n > 0:
+                    self.report.rows_trained[gid] = n
+                else:
+                    self.report.rows_trained.pop(gid, None)
+            self.report.losses.pop()
+            self.report.world_sizes.pop()
+        if self.cursors is not None and self.writer:
+            self.cursors.save(self.batches.state())
+        self.report.rollbacks += 1
+        elapsed_ms = round((time.monotonic() - t0) * 1000, 2)
+        log.warn("sdc rollback complete; replaying through VW cursors",
+                 from_step=verdict.step, to_step=step, elapsed_ms=elapsed_ms)
+        get_tracer().instant("sdc_rollback", category="chaos",
+                             from_step=verdict.step, to_step=step,
+                             elapsed_ms=elapsed_ms)
+        get_counters().inc("sdc_rollbacks")
+        return True
 
 
 # -- divergence accounting ---------------------------------------------------

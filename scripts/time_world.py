@@ -15,6 +15,14 @@ the parameters are laid out by FLAGSHIP's partition specs: each rank holds
 its tp block of every matrix, the ranks of one tp index hold the same
 blocks, and every rank the same norms, which is what is checked then.
 
+With ``--prewarm`` each rank calls ``prewarm([N])`` and
+``prewarm_quiesce()`` after its world-1 steps, before ``resize(N)``: the
+wide layout's process groups are built and their first collective (where
+NCCL creates each communicator) taken before the resize, which then pays
+only the move.  Run the script with and without it in one call to read the
+share of ``resize(N)`` that is group and communicator set-up; each rank's
+record carries the host ms of each resize and of the prewarm.
+
 ``chip_smoke.py`` phase (j) runs the same trainer on two ranks sharing one
 card, with the kernel launch counts and a one-rank control.
 """
@@ -54,7 +62,7 @@ def fingerprint(tensors) -> list[int]:
 
 
 def rank_main(rank: int, ranks: int, store: str, out: str,
-              tp: int = 1) -> None:
+              tp: int = 1, prewarm: bool = False) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     one, kw = 1, {}
     if tp > 1:
@@ -67,10 +75,22 @@ def rank_main(rank: int, ranks: int, store: str, out: str,
                                             **kw)
     norms = [n for n, spec in trainer.partition_specs().items()
              if not any(spec)]
-    rec = dict(rank=rank, tp_index=rank % tp, steps=[], resized=[])
+    rec = dict(rank=rank, tp_index=rank % tp, steps=[], resized=[],
+               resize_ms=[], prewarm_ms=None)
     for world, steps in ((one, 3), (ranks, 6), (one, 2)):
+        if prewarm and world == ranks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.prewarm([world])
+            rec["quiet"] = trainer.prewarm_quiesce(CHILD_TIMEOUT_S)
+            torch.cuda.synchronize()
+            rec["prewarm_ms"] = 1e3 * (time.perf_counter() - t0)
         if not trainer.matches(world):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             rec["resized"].append(trainer.resize(world))
+            torch.cuda.synchronize()
+            rec["resize_ms"].append(1e3 * (time.perf_counter() - t0))
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -95,6 +115,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--prewarm", action="store_true",
+                    help="prewarm the wide layout before resizing to it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_world: no CUDA device", file=sys.stderr)
@@ -108,7 +130,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(args.ranks)]
         procs = [ctx.Process(target=rank_main, args=(
-            r, args.ranks, os.path.join(tmp, "store"), outs[r], args.tp))
+            r, args.ranks, os.path.join(tmp, "store"), outs[r], args.tp,
+            args.prewarm))
             for r in range(args.ranks)]
         try:
             for p in procs:
@@ -148,11 +171,17 @@ def main(argv=None) -> int:
             failures.append(f"step {i}: the live ranks differ")
     if not all(all(rec["resized"]) for rec in recs):
         failures.append("a resize failed")
+    if args.prewarm and not all(
+            rec["quiet"] and rec["events"][0]["prewarm_hit"] for rec in recs):
+        failures.append("the prewarmed resize was no prewarm hit")
     by_world = {}
     for s in recs[0]["steps"]:
         by_world.setdefault(s["world"], []).append(round(s["ms"], 2))
     print(json.dumps(dict(
-        ranks=args.ranks, tp=args.tp, backend=recs[0]["backend"], card=card,
+        ranks=args.ranks, tp=args.tp, prewarm=args.prewarm,
+        backend=recs[0]["backend"], card=card,
+        resize_ms_by_rank=[rec["resize_ms"] for rec in recs],
+        prewarm_ms_by_rank=[rec["prewarm_ms"] for rec in recs],
         cards=torch.cuda.device_count(), step_ms_rank0=by_world,
         median_step_ms={w: float(np.median(ms[1:]))
                         for w, ms in by_world.items()},

@@ -35,6 +35,7 @@ from edl_tpu_torch.parallel import mesh
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 from edl_tpu_torch.runtime.virtual import VirtualConfig, VirtualWorkerLoop
+from edl_tpu_torch.runtime.sdc import SdcPlane
 
 #: each world's children are joined within WORLD_DEADLINE_S and killed after
 #: it; a test's own ceiling (tests/conftest.py) sits above that
@@ -496,13 +497,16 @@ def test_dryrun_refuses_other_sizes(n):
 
 def test_durable_loop_refuses_an_fsdp_trainer():
     """The loop takes an fsdp trainer (its whole state is gathered to rank
-    0 for a save and restored into any layout); what it still refuses on
-    one is the SDC plane, naming that item."""
+    0 for a save and restored into any layout) and an SDC plane on it
+    (its blocks folded where they live); what it refuses is an ``sdc=``
+    that is no plane."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
     cfg = VirtualConfig(vw_count=2, global_batch=4)
     t = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                        devices=[torch.device("cpu")], param_sharding="fsdp",
                        spec=mesh.MeshSpec(dp=1, fsdp=-1))
     assert VirtualWorkerLoop(t, cfg, batches=None).trainer is t
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="SdcPlane"):
         VirtualWorkerLoop(t, cfg, batches=None, sdc=object())
+    plane = SdcPlane()
+    assert VirtualWorkerLoop(t, cfg, batches=None, sdc=plane).sdc is plane

@@ -188,6 +188,14 @@ def test_durable_loop_modules_are_scanned():
             "edl_tpu_torch.runtime.watchdog"} <= mods
 
 
+def test_sdc_plane_modules_are_scanned():
+    """The SDC plane's modules (the grown sdc.py, faults.py) and the
+    prewarm's group-build queue stand in the scans above."""
+    assert {"edl_tpu_torch.runtime.sdc", "edl_tpu_torch.runtime.faults",
+            "edl_tpu_torch.parallel.mesh",
+            "edl_tpu_torch.observability.collector"} <= set(_port_modules())
+
+
 def test_durable_loop_raises_without_cuda(monkeypatch, tmp_path):
     from edl_tpu_torch.entry import flagship_virtual_world
     from edl_tpu_torch.models import mlp

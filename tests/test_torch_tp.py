@@ -38,6 +38,7 @@ from edl_tpu_torch.parallel.replan import (Placement, plan_reshard,
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 from edl_tpu_torch.runtime.virtual import VirtualConfig, VirtualWorkerLoop
+from edl_tpu_torch.runtime.sdc import SdcPlane
 
 #: each world's children are joined within WORLD_DEADLINE_S and killed after
 #: it; a test's own ceiling (tests/conftest.py) sits above that
@@ -529,8 +530,8 @@ def test_spec_trainer_refuses_axes_it_cannot_split():
 def test_durable_loop_refuses_a_spec_placed_trainer():
     """A trainer placed by partition specs holds blocks, as an fsdp one
     does; the loop takes it (its whole state is gathered to rank 0 for a
-    save and restored into any layout) and still refuses the SDC plane on
-    it, naming that item."""
+    save and restored into any layout) and an SDC plane on it; what it
+    refuses is an ``sdc=`` that is no plane."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
     t = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                        devices=[torch.device("cpu")], param_sharding=SPECS,
@@ -538,5 +539,7 @@ def test_durable_loop_refuses_a_spec_placed_trainer():
     assert t.sharded and t.param_sharding_kind == "specs"
     cfg = VirtualConfig(vw_count=2, global_batch=4)
     assert VirtualWorkerLoop(t, cfg, batches=None).trainer is t
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="SdcPlane"):
         VirtualWorkerLoop(t, cfg, batches=None, sdc=object())
+    plane = SdcPlane()
+    assert VirtualWorkerLoop(t, cfg, batches=None, sdc=plane).sdc is plane

@@ -324,8 +324,19 @@ class TestAccumulation:
 
 class TestLoop:
     def test_sdc_plane_is_refused_not_ignored(self):
+        """The loop takes the SDC plane and runs it (its drills are
+        tests/test_torch_sdc_plane.py); an ``sdc=`` that is no plane is
+        refused, not ignored."""
+        from edl_tpu_torch.runtime.sdc import SdcPlane
+
         reg, ids = _registry()
-        with pytest.raises(NotImplementedError, match="item 7"):
+        plane = SdcPlane()
+        loop = VirtualWorkerLoop(_trainer(), CFG,
+                                 VirtualBatches(CFG, ids, reg.get), sdc=plane)
+        assert loop.sdc is plane
+        assert loop.run(max_steps=2).rollbacks == 0
+        assert plane.fingerprinter.local and not plane.verdicts
+        with pytest.raises(TypeError, match="SdcPlane"):
             VirtualWorkerLoop(_trainer(), CFG,
                               VirtualBatches(CFG, ids, reg.get),
                               sdc=object())

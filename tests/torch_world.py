@@ -455,6 +455,12 @@ class DictKV:
     def kv_get(self, key: str):
         return self.data.get(key)
 
+    def kv_del(self, key: str) -> bool:
+        return self.data.pop(key, None) is not None
+
+    def kv_keys(self, prefix: str = "") -> list:
+        return sorted(k for k in self.data if k.startswith(prefix))
+
 
 def suite_virtual(rank: int, world: int, store: str, mlp_params: dict,
                   data: tuple, seed: int) -> dict:
@@ -1492,7 +1498,365 @@ def suite_lineage(rank: int, world: int, store: str, tiny_params: dict,
     return _run_scenarios([write], rank)
 
 
+# -- the prewarm suites -------------------------------------------------------
+
+
+def suite_prewarm(rank: int, world: int, store: str, data: tuple) -> dict:
+    """tests/test_prewarm.py's scenarios on MLP trainers over gloo, in a
+    world of 2 (a trainer on 1 growing to 2) or 4 (on 2 growing to 3,
+    whose prefix group is a new one): every rank calls prewarm, quiesce
+    and resize at the same points."""
+    from concurrent.futures import Future
+
+    from edl_tpu_torch.observability.collector import get_counters
+    from edl_tpu_torch.parallel.mesh import submit_build
+
+    _join(rank, world, store)
+    x, y = data
+    batch = (x[:48], y[:48])  # splits over 1, 2, 3 and 4 ranks
+    n0, grow = (1, 2) if world == 2 else (2, 3)
+    #: every other layout of this world, and a cache limit they overflow
+    hints = ([2, MeshShape(fsdp=2)] if world == 2 else
+             [3, 4, MeshShape(fsdp=2), MeshShape(fsdp=4),
+              MeshShape(dp=2, fsdp=2)])
+    limit = len(hints) // 2
+    swing = world if world == 4 else MeshShape(fsdp=2)
+
+    def counting():
+        calls = []
+        real = dist.new_group
+
+        def count(*a, **k):
+            calls.append(a)
+            return real(*a, **k)
+
+        dist.new_group = count
+        return calls, real
+
+    def hit_skips_build(rank):
+        t = mlp_trainer(n0)
+        t.step(batch)
+        got = dict(future=isinstance(t.prewarm([grow], wait=True), Future),
+                   resized=t.resize(grow))
+        got.update(event=t.resize_events[-1], loss=t.step(batch),
+                   world=t.world_size)
+        return got
+
+    def mid_prewarm_waits(rank):
+        t = mlp_trainer(n0)
+        t.step(batch)
+        before = get_counters().get("mesh_prewarms")
+        calls, real = counting()
+        try:
+            # a slow build ahead of it keeps the prewarm in flight
+            submit_build(time.sleep, 0.5)
+            t.prewarm([grow])
+            building = t.is_building(grow)
+            resized = t.resize(grow)
+        finally:
+            dist.new_group = real
+        return dict(building=building, resized=resized,
+                    hit=t.resize_events[-1]["prewarm_hit"],
+                    cached=t._cache_key(t.shape) in t._step_cache,
+                    in_flight=len(t._building), loss=t.step(batch),
+                    prewarms=get_counters().get("mesh_prewarms") - before,
+                    new_groups=[list(a[0]) for a in calls])
+
+    def unused_bounded(rank):
+        t = mlp_trainer(n0, prewarm_cache_limit=limit)
+        t.step(batch)
+        before = get_counters().get("prewarms_evicted")
+        for target in hints:
+            t.prewarm([target], wait=True)
+        return dict(limit=limit, hints=len(hints),
+                    speculative=sum(v == "prewarm"
+                                    for v in t._sources.values()),
+                    unused=len(t._prewarm_unused),
+                    evicted=get_counters().get("prewarms_evicted") - before,
+                    loss=t.step(batch))
+
+    def used_exempt(rank):
+        t = mlp_trainer(n0, prewarm_cache_limit=1)
+        t.step(batch)
+        t.prewarm([grow], wait=True)
+        resized = t.resize(grow)
+        live = t._step_cache[t._cache_key(t.shape)]
+        for target in hints:
+            t.prewarm([target], wait=True)  # eviction pressure
+        return dict(resized=resized,
+                    kept=t._step_cache.get(t._cache_key(t.shape)) is live)
+
+    def rollback(rank):
+        t = mlp_trainer(n0)
+        t.step(batch)
+        t.prewarm([grow], wait=True)
+        real = elastic._fresh
+
+        def no_memory(*a, **k):
+            raise RuntimeError("planted: out of memory staging the resize")
+
+        elastic._fresh = no_memory
+        try:
+            failed = t.resize(grow)
+        finally:
+            elastic._fresh = real
+        got = dict(failed=failed, world=t.world_size,
+                   resizes_failed=t.resizes_failed, loss=t.step(batch))
+        got.update(retry=t.resize(grow),
+                   hit=t.resize_events[-1]["prewarm_hit"],
+                   after=t.step(batch))
+        return got
+
+    def skips_invalid(rank):
+        t = mlp_trainer(n0)
+        return t.prewarm([0, -1, 10_000, t.world_size, None,
+                          MeshShape(sp=2)])
+
+    def event_split(rank):
+        hits = get_counters().get("prewarm_hits")
+        misses = get_counters().get("prewarm_misses")
+        cold = mlp_trainer(n0)
+        cold.step(batch)
+        cold.resize(grow)
+        warm = mlp_trainer(n0)
+        warm.step(batch)
+        warm.prewarm([grow], wait=True)
+        warm.resize(grow)
+        return dict(cold=cold.resize_events[-1], warm=warm.resize_events[-1],
+                    hits=get_counters().get("prewarm_hits") - hits,
+                    misses=get_counters().get("prewarm_misses") - misses)
+
+    def oscillation(rank):
+        got = {}
+        for i, sizes in enumerate(((grow, swing), (swing, grow))):
+            t = mlp_trainer(n0)
+            losses = [t.step(batch) for _ in range(3)]
+            seen = []
+            for n in sizes + (n0,):
+                t.prewarm([n], wait=True)
+                seen.append((t.resize(n), t.resize_events[-1]["prewarm_hit"]
+                             if t.resize_events else None))
+                losses += [t.step(batch) for _ in range(3)]
+            got[i] = dict(losses=losses, seen=seen)
+        return got
+
+    def prewarm_then_inline(rank):
+        """Speculative builds queued, then a resize to a layout none of
+        them builds (its groups built inline, queued behind them), then one
+        that was prewarmed; against the same resizes cold."""
+        other = MeshShape(fsdp=2) if world == 2 else MeshShape(dp=2, fsdp=2)
+        t = mlp_trainer(n0)
+        t.step(batch)
+        t.prewarm([grow, world])  # 2 is the world of 2's grow
+        ok = [t.resize(other)]
+        t.step(batch)
+        ok.append(t.resize(grow))
+        t.step(batch)
+        cold = mlp_trainer(n0)
+        cold.step(batch)
+        ok.append(cold.resize(other))
+        cold.step(batch)
+        ok.append(cold.resize(grow))
+        cold.step(batch)
+        return dict(ok=ok, hits=[e["prewarm_hit"] for e in t.resize_events],
+                    same=digest(t) == digest(cold), quiet=t.prewarm_quiesce())
+
+    return _run_scenarios(
+        [mid_prewarm_waits, hit_skips_build, unused_bounded, used_exempt,
+         rollback, skips_invalid, event_split, oscillation,
+         prewarm_then_inline], rank)
+
+
+# -- the SDC suite ------------------------------------------------------------
+
+
+def suite_sdc(rank: int, world: int, store: str, mlp_params: dict,
+              tiny_params: dict, data: tuple, seed: int, strike: dict,
+              seams: list) -> dict:
+    """The SDC plane on two ranks: the drills on a replicated MLP job that
+    grows 1→2 (rank 0 judges, both ranks take its verdict), and the
+    trainer's seams on replicated, fsdp and tp TINY trainers."""
+    from edl_tpu_torch.runtime.checkpoint import (ElasticCheckpointer,
+                                                  param_path)
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.faults import (CorruptGradient, FaultContext,
+                                              FaultPlan, FaultPlanEngine,
+                                              PoisonLoss)
+    from edl_tpu_torch.runtime.sdc import (AnomalyDetector, SdcPlane,
+                                           ShadowRecompute,
+                                           UpdateFingerprinter)
+    from edl_tpu_torch.runtime.virtual import (VirtualBatches, VirtualConfig,
+                                               VirtualWorkerLoop)
+
+    _join(rank, world, store)
+    tmp = Path(store).parent
+    cfg = VirtualConfig(vw_count=8, global_batch=64, job_seed=seed)
+    reg = ShardRegistry()
+    ids = reg.register_arrays(data, num_shards=16)
+    cpu = torch.device("cpu")
+    grow = lambda s: 1 if s < 4 else 2  # noqa: E731
+
+    def trainer(n, **kw):
+        model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                          mlp_params)
+        return ElasticTrainer(mlp.loss_fn, model, optim.adam(1e-2),
+                              devices=[cpu], initial_world_size=n,
+                              accum_mode="replicated", **kw)
+
+    def batches():
+        return VirtualBatches(cfg, ids, reg.get, passes=2)
+
+    def plane(ck=None):
+        shadow = ShadowRecompute(lambda: trainer(1), batches, cfg,
+                                 checkpointer=ck)
+        return SdcPlane(fingerprinter=UpdateFingerprinter(),
+                        detector=AnomalyDetector(), shadow=shadow,
+                        checkpointer=ck)
+
+    def run(sdc=None, ck=None, on_step=None, tr=None):
+        tr = tr or trainer(grow(0))
+        loop = VirtualWorkerLoop(tr, cfg, batches(), checkpointer=ck,
+                                 ckpt_every=5 if ck else 0, sdc=sdc)
+        rep = loop.run(max_steps=14, world_size_for=grow, on_step=on_step)
+        return dict(losses=rep.losses, rows=dict(rep.rows_trained),
+                    rollbacks=rep.rollbacks, live=tr.live, digest=digest(tr),
+                    verdicts=[(v.step, v.trigger, v.outcome, v.rollback_step)
+                              for v in sdc.verdicts] if sdc else [],
+                    suspects=[v.suspects for v in sdc.verdicts] if sdc
+                    else [])
+
+    def control(rank):
+        return run()
+
+    def flip_drill(rank, kind="replicated", **kw):
+        ck = ElasticCheckpointer(tmp / f"ckpt-flip-{kind}")
+        tr = trainer(grow(0), **kw)
+        fired = []
+
+        def on_step(step, loss, world_size):
+            if step == 7 and not fired:
+                fired.append(step)
+                tr.flip_param_bits(**strike)
+
+        got = run(plane(ck), ck, on_step, tr)
+        ck.close()
+        got.pop("digest")  # a sharded rank's digest is of its blocks
+        return dict(got, fired=fired,
+                    params={k: v.tolist()
+                            for k, v in full_numpy(tr).items()}
+                    if tr.live else None)
+
+    def fsdp_flip_drill(rank):
+        return flip_drill(rank, "fsdp", param_sharding="fsdp", spec=FSDP)
+
+    def sharded_fingerprints(rank):
+        """The fingerprint of fsdp-2, tp-2 and an odd-shaped bf16 fsdp-2
+        trainer's blocks, folded where they live and combined, against the
+        host fold of the whole parameters."""
+        from edl_tpu_torch.runtime.sdc import (BlockFolds, fold_fingerprint,
+                                               leaf_fold)
+
+        class Odd(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                gen = torch.Generator().manual_seed(7)
+                self.a = torch.nn.Parameter(torch.randn(
+                    6, 5, generator=gen).to(torch.bfloat16))
+                self.b = torch.nn.Parameter(torch.randn(
+                    3, 7, generator=gen).to(torch.bfloat16))
+                self.c = torch.nn.Parameter(torch.randn(
+                    4, 3, generator=gen))
+
+        def odd_loss(model, batch):
+            return sum((p.float() ** 2).sum() for p in model.parameters())
+
+        trainers = {
+            "fsdp": tiny_trainer(tiny_params, initial_world_size=2,
+                                 param_sharding="fsdp", spec=FSDP),
+            "tp": tiny_trainer(tiny_params, initial_world_size=2,
+                               param_sharding=tfm.param_partition_specs(
+                                   tfm.TINY), spec=MeshSpec(tp=-1)),
+            "odd": ElasticTrainer(odd_loss, Odd(), optim.adam(1e-2),
+                                  devices=[cpu], param_sharding="fsdp",
+                                  spec=FSDP)}
+        got = {}
+        for name, t in trainers.items():
+            def whole(t=t):
+                return {interop.keystr(param_path(n)): p
+                        for n, p in t.full_params().items()}
+
+            fp = UpdateFingerprinter().fingerprint(BlockFolds(
+                lanes=t.lane_folds, whole=whole, device=t.device))
+            got[name] = dict(
+                fp=fp, split=sorted(n for n, spec in
+                                    t.partition_specs().items() if any(spec)),
+                host=fold_fingerprint({k: leaf_fold(v)
+                                       for k, v in whole().items()}))
+        return got
+
+    def poison_drill(rank):
+        tr = trainer(grow(0))
+        engine = FaultPlanEngine(FaultPlan(actions=[PoisonLoss(at_step=6)]),
+                                 FaultContext(trainer=tr))
+        got = run(plane(), None, engine, tr)
+        return dict(got, quiescent=engine.quiescent(),
+                    recovered=engine.recovered)
+
+    def corrupt_drill(rank):
+        """A corrupt gradient on rank 1's replica alone: the replicas'
+        fingerprints split, and the shadow names rank 1."""
+        ck = ElasticCheckpointer(tmp / "ckpt-corrupt")
+        tr = trainer(grow(0))
+        actions = [CorruptGradient(at_step=7)] if rank == 1 else []
+        engine = FaultPlanEngine(FaultPlan(actions=actions),
+                                 FaultContext(trainer=tr))
+        got = run(plane(ck), ck, engine, tr)
+        ck.close()
+        return dict(got, quiescent=engine.quiescent(),
+                    recovered=engine.recovered)
+
+    def seams_by_layout(rank):
+        """For each layout, the whole params: after one step clean and
+        after the same step with each gradient strike (SGD, so a struck
+        gradient shows in the params), and at init with and without the
+        parameter flips."""
+        tokens = np.random.default_rng(5).integers(0, 256, (4, 33))
+        micro = [(tokens[i:i + 2, :-1], tokens[i:i + 2, 1:])
+                 for i in (0, 2)]
+        layouts = {"replicated": {},
+                   "fsdp": dict(param_sharding="fsdp", spec=FSDP),
+                   "tp": dict(param_sharding=tfm.param_partition_specs(
+                       tfm.TINY), spec=MeshSpec(tp=-1))}
+        got = {}
+        for name, kw in layouts.items():
+            def fresh():
+                return tiny_trainer(tiny_params, optimizer=sgd,
+                                    initial_world_size=2,
+                                    accum_mode="replicated", **kw)
+
+            out = {}
+            for run_name, strike_at in (("clean", None), ("grad0", 0),
+                                        ("grad1", 1)):
+                t = fresh()
+                if strike_at is not None:
+                    t.inject_update_corruption(1, **seams[strike_at])
+                t.step_accumulate(micro)
+                out[run_name] = full_numpy(t)
+            t = fresh()
+            out["init"] = full_numpy(t)
+            for flip in seams[2:]:
+                t.flip_param_bits(**flip)
+            out["flipped"] = full_numpy(t)
+            got[name] = out
+        return got
+
+    return _run_scenarios([control, flip_drill, fsdp_flip_drill,
+                           poison_drill, corrupt_drill, sharded_fingerprints,
+                           seams_by_layout], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
-          "sharded": suite_sharded, "lineage": suite_lineage}
+          "sharded": suite_sharded, "lineage": suite_lineage,
+          "prewarm": suite_prewarm, "sdc": suite_sdc}
