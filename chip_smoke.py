@@ -34,8 +34,9 @@ Phases, each of which raises on failure:
     d 64, non-causal), at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk and
     d, causal), at the local batch of a live rank of (j) and (l) on a
     world of 2 (b 8), at a rank's heads on (m)'s tp 2 (b 16, h 4,
-    hk 1), and at (o)'s tp-2 micro-batch (b 2, h 4, hk 1), checked and
-    timed as in (b);
+    hk 1), at (o)'s tp-2 micro-batch (b 2, h 4, hk 1), and at a rank's
+    heads of BERT-base on (r)'s tp 2 (b 32, s 512, h = hk = 6, d 64,
+    non-causal), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -166,6 +167,34 @@ Phases, each of which raises on failure:
     fold, the shadow's and the rollback's ms, both resizes' ``compile_ms``
     and the flash launches a step.
 
+(q) the control plane's elastic job: two spawned ranks share the card over
+    gloo (``entry.flagship_local_job``: the FLAGSHIP trainer, replicated,
+    and on rank 0 a ``PyCoordService``, a ``FakeCluster`` of two one-card
+    nodes, the ``TrainingJob`` and 8 leased tasks of one global batch of 16
+    x 1024 each).  ``LocalElasticJob`` runs on both ranks: rank 0 reads the
+    pods, leases the batch and broadcasts one frame a step; the harness
+    turns the dial 1 → 2 after step 3 and 2 → 1 after step 6, and after
+    step 2 a second lease holder takes a task and dies
+    (``release_worker``).  Gates: every task trained once and the queue
+    drained; the worlds following the dial with 2 resizes and no deferred
+    step; every loss within ``WORLD_LOSS_ATOL`` of a one-rank control fed
+    rank 0's batches in its order; 8 launches of each flash kernel a step
+    on a live rank and none on one standing by.  Then the virtual drive
+    (``virtual=`` (k)'s config and shard stream) for 4 steps with the dial
+    turned to 2 after step 2: its losses bitwise (k)'s control's, no row
+    duplicated or missing, 64 launches a step on a live rank.  Prints step
+    ms by world, the lease-and-broadcast ms of each step, each resize's
+    ``compile_ms``, ``reshard_ms`` and ``bytes_moved``,
+    ``resize_deferred_steps`` and ``prewarm_hits``.
+(r) BERT-base MLM at tp 2: two spawned ranks share the card over gloo
+    (``entry.bert_tp_world``: BERT-base laid out by its partition specs
+    over ``MeshSpec(tp=-1)``, 32 x 512, adamw(3e-4)) for 3 steps.  Gates:
+    every split leaf and its Adam moments at exactly half their bytes on
+    each rank; the norms and losses bitwise equal across the ranks after
+    every step; the losses within ``WORLD_LOSS_ATOL`` of a world-1 control
+    from the same weights and batch; 12 launches of each flash kernel a
+    step on each rank.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Each kernel is held to the element-wise rule of
 ``edl_tpu_torch/ops/kernel_check.py``; ``python -m
@@ -195,11 +224,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edl_tpu_torch.entry import (DECODE_DEFAULTS, bert_trainer,
+from edl_tpu_torch.entry import (DECODE_DEFAULTS, VIRTUAL_ROWS,
+                                 VIRTUAL_SHARDS, bert_tp_world, bert_trainer,
                                  dryrun_multichip, entry,
                                  flagship_decode_fleet, flagship_elastic_world,
-                                 flagship_tp_world, flagship_trainer,
-                                 flagship_virtual_world, resnet_trainer)
+                                 flagship_local_job, flagship_tp_world,
+                                 flagship_trainer, flagship_virtual_world,
+                                 resnet_trainer)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
@@ -217,7 +248,8 @@ from edl_tpu_torch.observability.tracing import get_tracer
 from edl_tpu_torch.runtime.kvcache import KVBlockPool
 from edl_tpu_torch.runtime.virtual import (DEFAULT_LOSS_ATOL,
                                            DEFAULT_LOSS_RTOL, VirtualBatches,
-                                           VirtualWorkerLoop, loss_divergence,
+                                           VirtualConfig, VirtualWorkerLoop,
+                                           loss_divergence,
                                            trajectories_equivalent)
 from edl_tpu_torch.runtime.watchdog import StallWatchdog
 from edl_tpu_torch.ops import _build
@@ -323,6 +355,18 @@ WATCH_SESSIONS, WATCH_PROMPT_LEN, WATCH_NEW_TOKENS = 4, 64, 256
 SDC_STEPS, SDC_CKPT_EVERY, SDC_STRIKE_STEP = 5, 3, 4
 SDC_FLIP = dict(leaf=-1, bit=30)
 SDC_PAUSE_REPS = 3
+
+#: phase (q): after step k the harness turns the trainer count to
+#: LOCAL_DIAL[k]; after step LOCAL_GHOST_AT a second lease holder takes a
+#: task and dies; the virtual drive's steps and its dial
+LOCAL_DIAL = {3: 2, 6: 1}
+LOCAL_GHOST_AT = 2
+LOCAL_VIRTUAL_STEPS = 4
+LOCAL_VIRTUAL_DIAL = {2: 2}
+#: phase (r): the steps at tp 2, and BERT-base's layers (one launch of each
+#: flash kernel a layer a step)
+BERT_TP_STEPS = 3
+BERT_LAYERS = 12
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -1596,13 +1640,14 @@ def instrument(trainer, steps: list, watchdog=None) -> None:
     trainer.step_accumulate = timed
 
 
-def rows_once(reports) -> dict:
-    """The exactly-once ledger of several runs of one job, merged."""
+def rows_once(reports, steps: int = VIRTUAL_STEPS) -> dict:
+    """The exactly-once ledger of several runs of one job over ``steps``
+    steps, merged."""
     rows: dict[int, int] = {}
     for rep in reports:
         for gid, c in rep.rows_trained.items():
             rows[gid] = rows.get(gid, 0) + c
-    want = VIRTUAL_STEPS * B
+    want = steps * B
     return dict(duplicated=sum(c - 1 for c in rows.values() if c > 1),
                 missing=want - len(rows), trained=sum(rows.values()))
 
@@ -2619,6 +2664,248 @@ def phase_sdc(card: str, control: list) -> dict:
     return {k: launches[k] for k in FLASH}
 
 
+# -- phase (q): the control plane's elastic job ---------------------------------
+
+
+def instrument_steps(trainer, steps: list) -> None:
+    """Record every ``step`` of ``trainer`` into ``steps``: its world,
+    whether this rank was live, its loss, its host ms between two
+    ``synchronize()``s and its flash launches."""
+    real = trainer.step
+
+    def timed(batch):
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = real(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(
+            world=trainer.world_size, live=trainer.live, loss=loss,
+            ms=1e3 * (time.perf_counter() - t0),
+            launches={k: fa.launches[k] - before[k] for k in FLASH}))
+        return loss
+
+    trainer.step = timed
+
+
+def local_rank(rank: int, store: str, out: str) -> None:
+    """(q), one rank of the elastic job: the lease path on the dial
+    LOCAL_DIAL with a lease holder dying with a task after step
+    LOCAL_GHOST_AT, then the virtual drive over (k)'s data with one dial
+    change; what the rank saw is written as JSON to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = dict(rank=rank, steps=[], virtual_steps=[])
+    fa.reset_launches()
+    runner, reg, ids = flagship_local_job(rank, WORLD_RANKS, store)
+    instrument_steps(runner.trainer, rec["steps"])
+    order: list = []
+    if rank == 0:
+        fetch = runner.fetch
+
+        def counted(payload):
+            order.append(json.loads(payload.decode())["shard"])
+            return fetch(payload)
+
+        runner.fetch = counted
+
+    def dial(schedule, ghost_at=None):
+        def on_step(step, loss, world):
+            if runner.cluster is not None and step in schedule:
+                runner.cluster.update_trainer_parallelism(runner.job,
+                                                          schedule[step])
+            if runner.coord is not None and step == ghost_at:
+                runner.coord.lease("ghost")
+                rec["ghost_released"] = runner.coord.release_worker("ghost")
+        return on_step
+
+    rep = runner.run(on_step=dial(LOCAL_DIAL, LOCAL_GHOST_AT))
+    rec.update(losses=rep.losses, worlds=rep.world_sizes,
+               resizes=rep.resizes, data_ms=rep.data_ms,
+               compile_ms=rep.resize_compile_ms,
+               reshard_ms=rep.resize_reshard_ms,
+               bytes_moved=rep.resize_bytes_moved,
+               deferred=rep.resize_deferred_steps,
+               prewarm_hits=rep.prewarm_hits, order=order,
+               tasks=len(ids) if ids else None,
+               all_done=runner.coord.all_done() if rank == 0 else None)
+    del runner
+    torch.cuda.empty_cache()
+
+    runner, reg, ids = flagship_local_job(
+        rank, WORLD_RANKS, store, rows=VIRTUAL_ROWS, shards=VIRTUAL_SHARDS,
+        virtual=VirtualConfig(vw_count=B // VIRTUAL_MICRO_BATCH,
+                              global_batch=B))
+    instrument(runner.trainer, rec["virtual_steps"])
+    vrep = runner.run(max_steps=LOCAL_VIRTUAL_STEPS,
+                      on_step=dial(LOCAL_VIRTUAL_DIAL))
+    rec.update(virtual_losses=vrep.losses, virtual_worlds=vrep.world_sizes,
+               virtual_resizes=vrep.resizes,
+               virtual_rows=rows_once([vrep.virtual],
+                                      LOCAL_VIRTUAL_STEPS),
+               launches=dict(fa.launches))
+    del runner
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_local(card: str, control_k: list) -> dict:
+    """(q): the elastic job the control plane dials, on two ranks sharing
+    the card, against a one-rank control fed rank 0's batches in its order
+    (the lease path) and (k)'s control (the virtual drive); returns the
+    launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(local_rank, "q", WORLD_CHILD_TIMEOUT_S)
+    r0, r1 = recs
+    runner, reg, _ = flagship_local_job(0, 1, None)
+    trainer = runner.trainer
+    control = [trainer.step(reg.get(i)) for i in r0["order"]]
+    del runner, trainer
+    torch.cuda.empty_cache()
+    print(f"local phase (q): FLAGSHIP, global batch {B} x {S} in "
+          f"{r0['tasks']} leased tasks, a FakeCluster of two one-card "
+          f"nodes dialled {LOCAL_DIAL} after those steps, two ranks "
+          f"sharing the card over gloo, on {card}", flush=True)
+    for world in sorted(set(r0["worlds"])):
+        ms = {rec["rank"]: [round(st["ms"], 2) for st in rec["steps"]
+                            if st["world"] == world and st["live"]]
+              for rec in recs}
+        print(f"local world {world} step_ms by rank {ms} median "
+              f"{float(np.median(ms[0])):.2f} on {card}", flush=True)
+    for rec in recs:
+        print(f"local rank {rec['rank']} lease-and-broadcast ms a step "
+              f"{[round(x, 3) for x in rec['data_ms']]} median "
+              f"{float(np.median(rec['data_ms'])):.3f} (host clock around "
+              f"rank 0's lease and pod reading and the frame broadcast)",
+              flush=True)
+    for i, (c, rs, b) in enumerate(zip(r0["compile_ms"], r0["reshard_ms"],
+                                       r0["bytes_moved"])):
+        print(f"local resize {i}: compile_ms {c} reshard_ms {rs} "
+              f"bytes_moved {b} on {card}", flush=True)
+    print(f"local resize_deferred_steps {r0['deferred']} prewarm_hits "
+          f"{r0['prewarm_hits']}; worlds {r0['worlds']} resizes "
+          f"{r0['resizes']}; tasks trained in order {r0['order']} "
+          f"(a ghost lease released {r0.get('ghost_released')}), "
+          f"all_done {r0['all_done']}", flush=True)
+    diff = [abs(a - b) for a, b in zip(r0["losses"], control)]
+    print(f"local losses {[round(x, 6) for x in r0['losses']]} control "
+          f"{[round(x, 6) for x in control]} max |job - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL})", flush=True)
+    want_v = control_k[:LOCAL_VIRTUAL_STEPS]
+    print(f"local virtual losses {r0['virtual_losses']} (k)'s control "
+          f"{want_v} bitwise {r0['virtual_losses'] == want_v}; worlds "
+          f"{r0['virtual_worlds']}; rows {r0['virtual_rows']}", flush=True)
+    failures = []
+    want_worlds = []
+    world = 1
+    for step in range(1, len(r0["order"]) + 1):
+        want_worlds.append(world)
+        world = LOCAL_DIAL.get(step, world)
+    if (sorted(r0["order"]) != list(range(r0["tasks"]))
+            or not r0["all_done"] or r0.get("ghost_released") != 1):
+        failures.append(f"tasks {r0['order']} all_done {r0['all_done']}")
+    for rec in recs:
+        if rec["worlds"] != want_worlds or rec["resizes"] != 2:
+            failures.append(f"rank {rec['rank']} worlds {rec['worlds']} "
+                            f"resizes {rec['resizes']}")
+        for st in rec["steps"]:
+            want = tfm.FLAGSHIP.n_layers if st["live"] else 0
+            if set(st["launches"].values()) != {want}:
+                failures.append(f"rank {rec['rank']} launches {st}")
+        n = tfm.FLAGSHIP.n_layers * B // VIRTUAL_MICRO_BATCH
+        for st in rec["virtual_steps"]:
+            if set(st["launches"].values()) != {n if st["live"] else 0}:
+                failures.append(f"rank {rec['rank']} virtual launches {st}")
+    if r0["deferred"] or not all(np.isfinite(r0["losses"])) \
+            or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {r0['losses']} vs control {control}, "
+                        f"deferred {r0['deferred']}")
+    if (r0["virtual_losses"] != want_v or r0["virtual_resizes"] != 1
+            or r0["virtual_rows"]["duplicated"]
+            or r0["virtual_rows"]["missing"]):
+        failures.append(f"virtual drive {r0['virtual_losses']} "
+                        f"{r0['virtual_rows']} resizes "
+                        f"{r0['virtual_resizes']}")
+    if failures:
+        raise AssertionError("phase (q): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
+# -- phase (r): BERT-base at tp 2 -----------------------------------------------
+
+
+def bert_tp_rank(rank: int, store: str, out: str) -> None:
+    """(r), one rank: BERT_TP_STEPS steps of BERT-base at tp 2, with what
+    one rank can see of them written as JSON to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer, batch = bert_tp_world(rank, WORLD_RANKS, store, batch=BERT_B,
+                                   seq=BERT_S)
+    norms = [n for n, spec in trainer.partition_specs().items()
+             if not any(spec)]
+    rec = dict(rank=rank, steps=[])
+    fa.reset_launches()
+    instrument_steps(trainer, rec["steps"])
+    for _ in range(BERT_TP_STEPS):
+        trainer.step(batch)
+        rec["steps"][-1]["norms"] = checksum(trainer.shards[n]
+                                             for n in norms)
+        # Adam's moments exist from the first step on
+        rec.setdefault("rest", resting_state(trainer))
+    rec["launches"] = dict(fa.launches)
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_bert_tp(card: str) -> dict:
+    """(r): BERT-base MLM at tp 2 on two ranks sharing the card, against a
+    world-1 control from the same weights and batch; returns the launches
+    of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(bert_tp_rank, "r", WORLD_CHILD_TIMEOUT_S)
+    trainer, batch = bert_trainer(BERT_B, BERT_S)
+    control = [trainer.step(batch) for _ in range(BERT_TP_STEPS)]
+    del trainer, batch
+    torch.cuda.empty_cache()
+    r0, r1 = recs
+    failures = []
+    for rec in recs:
+        rest = rec["rest"]
+        print(f"bert_tp rank {rec['rank']} resting state on tp2: "
+              f"{rest['state_bytes'] / 1e9:.4f} GB of params and Adam "
+              f"moments (a replicated trainer's rank: "
+              f"{rest['replicated_bytes'] / 1e9:.4f} GB), each split "
+              f"leaf's share {rest['shares']}, {len(rest['replicated'])} "
+              f"whole leaves (the norms and pos) on {card}", flush=True)
+        print(f"bert_tp rank {rec['rank']} step_ms "
+              f"{[round(st['ms'], 2) for st in rec['steps']]} (b{BERT_B} "
+              f"s{BERT_S}; two ranks share one card: not a scaling figure) "
+              f"on {card}", flush=True)
+        if rest["shares"] != [0.5]:
+            failures.append(f"rank {rec['rank']}: shares {rest['shares']}")
+        for st in rec["steps"]:
+            if st["launches"] != {k: BERT_LAYERS for k in FLASH}:
+                failures.append(f"rank {rec['rank']} launches "
+                                f"{st['launches']}")
+    equal = [a["norms"] == b["norms"] and a["loss"] == b["loss"]
+             for a, b in zip(r0["steps"], r1["steps"])]
+    losses = [st["loss"] for st in r0["steps"]]
+    diff = [abs(a - b) for a, b in zip(losses, control)]
+    print(f"bert_tp losses {[round(x, 6) for x in losses]} world-1 control "
+          f"{[round(x, 6) for x in control]} max |tp - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL}); norms and losses "
+          f"bitwise equal across the ranks {equal}; launches "
+          f"{[rec['launches'] for rec in recs]}", flush=True)
+    if not all(equal):
+        failures.append(f"the ranks' norms or losses differ: {equal}")
+    if not all(np.isfinite(losses)) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {losses} vs control {control}")
+    if failures:
+        raise AssertionError("phase (r): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2650,6 +2937,9 @@ def main() -> int:
     durable_tp_rows = phase_flash(VIRTUAL_MICRO_BATCH, S, H // WORLD_RANKS,
                                   HK // WORLD_RANKS, D, (True,),
                                   "flagship_durable_tp")
+    bert_tp_rows = phase_flash(BERT_B, BERT_S, BERT_H // WORLD_RANKS,
+                               BERT_H // WORLD_RANKS, BERT_D, (False,),
+                               "bert_tp")
     paths["resnet50"] = phase_resnet(sum(sites.values()))
     paths["bert_base"] = phase_bert()
     phase_serving()
@@ -2663,6 +2953,8 @@ def main() -> int:
     paths["flagship_durable_fsdp"] = durable["fsdp"]
     paths["flagship_durable_restore"] = durable["restore"]
     paths["flagship_sdc"] = phase_sdc(card, virtual["control"])
+    paths["flagship_local"] = phase_local(card, virtual["control"])
+    paths["bert_tp"] = phase_bert_tp(card)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2685,6 +2977,8 @@ def main() -> int:
             kernels[-1]["at_flagship_tp"] = tp_rows[name]
         if name in durable_tp_rows:
             kernels[-1]["at_flagship_durable_tp"] = durable_tp_rows[name]
+        if name in bert_tp_rows:
+            kernels[-1]["at_bert_tp"] = bert_tp_rows[name]
     print(json.dumps({"kernels": kernels}))
     # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,10 @@ the model's partition specs over tp), and ``flagship_virtual_world`` that
 rank's trainer (replicated, fsdp or tp) with the virtual-worker job's
 data; ``resnet_trainer`` and ``bert_trainer`` do the same for bench.py's
 model-zoo leg (ResNet-50 at 256 x 224², BERT-base MLM at 32 x 512).
+``bert_tp_world`` is BERT's trainer laid out by its partition specs over
+tp for one rank, and ``flagship_local_job`` one rank's side of the elastic
+job the control plane dials (``LocalElasticJob``: the FLAGSHIP trainer, and
+on rank 0 the coordinator, the fake cluster, the job and its data).
 ``flagship_decode_fleet(device)`` returns the ``DecodeFleet`` that serves
 FLAGSHIP token by token, from seed-0 weights or the ones it is given.  All
 run on the CUDA device unless ``device`` says otherwise, with the kernels
@@ -218,15 +222,116 @@ def bert_trainer(batch: int = 32, seq: int = 512, device="cuda",
     seed 0, and bench.py's MLM recipe from seed 1: uniform tokens and
     targets, and a 0/1 mask on ~15 % of the positions."""
     dev = resolve(device)
+    return _bert(cfg, dev), _bert_data(cfg, batch, seq, dev)
+
+
+def _bert(cfg: bert.BertConfig, dev: torch.device,
+          **trainer_kw) -> ElasticTrainer:
+    """The ``ElasticTrainer`` of every BERT entry point: ``cfg``, weights
+    from seed 0, adamw(3e-4)."""
     model = bert.Bert(cfg, device=dev, seed=0)
-    trainer = ElasticTrainer(bert.mlm_loss_fn, model, optim.adamw(3e-4),
-                             devices=[dev])
+    return ElasticTrainer(bert.mlm_loss_fn, model, optim.adamw(3e-4),
+                          devices=[dev], **trainer_kw)
+
+
+def _bert_data(cfg: bert.BertConfig, batch: int, seq: int,
+               dev: torch.device) -> tuple[torch.Tensor, ...]:
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64)
     targets = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int64)
     mask = (rng.random((batch, seq)) < 0.15).astype(np.float32)
-    return trainer, tuple(torch.from_numpy(a).to(dev)
-                          for a in (tokens, targets, mask))
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (tokens, targets, mask))
+
+
+def bert_tp_world(rank: int, world: int, store_path, device="cuda",
+                  batch: int = 32, seq: int = 512,
+                  cfg: bert.BertConfig = bert.BERT_BASE):
+    """(trainer, (tokens, targets, mask)) for rank ``rank`` of a
+    ``world``-rank job: :func:`bert_trainer`'s model, optimizer and MLM
+    batch on this rank's device, its ``ElasticTrainer`` over the job's
+    process group (joined as :func:`flagship_elastic_world` joins it, every
+    rank live) with the world tensor parallel (``MeshSpec(tp=-1)``) and the
+    parameters laid out by ``cfg``'s partition specs: each rank holds its
+    tp block of every matrix, embed by vocabulary, and the whole norms and
+    position table."""
+    dev = _join_world(rank, world, store_path, device)
+    trainer = _bert(cfg, dev, param_sharding=bert.param_partition_specs(cfg),
+                    spec=MeshSpec(tp=-1))
+    return trainer, _bert_data(cfg, batch, seq, dev)
+
+
+#: the elastic job's dataset: rows of ``seq`` tokens in LOCAL_SHARDS tasks
+#: of one global batch each
+LOCAL_ROWS, LOCAL_SHARDS = 128, 8
+
+
+def flagship_local_job(rank: int, world: int, store_path, device="cuda",
+                       cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                       global_batch: int = 16, seq: int = 1024,
+                       rows: int = LOCAL_ROWS, shards: int = LOCAL_SHARDS,
+                       virtual: Optional[VirtualConfig] = None):
+    """(LocalElasticJob, ShardRegistry or None, shard ids) for rank
+    ``rank`` of a ``world``-rank elastic job: the FLAGSHIP trainer as
+    :func:`flagship_elastic_world` builds it (replicated, the flash
+    kernels; ``accum_mode="replicated"`` under ``virtual``), live on rank
+    0 alone (the job's minimum), and on rank 0 the control plane: a
+    ``PyCoordService``, a ``FakeCluster`` of two nodes of one card each in
+    one NVLink domain,
+    the ``TrainingJob`` (1 to ``world`` trainers, one card each) created
+    there at its minimum, and a ``ShardRegistry`` of ``rows`` token rows
+    from seed 1 (targets shifted by one) in ``shards`` shards, enqueued
+    as the job's tasks.  With a ``virtual`` config the job drives the
+    virtual-worker loop instead, and every rank holds the registry (each
+    reads its own micro-batches).  Without a ``store_path`` (``world`` 1)
+    it joins no group."""
+    from edl_tpu_torch.api.types import (ResourceRequirements, TrainerSpec,
+                                         TrainingJob, TrainingJobSpec)
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.coord import PyCoordService
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+
+    if store_path is None:
+        if world != 1:
+            raise ValueError(f"a world of {world} ranks needs a store_path "
+                             "to join through")
+        dev = resolve(device)
+    else:
+        dev = _join_world(rank, world, store_path, device)
+    trainer = _flagship(cfg, dev, initial_world_size=1,
+                        accum_mode="replicated" if virtual else "dp",
+                        spec=MeshSpec(dp=-1))
+    registry = ids = None
+    if rank == 0 or virtual is not None:
+        tokens = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (rows, seq), dtype=np.int64)
+        registry = ShardRegistry()
+        ids = registry.register_arrays((tokens, np.roll(tokens, -1, axis=1)),
+                                       num_shards=shards)
+    name = "flagship"
+    job = cluster = coord = None
+    if rank == 0:
+        coord = PyCoordService()
+        cluster = FakeCluster()
+        for i in range(2):
+            cluster.add_node(f"node{i}", cpu_milli=16_000,
+                             memory_mega=64_000, gpus=1,
+                             nvlink_domain="nvlink0")
+        job = TrainingJob(name=name, spec=TrainingJobSpec(
+            fault_tolerant=True, trainer=TrainerSpec(
+                min_instance=1, max_instance=world,
+                resources=ResourceRequirements(
+                    requests={"cpu": "1"}, limits={"nvidia.com/gpu": "1"}))))
+        cluster.create_resources(job)
+        if virtual is None:
+            registry.enqueue(coord, ids)
+    runner = LocalElasticJob(
+        job, cluster, trainer, coord,
+        fetch=registry.fetch if registry is not None else None,
+        batch_size=global_batch, virtual=virtual, shard_ids=ids,
+        fetch_shard=registry.get if registry is not None else None,
+        job_name=f"default/{name}")
+    return runner, registry, ids
 
 
 #: the decode fleet's defaults at FLAGSHIP: 8 slots, 64-token prefill

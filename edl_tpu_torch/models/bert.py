@@ -10,6 +10,16 @@ orientation, live in fp32 and compute in ``cfg.dtype``; the MLM decoder is
 the tied embedding.  The JAX package's sharding constraints are no-ops on
 one device and are left out; :func:`param_partition_specs` gives the
 reference's per-parameter specs.
+
+Inside a tp context (:mod:`edl_tpu_torch.parallel.tensor_parallel`, which
+the trainer enters for a model placed by :func:`param_partition_specs` on a
+mesh with tp > 1) the functions run on this rank's blocks, as the
+transformer's do: the head count is read from the blocks' width (``h/tp``
+heads), each block's normed input goes through ``copy_to_tp`` and its wo
+and w2 outputs through ``reduce_from_tp``, the token embedding is
+vocab-parallel (``pos`` stays whole), and the tied decoder gives this
+rank's vocabulary columns of the logits, which the masked loss takes
+vocab-parallel.  tp must divide the heads and the vocabulary.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from edl_tpu_torch.device import resolve
 from edl_tpu_torch.models.transformer import rms_norm
 from edl_tpu_torch.ops.embedding import embed_lookup
 from edl_tpu_torch.ops.flash_attention import attention
+from edl_tpu_torch.parallel import tensor_parallel as tpar
 
 
 @dataclass(frozen=True)
@@ -115,28 +126,69 @@ def param_partition_specs(cfg: BertConfig) -> dict[str, tuple]:
     return specs
 
 
+def _check_tp(cfg: BertConfig, tp: "tpar.TPContext | None") -> None:
+    """A tp that does not divide the heads or the vocabulary is refused:
+    its blocks would split a head, or its vocabulary rows would not be
+    the embedding's contiguous equal blocks."""
+    if tp is None:
+        return
+    for what, n in (("heads", cfg.n_heads), ("vocabulary of",
+                                              cfg.vocab_size)):
+        if n % tp.size:
+            raise ValueError(f"tp {tp.size} does not divide the model's "
+                             f"{what} {n}")
+
+
+def _attention_block(p: Layer, x: torch.Tensor, cfg: BertConfig,
+                     tp: "tpar.TPContext | None") -> torch.Tensor:
+    b, s, _ = x.shape
+    dt, hd = cfg.dtype, cfg.head_dim
+    h = p.wq.shape[1] // hd  # h/tp on a tp rank's column block
+    xn = rms_norm(x, p.attn_norm, cfg.norm_eps)
+    if tp is not None:
+        xn = tpar.copy_to_tp(xn, tp)
+    q = (xn @ p.wq.to(dt)).reshape(b, s, h, hd)
+    k = (xn @ p.wk.to(dt)).reshape(b, s, h, hd)
+    v = (xn @ p.wv.to(dt)).reshape(b, s, h, hd)
+    o = attention(q, k, v, causal=False, use_pallas=cfg.use_flash)
+    out = o.reshape(b, s, h * hd) @ p.wo.to(dt)
+    if tp is not None:
+        out = tpar.reduce_from_tp(out, tp)
+    return x + out
+
+
+def _mlp_block(p: Layer, x: torch.Tensor, cfg: BertConfig,
+               tp: "tpar.TPContext | None") -> torch.Tensor:
+    dt = cfg.dtype
+    xn = rms_norm(x, p.mlp_norm, cfg.norm_eps)
+    if tp is not None:
+        xn = tpar.copy_to_tp(xn, tp)
+    # jax.nn.gelu defaults to the tanh approximation
+    out = F.gelu(xn @ p.w1.to(dt), approximate="tanh") @ p.w2.to(dt)
+    if tp is not None:
+        out = tpar.reduce_from_tp(out, tp)
+    return x + out
+
+
 def apply(model: Bert, tokens: torch.Tensor,
           cfg: BertConfig | None = None) -> torch.Tensor:
     """tokens [b, s] → contextual embeddings [b, s, d] in ``cfg.dtype``;
-    ``cfg`` (default: the model's own) as the JAX package passes it."""
+    ``cfg`` (default: the model's own) as the JAX package passes it.  In a
+    tp context the embeddings are whole on every rank of the tp group."""
     cfg = cfg or model.cfg
-    b, s = tokens.shape
+    tp = tpar.current()
+    _check_tp(cfg, tp)
+    s = tokens.shape[1]
     dt = cfg.dtype
-    x = (embed_lookup(model.embed, tokens, one_hot=cfg.one_hot_embed,
-                      dtype=dt)
-         + model.pos[:s].to(dt)[None])
-    h, hd = cfg.n_heads, cfg.head_dim
+    if tp is None:
+        x = embed_lookup(model.embed, tokens, one_hot=cfg.one_hot_embed,
+                         dtype=dt)
+    else:
+        x = tpar.vocab_parallel_embed(model.embed, tokens, tp,
+                                      one_hot=cfg.one_hot_embed, dtype=dt)
+    x = x + model.pos[:s].to(dt)[None]
     for p in model.layers:
-        xn = rms_norm(x, p.attn_norm, cfg.norm_eps)
-        q = (xn @ p.wq.to(dt)).reshape(b, s, h, hd)
-        k = (xn @ p.wk.to(dt)).reshape(b, s, h, hd)
-        v = (xn @ p.wv.to(dt)).reshape(b, s, h, hd)
-        o = attention(q, k, v, causal=False, use_pallas=cfg.use_flash)
-        x = x + o.reshape(b, s, h * hd) @ p.wo.to(dt)
-        xn = rms_norm(x, p.mlp_norm, cfg.norm_eps)
-        # jax.nn.gelu defaults to the tanh approximation
-        x = x + (F.gelu(xn @ p.w1.to(dt), approximate="tanh")
-                 @ p.w2.to(dt))
+        x = _mlp_block(p, _attention_block(p, x, cfg, tp), cfg, tp)
     return rms_norm(x, model.norm, cfg.norm_eps)
 
 
@@ -145,14 +197,25 @@ def mlm_loss_fn(model: Bert, batch, cfg: BertConfig | None = None
     """batch = (masked_tokens [b, s], targets [b, s], mask [b, s] 0/1).
 
     Cross entropy over the masked positions only, with the tied embedding
-    as the decoder, in logsumexp − target-logit form."""
+    as the decoder, in logsumexp − target-logit form: ``Σ mask · (lse −
+    tgt) / max(Σ mask, 1)`` over the global batch (the denominator from
+    :func:`~edl_tpu_torch.parallel.tensor_parallel.weight_total`, so a
+    batch split over data ranks weighs as the whole).  In a tp context the
+    logits are this rank's vocabulary columns and the loss vocab-parallel."""
     masked, targets, mask = batch
     hdn = apply(model, masked, cfg)
+    tp = tpar.current()
+    if tp is not None:
+        hdn = tpar.copy_to_tp(hdn, tp)
     logits = (hdn @ model.embed.to(hdn.dtype).T).float()
+    mask = mask.float()
+    denom = tpar.weight_total(mask)
+    if tp is not None:
+        return tpar.vocab_parallel_cross_entropy(logits, targets, tp,
+                                                 weights=mask, denom=denom)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
-    mask = mask.float()
-    return ((lse - tgt) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ((lse - tgt) * mask).sum() / denom
 
 
 def make_loss_fn(cfg: BertConfig):

@@ -250,10 +250,10 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._families: dict[str, _Family] = {}
-        #: (name, label-key) → (fn, help): several label sets may share
-        #: one family name
+        #: (name, label-key) → (fn, help, kind): several label sets may
+        #: share one family name
         self._gauge_fns: dict[tuple[str, tuple],
-                              tuple[Callable[[], float], str]] = {}
+                              tuple[Callable[[], float], str, str]] = {}
 
     def _get_or_create(self, name: str, cls, **kwargs) -> _Family:
         with self._lock:
@@ -293,7 +293,16 @@ class MetricsRegistry:
         """Register (or replace) a callback gauge; ``fn()`` runs at render
         time, and a raising or None callback is skipped."""
         with self._lock:
-            self._gauge_fns[(name, _label_key(labels))] = (fn, help)
+            self._gauge_fns[(name, _label_key(labels))] = (fn, help, "gauge")
+
+    def counter_fn(self, name: str, fn: Callable[[], float],
+                   help: str = "", **labels) -> None:
+        """A callback counter: :meth:`gauge_fn` rendered as ``# TYPE
+        counter`` with the ``_total`` suffix, for a component that owns an
+        authoritative monotonic count (the coordinator's tallies)."""
+        with self._lock:
+            self._gauge_fns[(name, _label_key(labels))] = (fn, help,
+                                                           "counter")
 
     def counter_families(self) -> dict[str, Counter]:
         with self._lock:
@@ -302,7 +311,7 @@ class MetricsRegistry:
 
     def render(self) -> str:
         """Prometheus text exposition (0.0.4) of every family and callback
-        gauge, deterministically ordered."""
+        gauge or counter, deterministically ordered."""
         lines: list[str] = []
         with self._lock:
             fams = sorted(self._families.items())
@@ -310,7 +319,7 @@ class MetricsRegistry:
         for _, fam in fams:
             fam.render(lines)
         last_name = None
-        for (name, lkey), (fn, help) in gfns:
+        for (name, lkey), (fn, help, kind) in gfns:
             try:
                 v = fn()
             except Exception:
@@ -318,9 +327,11 @@ class MetricsRegistry:
             if v is None:
                 continue
             rname = PREFIX + sanitize_name(name)
+            if kind == "counter" and not rname.endswith("_total"):
+                rname += "_total"
             if name != last_name:  # HELP/TYPE once per family
                 lines.append(f"# HELP {rname} {help or name}")
-                lines.append(f"# TYPE {rname} gauge")
+                lines.append(f"# TYPE {rname} {kind}")
                 last_name = name
             lines.append(f"{rname}{_render_labels(lkey)} "
                          f"{format_value(float(v))}")

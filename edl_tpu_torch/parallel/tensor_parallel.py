@@ -15,10 +15,19 @@ the model, reading :func:`current`, writes out what XLA infers:
   split over tp, each rank its contiguous rows;
 * :func:`vocab_parallel_cross_entropy`: the mean next-token loss over
   logits whose vocabulary is split over tp (three all-reduces of a
-  ``[b, s]`` row, forward only).
+  ``[b, s]`` row, forward only), or its sum weighted per token over a
+  given denominator (BERT's masked loss).
 
 Each is exact against its whole-tensor version up to the order of the
 sums.  Outside a context (:func:`current` None) nothing is split.
+
+A weighted mean over the global batch needs one more thing of the mesh:
+the trainer splits the batch over the data axes and averages the ranks'
+losses, which is the global mean only when every rank's slice weighs the
+same.  So around a step on a split batch it also enters a
+:func:`split_context` (:class:`BatchSplit`: the data axes' size and the
+all-reduce over their group), and :func:`weight_total` gives a loss the
+denominator that makes the trainer's average the global weighted mean.
 """
 
 from __future__ import annotations
@@ -45,12 +54,50 @@ class TPContext:
     reduce: Callable[[torch.Tensor, Any], None]
 
 
+@dataclass(frozen=True)
+class BatchSplit:
+    """The global batch's split over the mesh's data axes (dp·fsdp):
+    ``size`` ranks, each holding its contiguous slice, and ``reduce(t,
+    op)``, the in-place all-reduce of ``t`` over the data group."""
+
+    size: int
+    reduce: Callable[[torch.Tensor, Any], None]
+
+
 _current: Optional[TPContext] = None
+_split: Optional[BatchSplit] = None
 
 
 def current() -> Optional[TPContext]:
     """The tp context the model runs in, or None (nothing split)."""
     return _current
+
+
+@contextlib.contextmanager
+def split_context(split: BatchSplit) -> Iterator[BatchSplit]:
+    """Run the body on a batch split as ``split`` says; the previous split
+    comes back on exit."""
+    global _split
+    prev, _split = _split, split
+    try:
+        yield split
+    finally:
+        _split = prev
+
+
+def weight_total(weights: torch.Tensor) -> torch.Tensor:
+    """The denominator of a weighted mean over the global batch,
+    ``max(Σ weights, 1)``, from this rank's slice of the weights (fp32, no
+    gradient).  On a batch split over n ranks the sum is all-reduced over
+    the data group and divided by n: each rank's ``Σ_local w·x`` over it,
+    averaged over the ranks by the trainer, is then the global ``Σ w·x /
+    max(Σ w, 1)``."""
+    total = weights.detach().float().sum()
+    if _split is None or _split.size == 1:
+        return total.clamp_min(1.0)
+    total = total.reshape(1).clone()
+    _split.reduce(total, dist.ReduceOp.SUM)
+    return total[0].clamp_min(1.0) / _split.size
 
 
 @contextlib.contextmanager
@@ -115,7 +162,7 @@ def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
 
 class _VocabParallelCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, targets, tp):
+    def forward(ctx, logits, targets, tp, weights, denom):
         vocab = logits.shape[-1]
         ids = targets.long() - tp.rank * vocab
         inside = (ids >= 0) & (ids < vocab)
@@ -130,24 +177,41 @@ class _VocabParallelCE(torch.autograd.Function):
         tp.reduce(tgt, dist.ReduceOp.SUM)
         # the backward recomputes the softmax from the logits it was
         # handed: no [b, s, V/tp] copy is kept
-        ctx.save_for_backward(logits, lse, ids, inside)
-        return (lse - tgt).mean()
+        ctx.save_for_backward(logits, lse, ids, inside, weights, denom)
+        if weights is None:
+            return (lse - tgt).mean()
+        return ((lse - tgt) * weights).sum() / denom
 
     @staticmethod
     def backward(ctx, grad):
-        logits, lse, ids, inside = ctx.saved_tensors
+        logits, lse, ids, inside, weights, denom = ctx.saved_tensors
         out = (logits - lse[..., None]).exp_()
         out.scatter_add_(-1, ids[..., None],
                          -inside.to(out.dtype)[..., None])
-        out.mul_(grad / lse.numel())
-        return out, None, None
+        if weights is None:
+            out.mul_(grad / lse.numel())
+        else:
+            out.mul_(weights[..., None] * (grad / denom))
+        return out, None, None, None, None
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                                 tp: TPContext) -> torch.Tensor:
+                                 tp: TPContext,
+                                 weights: Optional[torch.Tensor] = None,
+                                 denom: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """mean(logsumexp(logits) − logits[target]) over the whole vocabulary,
     from this rank's columns of the logits (``[..., V/tp]``, fp32): the
     forward all-reduces the row maxima (MAX), the sums of exp and the
     target's logit (SUM); the backward is ``(softmax − onehot) / N`` on
-    the local columns, with no collective."""
-    return _VocabParallelCE.apply(logits, targets, tp)
+    the local columns, with no collective.  With per-token ``weights``
+    (``[...]``, fp32) and a scalar ``denom`` the loss is ``Σ weights ·
+    (logsumexp − target logit) / denom`` and the backward ``(softmax −
+    onehot) · weights / denom``, with no collective either."""
+    if (weights is None) != (denom is None):
+        raise ValueError("weights and denom come together")
+    if weights is not None:
+        weights = weights.detach().float()
+        denom = torch.as_tensor(denom, dtype=torch.float32,
+                                device=logits.device).detach()
+    return _VocabParallelCE.apply(logits, targets, tp, weights, denom)

@@ -752,7 +752,7 @@ class ElasticTrainer:
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
         with self._gathered():
-            with self._tp():
+            with self._tp(), self._split():
                 loss = self.loss_fn(self.state.params, self._local(batch))
                 loss.backward()
             loss = loss.detach()
@@ -769,7 +769,7 @@ class ElasticTrainer:
         (None on a rank standing by)."""
         if not self.live:
             return None
-        with torch.no_grad(), self._gathered(), self._tp():
+        with torch.no_grad(), self._gathered(), self._tp(), self._split():
             loss = self.loss_fn(self.state.params, self._local(batch))
         if self._width > 1:
             self._sum_over(self.mesh.data, self._data_label, [loss])
@@ -978,6 +978,21 @@ class ElasticTrainer:
         return tensor_parallel.tp_context(tensor_parallel.TPContext(
             size=shape.tp, rank=self.rank // (shape.sp * shape.ep) % shape.tp,
             reduce=reduce))
+
+    def _split(self):
+        """The batch split of a step on the live layout (a null context at
+        one data rank): a loss that weighs its tokens asks it for the
+        global weight (:func:`tensor_parallel.weight_total`), through
+        :func:`_all_reduce` over the data group."""
+        if self._width == 1:
+            return contextlib.nullcontext()
+        group, label = self.mesh.data, self._data_label
+
+        def reduce(t: torch.Tensor, op) -> None:
+            _all_reduce(t, op, group, label)
+
+        return tensor_parallel.split_context(tensor_parallel.BatchSplit(
+            size=self._width, reduce=reduce))
 
     def _empty(self, dtype: torch.dtype) -> torch.Tensor:
         return torch.empty(0, dtype=dtype, device=self.device)

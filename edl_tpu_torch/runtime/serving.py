@@ -622,10 +622,15 @@ class DecodeReplica:
     def quiesce(self, timeout_s: float = 30.0) -> bool:
         """Park the loop at the next iteration boundary.  While parked the
         caller owns the replica's state (exports, imports), then
-        :meth:`resume` (or a stop) releases it."""
+        :meth:`resume` (or a stop) releases it.  A loop parked already
+        stays parked and the call returns at once: the loop waits for a
+        resume, not for another request, so asking again would only wait
+        out ``timeout_s``."""
         with self._cond:
             if self.state == STOPPED:
                 return False
+            if self._quiesce_req and self._quiesced.is_set():
+                return True
             self._quiesced.clear()
             self._resume.clear()
             self._quiesce_req = True

@@ -37,6 +37,22 @@ def test_every_module_imports_without_jax():
     assert "imported" in proc.stdout
 
 
+#: the control plane's copies (coordinator, resource model, cluster) and
+#: the elastic job: each is in the scan and the blocked-import run above
+CONTROL_PLANE = ("edl_tpu_torch.coord", "edl_tpu_torch.coord.service",
+                 "edl_tpu_torch.api", "edl_tpu_torch.api.quantity",
+                 "edl_tpu_torch.api.types", "edl_tpu_torch.cluster",
+                 "edl_tpu_torch.cluster.base", "edl_tpu_torch.cluster.fake",
+                 "edl_tpu_torch.cluster.resource",
+                 "edl_tpu_torch.runtime.local",
+                 "edl_tpu_torch.runtime.data")
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE)
+def test_the_control_plane_modules_are_covered(module):
+    assert module in set(_port_modules())
+
+
 def test_no_source_names_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = []
@@ -54,8 +70,10 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    from edl_tpu_torch.entry import (bert_trainer, dryrun_multichip, entry,
-                                     flagship_elastic_world, flagship_trainer,
+    from edl_tpu_torch.entry import (bert_tp_world, bert_trainer,
+                                     dryrun_multichip, entry,
+                                     flagship_elastic_world,
+                                     flagship_local_job, flagship_trainer,
                                      resnet_trainer)
     from edl_tpu_torch.models import bert, resnet
     from edl_tpu_torch.models import transformer as tfm
@@ -77,6 +95,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         resnet_trainer(batch=2, hw=32, cfg=resnet.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         bert_trainer(batch=2, seq=16, cfg=bert.TINY)
+    for build in (bert_tp_world, flagship_local_job):  # before joining
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(0, 1, tmp_path / "store")
+        assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="CUDA"):
         tfm.Transformer(tfm.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from typing import Optional
 
 import jax
 import numpy as np
@@ -84,17 +85,24 @@ def counter_sum(name: str, job: str) -> float:
                if k.startswith(name) and f'job="{job}"' in k)
 
 
-def park_after_first_token(replica, sess: DecodeSession) -> None:
+def park_after_first_token(replica, sess: Optional[DecodeSession] = None):
     """Ask ``replica``'s loop to park at the iteration boundary right after
-    ``sess`` emits its first token (the request is made on the loop thread
-    inside that iteration, so no second token can land first)."""
+    a session on it emits its first token (the request is made on the loop
+    thread inside that iteration, so no second token can land first):
+    ``sess``, whose ``on_token`` this sets, or with no ``sess`` the first
+    session routed to ``replica`` to get there, through the callback this
+    returns for ``fleet.submit(on_token=...)``."""
     def on_token(s, tok):
-        if len(s.generated) == 1:
+        if len(s.generated) == 1 and s.replica == replica.name:
             with replica._cond:
+                if replica._quiesce_req:
+                    return
                 replica._quiesced.clear()
                 replica._resume.clear()
                 replica._quiesce_req = True
-    sess.on_token = on_token
+    if sess is not None:
+        sess.on_token = on_token
+    return on_token
 
 
 class TestDecodeParity:
@@ -238,13 +246,21 @@ class TestLiveResize:
     @fleet_test
     def test_scale_down_zero_drops_bitwise_stable(self):
         """A 2→1 scale-down mid-decode drops no session and every
-        continuation equals the undisturbed reference."""
+        continuation equals the undisturbed reference.  The leaving
+        replica is parked right after its first session's first token, so
+        it still holds that session when the scale-down comes (on a loaded
+        host its sessions could otherwise all finish first)."""
         fleet = make_fleet(roles={"decode": 2}, kv_blocks=64)
         try:
+            victim = [r for r in fleet._replicas if r.role == "decode"][-1]
+            hold = park_after_first_token(victim)
             ps = prompts(6, 6, 10)
-            ss = [fleet.submit(p, max_new_tokens=40) for p in ps]
+            ss = [fleet.submit(p, max_new_tokens=40, on_token=hold)
+                  for p in ps]
+            assert victim._quiesced.wait(60)
             for s in ss:
-                s.wait_first_token(60)
+                if s.replica != victim.name:
+                    s.wait_first_token(60)
             assert fleet.scale_to(1) == 1
             assert [s.wait(60) for s in ss] == ref_decode_many(ps, 40)
             assert fleet.sessions_failed == 0
@@ -346,6 +362,30 @@ class TestLiveResize:
             assert [s.wait(60) for s in ss] == ref_decode_many(ps, 4)
             assert fleet.sessions_failed == 0
             assert fleet.sessions_completed == len(ps)
+        finally:
+            fleet.stop()
+
+    @fleet_test
+    def test_quiesce_of_a_parked_replica_returns_at_once(self):
+        """A replica already parked (here by its session's first token)
+        answers a second quiesce at once and stays parked until resumed:
+        the scale-down's quiesce of a parked victim must not wait out its
+        timeout."""
+        fleet = make_fleet()
+        try:
+            (src,) = [r for r in fleet._replicas if r.role == "decode"]
+            p = [5, 9, 17, 33]
+            sess = DecodeSession(p, 6, id=93_000)
+            park_after_first_token(src, sess)
+            src.submit(sess)
+            assert src._quiesced.wait(30)
+            t0 = time.monotonic()
+            assert src.quiesce(5.0)
+            assert time.monotonic() - t0 < 1.0
+            time.sleep(0.05)
+            assert len(sess.generated) == 1  # still parked
+            src.resume()
+            assert sess.wait(60) == ref_decode(p, 6)
         finally:
             fleet.stop()
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import pickle
 import time
 import traceback
@@ -1855,8 +1856,395 @@ def suite_sdc(rank: int, world: int, store: str, mlp_params: dict,
                            seams_by_layout], rank)
 
 
+# -- BERT's tensor parallelism -------------------------------------------------
+
+
+def bert_tiny(params: dict, spec: MeshSpec, n0: int, **kw) -> ElasticTrainer:
+    """The port's TINY BERT holding the JAX params ``params``, laid out by
+    its partition specs, under adamw(1e-3) on the CPU."""
+    from edl_tpu_torch.models import bert
+
+    model = interop.params_from_numpy(bert.Bert(bert.TINY, device="cpu"),
+                                      params)
+    return ElasticTrainer(bert.mlm_loss_fn, model, optim.adamw(1e-3),
+                          devices=[torch.device("cpu")],
+                          param_sharding=bert.param_partition_specs(
+                              bert.TINY), spec=spec, initial_world_size=n0,
+                          **kw)
+
+
+def suite_bert_tp_two(rank: int, world: int, store: str, bert_params: dict,
+                      batches: list, world_kw: dict) -> dict:
+    """BERT at tp 2 on two ranks: the entry point behind chip_smoke's phase
+    (r) at TINY, the weighted vocab-parallel cross entropy, and JAX
+    parity."""
+    from edl_tpu_torch.entry import bert_tp_world
+    from edl_tpu_torch.parallel import tensor_parallel as tpar
+
+    out = {}
+    try:
+        trainer, batch = bert_tp_world(rank, world, store, device="cpu",
+                                       **world_kw)
+        full, opt = trainer.full_shapes(), trainer.state.opt_state
+        seen = dict(world=trainer.world_size, losses=[], norms=[],
+                    shares=sorted({
+                        t.numel() / int(np.prod(full[n]))
+                        for n, s in trainer.shards.items()
+                        for t in [s] + [v for v in opt.state[s].values()
+                                        if v.dim()]
+                        if any(trainer.partition_specs()[n])}))
+        for _ in range(3):
+            seen["losses"].append(trainer.step(batch))
+            seen["norms"].append(norms(trainer))
+        out["bert_world"] = seen
+    except Exception:
+        out["bert_world"] = ScenarioFailed(traceback.format_exc())
+        return out
+
+    def weighted_ce(rank):
+        """The masked loss's vocab-parallel cross entropy on inputs every
+        rank draws alike from one seed, rank r holding columns block r,
+        for a 15 % mask and an all-zero one."""
+        ctx = tpar.TPContext(2, rank, lambda t, op: dist.all_reduce(t, op))
+        g = torch.Generator().manual_seed(1)
+        logits = 3 * torch.randn(2, 6, 16, generator=g)
+        targets = torch.randint(0, 16, (2, 6), generator=g)
+        got = dict(logits=logits.numpy(), targets=targets.numpy())
+        for name, mask in (("mask", (torch.rand(2, 6, generator=g) < 0.3)
+                            .float()), ("zeros", torch.zeros(2, 6))):
+            lc = logits[..., rank * 8:(rank + 1) * 8].clone(
+                ).requires_grad_()
+            loss = tpar.vocab_parallel_cross_entropy(
+                lc, targets, ctx, weights=mask,
+                denom=tpar.weight_total(mask))
+            loss.backward()
+            got[name] = (mask.numpy(), float(loss), lc.grad.numpy())
+        return got
+
+    def blocks_vs_whole(rank):
+        """This rank's tp-2 blocks of the JAX init in a tp context: the
+        hidden states, the masked loss and each leaf's gradient, by the
+        gather and the one-hot embedding."""
+        from edl_tpu_torch.models import bert
+        from edl_tpu_torch.parallel.replan import tree_placements
+
+        ctx = tpar.TPContext(2, rank, lambda t, op: dist.all_reduce(t, op))
+        batch = tuple(torch.from_numpy(a) for a in batches[0])
+        got = {}
+        for hot in (False, True):
+            cfg = dataclasses.replace(bert.TINY, one_hot_embed=hot)
+            model = interop.params_from_numpy(bert.Bert(cfg, device="cpu"),
+                                              bert_params)
+            place = tree_placements(dict(model.named_parameters()),
+                                    MeshShape(tp=2),
+                                    bert.param_partition_specs(cfg))
+            for name, p in model.named_parameters():
+                idx = tuple(slice(lo, hi)
+                            for lo, hi in place[name].blocks[rank])
+                p.data = p.data[idx].clone()
+            with tpar.tp_context(ctx):
+                h = bert.apply(model, batch[0])
+                loss = bert.mlm_loss_fn(model, batch)
+                loss.backward()
+            got[hot] = (h.detach().numpy(), float(loss),
+                        {n: p.grad.numpy()
+                         for n, p in model.named_parameters()})
+        return got
+
+    def parity_tp2(rank):
+        return tp_parity(bert_tiny(bert_params, TP, 2), batches)
+
+    out.update(_run_scenarios([weighted_ce, blocks_vs_whole, parity_tp2],
+                              rank))
+    return out
+
+
+def suite_bert_tp_eight(rank: int, world: int, store: str,
+                        bert_params: dict, batches: list) -> dict:
+    """BERT on dp2×fsdp2×tp2 over eight ranks against the reference's
+    jitted step."""
+    _join(rank, world, store)
+
+    def parity_3d(rank):
+        return tp_parity(bert_tiny(bert_params, TP3D, 8), batches)
+
+    return _run_scenarios([parity_3d], rank)
+
+
+# -- the elastic job the control plane dials ----------------------------------
+
+
+def _lease_job(rank: int, mlp_params: dict, data: tuple, dial: dict,
+               ghost_at=None, coord=None, shape_for=None, **kw) -> dict:
+    """One rank's side of a lease-path LocalElasticJob on the port's MLP
+    (the JAX init ``mlp_params``, adam(1e-2)) over 8 tasks of 64 rows:
+    rank 0 holds a FakeCluster whose trainer count it turns to ``dial[k]``
+    after step k, and a coordinator (``coord``, default PyCoordService)
+    from which, after step ``ghost_at``, a second lease holder takes a
+    task and dies.  Returns what each rank saw."""
+    from edl_tpu_torch.api.types import (ResourceRequirements, TrainerSpec,
+                                         TrainingJob, TrainingJobSpec)
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.coord import PyCoordService
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+
+    model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                      mlp_params)
+    trainer = ElasticTrainer(mlp.loss_fn, model, optim.adam(1e-2),
+                             devices=[torch.device("cpu")],
+                             initial_world_size=1)
+    job = cluster = None
+    fetched: list = []
+    reg = ShardRegistry()
+    ids = reg.register_arrays(data, num_shards=8)
+    if rank == 0:
+        coord = coord or PyCoordService()
+        cluster = FakeCluster()
+        for i in range(2):
+            cluster.add_node(f"n{i}", cpu_milli=16000, memory_mega=64000)
+        job = TrainingJob(name="lease", spec=TrainingJobSpec(
+            fault_tolerant=True, trainer=TrainerSpec(
+                min_instance=1, max_instance=2,
+                resources=ResourceRequirements(requests={"cpu": "1"}))))
+        cluster.create_resources(job)
+        reg.enqueue(coord, ids)
+    else:
+        coord = None
+
+    def fetch(payload):
+        fetched.append(json.loads(payload.decode())["shard"])
+        return reg.fetch(payload)
+
+    runner = LocalElasticJob(job, cluster, trainer, coord, fetch=fetch,
+                             batch_size=64, shape_for=shape_for,
+                             job_name="default/lease", **kw)
+
+    def on_step(step, loss, world):
+        if cluster is not None and step in dial:
+            cluster.update_trainer_parallelism(job, dial[step])
+        if coord is not None and step == ghost_at:
+            coord.lease("ghost")
+            coord.release_worker("ghost")
+
+    rep = runner.run(on_step=on_step)
+    return dict(losses=rep.losses, worlds=rep.world_sizes,
+                resizes=rep.resizes, steps=rep.steps, fetched=fetched,
+                all_done=coord.all_done() if coord is not None else None,
+                prewarm_hits=rep.prewarm_hits, data_ms=rep.data_ms,
+                deferred=rep.resize_deferred_steps,
+                events=trainer.resize_events)
+
+
+class FailingCoord:
+    """A coordinator whose ``lease`` raises from its ``fail_at``-th call."""
+
+    def __init__(self, fail_at: int) -> None:
+        from edl_tpu_torch.coord import PyCoordService
+
+        self._inner, self._calls, self.fail_at = PyCoordService(), 0, fail_at
+
+    def lease(self, worker: str):
+        self._calls += 1
+        if self._calls >= self.fail_at:
+            raise ConnectionError("coordinator unreachable")
+        return self._inner.lease(worker)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def suite_local(rank: int, world: int, store: str, mlp_params: dict,
+                data: tuple, dial: dict, tiny_kw: dict) -> dict:
+    """The lease path of LocalElasticJob on two ranks: JAX parity on the
+    dial, a failing shape policy, a coordinator that fails on rank 0, and
+    ``entry.flagship_local_job`` (chip_smoke's phase (q)) at TINY."""
+    from edl_tpu_torch.entry import flagship_local_job
+
+    out = {}
+    try:
+        runner, _, ids = flagship_local_job(rank, world, store,
+                                            device="cpu", **tiny_kw)
+        coord, cluster = runner.coord, runner.cluster
+
+        def on_step(step, loss, w):
+            if cluster is not None and step in dial:
+                cluster.update_trainer_parallelism(runner.job, dial[step])
+            if coord is not None and step == 2:
+                coord.lease("ghost")
+                coord.release_worker("ghost")
+
+        elastic.reset_census()
+        rep = runner.run(on_step=on_step)
+        out["flagship_local"] = dict(
+            losses=rep.losses, worlds=rep.world_sizes, resizes=rep.resizes,
+            all_done=coord.all_done() if coord is not None else None,
+            census=elastic.collective_census(), tasks=len(ids or []),
+            prewarm_hits=rep.prewarm_hits,
+            bytes_moved=rep.resize_bytes_moved)
+    except Exception:
+        out["flagship_local"] = ScenarioFailed(traceback.format_exc())
+        return out
+
+    def lease_parity(rank):
+        return _lease_job(rank, mlp_params, data, dial, ghost_at=2,
+                          resize_defer_s=0)
+
+    def shape_fallback(rank):
+        def policy(n):
+            raise RuntimeError("no layout for you")
+        return _lease_job(rank, mlp_params, data, dial, shape_for=policy,
+                          prewarm_neighbors=False)
+
+    def coord_error(rank):
+        try:
+            _lease_job(rank, mlp_params, data, dial,
+                       coord=FailingCoord(4) if rank == 0 else None)
+        except Exception as exc:
+            return dict(raised=type(exc).__name__, message=str(exc))
+        return dict(raised=None)
+
+    def after_error(rank):
+        """The group still works after a run rank 0 failed."""
+        t = torch.tensor([float(rank + 1)])
+        dist.all_reduce(t)
+        return float(t)
+
+    out.update(_run_scenarios([lease_parity, shape_fallback, coord_error,
+                               after_error], rank))
+    return out
+
+
+def suite_local_four(rank: int, world: int, store: str, mlp_params: dict,
+                     data: tuple, seed: int) -> dict:
+    """tests/test_local_virtual.py and the dead-worker scenario of
+    tests/test_accuracy_elasticity.py on four ranks."""
+    from edl_tpu_torch.api.types import (ResourceRequirements, TrainerSpec,
+                                         TrainingJob, TrainingJobSpec)
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.coord import local_service
+    from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+    from edl_tpu_torch.runtime.virtual import (OwnershipMap, VirtualBatches,
+                                               VirtualConfig,
+                                               VirtualWorkerLoop)
+
+    _join(rank, world, store)
+    tmp = Path(store).parent
+    cfg = VirtualConfig(vw_count=4, global_batch=32, job_seed=seed)
+
+    def trainer(n):
+        model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                          mlp_params)
+        return ElasticTrainer(mlp.loss_fn, model, optim.adam(1e-2),
+                              devices=[torch.device("cpu")],
+                              initial_world_size=n,
+                              accum_mode="replicated")
+
+    def registry(n, shards):
+        reg = ShardRegistry()
+        return reg, reg.register_arrays((data[0][:n], data[1][:n]),
+                                        num_shards=shards)
+
+    def job_on(cluster, lo=1, hi=8):
+        job = TrainingJob(name="vj", spec=TrainingJobSpec(
+            fault_tolerant=True, trainer=TrainerSpec(
+                min_instance=lo, max_instance=hi,
+                resources=ResourceRequirements(requests={"cpu": "1"}))))
+        cluster.create_resources(job)
+        return job
+
+    def virtual_drive(rank):
+        reg, ids = registry(1024, 8)
+        ctl = VirtualWorkerLoop(trainer(2), cfg,
+                                VirtualBatches(cfg, ids, reg.get),
+                                kv=local_service() if rank == 0 else None,
+                                job="ctl")
+        control = ctl.run(max_steps=16, world_size_for=lambda s: 2)
+        job = cluster = coord = None
+        if rank == 0:
+            cluster = FakeCluster()
+            for i in range(2):
+                cluster.add_node(f"n{i}", cpu_milli=16000,
+                                 memory_mega=64000)
+            job = job_on(cluster)
+            cluster.update_trainer_parallelism(job, 2)
+            coord = local_service()
+        runner = LocalElasticJob(
+            job, cluster, trainer(2), coord, fetch=None, batch_size=32,
+            virtual=cfg, shard_ids=ids, fetch_shard=reg.get,
+            prewarm_neighbors=False, job_name="default/vj")
+        grown = []
+
+        def on_step(step, loss, world):
+            if step >= 8 and not grown:
+                if cluster is not None:  # the autoscaler dial
+                    cluster.update_trainer_parallelism(job, 4)
+                grown.append(True)
+
+        rep = runner.run(max_steps=16, on_step=on_step)
+        return dict(
+            control=control.losses, losses=rep.losses, steps=rep.steps,
+            resizes=rep.resizes, worlds=rep.world_sizes,
+            duplicated=rep.virtual.rows_duplicated(),
+            missing=rep.virtual.rows_missing(expected=16 * cfg.global_batch),
+            published=None if coord is None else [
+                coord.kv_get(f"vw-{k}/default/vj") is not None
+                for k in ("map", "cursor")])
+
+    def opt_out(rank):
+        reg, ids = registry(1024, 8)
+        job = cluster = coord = None
+        if rank == 0:
+            cluster = FakeCluster()
+            cluster.add_node("n0", cpu_milli=16000, memory_mega=64000)
+            job = job_on(cluster)
+            coord = local_service()
+            reg.enqueue(coord, ids[:2])
+        runner = LocalElasticJob(
+            job, cluster, trainer(1), coord, fetch=reg.fetch, batch_size=32,
+            virtual=cfg, shard_ids=ids, fetch_shard=reg.get,
+            use_virtual_batches=False, prewarm_neighbors=False)
+        rep = runner.run(max_steps=4)
+        return dict(steps=rep.steps, virtual=rep.virtual,
+                    losses=rep.losses)
+
+    def dead_workers(rank):
+        reg, ids = registry(640, 5)  # 128-row shards: always mid-shard
+        run_cfg = VirtualConfig(vw_count=4, global_batch=32, job_seed=0)
+        kv = local_service() if rank == 0 else None
+        ck = ElasticCheckpointer(tmp / "dead_workers")
+        vb = VirtualBatches(run_cfg, ids, reg.get, passes=1)
+        loop = VirtualWorkerLoop(trainer(4), run_cfg, vb, kv=kv,
+                                 job="redispatch", checkpointer=ck,
+                                 ckpt_every=1)
+        rep1 = loop.run(max_steps=7, world_size_for=lambda s: 4)
+        before = (OwnershipMap.load(kv, job="redispatch").mapping
+                  if kv is not None else None)
+        vb2 = VirtualBatches(run_cfg, ids, reg.get, passes=1)
+        loop2 = VirtualWorkerLoop(trainer(2), run_cfg, vb2, kv=kv,
+                                  job="redispatch", checkpointer=ck,
+                                  ckpt_every=0)
+        restored = loop2.restore_latest()
+        rep2 = loop2.run(world_size_for=lambda s: 2)  # drain the pass
+        after = (OwnershipMap.load(kv, job="redispatch").mapping
+                 if kv is not None else None)
+        ck.close()
+        return dict(restored=restored, before=before, after=after,
+                    reports=[dict(losses=r.losses,
+                                  rows=dict(r.rows_trained))
+                             for r in (rep1, rep2)],
+                    dropped=vb2.rows_dropped_remainder)
+
+    return _run_scenarios([virtual_drive, opt_out, dead_workers], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
           "sharded": suite_sharded, "lineage": suite_lineage,
-          "prewarm": suite_prewarm, "sdc": suite_sdc}
+          "prewarm": suite_prewarm, "sdc": suite_sdc,
+          "bert_tp_two": suite_bert_tp_two,
+          "bert_tp_eight": suite_bert_tp_eight, "local": suite_local,
+          "local_four": suite_local_four}
