@@ -195,8 +195,32 @@ Phases, each of which raises on failure:
     from the same weights and batch; 12 launches of each flash kernel a
     step on each rank.
 
+(s) the multi-process elastic job: the port's native coordinator server
+    (``edl_tpu_torch.coord.server.spawn_server``, its binary built from
+    ``edl_tpu_torch/coord/native`` under ``build/edl_tpu_torch/``) and
+    supervisors ``python -m edl_tpu_torch.runtime.multihost_worker --model
+    transformer --model-config flagship --device cuda:0`` sharing the card,
+    each world child an ``ElasticTrainer`` over a gloo group of the epoch's
+    members (one card for every rank means gloo).  FLAGSHIP (adam 3e-3, the reference
+    task's), ``MH_TASKS`` leased tasks of 8 x 1024 seeded successor tokens
+    through the port's ``ShardRegistry``, a generation every
+    ``MH_CKPT_EVERY`` steps: w0 and w1 form a world of 2, w1 is SIGKILLed
+    after w0's step ``MH_KILL_AFTER`` (its world child dies with it), w0
+    reforms a world of 1 from the newest generation, w2 joins and a world of
+    2 forms again, until the queue drains.  Gates: every task done once and
+    ``all_done`` (the server's ``stats()``); worlds 2, 1, 2 with the members
+    the plans name; the reformed world's parameters CRC32 and step equal
+    to the newest generation the world of 2 saved (at most
+    ``MH_CKPT_EVERY`` steps lost), the joiner's equal to the generation at
+    w0's last world-1 step, neither the cold init's; every
+    loss finite; each trained step of a world child launching every flash
+    kernel 8 times; the supervisors reporting CUDA never initialised.
+    Prints each world's ``world_phases``, the kill to the reformed world's
+    first step, the steps lost, each generation's save ms and bytes, step
+    ms by world and the server's ``server_metrics()``.
+
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Each kernel is held to the element-wise rule of
+after ((s)'s world children are fresh processes, each counting from 0).  Each kernel is held to the element-wise rule of
 ``edl_tpu_torch/ops/kernel_check.py``; ``python -m
 edl_tpu_torch.ops.kernel_check`` shows that faults planted in the kernels
 fail it.
@@ -214,6 +238,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -367,6 +392,18 @@ LOCAL_VIRTUAL_DIAL = {2: 2}
 #: flash kernel a layer a step)
 BERT_TP_STEPS = 3
 BERT_LAYERS = 12
+#: phase (s): the job's leased tasks (each one rank's local batch of
+#: MH_ROWS x S tokens, so a world-2 step trains (j)'s 16 x 1024), the step
+#: of w0's after which w1 is killed, the generation cadence, each step's
+#: pause (paces the job so the kill and the join land mid-job), the
+#: member TTL and task timeout of the server (a dead member is pruned, and
+#: its leased task dispatched again, after them), the process groups'
+#: rendezvous and collective timeout (the stall watchdog's floor too), and
+#: the whole job's deadline
+MH_TASKS, MH_ROWS = 32, 8
+MH_KILL_AFTER, MH_CKPT_EVERY, MH_STEP_SLEEP_S = 4, 2, 0.25
+MH_MEMBER_TTL_MS, MH_TASK_TIMEOUT_MS = 3000, 5000
+MH_GROUP_TIMEOUT_S, MH_TIMEOUT_S = 120, 420
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -2906,6 +2943,245 @@ def phase_bert_tp(card: str) -> dict:
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
 
 
+# -- phase (s): the multi-process elastic job ----------------------------------
+
+
+def mh_spawn(port: int, name: str, ckpt_dir: str, min_members: int,
+             env: dict, log: str, config: str, device: str,
+             timeout_s: float) -> subprocess.Popen:
+    """One supervisor of (s): ``python -m
+    edl_tpu_torch.runtime.multihost_worker`` against the server on
+    ``port``, its output to ``log``; ``timeout_s`` is its process groups'
+    timeout and its stall watchdog's floor."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu_torch.runtime.multihost_worker",
+         "--coord", f"127.0.0.1:{port}", "--name", name,
+         "--ckpt-dir", ckpt_dir, "--min-members", str(min_members),
+         "--settle-s", "0.5", "--heartbeat-timeout-s", "10",
+         "--init-timeout-s", str(timeout_s),
+         "--stall-floor-s", str(timeout_s),
+         "--model", "transformer", "--model-config", config,
+         "--device", device],
+        stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def mh_wait_line(log: str, needle: str, procs: dict, deadline: float
+                 ) -> str:
+    """The first line of ``log`` holding ``needle``; raises when a
+    supervisor exits early or the deadline passes."""
+    while time.monotonic() < deadline:
+        with open(log) as f:
+            for line in f:
+                if needle in line:
+                    return line.strip()
+        dead = {n: p.returncode for n, p in procs.items()
+                if p.poll() is not None}
+        if dead:
+            raise AssertionError(f"phase (s): supervisors {dead} exited "
+                                 f"before {needle!r} appeared in {log}")
+        time.sleep(0.1)
+    raise AssertionError(f"phase (s): {needle!r} never appeared in {log}")
+
+
+def mh_field(line: str, key: str) -> str:
+    return line.split(f"{key}=", 1)[1].split()[0]
+
+
+def mh_steps(text: str) -> list[dict]:
+    """Every ``step N world=W ms=.. wall=.. launches=.. loss=..`` line."""
+    out = []
+    for line in text.splitlines():
+        if " step " in line and " loss=" in line:
+            out.append(dict(
+                step=int(line.split(" step ", 1)[1].split()[0]),
+                world=int(mh_field(line, "world")),
+                ms=float(mh_field(line, "ms")),
+                wall=float(mh_field(line, "wall")),
+                launches=[int(x) for x in
+                          mh_field(line, "launches").split(",")],
+                loss=float(line.rsplit("loss=", 1)[1])))
+    return out
+
+
+def phase_multihost(card: str, config: str = "flagship",
+                    device: str = "cuda:0",
+                    timeout_s: float = MH_GROUP_TIMEOUT_S) -> dict:
+    """(s): the multi-process elastic job.  The port's native server; two
+    supervisors form a world of 2 on the card, one is SIGKILLed, the
+    survivor reforms a world of 1 from the newest generation, a third
+    joins late and a world of 2 forms again, until the queue drains.
+    Returns the flash launches of every world child summed.
+    (``scripts/time_multihost.py`` runs it over NCCL, one card a rank.)"""
+    from edl_tpu_torch.coord import bindings
+    from edl_tpu_torch.coord.server import spawn_server
+    from edl_tpu_torch.runtime.multihost import world_backend
+
+    torch.cuda.empty_cache()
+    bindings.ensure_built()
+    srv = spawn_server(member_ttl_ms=MH_MEMBER_TTL_MS,
+                       task_timeout_ms=MH_TASK_TIMEOUT_MS)
+    binary = srv.process.args[0]
+    print(f"multihost server: {os.path.relpath(binary)} (built in "
+          f"{bindings.last_build_s:.2f} s) on port {srv.port}", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mh-")
+    procs: dict = {}
+    try:
+        if not os.path.abspath(binary).startswith(
+                os.path.join(root, "build", "edl_tpu_torch") + os.sep):
+            raise AssertionError(f"phase (s): server binary {binary} is "
+                                 "not the port's build")
+        env = dict(os.environ, PYTHONPATH=root,
+                   EDL_MH_EXAMPLES=str(MH_TASKS * MH_ROWS),
+                   EDL_MH_SHARDS=str(MH_TASKS), EDL_MH_BATCH=str(MH_ROWS),
+                   EDL_MH_SEQ=str(S), EDL_MH_CKPT_EVERY=str(MH_CKPT_EVERY),
+                   EDL_MH_STEP_SLEEP=str(MH_STEP_SLEEP_S),
+                   EDL_MH_DIGEST="1",
+                   EDL_MH_DIE_WITH_PARENT="1")
+        logs = {n: os.path.join(tmp, f"{n}.log") for n in ("w0", "w1", "w2")}
+        ckpt = os.path.join(tmp, "ckpt")
+        deadline = time.monotonic() + MH_TIMEOUT_S
+        for n in ("w0", "w1"):
+            procs[n] = mh_spawn(srv.port, n, ckpt, 2, env, logs[n], config,
+                                device, timeout_s)
+        mh_wait_line(logs["w0"], f" step {MH_KILL_AFTER} ", procs, deadline)
+        t_kill = time.time()
+        procs["w1"].kill()
+        procs["w1"].wait(30)
+        killed = procs.pop("w1")
+        mh_wait_line(logs["w0"], " world=1 ms=", procs, deadline)
+        procs["w2"] = mh_spawn(srv.port, "w2", ckpt, 1, env, logs["w2"],
+                               config, device, timeout_s)
+        rcs = {}
+        for n, p in procs.items():
+            rcs[n] = p.wait(max(deadline - time.monotonic(), 1.0))
+        client = srv.client()
+        stats, all_done = client.stats(), client.all_done()
+        metrics = client.server_metrics()
+        client.close()
+        texts = {n: open(path).read() for n, path in logs.items()}
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase (s): the job ran past {MH_TIMEOUT_S} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"multihost phase (s): {config.upper()} over "
+          f"{MH_TASKS} leased tasks of {MH_ROWS} x {S} tokens, supervisors "
+          f"w0 and w1 on {device} over {world_backend(device)}, w1 "
+          f"SIGKILLed after step "
+          f"{MH_KILL_AFTER}, w2 joining once w0 trains on a world of 1, "
+          f"a generation every {MH_CKPT_EVERY} steps, on {card}", flush=True)
+    failures = []
+    worlds, entries, steps = {}, {}, {}
+    for n, text in texts.items():
+        worlds[n] = [(int(mh_field(ln, "world")), mh_field(ln, "members"))
+                     for ln in text.splitlines() if "devices ready" in ln]
+        entries[n] = [ln for ln in text.splitlines()
+                      if "entering world" in ln]
+        steps[n] = mh_steps(text)
+        for ln in text.splitlines():
+            if "world_phases" in ln or "saved generation" in ln:
+                print(f"multihost {ln.strip()}", flush=True)
+    saved = {}
+    for text in texts.values():
+        for ln in text.splitlines():
+            if "saved generation" in ln:
+                saved[ln.split("saved generation ", 1)[1].split()[0]] = (
+                    int(mh_field(ln, "step")), mh_field(ln, "digest"))
+    cold = [d for f, (st, d) in saved.items() if st == 0]
+    print(f"multihost worlds w0 {worlds['w0']} w1 {worlds['w1']} w2 "
+          f"{worlds['w2']}; exits {rcs} (w1 SIGKILLed: "
+          f"{killed.returncode}); tasks {stats}, all_done {all_done}",
+          flush=True)
+    if rcs != {"w0": 0, "w2": 0} or killed.returncode != -signal.SIGKILL:
+        failures.append(f"exits {rcs}, w1 {killed.returncode}")
+    if (stats.done != MH_TASKS or stats.todo or stats.leased
+            or stats.dropped or not all_done):
+        failures.append(f"tasks {stats} all_done {all_done}")
+    if (worlds["w0"] != [(2, "w0,w1"), (1, "w0"), (2, "w0,w2")]
+            or worlds["w1"] != [(2, "w0,w1")]
+            or worlds["w2"] != [(2, "w0,w2")]):
+        failures.append(f"worlds {worlds}")
+    # the reformed world starts bitwise from the newest generation the
+    # world of 2 saved, the late joiner from the one the world of 1 ended
+    # on, and neither from a cold init
+    starts = [(n, mh_field(ln, "digest"), int(ln.rsplit("step=", 1)[1]))
+              for n, k in (("w0", 1), ("w2", 0)) for ln in entries[n][k:k + 1]]
+    epoch_2 = mh_field(entries["w0"][0], "epoch") if entries["w0"] else None
+    newest_2 = max((pair for f, pair in saved.items()
+                    if f.startswith(f"mid-{epoch_2}-")), default=None)
+    # w0's steps in its first world of 2 (up to the kill) and in world 1
+    reform = next((i for i, st in enumerate(steps["w0"])
+                   if st["world"] == 1), 0)
+    w0_1 = [st for st in steps["w0"][reform:] if st["world"] == 1]
+    if not reform or not w0_1:
+        raise AssertionError("phase (s): " + "; ".join(
+            failures + ["w0 never trained on a world of 1 after one of 2"]))
+    before_kill = max(st["step"] for st in steps["w0"][:reform])
+    last_1 = max(st["step"] for st in w0_1)
+    print(f"multihost restores (worker, digest, step): {starts}; saved "
+          f"generations {saved}; cold init {cold}; w0 must resume at the "
+          f"newest mid-world generation of epoch {epoch_2} {newest_2}, w2 "
+          f"at w0's last world-1 step {last_1}", flush=True)
+    lost = before_kill - starts[0][2] if starts else None
+    if (len(starts) != 2
+            or any((st, d) not in saved.values() or d in cold
+                   for _, d, st in starts)
+            or (starts[0][2], starts[0][1]) != newest_2
+            or starts[1][2] != last_1 or not 0 <= lost <= MH_CKPT_EVERY):
+        failures.append(f"restores {starts} (lost {lost}), want w0 at "
+                        f"{newest_2} and w2 at step {last_1}")
+    first_1 = w0_1[0]
+    aborted = [float(mh_field(ln, "wall")) for ln in texts["w0"].splitlines()
+               if "aborted wall=" in ln]
+    ready = [float(mh_field(ln, "wall")) for ln in texts["w0"].splitlines()
+             if "devices ready" in ln and "world=1 " in ln]
+    abort = (f"{aborted[0] - t_kill:.3f} s" if aborted else
+             "not logged (ended by a signal: NCCL's watchdog or the stall "
+             "watchdog's)")
+    print(f"multihost kill to w0's world child aborting {abort}, to the "
+          f"world of 1's devices ready "
+          f"{ready[0] - t_kill if ready else float('nan'):.3f} s, to its "
+          f"first step {first_1['wall'] - t_kill:.3f} s", flush=True)
+    print(f"multihost kill to the reformed world's first step "
+          f"{first_1['wall'] - t_kill:.3f} s; steps lost to the kill "
+          f"{lost} (w0 had finished step {before_kill}, the world of 1 "
+          f"resumed at step {starts[0][2] if starts else None})", flush=True)
+    for world in (2, 1):
+        ms = {n: [round(st["ms"], 2) for st in steps[n]
+                  if st["world"] == world and st["loss"] != 0]
+              for n in texts}
+        shared = ("two ranks share one card over gloo: not a scaling figure"
+                  if world_backend(device) == "gloo"
+                  else "one card a rank over nccl")
+        print(f"multihost world {world} step_ms {ms} ({shared}; a step of "
+              f"the leader that drains a generation save is slower) on "
+              f"{card}", flush=True)
+    print(f"multihost server_metrics {metrics}", flush=True)
+    want = tfm.FLAGSHIP.n_layers if device.startswith("cuda") else 0
+    losses = [st["loss"] for n in texts for st in steps[n]]
+    bad = [(n, st) for n in texts for st in steps[n]
+           if st["launches"] != [want if st["loss"] != 0 else 0] * 3]
+    if bad or not losses or not all(np.isfinite(losses)):
+        failures.append(f"launches or losses {bad[:3]} {losses[:4]}")
+    for n in ("w0", "w2"):
+        if "supervisor cuda initialized False" not in texts[n]:
+            failures.append(f"{n}'s supervisor initialised CUDA")
+    if failures:
+        raise AssertionError("phase (s): " + "; ".join(failures))
+    total = {k: 0 for k in FLASH}
+    for n in texts:
+        for st in steps[n]:
+            for k, c in zip(sorted(FLASH), st["launches"]):
+                total[k] += c
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2955,6 +3231,7 @@ def main() -> int:
     paths["flagship_sdc"] = phase_sdc(card, virtual["control"])
     paths["flagship_local"] = phase_local(card, virtual["control"])
     paths["bert_tp"] = phase_bert_tp(card)
+    paths["flagship_multihost"] = phase_multihost(card)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -2,9 +2,10 @@
 the port's own copy of edl_tpu.coord.service (pure Python; only the metrics
 registry it registers on is the port's).
 
-The JAX package runs the same semantics in a C++ core as well; the port
-has this Python backend alone for now (ROADMAP.md, queue 1 item 4: the
-native core, the TCP client and the HA pair come later).  The task-lease
+The same semantics run in the port's C++ core
+(:mod:`edl_tpu_torch.coord.bindings`, and the server a
+:class:`~edl_tpu_torch.coord.client.CoordClient` talks to); this backend is
+the spec and the fallback where no C++ toolchain exists.  The task-lease
 behavior mirrors the reference master:
 leased-but-unfinished tasks are re-dispatched after a timeout (16 s,
 reference docker/paddle_k8s:30) so a dead trainer's work flows to the living.
@@ -53,7 +54,7 @@ class CoordFenced(RuntimeError):
     deposed primary that discovered a newer fencing token.  Every verb —
     reads and long-polls included — raises this instead of serving state
     that may be stale; a multi-endpoint client treats it as the signal to
-    fail over (see the JAX package's ``CoordClient``).
+    fail over (see :class:`~edl_tpu_torch.coord.client.CoordClient`).
 
     ``fence`` carries the raiser's token when known: a primary whose
     replication exchange meets this exception deposes itself ONLY if

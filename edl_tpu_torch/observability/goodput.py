@@ -1,5 +1,6 @@
 """Goodput ledger: attribute every chip-second of a job to a phase — the
-part of edl_tpu.observability.goodput that the trainer's resize path calls.
+part of edl_tpu.observability.goodput that the trainer's resize path and
+the multi-process supervisor (runtime/multihost.py) call.
 
 A :class:`GoodputLedger` attributes wall-clock time, weighted by the world
 size holding chips, to its accruing phase; durations measured elsewhere
@@ -38,6 +39,10 @@ IDLE = "idle"
 ALL_PHASES = (PRODUCTIVE, COMPILE, RESHARD, CHECKPOINT_PAUSE, STALL,
               REFORM_DARK, QUEUED, IDLE)
 
+#: phases that are *lost* time (everything but productive) — what the
+#: ``edl_goodput_lost_seconds{phase=...}`` gauges report
+LOST_PHASES = tuple(p for p in ALL_PHASES if p != PRODUCTIVE)
+
 
 class GoodputLedger:
     """Per-job chip-second ledger.
@@ -57,6 +62,7 @@ class GoodputLedger:
         self._clock = clock
         self._lock = threading.Lock()
         now = clock()
+        self._t0 = now
         self._last = now          # attribution accrual timestamp
         self._integral_t = now    # independent conservation-integral stamp
         self._world = max(int(world_size), 0)
@@ -64,11 +70,14 @@ class GoodputLedger:
         #: the phase stack; its top accrues, its bottom is the base phase
         self._stack = [base_phase]
         self._integral = 0.0      # ∫ world_size dt, chip-seconds
+        self._closed = False      # closed: accrual frozen at close time
 
     def _accrue_locked(self, now: float) -> None:
         """Attribute the elapsed window to the accruing phase AND advance
         the independent integral — two code paths over the same clock
         reads, so a skipped accrual makes them diverge."""
+        if self._closed:
+            return
         dt = now - self._last
         if dt > 0:
             self._attributed[self._stack[-1]] += dt * self._world
@@ -136,6 +145,26 @@ class GoodputLedger:
                     return True
             return False
 
+    def reset(self, phase: str) -> None:
+        """Collapse the whole stack to ``phase`` — the world-death path:
+        whatever the process was mid-way through, the chips are now dark
+        until the reform lands, and every half-open phase is settled at
+        this instant."""
+        if phase not in ALL_PHASES:
+            raise ValueError(f"unknown phase {phase!r}")
+        with self._lock:
+            self._accrue_locked(self._clock())
+            self._stack = [phase]
+
+    def close(self) -> None:
+        """Freeze the ledger: one final accrual now, then every read
+        returns the settled numbers (the supervisor closes its ledger at
+        worker exit, so its gauges stop accruing a finished job's last
+        phase).  Idempotent."""
+        with self._lock:
+            self._accrue_locked(self._clock())
+            self._closed = True
+
     def chip_seconds(self, phase: str) -> float:
         with self._lock:
             self._accrue_locked(self._clock())
@@ -154,6 +183,42 @@ class GoodputLedger:
         """Attributed chip-seconds sum to the world-size integral within
         ``tolerance`` (default 1 %)."""
         return self.conservation_error() <= tolerance
+
+    def goodput_fraction(self) -> float:
+        """Productive chip-seconds over all attributed chip-seconds
+        (0.0 before anything accrued)."""
+        with self._lock:
+            self._accrue_locked(self._clock())
+            total = sum(self._attributed.values())
+            return self._attributed[PRODUCTIVE] / total if total > 0 else 0.0
+
+    def snapshot(self) -> dict:
+        """Everything a report wants, in one dict (the reference's keys,
+        less its optional token feed)."""
+        with self._lock:
+            now = self._clock()
+            self._accrue_locked(now)
+            # a closed ledger's wall clock ends at its close instant
+            end = self._last if self._closed else now
+            total = sum(self._attributed.values())
+            return {
+                "job": self.job,
+                "world_size": self._world,
+                "wall_seconds": round(end - self._t0, 3),
+                "chip_seconds": {p: round(v, 3)
+                                 for p, v in self._attributed.items()},
+                "attributed_chip_seconds": round(total, 3),
+                "integral_chip_seconds": round(self._integral, 3),
+                "goodput_fraction": round(
+                    self._attributed[PRODUCTIVE] / total, 4) if total else 0.0,
+                "lost_seconds": {p: round(self._attributed[p], 3)
+                                 for p in LOST_PHASES
+                                 if self._attributed[p] > 0},
+                "conservation_error_pct": round(
+                    100.0 * (abs(total - self._integral) / self._integral
+                             if self._integral > 0 else 0.0), 4),
+                "current_phase": self._stack[-1],
+            }
 
 
 # -- process ledger ----------------------------------------------------------
@@ -215,3 +280,37 @@ def set_world_size(n: int) -> None:
             led.set_world_size(n)
         except Exception:
             pass
+
+
+def register_metrics(ledger: GoodputLedger, registry=None) -> None:
+    """Expose the ledger as ``edl_goodput_*`` series on the shared
+    registry (callback gauges, evaluated at render time): the fraction,
+    the accrual weight, the conservation error, and the chip-seconds by
+    phase (all, and the lost ones alone)."""
+    if registry is None:
+        from edl_tpu_torch.observability.metrics import get_registry
+
+        registry = get_registry()
+    job = ledger.job
+    registry.gauge_fn("goodput_fraction", ledger.goodput_fraction,
+                      help="productive chip-seconds over attributed",
+                      job=job)
+    registry.gauge_fn("goodput_world_size",
+                      lambda: ledger.world_size,
+                      help="current chip-second accrual weight", job=job)
+    registry.gauge_fn(
+        "goodput_conservation_error_pct",
+        lambda: 100.0 * ledger.conservation_error(),
+        help="|attributed - integral| as % of the world-size integral",
+        job=job)
+    for phase in ALL_PHASES:
+        registry.gauge_fn(
+            "goodput_chip_seconds",
+            (lambda p=phase: ledger.chip_seconds(p)),
+            help="attributed chip-seconds by phase", job=job, phase=phase)
+    for phase in LOST_PHASES:
+        registry.gauge_fn(
+            "goodput_lost_seconds",
+            (lambda p=phase: ledger.chip_seconds(p)),
+            help="non-productive chip-seconds by phase", job=job,
+            phase=phase)

@@ -18,11 +18,13 @@ update), :class:`FlipParamBits` (one bit of a live parameter) and
 recovery is the SDC plane's own: a rollback for the first two, a refuted
 verdict for the third.
 
-The reference's other kinds are later items of the port (ROADMAP.md): the
-training eight (:data:`TRAINING_KINDS`, kills, partitions, torn
-checkpoints, full disks, stalls and wedges) come with queue-1 item 6, the
-serving five (:data:`SERVING_KINDS`) with item 11.  Naming one raises
-``ValueError`` with its item.
+The reference's other kinds are later items of the port (ROADMAP.md).
+The training eight (:data:`TRAINING_KINDS`: kills, partitions, torn
+checkpoints, full disks, stalls and wedges) strike the multi-process world,
+whose supervisor is ported (:mod:`edl_tpu_torch.runtime.multihost`); the
+kinds themselves, with ``ChaosProxy`` and the chaos monkey, are queue-1
+item 6's open bullet.  The serving five (:data:`SERVING_KINDS`) come with
+item 11.  Naming one raises ``ValueError`` with its item.
 """
 
 from __future__ import annotations
@@ -217,8 +219,8 @@ class FaultPlan:
         exactly as the reference draws: ``n_faults`` actions from ``kinds``
         (each kind at least once when ``n_faults`` allows), at strictly
         increasing steps at least ``min_gap`` apart.  ``kinds`` defaults to
-        the reference's training eight, which raise here until item 6
-        brings them; pass :data:`SDC_KINDS`.  ``flake_duration_s`` shapes
+        the reference's training eight, which raise here until item 6's
+        open bullet brings them; pass :data:`SDC_KINDS`.  ``flake_duration_s`` shapes
         the network and serving kinds only."""
         _check_ported(kinds)
         rng = random.Random(seed)

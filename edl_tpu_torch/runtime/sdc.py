@@ -352,8 +352,9 @@ class BlockFolds:
 class MemoryKV:
     """The KV store the plane needs — ``kv_set``, ``kv_get``, ``kv_del``,
     ``kv_keys(prefix)`` — over a dict in this process, for workers that
-    share one process.  The coordinator's client (ROADMAP.md, queue 1
-    item 4) serves the same four calls across processes."""
+    share one process.  Across processes the coordinator's
+    :class:`~edl_tpu_torch.coord.client.CoordClient` serves the same four
+    calls."""
 
     def __init__(self) -> None:
         self._data: dict[str, bytes] = {}
@@ -735,9 +736,12 @@ class ShadowRecompute:
 def quarantine_worker(kv, name: str, reason: str = "sdc-confirmed",
                       by: str = "sdc") -> bool:
     """Write the durable quarantine marker for ``name``.  The membership
-    machinery that declines a marked worker's rejoin is queue-1 item 6 of
-    ROADMAP.md; amnesty follows the eviction rules: a fresh incarnation
-    clears its own marker (:func:`clear_quarantine`)."""
+    machinery honours it: :meth:`~edl_tpu_torch.runtime.multihost.
+    ElasticWorld.evicted_names` keeps a marked worker out of every world
+    plan, and its keepalive declines the rejoin
+    (:class:`~edl_tpu_torch.runtime.discovery.CoordDiscovery`).  Amnesty
+    follows the eviction rules: a fresh incarnation clears its own marker
+    (:func:`clear_quarantine`)."""
     if kv is None:
         return False
     try:

@@ -82,6 +82,10 @@ S_DECODING = "decoding"
 S_DONE = "done"
 S_FAILED = "failed"
 
+#: the KV key a fleet publishes its weight generation under, and a trainer
+#: may publish a new step under: the lineage watcher long-polls it
+SERVING_GEN_KEY = "serving-gen/{job}"
+
 #: priority classes (weighted fair queueing + per-class TTFT/TPOT SLOs)
 PRI_HIGH, PRI_NORMAL, PRI_LOW = 0, 1, 2
 PRI_NAMES = {PRI_HIGH: "high", PRI_NORMAL: "normal", PRI_LOW: "low"}
@@ -1081,7 +1085,11 @@ class DecodeFleet:
     ``{"prefill": 1, "decode": 2}``; ``params`` may also be the weights
     nested as a checkpoint holds them (:func:`~edl_tpu_torch.models.llama.
     param_tree`).  Every replica runs on ``device``: the JAX package's own
-    wrap-around when a host has fewer devices than replicas."""
+    wrap-around when a host has fewer devices than replicas.  ``kv`` is a
+    coordinator (a :class:`~edl_tpu_torch.coord.client.CoordClient`, or
+    any store with ``kv_set``/``kv_get``): each rolling reload publishes
+    the generation under ``serving-gen/<job>``, and the lineage watcher
+    long-polls that key (:meth:`watch_lineage`)."""
 
     def __init__(self, params: Any, cfg, *, job: str = "job",
                  roles: Optional[dict] = None, slots: int = 4,
@@ -1094,7 +1102,7 @@ class DecodeFleet:
                  spec_tokens: int = 0, spec_ngram: int = 3,
                  kv_quantize: Optional[str] = None,
                  max_queued_sessions: int = 64, window: int = 4096,
-                 device="cuda") -> None:
+                 device="cuda", kv=None) -> None:
         self._gen_params = llama.as_decode_params(params, device, cfg)
         if self._gen_params.cfg != cfg:
             raise ValueError("params were built for another config")
@@ -1115,6 +1123,7 @@ class DecodeFleet:
         self._decode_per_prefill = int(decode_per_prefill)
         self._tpot_budget_ms = float(tpot_budget_ms)
         self.max_queued_sessions = int(max_queued_sessions)
+        self._kv = kv
         self.generation = 0
         #: the lineage watcher of :meth:`watch_lineage`, stopped by stop()
         self._watcher: Optional[_WeightWatcher] = None
@@ -1423,6 +1432,13 @@ class DecodeFleet:
             if r.state != STOPPED and r.swap_weights(params, generation):
                 swapped += 1
         self.generation = generation
+        if self._kv is not None:
+            try:
+                self._kv.kv_set(SERVING_GEN_KEY.format(job=self.job),
+                                str(generation).encode())
+            except Exception as exc:  # KV is observability here, not truth
+                log.warn("serving generation publish failed", job=self.job,
+                         error=str(exc)[:120])
         log.info("decode rolling reload complete", job=self.job,
                  generation=generation, replicas=swapped)
         return swapped
@@ -1469,12 +1485,23 @@ class DecodeFleet:
         self.rolling_reload(params, step)
         return step
 
-    def watch_lineage(self, checkpointer,
-                      poll_s: float = 5.0) -> "_WeightWatcher":
-        """Start the reload driver: a thread that, every ``poll_s``, calls
-        :meth:`reload_from_lineage` (a failure is logged and the next poll
-        tries again).  :meth:`stop` stops it."""
-        self._watcher = _WeightWatcher(self, checkpointer, poll_s)
+    def watch_lineage(self, checkpointer, poll_s: float = 5.0,
+                      scan_backstop: int = 1) -> "_WeightWatcher":
+        """Start the reload driver: a thread that calls
+        :meth:`reload_from_lineage` (a failure is logged and the next cycle
+        tries again).  :meth:`stop` stops it.
+
+        With a coordinator wired (``kv=``), each cycle long-polls the
+        ``serving-gen/<job>`` key (``kv_wait_changed``) for up to
+        ``poll_s`` instead of sleeping: a published generation wakes the
+        reload within milliseconds.  The lineage itself is still scanned
+        every ``scan_backstop`` cycles (default 1, every ``poll_s``, so a
+        trainer that saves without publishing the key is still picked
+        up); a larger backstop skips the scans a quiet key makes
+        needless, counted ``serving_lineage_polls_saved``.  Without a
+        coordinator the thread sleeps ``poll_s`` and scans every cycle."""
+        self._watcher = _WeightWatcher(self, checkpointer, poll_s,
+                                       scan_backstop=scan_backstop)
         self._watcher.start()
         return self._watcher
 
@@ -1561,29 +1588,85 @@ class DecodeFleet:
             r.stop(drain=drain)
 
 
+_UNSET = object()
+
+
 class _WeightWatcher(threading.Thread):
-    """:meth:`DecodeFleet.watch_lineage`'s thread: sleeps ``poll_s`` (at
-    least 0.1 s), then scans the lineage, until :meth:`stop`.  This is the
-    reference watcher's path without a coordinator; its long-poll of the
-    fleet's generation key, which skips scans while nothing changed, waits
-    for the port's coordinator (ROADMAP.md, queue 1 item 4)."""
+    """:meth:`DecodeFleet.watch_lineage`'s thread: each cycle parks on the
+    generation key's change (or sleeps ``poll_s``, at least 0.1 s, when
+    the fleet has no coordinator), then scans the lineage when the key
+    fired or the scan backstop is due, until :meth:`stop`."""
 
     def __init__(self, fleet: DecodeFleet, checkpointer,
-                 poll_s: float) -> None:
+                 poll_s: float, scan_backstop: int = 1) -> None:
         super().__init__(name=f"serving-reload-{fleet.job}", daemon=True)
         self.fleet = fleet
         self.checkpointer = checkpointer
         self.poll_s = max(float(poll_s), 0.1)
+        self.scan_backstop = max(int(scan_backstop), 1)
         # not named _stop: threading.Thread has a _stop method
         self._halt = threading.Event()
+        self._no_longpoll = False
+        self._gen_key = SERVING_GEN_KEY.format(job=fleet.job)
+        # "never observed" differs from "key absent" (None): the baseline
+        # updates only from the change-wait's own results, so a change is
+        # never absorbed by a re-read before the wait could fire on it
+        self._known: object = _UNSET
+        #: lineage scans this watcher ran
+        self.scans = 0
+
+    def _park(self) -> tuple[bool, bool]:
+        """One cycle's wait: long-poll the generation key when the fleet
+        has a coordinator with the change-wait, else sleep.  Returns
+        ``(fired, longpolled)``: ``fired`` when the key changed,
+        ``longpolled`` when a change-wait watched it (only then may the
+        backstop skip a scan)."""
+        kv = self.fleet._kv
+        wait_changed = (getattr(kv, "kv_wait_changed", None)
+                        if kv is not None else None)
+        if wait_changed is None or self._no_longpoll:
+            self._halt.wait(self.poll_s)
+            return False, False
+        try:
+            if self._known is _UNSET:
+                self._known = kv.kv_get(self._gen_key)
+            fired, newv = wait_changed(self._gen_key, self._known,
+                                       self.poll_s)
+            if getattr(kv, "_no_waitne", False):
+                # a server without the change-wait: the client sleep-polls
+                # the KV for us, pure added load — sleep-poll for good
+                self._no_longpoll = True
+                return False, False
+            get_counters().inc("serving_lineage_longpolls",
+                               result="fired" if fired else "timeout")
+            if fired:
+                self._known = newv
+            return fired, True
+        except Exception as exc:
+            log.warn("lineage long-poll failed; sleeping this cycle",
+                     job=self.fleet.job, error=str(exc)[:120])
+            self._halt.wait(self.poll_s)
+            return False, False
 
     def run(self) -> None:
-        while not self._halt.wait(self.poll_s):
-            try:
-                self.fleet.reload_from_lineage(self.checkpointer)
-            except Exception as exc:  # keep watching; the step is skipped
-                log.warn("lineage reload failed", job=self.fleet.job,
-                         error=str(exc)[:200])
+        cycles_since_scan = 0
+        while True:
+            fired, longpolled = self._park()
+            if self._halt.is_set():
+                return
+            cycles_since_scan += 1
+            # the backstop gates only scans a live change-wait covers
+            backstop = self.scan_backstop if longpolled else 1
+            if fired or cycles_since_scan >= backstop:
+                cycles_since_scan = 0
+                self.scans += 1
+                try:
+                    self.fleet.reload_from_lineage(self.checkpointer)
+                except Exception as exc:  # keep watching; the step is skipped
+                    log.warn("lineage reload failed", job=self.fleet.job,
+                             error=str(exc)[:200])
+            else:
+                get_counters().inc("serving_lineage_polls_saved")
 
     def stop(self) -> None:
         self._halt.set()

@@ -11,8 +11,8 @@ scenarios are every ``kind="python"`` case of tests/test_coord.py and the
 Python pair of tests/test_coord_ha.py.  The long-poll contract of
 tests/test_coord_wait.py (``wait_epoch``, ``kv_wait``, TTL expiry, waiters
 under churn) runs on the port's service alone, in real time; that file's
-server and discovery cases wait for the port's coordinator server and
-discovery (ROADMAP.md, queue 1 items 4 and 6).
+server and discovery cases run on the port's native core and server in
+tests/test_torch_coord_native.py.
 """
 
 from __future__ import annotations
@@ -330,7 +330,7 @@ def test_lease_guard_fences_reads_without_a_mutation():
 def test_metrics_register_on_the_ports_registry():
     """The coordinator's series on the port's own registry, name-matched
     to the reference's: callback counters render as ``_total``."""
-    s = local_service(prefer_native=True)
+    s = local_service(prefer_native=False)
     assert isinstance(s, PyCoordService)
     reg = MetricsRegistry()
     s.register_metrics(reg)

@@ -48,9 +48,37 @@ CONTROL_PLANE = ("edl_tpu_torch.coord", "edl_tpu_torch.coord.service",
                  "edl_tpu_torch.runtime.data")
 
 
-@pytest.mark.parametrize("module", CONTROL_PLANE)
+#: the multi-process world: the native coordinator's bindings, client,
+#: server and KV sweep, discovery, the supervisor and its worker
+MULTI_PROCESS = ("edl_tpu_torch.coord.bindings", "edl_tpu_torch.coord.client",
+                 "edl_tpu_torch.coord.server", "edl_tpu_torch.coord.gc",
+                 "edl_tpu_torch.runtime.discovery",
+                 "edl_tpu_torch.runtime.multihost",
+                 "edl_tpu_torch.runtime.multihost_worker",
+                 "edl_tpu_torch.observability.tracing",
+                 "edl_tpu_torch.observability.goodput")
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE + MULTI_PROCESS)
 def test_the_control_plane_modules_are_covered(module):
     assert module in set(_port_modules())
+
+
+def test_the_native_core_stands_alone():
+    """The port's C++ coordinator is its own copy: no source includes a
+    file of the JAX package, and the Makefile builds from its own
+    directory into the directory it is given (never the JAX package's)."""
+    native = PKG / "coord" / "native"
+    assert sorted(p.name for p in native.iterdir()) == [
+        "Makefile", "capi.cc", "coord.cc", "coord.hpp", "server.cc"]
+    for path in native.iterdir():
+        text = path.read_text()
+        for line in text.splitlines():
+            if line.startswith("#include"):
+                assert "edl_tpu/" not in line and ".." not in line, line
+        assert "edl_tpu/coord" not in text.replace(
+            "edl_tpu_torch/coord", ""), path
+    assert "BUILD ?= build" in (native / "Makefile").read_text()
 
 
 def test_no_source_names_jax_or_the_jax_package():

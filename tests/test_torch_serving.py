@@ -541,6 +541,67 @@ class TestReloadFromLineage:
         finally:
             fleet.stop()
 
+    @fleet_test
+    def test_watcher_long_polls_the_generation_key(self):
+        """A ``CoordClient``-backed fleet (the port's native server) parks
+        on ``serving-gen/<job>``: a trainer's publish of step 5 ships
+        long before its backstop scan is due, and while the key stays quiet the
+        lineage is scanned fewer times than a sleep-polling fleet's (the
+        reference's test_decode_v2 reload long-poll)."""
+        from edl_tpu_torch.coord import spawn_server
+        from edl_tpu_torch.runtime.serving import SERVING_GEN_KEY
+
+        class CountingCkpt:
+            def __init__(self):
+                self.step, self.scans = None, 0
+
+            def latest_verified_step(self):
+                self.scans += 1
+                return self.step
+
+            def manifest_verified(self, step):
+                return True
+
+            def restore(self, template, step=None):
+                self.last_restored_step = step
+                return {"params": llama.param_tree(MODEL)}
+
+        srv = spawn_server()
+        client = srv.client()
+        polled = make_fleet(job="t/poll")
+        parked = make_fleet(job="t/park", kv=client)
+        ck_poll, ck_park = CountingCkpt(), CountingCkpt()
+        try:
+            polled.watch_lineage(ck_poll, poll_s=0.2)
+            parked.watch_lineage(ck_park, poll_s=0.2, scan_backstop=50)
+            time.sleep(1.5)  # the key stays quiet: no new step
+            for ck in (ck_poll, ck_park):
+                ck.step = 5
+            t0 = time.monotonic()
+            client.kv_set(SERVING_GEN_KEY.format(job="t/park"), b"5")
+            while parked.generation != 5 and time.monotonic() - t0 < 5:
+                time.sleep(0.005)
+            assert parked.generation == 5
+            # woken, not polled: the parked fleet scans on its own only
+            # every poll_s x scan_backstop = 10 s from the watch's start,
+            # 8.5 s after this publish
+            assert time.monotonic() - t0 < 2.0
+            deadline = time.monotonic() + 5
+            while polled.generation != 5 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert polled.generation == 5
+            assert ck_park.scans < ck_poll.scans, (ck_park.scans,
+                                                   ck_poll.scans)
+            # the fleet publishes the generation it rolled onto
+            assert client.kv_get(SERVING_GEN_KEY.format(
+                job="t/park")) == b"5"
+            assert get_counters().get("serving_lineage_polls_saved") > 0
+        finally:
+            polled.stop()
+            parked.stop()
+            client.close()
+            srv.stop()
+
     @pytest.mark.timeout_s(240)
     def test_reload_from_an_fsdp_lineage_decodes_token_equal(self,
                                                            tmp_path):
