@@ -72,20 +72,23 @@ Phases, each of which raises on failure:
     one card prove the protocol, not scaling: the world-2 step time is no
     data-parallel speed-up.
 (k) the durable virtual-worker loop: two spawned ranks share the card over
-    gloo (``entry.flagship_virtual_world``: FLAGSHIP, 8 virtual workers, a
-    constant global batch of 16 x 1024 as 8 micro-batches, replicated
-    accumulation).  ``VirtualWorkerLoop`` runs 9 steps through worlds 1→2,
-    rank 0 checkpointing every 3 steps (``ElasticCheckpointer``, one DCP
-    directory a step, in a temporary directory deleted at the end); every
-    rank is then killed mid-accumulation (``abort_after=3`` on world 2), and
-    fresh trainers restore step 9 and run steps 10-12, shrinking to 1.  The
-    stitched 12 losses must equal a one-process control's bitwise, every
-    row be trained exactly once, each live rank launch every flash kernel
-    64 times a step (8 layers x 8 micro-batches) and one standing by none,
-    and no loop's stall watchdog see a stall (each watches its own loop,
-    not the restore or the drills).  Rank 0 then tears the newest step
+    gloo (``entry.flagship_virtual_world``: FLAGSHIP's width at
+    ``DURABLE_LAYERS`` layers — (k), (o), (p) and (q)'s virtual drive are
+    bound by saving and restoring the whole state, which the depth sets —
+    8 virtual workers, a constant global batch of 16 x 1024 as 8
+    micro-batches, replicated accumulation).  ``VirtualWorkerLoop`` runs 9
+    steps through worlds 1→2, rank 0 checkpointing every 3 steps
+    (``ElasticCheckpointer``, one DCP directory a step, in a temporary
+    directory deleted at the end); every rank is then killed
+    mid-accumulation (``abort_after=3`` on world 2), and fresh trainers
+    restore step 9 and run steps 10-12, shrinking to 1.  The stitched 12
+    losses must equal a one-process control's bitwise, every row be
+    trained exactly once, each live rank launch every flash kernel once a
+    layer and micro-batch a step (8 micro-batches) and one standing by
+    none, and no loop's stall watchdog see a stall (each watches its own
+    loop, not the restore or the drills).  Rank 0 then tears the newest step
     (12), past which a fresh checkpointer must fall back to 9, and times one
-    synchronous save of the 1.86 GB state (its folds and its CRC32s alone
+    synchronous save of the whole state (its folds and its CRC32s alone
     too) and one ``save_async`` (its pause, then its persist).  The same
     schedule in dp-packed mode must stay within ``trajectories_equivalent``
     of the control.
@@ -119,16 +122,16 @@ Phases, each of which raises on failure:
     world-2 step's census tp all-reduces alone (its count printed).
 (n) ``entry.dryrun_multichip(2)``, ``(4)`` and ``(8)`` on the card: n
     ranks share it over gloo and take one step of TINY placed by its
-    partition specs (fsdp 2, dp2×fsdp2, dp2×fsdp2×tp2), each printing its
-    ``DRYRUN_COMM`` line.
+    partition specs (fsdp 2, dp2×fsdp2, dp2×fsdp2×tp2), the three sizes
+    at once, each printing its ``DRYRUN_COMM`` line.
 (o) the sharded lineage.  (o-1): (k)'s job on fsdp trainers
     (``entry.flagship_virtual_world`` with ``param_sharding="fsdp"`` and
     ``MeshSpec(dp=1, fsdp=-1)``, world 2 being fsdp 2): each save gathers
     the whole state leaf by leaf to rank 0's host memory; the kill after
     step 9, the restore on fresh fsdp trainers and steps 10-12.  Gates: the
-    12 losses bitwise (k)'s control, every row once, 64 launches of each
-    flash kernel a step on a live rank and none on one standing by, and a
-    torn newest step falling back to 9 on both ranks.  (o-2): a tp-2
+    12 losses bitwise (k)'s control, every row once, 8 launches of each
+    flash kernel a layer a step on a live rank and none on one standing by,
+    and a torn newest step falling back to 9 on both ranks.  (o-2): a tp-2
     trainer (two ranks, FLAGSHIP's partition specs) and a world-1
     replicated trainer (this process) restore step 12: gathered, each
     holds the fsdp job's final params and Adam moments bitwise, with its
@@ -163,7 +166,7 @@ Phases, each of which raises on failure:
     world of 1: ``prewarm([2])``, ``prewarm_quiesce()``, ``resize(2)`` is a
     prewarm hit, and the state after it is bitwise a cold ``resize(2)``'s.
     Also checks the device fold against the host fold on every leaf of the
-    1.86 GB state, and prints the fingerprint's step-loop pause by each
+    state, and prints the fingerprint's step-loop pause by each
     fold, the shadow's and the rollback's ms, both resizes' ``compile_ms``
     and the flash launches a step.
 
@@ -182,8 +185,8 @@ Phases, each of which raises on failure:
     on a live rank and none on one standing by.  Then the virtual drive
     (``virtual=`` (k)'s config and shard stream) for 4 steps with the dial
     turned to 2 after step 2: its losses bitwise (k)'s control's, no row
-    duplicated or missing, 64 launches a step on a live rank.  Prints step
-    ms by world, the lease-and-broadcast ms of each step, each resize's
+    duplicated or missing, 8 launches a layer a step on a live rank.  Prints
+    step ms by world, the lease-and-broadcast ms of each step, each resize's
     ``compile_ms``, ``reshard_ms`` and ``bytes_moved``,
     ``resize_deferred_steps`` and ``prewarm_hits``.
 (r) BERT-base MLM at tp 2: two spawned ranks share the card over gloo
@@ -199,11 +202,13 @@ Phases, each of which raises on failure:
     (``edl_tpu_torch.coord.server.spawn_server``, its binary built from
     ``edl_tpu_torch/coord/native`` under ``build/edl_tpu_torch/``) and
     supervisors ``python -m edl_tpu_torch.runtime.multihost_worker --model
-    transformer --model-config flagship --device cuda:0`` sharing the card,
-    each world child an ``ElasticTrainer`` over a gloo group of the epoch's
-    members (one card for every rank means gloo).  FLAGSHIP (adam 3e-3, the reference
-    task's), ``MH_TASKS`` leased tasks of 8 x 1024 seeded successor tokens
-    through the port's ``ShardRegistry``, a generation every
+    transformer --model-config flagship --n-layers MH_LAYERS --device
+    cuda:0`` sharing the card, each world child an ``ElasticTrainer`` over
+    a gloo group of the epoch's members (one card for every rank means
+    gloo).  FLAGSHIP's width at ``MH_LAYERS`` layers (each generation's
+    save and restore of the whole state bound the phase's time; adam 3e-3,
+    the reference task's), ``MH_TASKS`` leased tasks of 8 x 1024 seeded
+    successor tokens through the port's ``ShardRegistry``, a generation every
     ``MH_CKPT_EVERY`` steps: w0 and w1 form a world of 2, w1 is SIGKILLed
     after w0's step ``MH_KILL_AFTER`` (its world child dies with it), w0
     reforms a world of 1 from the newest generation, w2 joins and a world of
@@ -214,10 +219,44 @@ Phases, each of which raises on failure:
     ``MH_CKPT_EVERY`` steps lost), the joiner's equal to the generation at
     w0's last world-1 step, neither the cold init's; every
     loss finite; each trained step of a world child launching every flash
-    kernel 8 times; the supervisors reporting CUDA never initialised.
+    kernel once a layer; the supervisors reporting CUDA never initialised.
     Prints each world's ``world_phases``, the kill to the reformed world's
     first step, the steps lost, each generation's save ms and bytes, step
     ms by world and the server's ``server_metrics()``.
+
+(t) the autoscaled job under a seeded fault campaign: two spawned ranks
+    share the card over gloo (``entry.flagship_controlled_job``: the
+    FLAGSHIP trainer, replicated; on rank 0 the port's native coordinator
+    with a state file behind a ``ChaosProxy``, a ``CoordClient`` dialling
+    the proxy, a ``FakeCluster`` of two one-card nodes in two NVLink
+    domains with a system pod holding the second card, a ``Controller``
+    (``max_load_desired`` 1.0, 50 ms loops) that created the job's pods, and
+    an ``ElasticCheckpointer``; 24 leased tasks of 16 x 1024 seeded
+    tokens).  ``entry.controlled_campaign`` runs the ``LocalElasticJob``
+    while a ``FaultPlanEngine`` in rank 0's ``on_step`` fires
+    ``FaultPlan.random(CONTROLLED_SEED)`` over the eight training kinds:
+    the coordinator SIGKILLed and respawned from its state file (the proxy
+    retargeted), a trainer pod killed, a network flake through the proxy,
+    a whole NVLink domain preempted, the newest checkpoint torn, a full
+    disk, and a stalled step and a wedged collective, each wedging rank
+    0's loop until a ``StallWatchdog`` (floor 1 s, paused over saves and
+    the restore) detects it.  The system pod goes after step
+    ``CONTROLLED_RELEASE_AT`` and comes back after ``CONTROLLED_RETURN_AT``;
+    no line calls ``update_trainer_parallelism``.  Gates: every kind fired
+    and the watched recoveries completed; the torn step's fallback restore
+    verified; each stall detected within 2x the deadline then in force;
+    the coordinator's ``done`` the task count, ``todo``, ``leased`` and
+    ``dropped`` 0, after the kill and the respawn; world 2 after the
+    release and 1 after the return; losses within ``WORLD_LOSS_ATOL`` of
+    a one-rank control fed rank 0's batches in its order; 8 launches of
+    each flash kernel a step on a live rank and none on one standing by;
+    no coordinator left running.  Prints step ms by world, each autoscaler
+    tick's target and its tick-to-resize seconds, each resize's
+    ``compile_ms``, ``reshard_ms`` and ``bytes_moved``, each fault's
+    fire-to-recovery seconds, the coordinator's respawn and each save's ms.
+
+Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
+seconds`` line sums them with the build's.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after ((s)'s world children are fresh processes, each counting from 0).  Each kernel is held to the element-wise rule of
@@ -244,14 +283,17 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edl_tpu_torch.entry import (DECODE_DEFAULTS, VIRTUAL_ROWS,
+from edl_tpu_torch.entry import (CONTROLLED_ROWS, CONTROLLED_SHARDS,
+                                 DECODE_DEFAULTS, VIRTUAL_ROWS,
                                  VIRTUAL_SHARDS, bert_tp_world, bert_trainer,
-                                 dryrun_multichip, entry,
+                                 controlled_campaign, dryrun_multichip, entry,
+                                 flagship_controlled_job,
                                  flagship_decode_fleet, flagship_elastic_world,
                                  flagship_local_job, flagship_tp_world,
                                  flagship_trainer, flagship_virtual_world,
@@ -265,9 +307,9 @@ from edl_tpu_torch.runtime import checkpoint as ckpt
 from edl_tpu_torch.runtime import serving
 from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
 from edl_tpu_torch.runtime.elastic import AccumulationAborted
-from edl_tpu_torch.runtime.faults import (CorruptGradient, FaultContext,
-                                          FaultPlan, FaultPlanEngine,
-                                          PoisonLoss)
+from edl_tpu_torch.runtime.faults import (TRAINING_KINDS, CorruptGradient,
+                                          FaultContext, FaultPlan,
+                                          FaultPlanEngine, PoisonLoss)
 from edl_tpu_torch.runtime import sdc
 from edl_tpu_torch.observability.tracing import get_tracer
 from edl_tpu_torch.runtime.kvcache import KVBlockPool
@@ -404,6 +446,26 @@ MH_TASKS, MH_ROWS = 32, 8
 MH_KILL_AFTER, MH_CKPT_EVERY, MH_STEP_SLEEP_S = 4, 2, 0.25
 MH_MEMBER_TTL_MS, MH_TASK_TIMEOUT_MS = 3000, 5000
 MH_GROUP_TIMEOUT_S, MH_TIMEOUT_S = 120, 420
+#: (s)'s FLAGSHIP depth (its time is bound by each generation's save and
+#: restore of the whole state)
+MH_LAYERS = 2
+
+#: phases (k), (o), (p) and (q)'s virtual drive: the FLAGSHIP width at
+#: DURABLE_LAYERS layers (their time is bound by saving and restoring the
+#: whole state, which the depth sets; the width, the shapes every kernel
+#: sees, stays FLAGSHIP's)
+DURABLE_LAYERS = 2
+DURABLE_CFG = dataclasses.replace(tfm.FLAGSHIP, n_layers=DURABLE_LAYERS)
+
+#: phase (t): the campaign's seed and schedule (eight faults between steps
+#: CONTROLLED_FIRST and CONTROLLED_LAST at least CONTROLLED_GAP apart), the
+#: checkpoint cadence, the steps after which the system pod gives the
+#: second card back and takes it again, and the phase's deadline
+CONTROLLED_SEED = 11
+CONTROLLED_FIRST, CONTROLLED_LAST, CONTROLLED_GAP = 3, 20, 2
+CONTROLLED_SAVE_EVERY = 4
+CONTROLLED_RELEASE_AT, CONTROLLED_RETURN_AT = 5, 14
+CONTROLLED_TIMEOUT_S = 600
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -1634,18 +1696,31 @@ def phase_tp(card: str) -> dict:
 
 
 def phase_dryrun() -> None:
-    """(n): the sharded dryrun on the card at each of DRYRUN_SIZES; each
+    """(n): the sharded dryrun on the card at each of DRYRUN_SIZES, the
+    sizes at once (their ranks spend most of their time starting); each
     raises on a failed check and prints its DRYRUN_COMM line."""
-    for n in DRYRUN_SIZES:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+
+    def one(n):
         rec = dryrun_multichip(n)
-        print(f"dryrun_multichip({n}) ok on the card in "
-              f"{time.perf_counter() - t0:.1f} s: mesh {rec['mesh']}, "
+        return rec, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(DRYRUN_SIZES)) as pool:
+        done = list(pool.map(one, DRYRUN_SIZES))
+    for n, (rec, secs) in zip(DRYRUN_SIZES, done):
+        print(f"dryrun_multichip({n}) ok on the card {secs:.1f} s into the "
+              f"phase: mesh {rec['mesh']}, "
               f"{rec['param_bytes_per_device_max']} of "
               f"{rec['param_bytes_total']} param bytes a rank", flush=True)
 
 
 # -- phase (k): the durable virtual-worker loop -------------------------------
+
+
+def durable_world(*args, **kw):
+    """``entry.flagship_virtual_world`` at DURABLE_CFG: (k)'s job, which
+    (o), (p) and (q)'s virtual drive share."""
+    return flagship_virtual_world(*args, cfg=DURABLE_CFG, **kw)
 
 
 def virtual_world(step: int) -> int:
@@ -1766,7 +1841,7 @@ def virtual_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
 
     rec = dict(rank=rank, steps=[], dp_steps=[])
     fa.reset_launches()
-    trainer, reg, ids, cfg = flagship_virtual_world(
+    trainer, reg, ids, cfg = durable_world(
         rank, WORLD_RANKS, store, initial_world_size=virtual_world(0))
     watched(trainer, rec["steps"])
     batches = VirtualBatches(cfg, ids, reg.get)
@@ -1786,7 +1861,7 @@ def virtual_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
     del trainer, batches
     torch.cuda.empty_cache()
 
-    trainer, reg, ids, cfg = flagship_virtual_world(
+    trainer, reg, ids, cfg = durable_world(
         rank, WORLD_RANKS, store, initial_world_size=WORLD_RANKS)
     loop = VirtualWorkerLoop(
         trainer, cfg, VirtualBatches(cfg, ids, reg.get),
@@ -1809,7 +1884,7 @@ def virtual_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
     del loop, trainer
     torch.cuda.empty_cache()
 
-    trainer, reg, ids, cfg = flagship_virtual_world(
+    trainer, reg, ids, cfg = durable_world(
         rank, WORLD_RANKS, store, accum_mode="dp",
         initial_world_size=virtual_world(0))
     watched(trainer, rec["dp_steps"])
@@ -1836,7 +1911,7 @@ def phase_virtual(card: str) -> dict:
         recs = run_ranks(virtual_rank, "k", VIRTUAL_CHILD_TIMEOUT_S,
                          os.path.join(tmp, "ckpt"))
     torch.cuda.empty_cache()
-    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+    trainer, reg, ids, cfg = durable_world(0, 1, None)
     assert cfg.micro_batch == VIRTUAL_MICRO_BATCH, cfg
     steps: list = []
     instrument(trainer, steps)
@@ -1847,9 +1922,9 @@ def phase_virtual(card: str) -> dict:
     torch.cuda.empty_cache()
     r0, r1 = recs
     d = r0["drills"]
-    print(f"virtual phase (k): FLAGSHIP, V {cfg.vw_count}, global batch "
-          f"{cfg.global_batch} x {S}, two ranks sharing the card over gloo, "
-          f"on {card}", flush=True)
+    print(f"virtual phase (k): FLAGSHIP width at {DURABLE_LAYERS} layers, "
+          f"V {cfg.vw_count}, global batch {cfg.global_batch} x {S}, two "
+          f"ranks sharing the card over gloo, on {card}", flush=True)
     per_world = {}
     for st in r0["steps"]:
         per_world.setdefault(st["world"], []).append(round(st["ms"], 2))
@@ -1885,7 +1960,7 @@ def phase_virtual(card: str) -> dict:
     print(f"virtual stalls_detected {[rec['stalls'] for rec in recs]} "
           f"(floor {VIRTUAL_STALL_FLOOR_S} s)", flush=True)
     failures = []
-    n = tfm.FLAGSHIP.n_layers * cfg.vw_count
+    n = DURABLE_CFG.n_layers * cfg.vw_count
     for rec in recs:
         got = sorted({(st["live"], tuple(st["launches"].values()))
                       for st in rec["steps"]})
@@ -2030,7 +2105,7 @@ def durable_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
     fa.reset_launches()
 
     def job(n0: int):
-        trainer, reg, ids, cfg = flagship_virtual_world(
+        trainer, reg, ids, cfg = durable_world(
             rank, WORLD_RANKS, store, initial_world_size=n0,
             param_sharding="fsdp", spec=FSDP_SPEC)
         instrument(trainer, rec["steps"])
@@ -2117,9 +2192,9 @@ def tp_restore_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rec = dict(rank=rank, steps=[])
-    trainer, reg, ids, cfg = flagship_virtual_world(
+    trainer, reg, ids, cfg = durable_world(
         rank, WORLD_RANKS, store, initial_world_size=WORLD_RANKS,
-        param_sharding=tfm.param_partition_specs(tfm.FLAGSHIP),
+        param_sharding=tfm.param_partition_specs(DURABLE_CFG),
         spec=TP_SPEC)
     fa.reset_launches()
     loop = VirtualWorkerLoop(trainer, cfg, VirtualBatches(cfg, ids, reg.get),
@@ -2177,7 +2252,7 @@ def phase_durable(card: str, control: list, k_drills: dict) -> dict:
         torch.cuda.empty_cache()
 
         # (o-2) in this process: a world-1 replicated trainer
-        trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+        trainer, reg, ids, cfg = durable_world(0, 1, None)
         lineage = ElasticCheckpointer(lineage_dir)
         loop = VirtualWorkerLoop(trainer, cfg,
                                  VirtualBatches(cfg, ids, reg.get),
@@ -2197,7 +2272,7 @@ def phase_durable(card: str, control: list, k_drills: dict) -> dict:
         shutil.rmtree(again.directory)
 
         # (o-3): a fleet from seed-0 weights reloads the lineage
-        fleet = flagship_decode_fleet(job="lineage")
+        fleet = flagship_decode_fleet(cfg=DURABLE_CFG, job="lineage")
         t0 = time.perf_counter()
         sv = dict(reloaded=fleet.reload_from_lineage(
             ElasticCheckpointer(lineage_dir)))
@@ -2207,8 +2282,9 @@ def phase_durable(card: str, control: list, k_drills: dict) -> dict:
                    for n in LINEAGE_PROMPT_LENS]
         sv["tokens"] = decode_all(fleet, prompts, LINEAGE_NEW_TOKENS)
         weights = lineage.restore({"params": llama.param_template(
-            tfm.FLAGSHIP)}, step=sv["reloaded"])["params"]
-        fresh = flagship_decode_fleet(params=weights, job="lineage-fresh")
+            DURABLE_CFG)}, step=sv["reloaded"])["params"]
+        fresh = flagship_decode_fleet(cfg=DURABLE_CFG, params=weights,
+                                      job="lineage-fresh")
         del weights
         sv["fresh_tokens"] = decode_all(fresh, prompts, LINEAGE_NEW_TOKENS)
         fresh.stop()
@@ -2261,10 +2337,10 @@ def phase_durable(card: str, control: list, k_drills: dict) -> dict:
 
     r0, r1 = recs
     failures = []
-    n = tfm.FLAGSHIP.n_layers * cfg.vw_count
-    print(f"lineage phase (o): FLAGSHIP, V {cfg.vw_count}, global batch "
-          f"{cfg.global_batch} x {S}, fsdp 2 on two ranks sharing the card "
-          f"over gloo, on {card}", flush=True)
+    n = DURABLE_CFG.n_layers * cfg.vw_count
+    print(f"lineage phase (o): FLAGSHIP width at {DURABLE_LAYERS} layers, "
+          f"V {cfg.vw_count}, global batch {cfg.global_batch} x {S}, fsdp 2 "
+          f"on two ranks sharing the card over gloo, on {card}", flush=True)
     bitwise = r0["losses"] == control
     print(f"lineage fsdp losses {r0['losses']} bitwise (k)'s control "
           f"{bitwise}; rows duplicated {r0['rows']['duplicated']} missing "
@@ -2458,9 +2534,9 @@ def fold_drill(trainer) -> dict:
 
 def sdc_single(tmp: str) -> dict:
     """(p-1) in this process: the flip, rolled back."""
-    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+    trainer, reg, ids, cfg = durable_world(0, 1, None)
     ck = ElasticCheckpointer(os.path.join(tmp, "p1"))
-    plane = sdc_rig(lambda: flagship_virtual_world(0, 1, None)[0], cfg, reg,
+    plane = sdc_rig(lambda: durable_world(0, 1, None)[0], cfg, reg,
                     ids, ck=ck, flight_dir=os.path.join(tmp, "fr"))
     steps: list = []
     instrument(trainer, steps)
@@ -2493,8 +2569,8 @@ def sdc_single(tmp: str) -> dict:
 
 def sdc_poison() -> dict:
     """(p-2) in this process: a poisoned loss report, refuted."""
-    trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
-    plane = sdc_rig(lambda: flagship_virtual_world(0, 1, None)[0], cfg, reg,
+    trainer, reg, ids, cfg = durable_world(0, 1, None)
+    plane = sdc_rig(lambda: durable_world(0, 1, None)[0], cfg, reg,
                     ids)
     engine = FaultPlanEngine(
         FaultPlan(actions=[PoisonLoss(at_step=SDC_STRIKE_STEP - 1)]),
@@ -2515,9 +2591,9 @@ def sdc_pair(tmp: str) -> dict:
     kv = sdc.MemoryKV()
     rigs = {}
     for worker in ("wA", "wB"):
-        trainer, reg, ids, cfg = flagship_virtual_world(0, 1, None)
+        trainer, reg, ids, cfg = durable_world(0, 1, None)
         ck = ElasticCheckpointer(os.path.join(tmp, worker))
-        plane = sdc_rig(lambda: flagship_virtual_world(0, 1, None)[0], cfg,
+        plane = sdc_rig(lambda: durable_world(0, 1, None)[0], cfg,
                         reg, ids, ck=ck, kv=kv, worker=worker, job="pair")
         rigs[worker] = (trainer, VirtualWorkerLoop(
             trainer, cfg, VirtualBatches(cfg, ids, reg.get),
@@ -2547,10 +2623,10 @@ def sdc_rank(rank: int, store: str, out: str, ckpt_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fa.reset_launches()
-    trainer, reg, ids, cfg = flagship_virtual_world(
+    trainer, reg, ids, cfg = durable_world(
         rank, WORLD_RANKS, store, initial_world_size=WORLD_RANKS)
     ck = ElasticCheckpointer(ckpt_dir)
-    plane = sdc_rig(lambda: flagship_virtual_world(
+    plane = sdc_rig(lambda: durable_world(
         rank, WORLD_RANKS, store, initial_world_size=1)[0], cfg, reg, ids,
         ck=ck)
     steps: list = []
@@ -2610,9 +2686,9 @@ def phase_sdc(card: str, control: list) -> dict:
     for k in FLASH:
         launches[k] += sum(r["total_launches"][k] for r in recs)
     f = single["folds"]
-    print(f"sdc phase (p): FLAGSHIP, V 8, {SDC_STEPS} steps, a checkpoint "
-          f"every {SDC_CKPT_EVERY}, strikes after step {SDC_STRIKE_STEP}, "
-          f"on {card}", flush=True)
+    print(f"sdc phase (p): FLAGSHIP width at {DURABLE_LAYERS} layers, V 8, "
+          f"{SDC_STEPS} steps, a checkpoint every {SDC_CKPT_EVERY}, strikes "
+          f"after step {SDC_STRIKE_STEP}, on {card}", flush=True)
     print(f"sdc device fold vs host fold: {f['agree']} of {f['leaves']} "
           f"leaves equal over {f['bytes']} bytes of state; fingerprint "
           f"pause device {f['device']:.2f} ms host {f['host']:.2f} ms "
@@ -2647,7 +2723,7 @@ def phase_sdc(card: str, control: list) -> dict:
                   f"{e['compile_ms']} reshard_ms {e['reshard_ms']} "
                   f"replan_ms {e['replan_ms']} on {card}", flush=True)
     failures = []
-    n = tfm.FLAGSHIP.n_layers * 8
+    n = DURABLE_CFG.n_layers * 8
     v = single["verdicts"]
     if (single["rollbacks"] != 1 or len(v) != 1
             or (v[0]["outcome"], v[0]["rollback"], v[0]["step"])
@@ -2770,7 +2846,8 @@ def local_rank(rank: int, store: str, out: str) -> None:
     torch.cuda.empty_cache()
 
     runner, reg, ids = flagship_local_job(
-        rank, WORLD_RANKS, store, rows=VIRTUAL_ROWS, shards=VIRTUAL_SHARDS,
+        rank, WORLD_RANKS, store, cfg=DURABLE_CFG, rows=VIRTUAL_ROWS,
+        shards=VIRTUAL_SHARDS,
         virtual=VirtualConfig(vw_count=B // VIRTUAL_MICRO_BATCH,
                               global_batch=B))
     instrument(runner.trainer, rec["virtual_steps"])
@@ -2850,7 +2927,7 @@ def phase_local(card: str, control_k: list) -> dict:
             want = tfm.FLAGSHIP.n_layers if st["live"] else 0
             if set(st["launches"].values()) != {want}:
                 failures.append(f"rank {rec['rank']} launches {st}")
-        n = tfm.FLAGSHIP.n_layers * B // VIRTUAL_MICRO_BATCH
+        n = DURABLE_CFG.n_layers * B // VIRTUAL_MICRO_BATCH
         for st in rec["virtual_steps"]:
             if set(st["launches"].values()) != {n if st["live"] else 0}:
                 failures.append(f"rank {rec['rank']} virtual launches {st}")
@@ -2948,11 +3025,12 @@ def phase_bert_tp(card: str) -> dict:
 
 def mh_spawn(port: int, name: str, ckpt_dir: str, min_members: int,
              env: dict, log: str, config: str, device: str,
-             timeout_s: float) -> subprocess.Popen:
+             timeout_s: float, n_layers: int) -> subprocess.Popen:
     """One supervisor of (s): ``python -m
     edl_tpu_torch.runtime.multihost_worker`` against the server on
     ``port``, its output to ``log``; ``timeout_s`` is its process groups'
-    timeout and its stall watchdog's floor."""
+    timeout and its stall watchdog's floor; ``n_layers`` the model's depth
+    (0: the config's)."""
     return subprocess.Popen(
         [sys.executable, "-m", "edl_tpu_torch.runtime.multihost_worker",
          "--coord", f"127.0.0.1:{port}", "--name", name,
@@ -2961,7 +3039,7 @@ def mh_spawn(port: int, name: str, ckpt_dir: str, min_members: int,
          "--init-timeout-s", str(timeout_s),
          "--stall-floor-s", str(timeout_s),
          "--model", "transformer", "--model-config", config,
-         "--device", device],
+         "--n-layers", str(n_layers), "--device", device],
         stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
 
@@ -3006,11 +3084,13 @@ def mh_steps(text: str) -> list[dict]:
 
 def phase_multihost(card: str, config: str = "flagship",
                     device: str = "cuda:0",
-                    timeout_s: float = MH_GROUP_TIMEOUT_S) -> dict:
+                    timeout_s: float = MH_GROUP_TIMEOUT_S,
+                    n_layers: int = MH_LAYERS) -> dict:
     """(s): the multi-process elastic job.  The port's native server; two
     supervisors form a world of 2 on the card, one is SIGKILLed, the
     survivor reforms a world of 1 from the newest generation, a third
-    joins late and a world of 2 forms again, until the queue drains.
+    joins late and a world of 2 forms again, until the queue drains; the
+    model ``config`` at ``n_layers`` layers (0: the config's depth).
     Returns the flash launches of every world child summed.
     (``scripts/time_multihost.py`` runs it over NCCL, one card a rank.)"""
     from edl_tpu_torch.coord import bindings
@@ -3044,7 +3124,7 @@ def phase_multihost(card: str, config: str = "flagship",
         deadline = time.monotonic() + MH_TIMEOUT_S
         for n in ("w0", "w1"):
             procs[n] = mh_spawn(srv.port, n, ckpt, 2, env, logs[n], config,
-                                device, timeout_s)
+                                device, timeout_s, n_layers)
         mh_wait_line(logs["w0"], f" step {MH_KILL_AFTER} ", procs, deadline)
         t_kill = time.time()
         procs["w1"].kill()
@@ -3052,7 +3132,7 @@ def phase_multihost(card: str, config: str = "flagship",
         killed = procs.pop("w1")
         mh_wait_line(logs["w0"], " world=1 ms=", procs, deadline)
         procs["w2"] = mh_spawn(srv.port, "w2", ckpt, 1, env, logs["w2"],
-                               config, device, timeout_s)
+                               config, device, timeout_s, n_layers)
         rcs = {}
         for n, p in procs.items():
             rcs[n] = p.wait(max(deadline - time.monotonic(), 1.0))
@@ -3070,7 +3150,8 @@ def phase_multihost(card: str, config: str = "flagship",
                 p.wait(30)
         srv.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"multihost phase (s): {config.upper()} over "
+    print(f"multihost phase (s): {config.upper()} "
+          f"({n_layers or 'all its'} layers) over "
           f"{MH_TASKS} leased tasks of {MH_ROWS} x {S} tokens, supervisors "
           f"w0 and w1 on {device} over {world_backend(device)}, w1 "
           f"SIGKILLed after step "
@@ -3163,7 +3244,8 @@ def phase_multihost(card: str, config: str = "flagship",
               f"the leader that drains a generation save is slower) on "
               f"{card}", flush=True)
     print(f"multihost server_metrics {metrics}", flush=True)
-    want = tfm.FLAGSHIP.n_layers if device.startswith("cuda") else 0
+    depth = n_layers or tfm.FLAGSHIP.n_layers
+    want = depth if device.startswith("cuda") else 0
     losses = [st["loss"] for n in texts for st in steps[n]]
     bad = [(n, st) for n in texts for st in steps[n]
            if st["launches"] != [want if st["loss"] != 0 else 0] * 3]
@@ -3182,6 +3264,207 @@ def phase_multihost(card: str, config: str = "flagship",
     return total
 
 
+# -- phase (t): the autoscaled job under a seeded fault campaign ---------------
+
+
+def controlled_rank(rank: int, store: str, out: str) -> None:
+    """(t), one rank of the job a ``Controller`` runs: the FLAGSHIP
+    trainer, on rank 0 the control plane; ``entry.controlled_campaign``
+    fires the eight training kinds from CONTROLLED_SEED while a system pod
+    gives the second card back after step CONTROLLED_RELEASE_AT and takes it
+    again after CONTROLLED_RETURN_AT; what the rank saw is written as JSON
+    to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = dict(rank=rank, steps=[], restarts_s=[])
+    fa.reset_launches()
+    runner, plane, reg = flagship_controlled_job(rank, WORLD_RANKS, store)
+    instrument_steps(runner.trainer, rec["steps"])
+    order: list = []
+    if plane is not None:
+        fetch, restart = runner.fetch, plane.restart_coordinator
+
+        def counted(payload):
+            order.append(json.loads(payload.decode())["shard"])
+            return fetch(payload)
+
+        def timed_restart():
+            t0 = time.perf_counter()
+            restart()
+            rec["restarts_s"].append(time.perf_counter() - t0)
+
+        runner.fetch = counted
+        plane.restart_coordinator = timed_restart
+
+    def elasticity(step, loss, world):
+        if plane is None:
+            return
+        if step == CONTROLLED_RELEASE_AT:
+            plane.cluster.remove_system_pod("hold-node1")
+        if step == CONTROLLED_RETURN_AT:
+            plane.cluster.add_system_pod("hold-node1", "node1", gpus=1)
+
+    got = controlled_campaign(
+        runner, plane, CONTROLLED_SEED, first_step=CONTROLLED_FIRST,
+        last_step=CONTROLLED_LAST, min_gap=CONTROLLED_GAP,
+        save_every=CONTROLLED_SAVE_EVERY, on_step=elasticity)
+    rep = got["report"]
+    rec.update(losses=rep.losses, worlds=rep.world_sizes,
+               resizes=rep.resizes, resize_steps=rep.resize_steps,
+               resize_seconds=rep.resize_seconds, data_ms=rep.data_ms,
+               compile_ms=rep.resize_compile_ms,
+               reshard_ms=rep.resize_reshard_ms,
+               bytes_moved=rep.resize_bytes_moved, order=order,
+               step_ends=got["steps"], launches=dict(fa.launches))
+    if plane is not None:
+        stats = plane.coord.stats()
+        counters = get_counters()
+        rec.update(
+            {k: got[k] for k in ("plan", "fired", "recovered", "unfired",
+                                 "quiescent", "fired_s", "recovered_s",
+                                 "stalls", "audit", "saves")},
+            ticks=plane.controller.autoscaler.tick_history,
+            stats=dict(done=stats.done, todo=stats.todo, leased=stats.leased,
+                       dropped=stats.dropped),
+            injected={k: counters.get("faults_injected", type=k)
+                      for k in TRAINING_KINDS},
+            recoveries={k: counters.get("recoveries_completed", type=k)
+                        for k in TRAINING_KINDS},
+            tasks=CONTROLLED_SHARDS)
+        plane.close()
+        rec["leaked"] = plane.leaked_servers()
+    del runner
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def recovery_seconds(fired, fired_s, recovered_s) -> list:
+    """Each fired fault's (step, kind, seconds from firing to its watched
+    recovery, or None when the engine watches none)."""
+    pending = list(recovered_s)
+    out = []
+    for (step, kind), t in zip(fired, fired_s):
+        hit = next((r for r in pending if r[0] == kind and r[1] >= t), None)
+        if hit is not None:
+            pending.remove(hit)
+        out.append((step, kind, None if hit is None else hit[1] - t))
+    return out
+
+
+def tick_latencies(r0: dict) -> list:
+    """Each autoscaler plan: (target, seconds from the tick's start to the
+    resize that took the job to that world, or None)."""
+    starts = [end - secs for (end, _), secs in
+              zip([r0["step_ends"][s] for s in r0["resize_steps"]],
+                  r0["resize_seconds"])]
+    worlds = [r0["worlds"][s] for s in r0["resize_steps"]]
+    out = []
+    for t, targets in r0["ticks"]:
+        n = next(iter(targets.values()))
+        hit = next((st for st, w in zip(starts, worlds)
+                    if w == n and st >= t), None)
+        out.append((n, None if hit is None else hit - t))
+    return out
+
+
+def phase_controlled(card: str) -> dict:
+    """(t): the FLAGSHIP job a ``Controller`` runs, on two ranks sharing the
+    card, its autoscaler alone growing it to 2 when a card frees and
+    shrinking it to 1 when the card is taken back, under a seeded campaign
+    of the eight training fault kinds; against a one-rank control fed rank
+    0's batches in its order.  Returns the launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(controlled_rank, "t", CONTROLLED_TIMEOUT_S)
+    r0, r1 = recs
+    runner, reg, _ = flagship_local_job(0, 1, None, rows=CONTROLLED_ROWS,
+                                        shards=CONTROLLED_SHARDS)
+    trainer = runner.trainer
+    control = [trainer.step(reg.get(i)) for i in r0["order"]]
+    del runner, trainer
+    torch.cuda.empty_cache()
+    print(f"controlled phase (t): FLAGSHIP, global batch {B} x {S} in "
+          f"{r0['tasks']} leased tasks, a Controller (max_load_desired 1.0) "
+          f"over a FakeCluster of two one-card nodes in two NVLink domains, "
+          f"the second card held until step {CONTROLLED_RELEASE_AT} and "
+          f"taken again at step {CONTROLLED_RETURN_AT}; campaign seed "
+          f"{CONTROLLED_SEED} "
+          f"{[(d['kind'], d['at_step']) for d in r0['plan']]}"
+          f"; two ranks sharing the card over gloo, on {card}", flush=True)
+    for world in sorted(set(r0["worlds"])):
+        ms = {rec["rank"]: [round(st["ms"], 2) for st in rec["steps"]
+                            if st["world"] == world and st["live"]]
+              for rec in recs}
+        print(f"controlled world {world} step_ms by rank {ms} median "
+              f"{float(np.median(ms[0])):.2f} on {card}", flush=True)
+    for target, secs in tick_latencies(r0):
+        print(f"controlled autoscaler tick -> target {target}: tick to "
+              f"resize {secs if secs is None else round(secs, 3)} s",
+              flush=True)
+    for i, (c, rs, b) in enumerate(zip(r0["compile_ms"], r0["reshard_ms"],
+                                       r0["bytes_moved"])):
+        print(f"controlled resize {i} to world "
+              f"{r0['worlds'][r0['resize_steps'][i]]}: compile_ms {c} "
+              f"reshard_ms {rs} bytes_moved {b} on {card}", flush=True)
+    recovery = recovery_seconds(r0["fired"], r0["fired_s"],
+                                r0["recovered_s"])
+    for step, kind, secs in recovery:
+        print(f"controlled fault {kind} at step {step}: fire to recovery "
+              f"{'not watched' if secs is None else f'{secs:.3f} s'}",
+              flush=True)
+    print(f"controlled coordinator respawn s "
+          f"{[round(x, 3) for x in r0['restarts_s']]}; stalls (silent_s, "
+          f"deadline_s) {r0['stalls']}; corruption audit {r0['audit']}",
+          flush=True)
+    saves = [(st, round(ms, 2), ok) for st, ms, ok in r0["saves"]]
+    print(f"controlled save ms {saves}"
+          f" on {card}", flush=True)
+    print(f"controlled worlds {r0['worlds']} resizes {r0['resizes']}; "
+          f"tasks trained in order {r0['order']}; coordinator stats "
+          f"{r0['stats']}; faults_injected {r0['injected']} "
+          f"recoveries_completed {r0['recoveries']}", flush=True)
+    diff = [abs(a - b) for a, b in zip(r0["losses"], control)]
+    print(f"controlled losses {[round(x, 6) for x in r0['losses']]} control "
+          f"{[round(x, 6) for x in control]} max |job - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL})", flush=True)
+    failures = []
+    if any(n < 1 for n in r0["injected"].values()) or not r0["quiescent"]:
+        failures.append(f"faults {r0['injected']} unfired {r0['unfired']}")
+    for kind in ("kill_trainer", "kill_coordinator", "network_flake",
+                 "preempt_domain", "stall_step", "wedge_collective",
+                 "corrupt_checkpoint", "disk_full"):
+        if r0["recoveries"][kind] < 1:
+            failures.append(f"no recovery of {kind}")
+    if len(r0["audit"]) != 1 or r0["audit"][0]["hash_ok"] is False:
+        failures.append(f"corruption audit {r0['audit']}")
+    if (len(r0["stalls"]) != 2 or None in r0["stalls"]
+            or any(sl > 2 * dl for sl, dl in r0["stalls"])):
+        failures.append(f"stalls {r0['stalls']}")
+    if r0["stats"] != dict(done=r0["tasks"], todo=0, leased=0, dropped=0) \
+            or sorted(set(r0["order"])) != list(range(r0["tasks"])):
+        failures.append(f"tasks {r0['order']} stats {r0['stats']}")
+    worlds = r0["worlds"]
+    if (2 not in worlds[CONTROLLED_RELEASE_AT:CONTROLLED_RETURN_AT + 2]
+            or worlds[-1] != 1 or worlds[0] != 1
+            or r1["worlds"] != worlds):
+        failures.append(f"worlds {worlds} / {r1['worlds']}")
+    for rec in recs:
+        for st in rec["steps"]:
+            want = tfm.FLAGSHIP.n_layers if st["live"] else 0
+            if set(st["launches"].values()) != {want}:
+                failures.append(f"rank {rec['rank']} launches {st}")
+    if len(r0["losses"]) != len(control):
+        failures.append(f"{len(r0['losses'])} steps trained, "
+                        f"{len(control)} tasks fetched")
+    if not all(np.isfinite(r0["losses"])) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {r0['losses']} vs control {control}")
+    if r0["leaked"]:
+        failures.append(f"{r0['leaked']} coordinator servers left running")
+    if failures:
+        raise AssertionError("phase (t): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3196,42 +3479,60 @@ def main() -> int:
 
     build_s = _build.build()
     print(f"build: {build_s:.2f} s into {_build.build_dir()}", flush=True)
+    seconds = {"build": build_s}
+
+    def timed(label: str, fn, *args):
+        """Run one phase, print its wall seconds on a line of its own."""
+        t0 = time.perf_counter()
+        got = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        print(f"phase ({label}) wall_s {seconds[label]:.1f}", flush=True)
+        return got
+
     print_ptxas_report()
-    rows = phase_flash(B, S, H, HK, D, (True, False), "flagship")
-    paths = {"flagship": phase_flagship()}
-    phase_model_check()
+    rows = timed("b", phase_flash, B, S, H, HK, D, (True, False), "flagship")
+    paths = {"flagship": timed("c", phase_flagship)}
+    timed("d", phase_model_check)
     sites = resnet.group_norm_sites(resnet.RESNET50, RESNET_HW)
-    rows.update(phase_group_norm(sites))
-    bert_rows = phase_flash(BERT_B, BERT_S, BERT_H, BERT_H, BERT_D, (False,),
-                            "bert_base")
-    virtual_rows = phase_flash(VIRTUAL_MICRO_BATCH, S, H, HK, D, (True,),
-                               "flagship_virtual")
-    world_rows = phase_flash(B // WORLD_RANKS, S, H, HK, D, (True,),
-                             "flagship_world")
-    tp_rows = phase_flash(B, S, H // WORLD_RANKS, HK // WORLD_RANKS, D,
-                          (True,), "flagship_tp")
-    durable_tp_rows = phase_flash(VIRTUAL_MICRO_BATCH, S, H // WORLD_RANKS,
-                                  HK // WORLD_RANKS, D, (True,),
-                                  "flagship_durable_tp")
-    bert_tp_rows = phase_flash(BERT_B, BERT_S, BERT_H // WORLD_RANKS,
-                               BERT_H // WORLD_RANKS, BERT_D, (False,),
-                               "bert_tp")
-    paths["resnet50"] = phase_resnet(sum(sites.values()))
-    paths["bert_base"] = phase_bert()
-    phase_serving()
-    paths["flagship_world"] = phase_world(card)
-    virtual = phase_virtual(card)
+    rows.update(timed("e", phase_group_norm, sites))
+
+    def more_flash():
+        return {label: phase_flash(*shape, label) for label, shape in (
+            ("bert_base", (BERT_B, BERT_S, BERT_H, BERT_H, BERT_D, (False,))),
+            ("flagship_virtual", (VIRTUAL_MICRO_BATCH, S, H, HK, D,
+                                  (True,))),
+            ("flagship_world", (B // WORLD_RANKS, S, H, HK, D, (True,))),
+            ("flagship_tp", (B, S, H // WORLD_RANKS, HK // WORLD_RANKS, D,
+                             (True,))),
+            ("flagship_durable_tp", (VIRTUAL_MICRO_BATCH, S,
+                                     H // WORLD_RANKS, HK // WORLD_RANKS, D,
+                                     (True,))),
+            ("bert_tp", (BERT_B, BERT_S, BERT_H // WORLD_RANKS,
+                         BERT_H // WORLD_RANKS, BERT_D, (False,))))}
+
+    extra = timed("f", more_flash)
+    paths["resnet50"] = timed("g", phase_resnet, sum(sites.values()))
+    paths["bert_base"] = timed("h", phase_bert)
+    timed("i", phase_serving)
+    paths["flagship_world"] = timed("j", phase_world, card)
+    virtual = timed("k", phase_virtual, card)
     paths["flagship_virtual"] = virtual["launches"]
-    paths["flagship_fsdp"] = phase_fsdp(card)
-    paths["flagship_tp"] = phase_tp(card)
-    phase_dryrun()
-    durable = phase_durable(card, virtual["control"], virtual["drills"])
+    paths["flagship_fsdp"] = timed("l", phase_fsdp, card)
+    paths["flagship_tp"] = timed("m", phase_tp, card)
+    timed("n", phase_dryrun)
+    durable = timed("o", phase_durable, card, virtual["control"],
+                    virtual["drills"])
     paths["flagship_durable_fsdp"] = durable["fsdp"]
     paths["flagship_durable_restore"] = durable["restore"]
-    paths["flagship_sdc"] = phase_sdc(card, virtual["control"])
-    paths["flagship_local"] = phase_local(card, virtual["control"])
-    paths["bert_tp"] = phase_bert_tp(card)
-    paths["flagship_multihost"] = phase_multihost(card)
+    paths["flagship_sdc"] = timed("p", phase_sdc, card, virtual["control"])
+    paths["flagship_local"] = timed("q", phase_local, card,
+                                    virtual["control"])
+    paths["bert_tp"] = timed("r", phase_bert_tp, card)
+    paths["flagship_multihost"] = timed("s", phase_multihost, card)
+    paths["flagship_controlled"] = timed("t", phase_controlled, card)
+    rounded = {k: round(v, 1) for k, v in seconds.items()}
+    print(f"phase seconds {json.dumps(rounded)} "
+          f"total {sum(seconds.values()):.1f} on {card}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3244,18 +3545,9 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             launches_by_path=by_path))
-        if name in bert_rows:
-            kernels[-1]["at_bert_base"] = bert_rows[name]
-        if name in virtual_rows:
-            kernels[-1]["at_flagship_virtual"] = virtual_rows[name]
-        if name in world_rows:
-            kernels[-1]["at_flagship_world"] = world_rows[name]
-        if name in tp_rows:
-            kernels[-1]["at_flagship_tp"] = tp_rows[name]
-        if name in durable_tp_rows:
-            kernels[-1]["at_flagship_durable_tp"] = durable_tp_rows[name]
-        if name in bert_tp_rows:
-            kernels[-1]["at_bert_tp"] = bert_tp_rows[name]
+        for label, at in extra.items():
+            if name in at:
+                kernels[-1][f"at_{label}"] = at[name]
     print(json.dumps({"kernels": kernels}))
     # every path ran on the one device it was given
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
-"""Resource model: the TrainingJob spec/status types and quantity
-arithmetic — the port's copy of what edl_tpu.api holds for a training job
-(validation, serde and the serving job wait for ROADMAP.md queue 1 item
+"""Resource model: the TrainingJob spec/status types, their validation and
+quantity arithmetic — the port's copy of what edl_tpu.api holds for a
+training job (serde and the serving job wait for ROADMAP.md queue 1 item
 11)."""
 
 from edl_tpu_torch.api.quantity import Quantity
+from edl_tpu_torch.api.validation import (ValidationError,
+                                          set_defaults_and_validate,
+                                          validate_any)
 from edl_tpu_torch.api.types import (
     RESOURCE_GPU,
     JobPhase,
@@ -27,4 +30,7 @@ __all__ = [
     "TrainingJob",
     "TrainingJobSpec",
     "TrainingJobStatus",
+    "ValidationError",
+    "set_defaults_and_validate",
+    "validate_any",
 ]

@@ -106,9 +106,10 @@ class FakeCluster(Cluster):
             return node
 
     def add_system_pod(self, name: str, node: str, cpu_request_milli: int = 0,
-                       memory_request_mega: int = 0) -> None:
+                       memory_request_mega: int = 0, gpus: int = 0) -> None:
         """Background load (k8s system pods / the demo's nginx competitor,
-        reference example/nginx.yaml)."""
+        reference example/nginx.yaml); ``gpus`` cards of the node held
+        too (another tenant's card claim)."""
         with self._lock:
             self._pods[name] = FakePod(
                 name=name, job_uid="", role="system", seq=next(self._aux_pods_seq),
@@ -116,7 +117,7 @@ class FakeCluster(Cluster):
                 cpu_limit_milli=cpu_request_milli,
                 memory_request_mega=memory_request_mega,
                 memory_limit_mega=memory_request_mega,
-                phase=PodPhase.RUNNING, node=node,
+                gpu_limit=gpus, phase=PodPhase.RUNNING, node=node,
             )
 
     def remove_system_pod(self, name: str) -> None:

@@ -14,10 +14,9 @@ must survive every reform and failover for the job's whole life.
 They must NOT survive the job: on a shared coordinator (the local
 harness, multi-job deployments, tests) a deleted job's keys would
 otherwise accumulate forever, and a RESUBMITTED job under the same name
-would inherit a dead job's scaling curve and cursors.  The JAX package's
-controller sweeps them at job deletion; the port's controller is still to
-come (ROADMAP.md, queue 1 item 11), so its callers sweep with
-:func:`gc_job_kv` themselves.
+would inherit a dead job's scaling curve and cursors.  The controller
+sweeps them at job deletion (``Controller(coord_for=...)``,
+edl_tpu_torch.controller.controller).
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ model-zoo leg (ResNet-50 at 256 x 224², BERT-base MLM at 32 x 512).
 ``bert_tp_world`` is BERT's trainer laid out by its partition specs over
 tp for one rank, and ``flagship_local_job`` one rank's side of the elastic
 job the control plane dials (``LocalElasticJob``: the FLAGSHIP trainer, and
-on rank 0 the coordinator, the fake cluster, the job and its data).
+on rank 0 the coordinator, the fake cluster, the job and its data);
+``flagship_controlled_job`` the same job run by a ``Controller`` (rank 0's
+:class:`ControlPlane`: the native coordinator behind a chaos proxy, the
+cluster, the controller and a checkpointer), and ``controlled_campaign``
+runs it under a seeded campaign of the training fault kinds.
 ``flagship_decode_fleet(device)`` returns the ``DecodeFleet`` that serves
 FLAGSHIP token by token, from seed-0 weights or the ones it is given.  All
 run on the CUDA device unless ``device`` says otherwise, with the kernels
@@ -266,6 +270,18 @@ def bert_tp_world(rank: int, world: int, store_path, device="cuda",
 LOCAL_ROWS, LOCAL_SHARDS = 128, 8
 
 
+def _token_registry(cfg: tfm.TransformerConfig, rows: int, seq: int,
+                    shards: int) -> tuple[ShardRegistry, list]:
+    """``rows`` token rows from seed 1 (targets shifted by one), split
+    into ``shards`` shards of a fresh registry: (registry, shard ids)."""
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (rows, seq), dtype=np.int64)
+    registry = ShardRegistry()
+    ids = registry.register_arrays((tokens, np.roll(tokens, -1, axis=1)),
+                                   num_shards=shards)
+    return registry, ids
+
+
 def flagship_local_job(rank: int, world: int, store_path, device="cuda",
                        cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                        global_batch: int = 16, seq: int = 1024,
@@ -303,11 +319,7 @@ def flagship_local_job(rank: int, world: int, store_path, device="cuda",
                         spec=MeshSpec(dp=-1))
     registry = ids = None
     if rank == 0 or virtual is not None:
-        tokens = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (rows, seq), dtype=np.int64)
-        registry = ShardRegistry()
-        ids = registry.register_arrays((tokens, np.roll(tokens, -1, axis=1)),
-                                       num_shards=shards)
+        registry, ids = _token_registry(cfg, rows, seq, shards)
     name = "flagship"
     job = cluster = coord = None
     if rank == 0:
@@ -332,6 +344,289 @@ def flagship_local_job(rank: int, world: int, store_path, device="cuda",
         fetch_shard=registry.get if registry is not None else None,
         job_name=f"default/{name}")
     return runner, registry, ids
+
+
+#: the controlled job's dataset: rows of ``seq`` tokens in one task a
+#: global batch of 16
+CONTROLLED_ROWS, CONTROLLED_SHARDS = 384, 24
+#: the controlled job's cluster: two one-card nodes, each its own NVLink
+#: domain (so a domain preemption takes one trainer, not the job)
+CONTROLLED_NODES = (("node0", "nvlink0"), ("node1", "nvlink1"))
+#: the controller's loops (autoscaler tick, updater convert), and the
+#: coordinator's task timeout and member TTL: longer than a FLAGSHIP save,
+#: during which rank 0 holds its lease without renewing it
+CONTROL_LOOP_S = 0.05
+CONTROL_TIMEOUT_MS = 30_000
+
+
+def controlled_training_job(name: str, max_instance: int,
+                            gpus: int = 1) -> "TrainingJob":
+    """The elastic ``TrainingJob`` a controller runs: 1 to
+    ``max_instance`` fault-tolerant trainers of ``gpus`` cards (0: CPU
+    pods), allowed across NVLink domains (each of the controlled
+    cluster's nodes is a domain of its own)."""
+    from edl_tpu_torch.api.types import (ResourceRequirements, TrainerSpec,
+                                         TrainingJob, TrainingJobSpec)
+
+    limits = {"nvidia.com/gpu": str(gpus)} if gpus else {}
+    return TrainingJob(name=name, spec=TrainingJobSpec(
+        fault_tolerant=True, trainer=TrainerSpec(
+            min_instance=1, max_instance=max_instance,
+            allow_multi_domain=True,
+            resources=ResourceRequirements(requests={"cpu": "1"},
+                                           limits=limits))))
+
+
+@dataclasses.dataclass
+class ControlPlane:
+    """Rank 0's side of a controlled job: the native coordinator (a
+    durable state file) behind a ``ChaosProxy`` and a ``CoordClient``
+    dialling the proxy, the ``FakeCluster``, the ``Controller`` that runs
+    the job (its updater created the pods, its autoscaler dials them), and
+    an ``ElasticCheckpointer``."""
+
+    controller: object
+    cluster: object
+    job: object
+    coord: object
+    proxy: object
+    checkpointer: object
+    state_file: str
+    server_kw: dict
+    servers: list
+
+    def restart_coordinator(self) -> None:
+        """SIGKILL the coordinator, respawn it from its state file, and
+        point the proxy at the new one (the clients' endpoint stays)."""
+        from edl_tpu_torch.coord.server import spawn_server
+
+        old = self.servers[-1]
+        old.process.kill()
+        old.process.wait(timeout=15)
+        self.servers.append(spawn_server(state_file=self.state_file,
+                                         **self.server_kw))
+        self.proxy.set_upstream("127.0.0.1", self.servers[-1].port)
+
+    def fault_context(self, **hooks):
+        """A ``FaultContext`` over this plane; ``hooks`` adds the harness's
+        (``stall``, ``wedge``, ``trainer``, ``rng``)."""
+        from edl_tpu_torch.runtime.faults import FaultContext
+
+        return FaultContext(cluster=self.cluster, job=self.job,
+                            coord=self.coord, proxy=self.proxy,
+                            checkpointer=self.checkpointer,
+                            restart_coordinator=self.restart_coordinator,
+                            **hooks)
+
+    def leaked_servers(self) -> int:
+        """Coordinator processes of this plane still running."""
+        return sum(h.process.poll() is None for h in self.servers)
+
+    def close(self) -> None:
+        self.controller.stop()
+        self.coord.close()
+        self.proxy.close()
+        self.checkpointer.close()
+        for h in self.servers:
+            h.stop()
+
+
+def control_plane(job, work_dir, nodes=CONTROLLED_NODES,
+                  held_nodes=()) -> ControlPlane:
+    """Build rank 0's :class:`ControlPlane` under ``work_dir`` and submit
+    ``job`` through its ``Controller`` (``max_load_desired`` 1.0, loops of
+    CONTROL_LOOP_S): ``nodes`` are ``(name, nvlink_domain)`` pairs of one
+    card each, and a system pod holds the card of each node in
+    ``held_nodes`` from the start.  Returns once the job is Running."""
+    from edl_tpu_torch.api.types import JobPhase
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.controller import Controller
+    from edl_tpu_torch.coord.client import CoordClient
+    from edl_tpu_torch.coord.server import spawn_server
+    from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+    from edl_tpu_torch.runtime.faults import ChaosProxy
+
+    work_dir = os.fspath(work_dir)
+    os.makedirs(work_dir, exist_ok=True)
+    state_file = os.path.join(work_dir, "coord.state")
+    server_kw = dict(task_timeout_ms=CONTROL_TIMEOUT_MS,
+                     member_ttl_ms=CONTROL_TIMEOUT_MS)
+    servers = [spawn_server(state_file=state_file, **server_kw)]
+    proxy = ChaosProxy(("127.0.0.1", servers[0].port))
+    coord = CoordClient("127.0.0.1", proxy.port, timeout=3.0,
+                        reconnect_window_s=40.0)
+    cluster = FakeCluster()
+    for name, domain in nodes:
+        cluster.add_node(name, cpu_milli=16_000, memory_mega=64_000, gpus=1,
+                         nvlink_domain=domain)
+    for name in held_nodes:
+        cluster.add_system_pod(f"hold-{name}", name, gpus=1)
+    controller = Controller(cluster, max_load_desired=1.0,
+                            autoscaler_loop_seconds=CONTROL_LOOP_S,
+                            updater_convert_seconds=CONTROL_LOOP_S,
+                            updater_confirm_seconds=CONTROL_LOOP_S / 2)
+    controller.start()
+    controller.submit(job)
+    deadline = time.monotonic() + 30
+    while controller.phase(job) != JobPhase.RUNNING:
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"job {job.full_name} never reached Running "
+                               f"({controller.phase(job)})")
+        time.sleep(CONTROL_LOOP_S / 2)
+    checkpointer = ElasticCheckpointer(os.path.join(work_dir, "ckpt"),
+                                       max_to_keep=3)
+    return ControlPlane(controller, cluster, job, coord, proxy, checkpointer,
+                        state_file, server_kw, servers)
+
+
+def flagship_controlled_job(rank: int, world: int, store_path, device="cuda",
+                            cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                            global_batch: int = 16, seq: int = 1024,
+                            rows: int = CONTROLLED_ROWS,
+                            shards: int = CONTROLLED_SHARDS,
+                            work_dir=None):
+    """(LocalElasticJob, ControlPlane or None, ShardRegistry or None) for
+    rank ``rank`` of a ``world``-rank elastic job that a ``Controller``
+    runs.  Every rank gets :func:`flagship_local_job`'s trainer; rank 0
+    also builds the :class:`ControlPlane` under ``work_dir`` (default: a
+    directory beside ``store_path``) — the native coordinator behind its
+    proxy, a ``FakeCluster`` of :data:`CONTROLLED_NODES` with a system pod
+    ``hold-node1`` holding node1's card, and the checkpointer — submits the
+    FLAGSHIP ``TrainingJob`` (1 to ``world`` trainers of one card each)
+    through the controller, whose updater creates its pods and whose
+    autoscaler dials them, and enqueues ``rows`` token rows from seed 1
+    (targets shifted by one) as ``shards`` tasks."""
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+
+    dev = _join_world(rank, world, store_path, device)
+    trainer = _flagship(cfg, dev, initial_world_size=1,
+                        spec=MeshSpec(dp=-1))
+    name = "flagship-controlled"
+    plane = registry = None
+    if rank == 0:
+        registry, ids = _token_registry(cfg, rows, seq, shards)
+        if work_dir is None:
+            work_dir = os.path.join(os.path.dirname(os.fspath(store_path)),
+                                    f"{name}-plane")
+        plane = control_plane(controlled_training_job(name, world),
+                              work_dir, held_nodes=("node1",))
+        registry.enqueue(plane.coord, ids)
+    runner = LocalElasticJob(
+        plane.job if plane else None, plane.cluster if plane else None,
+        trainer, plane.coord if plane else None,
+        fetch=registry.fetch if registry is not None else None,
+        batch_size=global_batch, job_name=f"default/{name}")
+    return runner, plane, registry
+
+
+def controlled_campaign(runner, plane: Optional[ControlPlane], seed: int,
+                        first_step: int, last_step: int, min_gap: int,
+                        save_every: int, on_step=None) -> dict:
+    """Run a controlled job to the end of its tasks under a seeded
+    training-fault campaign (the JAX package's fault soak), on every rank:
+    ``runner`` is this rank's ``LocalElasticJob``, ``plane`` rank 0's
+    :class:`ControlPlane` (None elsewhere).
+
+    On rank 0 a ``FaultPlanEngine`` fires ``FaultPlan.random(seed, ...)``,
+    one fault of each training kind between ``first_step`` and
+    ``last_step`` at least ``min_gap`` apart, from the job's ``on_step``;
+    a best-effort checkpoint of the trainer's state is saved every
+    ``save_every`` steps;
+    the first step after the checkpoint corruption strikes restores the
+    store into a scratch copy of the state (the fallback must land on a
+    verified step, and the live trainer is untouched); a stall or wedge
+    request wedges rank 0's loop until a ``StallWatchdog`` (floor 1 s)
+    detects the silence and releases it, while the other
+    ranks wait in the next frame's broadcast.  The watchdog is paused over
+    each save and the restore: a known pause is no stall, and no step
+    interval either.  ``on_step(step, loss,
+    world)`` runs first, on every rank.  Returns what rank 0 saw (the run's
+    ``RunReport`` on the others): the report, the plan, what fired and
+    recovered with their monotonic times, each stall's ``(silent_s,
+    deadline_s)`` (None: unseen), each save's ``(step, ms, ok)``, the
+    audit's restored step and hash verdict, and each step's end time and
+    world."""
+    import copy
+    import random
+    import threading
+
+    from edl_tpu_torch.runtime.faults import (TRAINING_KINDS, FaultPlan,
+                                              FaultPlanEngine)
+    from edl_tpu_torch.runtime.watchdog import StallWatchdog
+
+    trainer = runner.trainer
+    out: dict = dict(fired_s=[], recovered_s=[], stalls=[], saves=[],
+                     audit=[], steps=[])
+    engine = watchdog = None
+    if plane is not None:
+        plan = FaultPlan.random(seed, n_faults=len(TRAINING_KINDS),
+                                first_step=first_step, last_step=last_step,
+                                min_gap=min_gap)
+        released = threading.Event()
+        stall_requests: list = []
+        watchdog = StallWatchdog(floor_s=1.0, k=6.0, warmup=3,
+                                 alpha=0.5, on_stall=lambda s: released.set(),
+                                 scope="campaign")
+        watchdog.start(poll_s=0.05)
+        engine = FaultPlanEngine(plan, plane.fault_context(
+            stall=lambda d: stall_requests.append(d or 30.0),
+            wedge=lambda: bool(stall_requests.append(30.0)) or True,
+            rng=random.Random(seed)))
+        out["plan"] = plan.describe()
+
+    def note_progress() -> None:
+        now = time.monotonic()
+        out["fired_s"] += [now] * (len(engine.fired) - len(out["fired_s"]))
+        out["recovered_s"] += [
+            (kind, now) for kind in engine.recovered[len(out["recovered_s"]):]]
+
+    def step_hook(step: int, loss, world: int) -> None:
+        out["steps"].append((time.monotonic(), world))
+        if on_step is not None:
+            on_step(step, loss, world)
+        if engine is None:
+            return
+        watchdog.beat(step)
+        state = {"params": trainer.state.params,
+                 "opt": trainer.state.opt_state}
+        if step % save_every == 0:
+            t0 = time.perf_counter()
+            with watchdog.paused():
+                ok = plane.checkpointer.save(step, state, best_effort=True)
+            out["saves"].append((step, 1e3 * (time.perf_counter() - t0), ok))
+        engine(step, loss, world)
+        note_progress()
+        if not out["audit"] and any(k == "corrupt_checkpoint"
+                                    for _, k in engine.fired):
+            ck = plane.checkpointer
+            with watchdog.paused():
+                ck.restore(copy.deepcopy(state))
+            out["audit"].append(dict(step=ck.last_restored_step,
+                                     hash_ok=ck.last_restore_hash_ok))
+        if stall_requests:
+            duration = stall_requests.pop()
+            released.clear()
+            t0 = time.monotonic()
+            while (time.monotonic() - t0 < duration
+                   and not released.is_set()):
+                time.sleep(0.02)  # no beats while wedged
+            stall = watchdog.last_stall()
+            out["stalls"].append(None if stall is None
+                                 else (stall.silent_s, stall.deadline_s))
+
+    report = runner.run(on_step=step_hook)
+    if engine is None:
+        return dict(report=report, steps=out["steps"])
+    deadline = time.monotonic() + 30
+    while not engine.quiescent() and time.monotonic() < deadline:
+        engine.tick()
+        note_progress()
+        time.sleep(0.1)
+    watchdog.stop()
+    out.update(report=report, fired=list(engine.fired),
+               recovered=list(engine.recovered), unfired=engine.unfired(),
+               quiescent=engine.quiescent())
+    return out
 
 
 #: the decode fleet's defaults at FLAGSHIP: 8 slots, 64-token prefill

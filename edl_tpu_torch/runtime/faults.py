@@ -1,15 +1,28 @@
 """Fault-plan engine: scripted, seeded chaos campaigns — the port of
-edl_tpu.runtime.faults, its silent-data-corruption kinds so far.
+edl_tpu.runtime.faults, its training and silent-data-corruption kinds.
 
 A :class:`FaultPlan` is an ordered campaign of typed fault actions fired on
 step or wall-clock triggers; :meth:`FaultPlan.random` derives a whole
 campaign from a single seed, drawing exactly as the reference draws, so a
 drill is reproducible from the integer that named it.  The
 :class:`FaultPlanEngine` plugs into a training loop as its
-``on_step(step, loss, world)``, fires due actions against a
-:class:`FaultContext`, and then watches each recovery: every injected fault
-and completed recovery is a chaos trace event and a labeled counter
-(``faults_injected{type=...}``, ``recoveries_completed{type=...}``).
+``on_step(step, loss, world)`` (as :class:`~edl_tpu_torch.runtime.chaos.
+ChaosMonkey` does), fires due actions against a :class:`FaultContext`
+(cluster, coord client, chaos proxy, checkpointer, harness hooks), and
+then watches each recovery: every injected fault and completed recovery is
+a chaos trace event and a labeled counter (``faults_injected{type=...}``,
+``recoveries_completed{type=...}``).
+
+The training eight (:data:`TRAINING_KINDS`): :class:`KillTrainer`,
+:class:`KillCoordinator` (a respawn from the durable state file, or an HA
+pair's failover), :class:`NetworkFlake` (through the :class:`ChaosProxy`
+middlebox in front of the coordinator: resets, delay and blackhole
+windows), :class:`PreemptDomain` (every trainer of one NVLink domain),
+:class:`CorruptCheckpoint` and :class:`DiskFull` (recovered inside the
+checkpointer: a fallback restore to the newest verified step, the next
+successful save), and the quiet pair :class:`StallStep` /
+:class:`WedgeCollective` that hang instead of crash — only the stall
+watchdog sees them.
 
 The three SDC kinds (:data:`SDC_KINDS`) strike through the trainer's chaos
 seams: :class:`CorruptGradient` (one bit of the summed gradient before the
@@ -18,18 +31,15 @@ update), :class:`FlipParamBits` (one bit of a live parameter) and
 recovery is the SDC plane's own: a rollback for the first two, a refuted
 verdict for the third.
 
-The reference's other kinds are later items of the port (ROADMAP.md).
-The training eight (:data:`TRAINING_KINDS`: kills, partitions, torn
-checkpoints, full disks, stalls and wedges) strike the multi-process world,
-whose supervisor is ported (:mod:`edl_tpu_torch.runtime.multihost`); the
-kinds themselves, with ``ChaosProxy`` and the chaos monkey, are queue-1
-item 6's open bullet.  The serving five (:data:`SERVING_KINDS`) come with
-item 11.  Naming one raises ``ValueError`` with its item.
+The serving five (:data:`SERVING_KINDS`) come with the serving plane
+(ROADMAP.md, queue 1 item 11); naming one raises ``ValueError`` with its
+item.
 """
 
 from __future__ import annotations
 
 import random
+import socket
 import threading
 import time
 from dataclasses import dataclass, field
@@ -42,21 +52,281 @@ from edl_tpu_torch.observability.tracing import get_tracer
 log = get_logger("runtime.faults")
 
 
+# ---------------------------------------------------------------------------
+# ChaosProxy: a socket-level chaos middlebox for the coordination server
+# ---------------------------------------------------------------------------
+
+class ChaosProxy:
+    """TCP proxy in front of the coord server that injects network faults.
+
+    Trainers dial the proxy's ``(host, port)`` instead of the server; the
+    proxy pumps bytes both ways until told to misbehave:
+
+    * :meth:`reset_all` — abruptly close every live connection (the
+      connection-reset fault; clients see ECONNRESET / empty read);
+    * :meth:`delay` — for a window, sleep before forwarding each
+      server→client chunk (congested / slow network);
+    * :meth:`blackhole` — for a window, accepted connections go nowhere
+      and a connection with in-flight bytes is parked for the window and
+      then closed (partition: requests vanish, clients block until their
+      socket timeout and then ride the reconnect path; never a mid-stream
+      byte drop, which TCP's in-order delivery makes unphysical).
+
+    ``set_upstream`` retargets new connections — this is what keeps the
+    trainers' endpoint stable across a coordinator restart that came back
+    on a different port (the k8s Service's job, emulated at one socket).
+    """
+
+    def __init__(self, upstream: tuple[str, int],
+                 host: str = "127.0.0.1", port: int = 0) -> None:
+        self._upstream = tuple(upstream)
+        self._lock = threading.Lock()
+        self._conns: list[socket.socket] = []
+        self._blackhole_until = 0.0
+        self._delay_until = 0.0
+        self._delay_s = 0.0
+        self._stop = threading.Event()
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((host, port))
+        self._listener.listen(64)
+        self.host, self.port = self._listener.getsockname()[:2]
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="chaos-proxy-accept")
+        self._accept_thread.start()
+
+    # -- fault injection knobs ---------------------------------------------
+
+    def set_upstream(self, host: str, port: int) -> None:
+        with self._lock:
+            self._upstream = (host, port)
+
+    def reset_all(self) -> int:
+        """Close every live proxied connection; returns how many."""
+        with self._lock:
+            conns, self._conns = self._conns, []
+        import struct
+
+        for s in conns:
+            try:
+                # linger on, 0 s → close sends RST, not FIN (a real reset)
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                             struct.pack("ii", 1, 0))
+            except OSError:
+                pass
+            try:
+                s.close()
+            except OSError:
+                pass
+        # _conns holds the (client, upstream) PAIR per proxied connection
+        return len(conns) // 2
+
+    def blackhole(self, duration_s: float) -> None:
+        with self._lock:
+            self._blackhole_until = time.monotonic() + duration_s
+
+    def delay(self, duration_s: float, per_chunk_s: float = 0.2) -> None:
+        with self._lock:
+            self._delay_until = time.monotonic() + duration_s
+            self._delay_s = per_chunk_s
+
+    def faults_active(self) -> bool:
+        now = time.monotonic()
+        with self._lock:
+            return now < self._blackhole_until or now < self._delay_until
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        self.reset_all()
+
+    # -- internals ----------------------------------------------------------
+
+    def _blackholed(self) -> bool:
+        with self._lock:
+            return time.monotonic() < self._blackhole_until
+
+    def _current_delay(self) -> float:
+        with self._lock:
+            return (self._delay_s
+                    if time.monotonic() < self._delay_until else 0.0)
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                client, _addr = self._listener.accept()
+            except OSError:
+                return  # listener closed
+            threading.Thread(target=self._serve, args=(client,),
+                             daemon=True, name="chaos-proxy-conn").start()
+
+    def _serve(self, client: socket.socket) -> None:
+        # A blackholed connection is ACCEPTED and parked: the TCP
+        # handshake succeeds but requests vanish — the partition shape
+        # that exercises the client's timeout path, not its refused path.
+        while self._blackholed() and not self._stop.is_set():
+            time.sleep(0.05)
+        if self._stop.is_set():
+            client.close()
+            return
+        with self._lock:
+            upstream_addr = self._upstream
+        try:
+            upstream = socket.create_connection(upstream_addr, timeout=5.0)
+        except OSError:
+            client.close()
+            return
+        with self._lock:
+            self._conns += [client, upstream]
+        threading.Thread(target=self._pump, args=(client, upstream, False),
+                         daemon=True, name="chaos-proxy-up").start()
+        self._pump(upstream, client, True)
+
+    def _pump(self, src: socket.socket, dst: socket.socket,
+              is_response: bool) -> None:
+        try:
+            while not self._stop.is_set():
+                data = src.recv(65536)
+                if not data:
+                    break
+                if self._blackholed():
+                    # Park until the window lapses, then kill the
+                    # connection.  TCP delivers in order — a real
+                    # partition can never drop THESE bytes yet deliver
+                    # later ones, so swallowing the chunk and pumping the
+                    # next would desync the newline protocol mid-stream.
+                    # Ending the connection instead sends the client down
+                    # the documented reconnect/at-least-once path.
+                    while self._blackholed() and not self._stop.is_set():
+                        time.sleep(0.05)
+                    break  # finally: closes both sides
+                if is_response:
+                    d = self._current_delay()
+                    if d:
+                        time.sleep(d)
+                dst.sendall(data)
+        except OSError:
+            pass
+        finally:
+            for s in (src, dst):
+                try:
+                    s.close()
+                except OSError:
+                    pass
+            with self._lock:
+                self._conns = [c for c in self._conns
+                               if c is not src and c is not dst]
+
+
+# ---------------------------------------------------------------------------
+# Fault actions
+# ---------------------------------------------------------------------------
+
 @dataclass
 class FaultContext:
     """Everything a campaign may act on.  All fields optional — an action
-    whose dependency is absent raises when it fires, which the engine
-    records as unfireable."""
+    whose dependency is absent reports itself unfireable (a planning
+    error) rather than crashing the drill."""
 
-    #: ElasticTrainer under drill — the SDC faults strike through its
-    #: chaos seams
-    trainer: Any = None
+    cluster: Any = None          # FakeCluster-compatible backend
+    job: Any = None              # TrainingJob the campaign targets
+    #: a process-backed kubelet (real pod processes); the port's waits
+    #: for cluster/exec_kubelet.py (ROADMAP.md queue 1 item 11), so a
+    #: campaign on the fake cluster leaves it None
+    kubelet: Any = None
+    coord: Any = None            # CoordClient/service for recovery probes
+    proxy: Optional[ChaosProxy] = None
     checkpointer: Any = None     # ElasticCheckpointer
+    #: ElasticTrainer under drill — the SDC faults (CorruptGradient /
+    #: FlipParamBits / PoisonLoss) strike through its chaos seams
+    trainer: Any = None
+    #: non-kubelet drills: SIGKILL + respawn the coord server process
+    #: (durable state file carries recovery) — provided by the harness
+    restart_coordinator: Optional[Callable[[], None]] = None
+    #: HA coordinator pair (doc/coordinator_ha.md): True when ``coord``
+    #: is a multi-endpoint client over a primary/standby pair.  Flips
+    #: KillCoordinator's recovery contract from "the respawn answers
+    #: again" to "a client failover was OBSERVED and zero world reforms
+    #: were triggered" — sub-second promotion, not a reform storm.
+    ha: bool = False
+    #: HA drills: SIGKILL the current primary (no respawn — the standby's
+    #: promotion IS the recovery).  Harness-installed; falls back to
+    #: ``restart_coordinator`` when unset.
+    kill_primary: Optional[Callable[[], None]] = None
+    #: quiet-failure hooks (the watchdog drills).  ``stall`` wedges the
+    #: training loop for a duration (None = until escalation unwedges
+    #: it); ``wedge`` freezes one collective participant (e.g. SIGSTOP a
+    #: live world child), returning False when there is nothing to
+    #: freeze yet.  Both are harness-installed: the fault describes WHAT
+    #: hangs, the harness knows HOW.
+    stall: Optional[Callable[[Optional[float]], None]] = None
+    wedge: Optional[Callable[[], bool]] = None
     rng: random.Random = field(default_factory=random.Random)
+
+    def running_trainers(self) -> list:
+        from edl_tpu_torch.cluster.base import PodPhase
+
+        return [p for p in self.cluster.list_pods(
+                    job_uid=self.job.full_name, role="trainer")
+                if p.phase == PodPhase.RUNNING and not p.deletion_timestamp]
+
+    def kill_pod(self, name: str) -> None:
+        """SIGKILL the pod's real process when a kubelet runs it (the
+        reaper then reports the exit); otherwise flip the fake pod."""
+        if self.kubelet is not None and self.kubelet.pid_of(name) is not None:
+            self.kubelet.signal_pod(name)
+        else:
+            self.cluster.kill_pod(name)
+
+    def coord_alive(self) -> bool:
+        c = self.coord
+        if c is None:
+            return True
+        # Probe with a dedicated short-timeout socket, not the production
+        # client: CoordClient.ping() rides the reconnect window (seconds)
+        # and fires the client's degraded hooks, so polling it from every
+        # training-step hook would stall the loop for the whole outage.
+        host, port = getattr(c, "host", None), getattr(c, "port", None)
+        if host is not None and port is not None:
+            try:
+                with socket.create_connection((host, port),
+                                              timeout=0.5) as s:
+                    s.settimeout(0.5)
+                    s.sendall(b"PING\n")
+                    return s.makefile("rb").readline().startswith(b"PONG")
+            except OSError:
+                return False
+        ping = getattr(c, "ping", None)
+        return bool(ping()) if ping is not None else True
 
 
 #: fire() outcomes
 FIRED, RETRY = "fired", "retry"
+
+
+def _death_then_headcount(ctx: FaultContext, victims: set,
+                          baseline: int) -> Callable[[], bool]:
+    """Recovery predicate for pod-kill faults: True only after every
+    victim has been observed gone from the running set AND the running
+    headcount is back to the pre-fault baseline.  The two phases matter
+    on the kubelet path, where a SIGKILLed pod keeps listing as RUNNING
+    until the reaper polls its exit (~0.2 s) — a plain headcount check
+    polled in the same engine call that fired the kill would declare an
+    instant, vacuous recovery."""
+    seen_dead = [False]
+
+    def recovered() -> bool:
+        running = {p.name for p in ctx.running_trainers()}
+        if not seen_dead[0]:
+            if not (victims & running):
+                seen_dead[0] = True
+            return False
+        return len(running) >= baseline
+
+    return recovered
 
 
 @dataclass
@@ -88,6 +358,309 @@ class FaultAction:
 
     def fire(self, ctx: FaultContext):  # pragma: no cover - abstract
         raise NotImplementedError
+
+
+@dataclass
+class KillTrainer(FaultAction):
+    """SIGKILL one running trainer pod — ChaosMonkey's fault, scheduled."""
+
+    kind: str = "kill_trainer"
+
+    def fire(self, ctx: FaultContext):
+        victims = ctx.running_trainers()
+        if not victims:
+            return RETRY, None  # mid-recovery from an earlier fault
+        victim = ctx.rng.choice(sorted(victims, key=lambda p: p.name))
+        baseline = len(victims)
+        log.warn("fault: killing trainer pod", pod=victim.name)
+        ctx.kill_pod(victim.name)
+        # two-phase recovery: a SIGKILLed pod still lists as RUNNING until
+        # the kubelet reaper reports the exit, so a bare count>=baseline
+        # check would record an instant bogus recovery — first observe the
+        # victim actually gone, THEN the headcount restored (pod names are
+        # never reused: FakeCluster names by a global monotonic seq)
+        return FIRED, _death_then_headcount(ctx, {victim.name}, baseline)
+
+
+@dataclass
+class KillCoordinator(FaultAction):
+    """SIGKILL the coordinator pod/process; durable state (the state file
+    on the job volume) carries recovery when the replacement starts.
+
+    In HA mode (``ctx.ha``) the contract hardens: the kill takes down the
+    PRIMARY of a replicated pair and recovery means the multi-endpoint
+    client was observed failing over (``coord_failovers`` moved) with the
+    promoted standby answering — while **zero** world reforms fire.  A
+    reform slipping through is recorded loudly
+    (``coord_ha_reform_leaks``) so the drill's assertion has evidence,
+    not just a green predicate."""
+
+    kind: str = "kill_coordinator"
+
+    def fire(self, ctx: FaultContext):
+        if ctx.ha:
+            kill = ctx.kill_primary or ctx.restart_coordinator
+            if kill is None:
+                raise RuntimeError(
+                    "HA KillCoordinator needs a kill_primary (or "
+                    "restart_coordinator) callable")
+            counters = get_counters()
+            before_failovers = counters.total("coord_failovers")
+            before_reforms = counters.total("world_reforms")
+            leak_recorded = [False]
+            log.warn("fault: killing HA primary coordinator")
+            kill()
+
+            def recovered() -> bool:
+                # failover observed first (the counter is the client's
+                # own record of re-targeting), then the promoted standby
+                # answering the probe
+                if counters.total("coord_failovers") <= before_failovers:
+                    return False
+                if not ctx.coord_alive():
+                    return False
+                if (counters.total("world_reforms") > before_reforms
+                        and not leak_recorded[0]):
+                    # the failover was supposed to be invisible to every
+                    # world; a reform leaking through fails the HA claim
+                    leak_recorded[0] = True
+                    log.warn("HA coordinator failover leaked a world "
+                             "reform")
+                    counters.inc("coord_ha_reform_leaks")
+                return True
+
+            return FIRED, recovered
+        if ctx.kubelet is not None:
+            coords = [n for n in ctx.kubelet.live_pods()
+                      if "-coordinator-" in n]
+            if not coords:
+                return RETRY, None
+            log.warn("fault: killing coordinator pod", pod=coords[0])
+            ctx.kubelet.signal_pod(coords[0])
+            # async kill — same two-phase shape as _death_then_headcount:
+            # the SIGKILLed coordinator can still answer a probe in the
+            # very _advance call that fired the kill, so require the
+            # outage observed before an answered probe counts as recovery
+            seen_dead = [False]
+
+            def recovered() -> bool:
+                alive = ctx.coord_alive()
+                if not seen_dead[0]:
+                    if not alive:
+                        seen_dead[0] = True
+                    return False
+                return alive
+
+            return FIRED, recovered
+        if ctx.restart_coordinator is not None:
+            log.warn("fault: killing coordinator process")
+            # synchronous kill+respawn: the outage happens inside the
+            # call, so recovery is simply the replacement answering
+            ctx.restart_coordinator()
+            return FIRED, ctx.coord_alive
+        raise RuntimeError("KillCoordinator needs a kubelet or a "
+                           "restart_coordinator callable")
+
+
+@dataclass
+class NetworkFlake(FaultAction):
+    """Network chaos through the :class:`ChaosProxy`: ``reset`` closes all
+    live connections, ``delay`` slows responses for a window, ``blackhole``
+    drops everything for a window."""
+
+    mode: str = "reset"  # reset | delay | blackhole
+    duration_s: float = 1.0
+
+    kind: str = "network_flake"
+
+    def fire(self, ctx: FaultContext):
+        if ctx.proxy is None:
+            raise RuntimeError("NetworkFlake needs a ChaosProxy in the ctx")
+        log.warn("fault: network flake", mode=self.mode,
+                 duration_s=self.duration_s)
+        if self.mode == "reset":
+            ctx.proxy.reset_all()
+        elif self.mode == "delay":
+            ctx.proxy.delay(self.duration_s)
+        elif self.mode == "blackhole":
+            ctx.proxy.blackhole(self.duration_s)
+        else:
+            raise ValueError(f"unknown flake mode {self.mode!r}")
+        proxy = ctx.proxy
+        return FIRED, lambda: not proxy.faults_active() and ctx.coord_alive()
+
+    def describe(self) -> dict:
+        return {**super().describe(), "mode": self.mode,
+                "duration_s": self.duration_s}
+
+
+@dataclass
+class PreemptDomain(FaultAction):
+    """Correlated failure: every running trainer pod in ONE NVLink domain
+    dies at once (a host group's preemption or maintenance event), forcing
+    the world to reform across whatever capacity remains."""
+
+    domain: Optional[str] = None  # None = the domain hosting most trainers
+
+    kind: str = "preempt_domain"
+
+    def fire(self, ctx: FaultContext):
+        trainers = ctx.running_trainers()
+        if not trainers:
+            return RETRY, None
+        nodes = {n.name: n.nvlink_domain
+                 for n in getattr(ctx.cluster, "_nodes", {}).values()}
+        by_domain: dict[str, list] = {}
+        for p in trainers:
+            dom = nodes.get(p.node, p.node or "")
+            by_domain.setdefault(dom, []).append(p)
+        domain = self.domain
+        if domain is None or domain not in by_domain:
+            domain = max(sorted(by_domain), key=lambda d: len(by_domain[d]))
+        victims = by_domain[domain]
+        baseline = len(trainers)
+        log.warn("fault: preempting NVLink domain", domain=domain,
+                 pods=[p.name for p in victims])
+        for p in victims:
+            ctx.kill_pod(p.name)
+        return FIRED, _death_then_headcount(
+            ctx, {p.name for p in victims}, baseline)
+
+    def describe(self) -> dict:
+        d = super().describe()
+        if self.domain is not None:
+            d["domain"] = self.domain
+        return d
+
+
+@dataclass
+class CorruptCheckpoint(FaultAction):
+    """Tear the newest saved checkpoint step on disk (flip a byte or
+    truncate a file).  Recovery happens inside
+    ``ElasticCheckpointer.restore``: the integrity manifest detects the
+    damage and the restore falls back to the newest verified step."""
+
+    mode: str = "flip"  # flip | truncate
+
+    kind: str = "corrupt_checkpoint"
+
+    def fire(self, ctx: FaultContext):
+        ck = ctx.checkpointer
+        if ck is None:
+            raise RuntimeError("CorruptCheckpoint needs a checkpointer")
+        step = ck.latest_step()
+        if step is None:
+            return RETRY, None  # nothing saved yet; strike after a save
+        root = ck._step_dir(step)
+        files = sorted((p for p in root.rglob("*") if p.is_file()),
+                       key=lambda p: (p.stat().st_size, str(p)))
+        if not files:
+            return RETRY, None
+        victim = files[-1]  # the largest file holds the parameter bytes
+        log.warn("fault: corrupting checkpoint", step=step,
+                 file=str(victim), mode=self.mode)
+        data = victim.read_bytes()
+        if self.mode == "truncate":
+            victim.write_bytes(data[:len(data) // 2])
+        else:
+            b = bytearray(data) or bytearray(1)
+            b[len(b) // 2] ^= 0xFF
+            victim.write_bytes(bytes(b))
+        # recovery = the checkpointer's own fallback restore (counted as
+        # recoveries_completed{type=corrupt_checkpoint}) AND the step it
+        # lands on re-verifying: its restored param tree must hash to
+        # its manifest (verified lineage) — falling back onto a second
+        # corrupt step used to pass this drill silently
+        before = get_counters().get("recoveries_completed",
+                                    type="corrupt_checkpoint")
+
+        def recovered() -> bool:
+            moved = get_counters().get("recoveries_completed",
+                                       type="corrupt_checkpoint") > before
+            return moved and ck.last_restore_hash_ok is not False
+
+        return FIRED, recovered
+
+    def describe(self) -> dict:
+        return {**super().describe(), "mode": self.mode}
+
+
+@dataclass
+class DiskFull(FaultAction):
+    """ENOSPC at the persist boundary: the next ``saves`` checkpointer
+    saves fail.  Recovery is the checkpointer's first subsequent
+    successful save (counted as ``recoveries_completed{type=disk_full}``)."""
+
+    saves: int = 1
+
+    kind: str = "disk_full"
+
+    def fire(self, ctx: FaultContext):
+        if ctx.checkpointer is None:
+            raise RuntimeError("DiskFull needs a checkpointer")
+        log.warn("fault: disk full at persist boundary", saves=self.saves)
+        ctx.checkpointer.inject_save_failures(self.saves)
+        return FIRED, None
+
+    def describe(self) -> dict:
+        return {**super().describe(), "saves": self.saves}
+
+
+def _stalls_detected_total() -> int:
+    return get_counters().total("stalls_detected")
+
+
+@dataclass
+class StallStep(FaultAction):
+    """The QUIET failure: the training loop wedges mid-step — no crash,
+    no closed socket, the host keeps heartbeating.  Nothing in the crash
+    path ever notices; only the :class:`~edl_tpu_torch.runtime.watchdog.\
+StallWatchdog`'s EWMA deadline does.  ``duration_s=None`` hangs until
+    the escalation ladder unwedges it (the honest drill: detection IS
+    the recovery trigger).  Recovery is observed as the watchdog's
+    ``stalls_detected`` counter moving — the drill asserts the hang was
+    *detected*, the escalation path owns what happens next."""
+
+    duration_s: Optional[float] = None
+
+    kind: str = "stall_step"
+
+    def fire(self, ctx: FaultContext):
+        if ctx.stall is None:
+            raise RuntimeError("StallStep needs a stall hook in the ctx")
+        before = _stalls_detected_total()
+        log.warn("fault: stalling training step",
+                 duration_s=self.duration_s)
+        ctx.stall(self.duration_s)
+        return FIRED, lambda: _stalls_detected_total() > before
+
+    def describe(self) -> dict:
+        d = super().describe()
+        if self.duration_s is not None:
+            d["duration_s"] = self.duration_s
+        return d
+
+
+@dataclass
+class WedgeCollective(FaultAction):
+    """Freeze ONE participant of a live collective (the harness typically
+    SIGSTOPs a world child): every peer blocks in the collective with the
+    process table fully green.  The lease timeout can't fire (the host
+    renews), membership can't prune (the supervisor heartbeats) — only
+    the stall watchdog's missing progress beats give it away.  Recovery
+    observed like :class:`StallStep`: ``stalls_detected`` moved."""
+
+    kind: str = "wedge_collective"
+
+    def fire(self, ctx: FaultContext):
+        if ctx.wedge is None:
+            raise RuntimeError("WedgeCollective needs a wedge hook in "
+                               "the ctx")
+        before = _stalls_detected_total()
+        if not ctx.wedge():
+            return RETRY, None  # nothing to freeze yet (mid-reform)
+        log.warn("fault: wedged a collective participant")
+        return FIRED, lambda: _stalls_detected_total() > before
 
 
 # -- the silent three --------------------------------------------------------
@@ -167,11 +740,12 @@ class PoisonLoss(FaultAction):
         return FIRED, lambda: _sdc_refuted_total() > before
 
 
-#: the reference's training eight and serving five, frozen as it freezes
-#: them; their actions are later items of the port
+#: the training eight, frozen as the reference freezes them, so a
+#: seeded campaign draws the same faults as the registry grows
 TRAINING_KINDS = ("kill_trainer", "kill_coordinator", "network_flake",
                   "preempt_domain", "corrupt_checkpoint", "disk_full",
                   "stall_step", "wedge_collective")
+#: the serving five; their actions are a later item of the port
 SERVING_KINDS = ("slow_upstream", "gray_replica", "conn_flap",
                  "partial_partition", "coord_partition")
 
@@ -180,12 +754,15 @@ SERVING_KINDS = ("slow_upstream", "gray_replica", "conn_flap",
 SDC_KINDS = ("corrupt_gradient", "flip_param_bits", "poison_loss")
 
 #: kind string → action class (the ported kinds)
-ACTION_TYPES = {cls.kind: cls  # type: ignore[attr-defined]
-                for cls in (CorruptGradient, FlipParamBits, PoisonLoss)}
+ACTION_TYPES = {
+    cls.kind: cls  # type: ignore[attr-defined]
+    for cls in (KillTrainer, KillCoordinator, NetworkFlake, PreemptDomain,
+                CorruptCheckpoint, DiskFull, StallStep, WedgeCollective,
+                CorruptGradient, FlipParamBits, PoisonLoss)
+}
 
 #: each kind the port lacks → the ROADMAP.md item that brings it
-UNPORTED_KINDS = {**{k: "queue 1 item 6" for k in TRAINING_KINDS},
-                  **{k: "queue 1 item 11" for k in SERVING_KINDS}}
+UNPORTED_KINDS = {k: "queue 1 item 11" for k in SERVING_KINDS}
 
 
 def _check_ported(kinds) -> None:
@@ -218,13 +795,15 @@ class FaultPlan:
         """Derive a whole campaign deterministically from ``seed``, drawing
         exactly as the reference draws: ``n_faults`` actions from ``kinds``
         (each kind at least once when ``n_faults`` allows), at strictly
-        increasing steps at least ``min_gap`` apart.  ``kinds`` defaults to
-        the reference's training eight, which raise here until item 6's
-        open bullet brings them; pass :data:`SDC_KINDS`.  ``flake_duration_s`` shapes
-        the network and serving kinds only."""
+        increasing steps at least ``min_gap`` apart, so each recovery has
+        room to land before the next strike.  ``kinds`` defaults to the
+        training eight; pass :data:`SDC_KINDS` for a corruption campaign.
+        ``flake_duration_s`` shapes the network flakes."""
         _check_ported(kinds)
         rng = random.Random(seed)
         if n_faults < len(kinds):
+            # a shortened campaign draws its fault MIX from the seed too,
+            # not just its schedule
             chosen = rng.sample(list(kinds), n_faults)
         else:
             chosen = list(kinds)
@@ -233,9 +812,20 @@ class FaultPlan:
         rng.shuffle(chosen)
         span = max(last_step - first_step - min_gap * (n_faults - 1), 1)
         offsets = sorted(rng.randrange(span) for _ in range(n_faults))
-        actions: list[FaultAction] = [
-            ACTION_TYPES[kind](at_step=first_step + offsets[i] + min_gap * i)
-            for i, kind in enumerate(chosen)]
+        actions: list[FaultAction] = []
+        for i, kind in enumerate(chosen):
+            step = first_step + offsets[i] + min_gap * i
+            if kind == "network_flake":
+                mode = rng.choice(("reset", "delay", "blackhole"))
+                actions.append(NetworkFlake(at_step=step, mode=mode,
+                                            duration_s=flake_duration_s))
+            elif kind == "corrupt_checkpoint":
+                actions.append(CorruptCheckpoint(
+                    at_step=step, mode=rng.choice(("flip", "truncate"))))
+            elif kind == "disk_full":
+                actions.append(DiskFull(at_step=step, saves=1))
+            else:
+                actions.append(ACTION_TYPES[kind](at_step=step))
         return cls(actions=actions, seed=seed)
 
 

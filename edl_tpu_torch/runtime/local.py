@@ -1,12 +1,18 @@
 """Local end-to-end elastic job harness — the port of edl_tpu.runtime.local.
 
-The "minimum end-to-end slice" of SURVEY §7: submit a TrainingJob → the
-controller materializes trainer pods on the (fake) cluster → the autoscaler
-dials parallelism against live capacity → and HERE the dial becomes a mesh:
-each running trainer pod corresponds to one mesh slot, so a parallelism
-change is observed by the training loop and applied as an
-``ElasticTrainer.resize()`` at the next step boundary, while the task-lease
-queue keeps data flowing exactly-once through every resize.
+The "minimum end-to-end slice" of SURVEY §7: submit a TrainingJob to the
+:class:`~edl_tpu_torch.controller.controller.Controller` → its updater
+materializes trainer pods on the (fake) cluster → its
+:class:`~edl_tpu_torch.scheduler.autoscaler.Autoscaler` dials parallelism
+against live capacity → and HERE the dial becomes a mesh: each running
+trainer pod corresponds to one mesh slot, so a parallelism change is
+observed by the training loop and applied as an ``ElasticTrainer.resize()``
+at the next step boundary, while the task-lease queue keeps data flowing
+exactly-once through every resize.  The coordinator may be the in-process
+service or a :class:`~edl_tpu_torch.coord.client.CoordClient` (behind a
+chaos proxy, riding its reconnects).  A kill that leaves no trainer
+running makes rank 0 wait for the replacement pod (:data:`REPLACEMENT_WAIT_S`)
+instead of stepping at world 0; past that it raises on every rank.
 
 The reference is a single controller; the port's trainer is SPMD, so the
 job is too.  Every rank of the default process group builds a
@@ -46,6 +52,9 @@ log = get_logger("runtime.local")
 DATA_LABEL = "data"
 #: a frame's JSON header occupies its first HEADER_BYTES bytes
 HEADER_BYTES = 4096
+#: how long rank 0 waits for a replacement pod when no trainer is running
+#: (a kill at world 1) before the job raises
+REPLACEMENT_WAIT_S = 60.0
 
 
 class RankZeroFailed(RuntimeError):
@@ -190,8 +199,23 @@ class LocalElasticJob:
 
     def desired_world_size(self) -> int:
         """Running trainer pods (rank 0's cluster), clamped and snapped as
-        :meth:`_snap` says."""
-        return self._snap(self.cluster.job_pods(self.job).running or 1)
+        :meth:`_snap` says.  While none is running (a kill at world 1, its
+        replacement not placed yet) wait for one, polling: the job never
+        steps at world 0, and raises rather than hang once
+        :data:`REPLACEMENT_WAIT_S` has passed."""
+        running = self.cluster.job_pods(self.job).running
+        if running == 0:
+            log.warn("no trainer running; waiting for a replacement pod",
+                     job=self.job_name)
+            deadline = time.monotonic() + REPLACEMENT_WAIT_S
+            while running == 0:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"no trainer pod of {self.job_name} running after "
+                        f"{REPLACEMENT_WAIT_S} s")
+                time.sleep(0.05)
+                running = self.cluster.job_pods(self.job).running
+        return self._snap(running)
 
     def _target_for(self, n: int):
         """Pod count → resize target: the shape policy's layout when one is

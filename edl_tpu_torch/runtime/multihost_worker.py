@@ -182,13 +182,21 @@ class TransformerTask:
     config_name: str = "tiny"
     seq: int = int(os.environ.get("EDL_MH_SEQ", "32"))
     lr: float = 3e-3
+    #: the decoder's depth (0: the config's own); the width stays the
+    #: config's
+    n_layers: int = 0
 
     @property
     def cfg(self):
+        import dataclasses
+
         from edl_tpu_torch.models import transformer as T
 
-        return {"tiny": T.TINY, "flagship": T.FLAGSHIP,
-                "large": T.LARGE}[self.config_name]
+        cfg = {"tiny": T.TINY, "flagship": T.FLAGSHIP,
+               "large": T.LARGE}[self.config_name]
+        if self.n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=self.n_layers)
+        return cfg
 
     def make_dataset(self) -> tuple[np.ndarray, np.ndarray]:
         vocab = self.cfg.vocab_size
@@ -231,11 +239,11 @@ class TransformerTask:
                 np.zeros((n, self.seq), np.int32))
 
 
-def make_task(model: str, config_name: str = "tiny"):
+def make_task(model: str, config_name: str = "tiny", n_layers: int = 0):
     if model == "mlp":
         return MlpTask()
     if model == "transformer":
-        return TransformerTask(config_name=config_name)
+        return TransformerTask(config_name=config_name, n_layers=n_layers)
     raise ValueError(f"unknown model {model!r}")
 
 
@@ -627,6 +635,9 @@ def main(argv=None) -> int:
                     choices=("tiny", "flagship", "large"),
                     default=os.environ.get("EDL_MH_MODEL_CFG", "tiny"),
                     help="transformer size (tiny = CPU-testable)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="the transformer's depth at the config's width "
+                         "(0, the default: the config's own)")
     ap.add_argument("--device", default="cuda",
                     help="the world children's device: cuda (one card a "
                          "rank, over nccl), cuda:N (every rank on card N, "
@@ -634,7 +645,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    task = make_task(args.model, args.model_config)
+    task = make_task(args.model, args.model_config, args.n_layers)
 
     # SIGTERM = graceful scale-down: the supervisor announces leave intent,
     # every world child stops at the same step boundary (see

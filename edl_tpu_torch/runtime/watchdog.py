@@ -49,6 +49,7 @@ Two driving modes:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -126,6 +127,7 @@ class StallWatchdog:
         self._ewma: Optional[float] = None
         self._beats = 0
         self._stalled: Optional[Stall] = None
+        self._paused = 0
         self.stalls_detected = 0
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -158,6 +160,22 @@ class StallWatchdog:
             # the hang resolved: close the goodput stall window the
             # breach opened (no-op without a process ledger)
             goodput.exit_phase(goodput.STALL)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """A known pause of the loop (a synchronous checkpoint save or a
+        restore): its silence is neither watched nor taken as a step
+        interval.  The watch resumes, counting silence from then, when the
+        pause ends."""
+        with self._lock:
+            self._paused += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._paused -= 1
+                if self._last_beat is not None:
+                    self._last_beat = self._clock()
 
     # -- deadline model ------------------------------------------------------
 
@@ -198,7 +216,8 @@ class StallWatchdog:
         legitimately slow steps from the first interval sample onward."""
         now = self._clock()
         with self._lock:
-            if self._last_beat is None or self._stalled is not None:
+            if (self._last_beat is None or self._stalled is not None
+                    or self._paused):
                 return None
             silent = now - self._last_beat
             deadline = self._deadline_locked()

@@ -46,7 +46,8 @@ def main() -> int:
     print(f"build: {_build.build():.2f} s", flush=True)
     t0 = time.perf_counter()
     launches = chip_smoke.phase_multihost(card, device="cuda",
-                                          timeout_s=args.timeout_s)
+                                          timeout_s=args.timeout_s,
+                                          n_layers=0)
     print(f"time_multihost: nccl job {time.perf_counter() - t0:.1f} s, "
           f"flash launches {launches}, on {card}", flush=True)
     return 0

@@ -37,15 +37,25 @@ def test_every_module_imports_without_jax():
     assert "imported" in proc.stdout
 
 
-#: the control plane's copies (coordinator, resource model, cluster) and
-#: the elastic job: each is in the scan and the blocked-import run above
+#: the control plane's copies (coordinator, resource model and its
+#: validation, cluster, scheduler, controller), the elastic job and the
+#: fault campaign: each is in the scan and the blocked-import run above
 CONTROL_PLANE = ("edl_tpu_torch.coord", "edl_tpu_torch.coord.service",
                  "edl_tpu_torch.api", "edl_tpu_torch.api.quantity",
                  "edl_tpu_torch.api.types", "edl_tpu_torch.cluster",
                  "edl_tpu_torch.cluster.base", "edl_tpu_torch.cluster.fake",
                  "edl_tpu_torch.cluster.resource",
                  "edl_tpu_torch.runtime.local",
-                 "edl_tpu_torch.runtime.data")
+                 "edl_tpu_torch.runtime.data",
+                 "edl_tpu_torch.api.validation", "edl_tpu_torch.scheduler",
+                 "edl_tpu_torch.scheduler.topology",
+                 "edl_tpu_torch.scheduler.planner",
+                 "edl_tpu_torch.scheduler.autoscaler",
+                 "edl_tpu_torch.controller",
+                 "edl_tpu_torch.controller.updater",
+                 "edl_tpu_torch.controller.controller",
+                 "edl_tpu_torch.runtime.chaos",
+                 "edl_tpu_torch.runtime.faults")
 
 
 #: the multi-process world: the native coordinator's bindings, client,
@@ -100,6 +110,7 @@ def test_no_source_names_jax_or_the_jax_package():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from edl_tpu_torch.entry import (bert_tp_world, bert_trainer,
                                      dryrun_multichip, entry,
+                                     flagship_controlled_job,
                                      flagship_elastic_world,
                                      flagship_local_job, flagship_trainer,
                                      resnet_trainer)
@@ -123,7 +134,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         resnet_trainer(batch=2, hw=32, cfg=resnet.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         bert_trainer(batch=2, seq=16, cfg=bert.TINY)
-    for build in (bert_tp_world, flagship_local_job):  # before joining
+    for build in (bert_tp_world, flagship_local_job,
+                  flagship_controlled_job):  # before joining
         with pytest.raises(RuntimeError, match="CUDA"):
             build(0, 1, tmp_path / "store")
         assert not torch.distributed.is_initialized()

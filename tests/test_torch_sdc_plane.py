@@ -254,11 +254,16 @@ class TestSdcFaultPlans:
             PoisonLoss().fire(FaultContext())
 
     @pytest.mark.parametrize("kinds, item", [
-        (TRAINING_KINDS, "item 6"), (SERVING_KINDS, "item 11"),
-        (("poison_loss", "gray_replica"), "item 11")])
+        pytest.param(SERVING_KINDS, "item 11", id="kinds1-item 11"),
+        pytest.param(("poison_loss", "gray_replica"), "item 11",
+                     id="kinds2-item 11")])
     def test_unported_kinds_raise_naming_their_item(self, kinds, item):
         with pytest.raises(ValueError, match=item):
             FaultPlan.random(1, n_faults=3, kinds=kinds)
+
+    def test_training_kinds_draw_a_plan(self):
+        plan = FaultPlan.random(1, n_faults=3, kinds=TRAINING_KINDS)
+        assert {d["kind"] for d in plan.describe()} <= set(TRAINING_KINDS)
 
 
 # -- the drills ---------------------------------------------------------------

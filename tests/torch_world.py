@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import threading
 import pickle
 import time
 import traceback
@@ -2240,6 +2241,320 @@ def suite_local_four(rank: int, world: int, store: str, mlp_params: dict,
     return _run_scenarios([virtual_drive, opt_out, dead_workers], rank)
 
 
+# -- controlled jobs: the Controller, the autoscaler and the fault campaign ----
+
+
+def _mlp_from(mlp_params: dict, n0: int) -> ElasticTrainer:
+    """The port's MLP [16, 32, 4] holding the JAX init ``mlp_params`` under
+    adam(1e-2) on the CPU, on a first world of ``n0``."""
+    model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                      mlp_params)
+    return ElasticTrainer(mlp.loss_fn, model, optim.adam(1e-2),
+                          devices=[torch.device("cpu")],
+                          initial_world_size=n0)
+
+
+def _recording(reg, order: list):
+    """``reg.fetch`` that also appends each leased shard id to ``order``
+    (rank 0's training order, for the one-rank control)."""
+    def fetch(payload):
+        order.append(json.loads(payload.decode())["shard"])
+        return reg.fetch(payload)
+    return fetch
+
+
+def _campaign_counts() -> dict:
+    from edl_tpu_torch.observability.collector import get_counters
+    from edl_tpu_torch.runtime.faults import TRAINING_KINDS
+
+    c = get_counters()
+    return dict(
+        injected={k: c.get("faults_injected", type=k)
+                  for k in TRAINING_KINDS},
+        recovered={k: c.get("recoveries_completed", type=k)
+                   for k in TRAINING_KINDS})
+
+
+def suite_controlled(rank: int, world: int, store: str, mlp_params: dict,
+                     data: tuple, seed: int, soak: dict) -> dict:
+    """Controller-run jobs on two ranks: the seeded campaign of all eight
+    training kinds (``entry.controlled_campaign`` on the MLP, the card
+    released and taken back by a system pod so the autoscaler grows and
+    shrinks the job), and a kill that leaves no trainer running (the job
+    waits for the replacement; with none coming it raises on every
+    rank)."""
+    from edl_tpu_torch.entry import (control_plane, controlled_campaign,
+                                     controlled_training_job)
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+
+    _join(rank, world, store)
+    tmp = Path(store).parent
+
+    def job_on_plane(name, shards, work, **plane_kw):
+        trainer = _mlp_from(mlp_params, 1)
+        plane = reg = None
+        order: list = []
+        reg = ShardRegistry()
+        ids = reg.register_arrays(data, num_shards=shards)
+        if rank == 0:
+            plane = control_plane(controlled_training_job(name, world),
+                                  tmp / work, **plane_kw)
+            reg.enqueue(plane.coord, ids)
+        runner = LocalElasticJob(
+            plane.job if plane else None, plane.cluster if plane else None,
+            trainer, plane.coord if plane else None,
+            fetch=_recording(reg, order), batch_size=64,
+            job_name=f"default/{name}")
+        return runner, plane, order
+
+    def campaign(rank):
+        runner, plane, order = job_on_plane(
+            "soak", soak["shards"], "soak", held_nodes=("node1",))
+
+        def elasticity(step, loss, w):
+            if plane is None:
+                return
+            if step == soak["release_at"]:
+                plane.cluster.remove_system_pod("hold-node1")
+            if step == soak["return_at"]:
+                plane.cluster.add_system_pod("hold-node1", "node1", gpus=1)
+            time.sleep(0.01)  # let the control loops breathe
+
+        got = controlled_campaign(runner, plane, seed,
+                                  first_step=soak["first_step"],
+                                  last_step=soak["last_step"],
+                                  min_gap=soak["min_gap"],
+                                  save_every=soak["save_every"],
+                                  on_step=elasticity)
+        rep = got["report"]
+        out = dict(steps=rep.steps, worlds=rep.world_sizes,
+                   losses=rep.losses, resizes=rep.resizes, order=order,
+                   step_of_trainer=runner.trainer.state.step)
+        if plane is not None:
+            stats = plane.coord.stats()
+            ticks = plane.controller.autoscaler.plan_history
+            plane.close()
+            out.update(
+                {k: got[k] for k in ("plan", "fired", "recovered", "unfired",
+                                     "quiescent", "stalls", "audit",
+                                     "saves")},
+                stats=dict(done=stats.done, todo=stats.todo,
+                           leased=stats.leased, dropped=stats.dropped),
+                ticks=ticks, leaked=plane.leaked_servers(),
+                phase_events=len(got["steps"]), **_campaign_counts())
+        return out
+
+    def replacement(rank, arrives_after_s=0.5):
+        """At step 3 the only trainer is killed while another tenant holds
+        its node's card; the hold goes after ``arrives_after_s`` (never,
+        with None)."""
+        runner, plane, _ = job_on_plane(
+            f"lone{arrives_after_s}", 8, f"lone{arrives_after_s}",
+            nodes=(("node0", "nvlink0"),))
+        waited: list = []
+
+        def kill(step, loss, w):
+            if plane is None or step != 3:
+                return
+            cluster = plane.cluster
+            pod = cluster.list_pods(job_uid=plane.job.full_name,
+                                    role="trainer")[0]
+            cluster.add_system_pod("tenant", "node0", gpus=1)
+            cluster.kill_pod(pod.name)
+            t0 = time.monotonic()
+
+            def free():
+                cluster.remove_system_pod("tenant")
+                cluster.reconcile()
+                waited.append(time.monotonic() - t0)
+
+            if arrives_after_s is not None:
+                threading.Timer(arrives_after_s, free).start()
+
+        try:
+            rep = runner.run(on_step=kill)
+        except Exception as exc:
+            return dict(raised=type(exc).__name__, message=str(exc))
+        finally:
+            if plane is not None:
+                plane.close()
+        return dict(steps=rep.steps, worlds=rep.world_sizes, waited=waited)
+
+    def no_replacement(rank):
+        from edl_tpu_torch.runtime import local
+
+        waited, local.REPLACEMENT_WAIT_S = local.REPLACEMENT_WAIT_S, 0.5
+        try:
+            return replacement(rank, arrives_after_s=None)
+        finally:
+            local.REPLACEMENT_WAIT_S = waited
+
+    def after_error(rank):
+        t = torch.tensor([float(rank + 1)])
+        dist.all_reduce(t)
+        return float(t)
+
+    def flagship_controlled(rank):
+        """chip_smoke's phase (t) at TINY on the CPU:
+        ``entry.flagship_controlled_job`` under the same campaign and
+        card schedule."""
+        from edl_tpu_torch.entry import flagship_controlled_job
+
+        runner, plane, _ = flagship_controlled_job(
+            rank, world, store, device="cpu", cfg=tfm.TINY, global_batch=4,
+            seq=32, rows=4 * soak["shards"], shards=soak["shards"],
+            work_dir=tmp / "flagship-controlled")
+
+        def elasticity(step, loss, w):
+            if plane is not None and step == soak["release_at"]:
+                plane.cluster.remove_system_pod("hold-node1")
+            if plane is not None and step == soak["return_at"]:
+                plane.cluster.add_system_pod("hold-node1", "node1", gpus=1)
+            time.sleep(0.01)
+
+        got = controlled_campaign(runner, plane, seed,
+                                  first_step=soak["first_step"],
+                                  last_step=soak["last_step"],
+                                  min_gap=soak["min_gap"],
+                                  save_every=soak["save_every"],
+                                  on_step=elasticity)
+        rep = got["report"]
+        out = dict(steps=rep.steps, worlds=rep.world_sizes,
+                   losses=rep.losses)
+        if plane is not None:
+            stats = plane.coord.stats()
+            plane.close()
+            out.update(fired=got["fired"], quiescent=got["quiescent"],
+                       stats=dict(done=stats.done, todo=stats.todo,
+                                  leased=stats.leased,
+                                  dropped=stats.dropped),
+                       leaked=plane.leaked_servers())
+        return out
+
+    return _run_scenarios([campaign, replacement, no_replacement,
+                           after_error, flagship_controlled], rank)
+
+
+def suite_controlled_four(rank: int, world: int, store: str,
+                          mlp_params: dict, data: tuple,
+                          names: tuple) -> dict:
+    """tests/test_elastic_e2e.py's two scenarios and
+    tests/test_chaos_examples.py's repeated kills on four ranks (those of
+    ``names``): a job a ``Controller`` runs on CPU pods (one node), its
+    autoscaler growing it to 4 and shrinking it under competing load, a
+    pod kill survived, a chaos monkey striking every 8 steps."""
+    from edl_tpu_torch.api.types import (JobPhase, ResourceRequirements,
+                                         TrainerSpec, TrainingJob,
+                                         TrainingJobSpec)
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.controller import Controller
+    from edl_tpu_torch.coord import local_service
+    from edl_tpu_torch.runtime.chaos import ChaosMonkey
+    from edl_tpu_torch.runtime.data import ShardRegistry
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+    from edl_tpu_torch.scheduler.topology import POW2_POLICY
+
+    _join(rank, world, store)
+
+    def controlled(name, cpu_milli, lo, hi, rows, shards, passes=1,
+                   **ctl_kw):
+        """Rank 0: a one-node cluster, the Controller running the job (its
+        phase Running before training starts), the coordinator with the
+        rows as tasks; every rank: the runner."""
+        trainer = _mlp_from(mlp_params, lo)
+        reg = ShardRegistry()
+        ids = reg.register_arrays((data[0][:rows], data[1][:rows]),
+                                  num_shards=shards)
+        order: list = []
+        job = cluster = coord = ctl = None
+        if rank == 0:
+            cluster = FakeCluster()
+            cluster.add_node("n0", cpu_milli=cpu_milli,
+                             memory_mega=100_000)
+            ctl = Controller(cluster, autoscaler_loop_seconds=0.02,
+                             updater_convert_seconds=0.02,
+                             updater_confirm_seconds=0.01, **ctl_kw)
+            ctl.start()
+            job = TrainingJob(name=name, spec=TrainingJobSpec(
+                fault_tolerant=True, trainer=TrainerSpec(
+                    min_instance=lo, max_instance=hi,
+                    resources=ResourceRequirements(
+                        requests={"cpu": "1", "memory": "100M"},
+                        limits={"cpu": "1", "memory": "100M"}))))
+            ctl.submit(job)
+            deadline = time.monotonic() + 10
+            while ctl.phase(job) != JobPhase.RUNNING:
+                assert time.monotonic() < deadline, "job never started"
+                time.sleep(0.01)
+            coord = local_service(passes=passes)
+            reg.enqueue(coord, ids)
+        runner = LocalElasticJob(job, cluster, trainer, coord,
+                                 fetch=_recording(reg, order),
+                                 batch_size=64,
+                                 job_name=f"default/{name}")
+        return runner, ctl, cluster, job, order
+
+    def summary(rep, ctl, job, order, **extra):
+        out = dict(steps=rep.steps, worlds=rep.world_sizes,
+                   losses=rep.losses, resizes=rep.resizes, order=order,
+                   **extra)
+        if ctl is not None:
+            out["phase"] = ctl.phase(job).value
+            ctl.stop()
+        return out
+
+    def scale_up_and_down(rank):
+        runner, ctl, cluster, job, order = controlled(
+            "train", 4000, 2, 4, 1024, 16, passes=2, max_load_desired=1.0,
+            shape_policy=POW2_POLICY)
+
+        def on_step(step, loss, w):
+            if cluster is not None and step == 16:
+                for i in range(2):
+                    cluster.add_system_pod(f"nginx-{i}", "n0",
+                                           cpu_request_milli=1000,
+                                           memory_request_mega=100)
+            time.sleep(0.01)  # let the control loops breathe
+
+        return summary(runner.run(on_step=on_step), ctl, job, order)
+
+    def pod_kill(rank):
+        runner, ctl, cluster, job, order = controlled(
+            "train", 8000, 2, 4, 1024, 8)
+        killed = []
+
+        def on_step(step, loss, w):
+            if cluster is not None and step == 5 and not killed:
+                pods = cluster.list_pods(job_uid=job.full_name,
+                                         role="trainer")
+                cluster.kill_pod(pods[0].name)
+                killed.append(pods[0].name)
+            time.sleep(0.01)
+
+        rep = runner.run(on_step=on_step)
+        return summary(rep, ctl, job, order, killed=killed)
+
+    def chaos_monkey(rank):
+        runner, ctl, cluster, job, order = controlled(
+            "chaos", 8000, 2, 4, 2048, 8, passes=2)
+        monkey = (ChaosMonkey(cluster, job, every_n_steps=8, max_kills=4)
+                  if cluster is not None else None)
+
+        def on_step(step, loss, w):
+            if monkey is not None:
+                monkey(step, loss, w)
+            time.sleep(0.005)
+
+        rep = runner.run(on_step=on_step)
+        return summary(rep, ctl, job, order,
+                       kills=list(monkey.kills) if monkey else [])
+
+    return _run_scenarios([fn for fn in (scale_up_and_down, pod_kill,
+                                         chaos_monkey)
+                           if fn.__name__ in names], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
@@ -2247,4 +2562,5 @@ SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "prewarm": suite_prewarm, "sdc": suite_sdc,
           "bert_tp_two": suite_bert_tp_two,
           "bert_tp_eight": suite_bert_tp_eight, "local": suite_local,
-          "local_four": suite_local_four}
+          "local_four": suite_local_four, "controlled": suite_controlled,
+          "controlled_four": suite_controlled_four}
