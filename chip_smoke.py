@@ -255,6 +255,36 @@ Phases, each of which raises on failure:
     ``compile_ms``, ``reshard_ms`` and ``bytes_moved``, each fault's
     fire-to-recovery seconds, the coordinator's respawn and each save's ms.
 
+(u) the single-shot serving plane under its SLO control loop:
+    ``entry.flagship_scoring_fleet`` (FLAGSHIP, seed-0 weights, batches of
+    ``SCORE_BATCH`` rows of 1 024 tokens, the next-token logits of each
+    row, 8 flash forward launches a serve iteration) behind a
+    ``Controller`` whose ``ServingScaler`` reads ``fleet.stats`` and hints
+    ``fleet.hint``, over a ``FakeCluster`` of two one-card nodes; the
+    harness sets the fleet to the job's Running server pods every
+    ``SCORE_FOLLOW_S``.  One replica's closed-loop capacity C (rows/s,
+    saturated), then seeded Poisson traffic: steady at a quarter of C, a
+    burst at three quarters (the QPS target of C/2 a replica plans 2
+    replicas, built from the hint), a rolling reload onto generation 2
+    mid-burst (one step of a FLAGSHIP trainer saved to an
+    ``ElasticCheckpointer`` lineage, taken by ``reload_from_lineage``), and
+    a trickle at a tenth of C until the policy drains the fleet to 1 (a
+    window with no request decides nothing, by the reference's rule).
+    Both replicas share the card: the phase proves the protocol, not
+    added capacity.  Gates: no request dropped, failed or timed out; the
+    plans 1 -> 2 and 2 -> 1; a prewarm hit; ``serving-gen/<job>`` reading
+    2 in the fleet's ``PyCoordService``; 8 answers completed before the
+    reload and 8 submitted after it held by (d)'s rule to the plain
+    attention path's last-token logits on their generation, another row's
+    logits as the control; 8 flash forward launches for every forward the
+    fleet ran and no backward launch.  Prints C, p50/p99 by traffic phase,
+    rows per iteration, a serve iteration's device ms, each replica's
+    build ms and the reload's ms.  Then ``serve_main`` as a pod runs it, in
+    a subprocess on the card (``mlp:16,64,4``, the legacy front door, a
+    lineage watched every 0.5 s): ``/healthz`` 200, 64 ``/predict`` rows
+    equal to the plain MLP within 1e-5, generation 2's answers within
+    ``SERVE_MAIN_PICKUP_S`` of its save, and exit 0 on SIGTERM.
+
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
 
@@ -295,9 +325,10 @@ from edl_tpu_torch.entry import (CONTROLLED_ROWS, CONTROLLED_SHARDS,
                                  controlled_campaign, dryrun_multichip, entry,
                                  flagship_controlled_job,
                                  flagship_decode_fleet, flagship_elastic_world,
-                                 flagship_local_job, flagship_tp_world,
-                                 flagship_trainer, flagship_virtual_world,
-                                 resnet_trainer)
+                                 flagship_local_job, flagship_scoring_fleet,
+                                 flagship_tp_world, flagship_trainer,
+                                 flagship_virtual_world, resnet_trainer,
+                                 score_last_token)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
@@ -466,6 +497,25 @@ CONTROLLED_FIRST, CONTROLLED_LAST, CONTROLLED_GAP = 3, 20, 2
 CONTROLLED_SAVE_EVERY = 4
 CONTROLLED_RELEASE_AT, CONTROLLED_RETURN_AT = 5, 14
 CONTROLLED_TIMEOUT_S = 600
+
+#: phase (u): the scoring fleet's batch and admission window, the QPS
+#: target of a replica (a share of the measured capacity C), the lax p99
+#: objective (two replicas share one card), the scaler's loop and
+#: down-cooldown, the harness's pod-following period, the seconds of each
+#: traffic phase and its rate as a share of C, the fleet's stats window,
+#: and the sampled answers before and after the reload
+SCORE_BATCH, SCORE_QUEUE_MS = 8, 2.0
+SCORE_TARGET_SHARE, SCORE_SLO_MS = 0.5, 1000.0
+SCORE_LOOP_S, SCORE_DOWN_COOLDOWN_S, SCORE_FOLLOW_S = 0.25, 3.0, 0.05
+SCORE_CAPACITY_S, SCORE_WINDOW_S = 2.0, 2.0
+SCORE_PHASES = (("steady", 0.25, 3.0), ("burst", 0.75, 5.0))
+SCORE_TRICKLE_SHARE, SCORE_DRAIN_TIMEOUT_S = 0.1, 20.0
+SCORE_SAMPLES = 8
+#: phase (u-2): serve_main's model, its rows, the lineage poll and how
+#: long generation 2 may take to show in the replies
+SERVE_MAIN_MODEL, SERVE_MAIN_ROWS = (16, 64, 4), 64
+SERVE_MAIN_POLL_S, SERVE_MAIN_PICKUP_S = 0.5, 5.0
+SERVE_MAIN_TIMEOUT_S = 120
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -3465,6 +3515,434 @@ def phase_controlled(card: str) -> dict:
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
 
 
+# -- phase (u): the single-shot serving plane --------------------------------
+
+
+def follow_pods(fleet, cluster, job, stop: threading.Event,
+                errors: list) -> None:
+    """(u): the harness's kubelet: every SCORE_FOLLOW_S the fleet's replica
+    count becomes the job's Running server pods."""
+    while not stop.wait(SCORE_FOLLOW_S):
+        try:
+            n = sum(p.phase.value == "Running" for p in cluster.list_pods(
+                job_uid=job.full_name, role="server"))
+            if n and n != fleet.replicas_active():
+                fleet.scale_to(n)
+        except Exception as exc:  # surfaced by the phase's gates
+            errors.append(repr(exc))
+            return
+
+
+def closed_loop_capacity(fleet, rows: np.ndarray, seconds: float) -> float:
+    """(u): C, the rows a second the fleet serves with two batches of
+    requests always in flight (saturated)."""
+    inflight: list = []
+    served, i = 0, 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        while len(inflight) < 2 * fleet.max_batch_size:
+            inflight.append(fleet.submit((rows[i % len(rows)],)))
+            i += 1
+        inflight.pop(0).wait(60)
+        served += 1
+    elapsed = time.perf_counter() - t0
+    for req in inflight:
+        req.wait(60)
+    return served / elapsed
+
+
+def scoring_check(answers: dict, refs: dict, rows_of: dict) -> None:
+    """(u): each generation's sampled answers against the plain attention
+    path's last-token logits of their rows on that generation, by (d)'s
+    rule; the control (each answer against another row's reference) must
+    fail it."""
+    for gen, got in answers.items():
+        ref = refs[gen]
+        got = torch.from_numpy(np.stack(got)).to(ref.device)
+        rms = ref.float().square().mean().sqrt().item()
+        r, c = (kc.reading(x, ref, kc.BF16_RTOL, MODEL_ATOL * rms)
+                for x in (got, got.roll(1, 0)))
+        print(f"model check: scoring answers of generation {gen} "
+              f"(rows {rows_of[gen]}) vs plain attention logits max |diff| "
+              f"{r['max_abs_err']:.4f}, {r['worst']:.3f} of the limit "
+              f"(floor needed {r['need_atol']:.4f} rms); another row's "
+              f"{c['worst']:.3f} of it ({c['need_atol']:.4f} rms)",
+              flush=True)
+        if not r["worst"] <= 1.0:
+            raise AssertionError(f"phase (u): generation {gen}'s answers "
+                                 "off the plain path")
+        if c["worst"] <= 1.0:
+            raise AssertionError("phase (u): the scoring check passes its "
+                                 "control")
+
+
+def serve_main_drill(card: str, device: str = "cuda") -> dict:
+    """(u-2): ``python -m edl_tpu_torch.runtime.serving`` over a lineage
+    holding generation 1 of the MLP SERVE_MAIN_MODEL (seed 0), on the
+    legacy front door: /healthz, SERVE_MAIN_ROWS rows against the plain
+    MLP, generation 2 (seed 1) saved and picked up, SIGTERM."""
+    import urllib.request
+
+    from edl_tpu_torch.models import mlp
+
+    tmp = tempfile.mkdtemp(prefix="smoke-serve-main-")
+    sizes = list(SERVE_MAIN_MODEL)
+    gens = {g: mlp.MLP(sizes, device="cpu", seed=g - 1) for g in (1, 2)}
+    ck = ElasticCheckpointer(os.path.join(tmp, "lineage"))
+    ck.save(1, {"params": gens[1]})
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, EDL_SERVING_MODEL_DIR=os.path.join(tmp, "lineage"),
+               EDL_SERVING_MODEL="mlp:" + ",".join(map(str, sizes)),
+               EDL_SERVING_FRONTDOOR="legacy", EDL_SERVING_PORT="0",
+               EDL_HEALTH_PORT="-1",
+               EDL_SERVING_RELOAD_POLL_S=str(SERVE_MAIN_POLL_S),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = os.path.join(tmp, "server.log")
+    rows = np.random.default_rng(4).normal(
+        size=(SERVE_MAIN_ROWS, sizes[0])).astype(np.float32)
+    with torch.no_grad():
+        want = {g: mlp.apply(m, torch.from_numpy(rows)).numpy()
+                for g, m in gens.items()}
+
+    def post(port: int, row) -> dict:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict",
+            data=json.dumps({"inputs": row.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def answers(port: int, gen: int) -> float:
+        worst = 0.0
+        for row, w in zip(rows, want[gen]):
+            doc = post(port, row)
+            got = np.asarray(doc["outputs"], np.float32)
+            if doc["generation"] != gen or not np.allclose(
+                    got, w, rtol=1e-5, atol=1e-5):
+                raise AssertionError(
+                    f"phase (u-2): generation {doc['generation']} answer "
+                    f"{got} for generation {gen}'s {w}")
+            worst = max(worst, float(np.abs(got - w).max()))
+        return worst
+
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "edl_tpu_torch.runtime.serving",
+             "--device", device], stdout=out, stderr=subprocess.STDOUT,
+            env=env, cwd=root)
+    try:
+        port = None
+        deadline = time.monotonic() + SERVE_MAIN_TIMEOUT_S
+        while port is None and time.monotonic() < deadline:
+            if proc.poll() is not None:
+                break
+            with open(log) as f:
+                for line in f:
+                    if line.startswith("model server ready port="):
+                        port = int(line.split("port=")[1].split()[0])
+            time.sleep(0.1)
+        if port is None:
+            with open(log) as f:
+                raise AssertionError("phase (u-2): no ready line:\n"
+                                     + f.read()[-3000:])
+        ready_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as r:
+            health = r.status
+        if health != 200:
+            raise AssertionError(f"phase (u-2): /healthz {health}")
+        err1 = answers(port, 1)
+        t_save = time.perf_counter()
+        ck.save(2, {"params": gens[2]})
+        saved = time.perf_counter()
+        pickup = None
+        while time.perf_counter() - saved < SERVE_MAIN_PICKUP_S:
+            if post(port, rows[0])["generation"] == 2:
+                pickup = time.perf_counter() - saved
+                break
+            time.sleep(0.05)
+        if pickup is None:
+            raise AssertionError("phase (u-2): generation 2 not served "
+                                 f"within {SERVE_MAIN_PICKUP_S} s")
+        err2 = answers(port, 2)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            with open(log) as f:
+                raise AssertionError(f"phase (u-2): exit {rc} on SIGTERM:\n"
+                                     + f.read()[-3000:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        ck.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(ready_s=ready_s, err1=err1, err2=err2,
+               save_s=saved - t_save, pickup_s=pickup)
+    print(f"serve_main mlp:{','.join(map(str, sizes))} on {device}: ready "
+          f"in {ready_s:.2f} s, /healthz 200, {SERVE_MAIN_ROWS} rows of "
+          f"generation 1 max |diff| {err1:.3e} vs the plain MLP; "
+          f"generation 2 saved in {out['save_s']:.3f} s and served "
+          f"{pickup:.3f} s after (poll {SERVE_MAIN_POLL_S} s), "
+          f"{SERVE_MAIN_ROWS} rows max |diff| {err2:.3e}; SIGTERM exit 0 "
+          f"on {card}", flush=True)
+    return out
+
+
+def phase_serving_plane(card: str, cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                        device: str = "cuda", seq: int = S) -> dict:
+    """(u): the FLAGSHIP scoring fleet dialled by the controller's SLO
+    policy through capacity, steady, burst (with a rolling reload onto
+    generation 2) and trickle traffic, then serve_main as a pod runs it.
+    ``cfg``, ``device`` and ``seq`` let the phase be rehearsed on the CPU
+    at TINY.  Returns the kernels' launches on the fleet's path."""
+    from edl_tpu_torch.api.types import (JobPhase, ResourceRequirements,
+                                         ServingJob, ServingSpec)
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.controller import Controller
+    from edl_tpu_torch.coord import PyCoordService
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    kv = PyCoordService()
+    job_name = "flagship-scoring"
+    fleet = flagship_scoring_fleet(
+        device=device, params=tfm.Transformer(cfg, device=dev, seed=0),
+        seq=seq, job=f"default/{job_name}", max_batch_size=SCORE_BATCH,
+        max_queue_ms=SCORE_QUEUE_MS, slo_p99_ms=SCORE_SLO_MS, kv=kv)
+    built: list = []
+    new_replica = fleet._new_replica
+
+    def tracked(slot):
+        r = new_replica(slot)
+        built.append(r)
+        return r
+
+    fleet._new_replica = tracked
+    fleet.scale_to(1)
+    # generation 2: one step of a trainer of the same model, saved into a
+    # lineage the fleet reloads from mid-burst (before the counts are set
+    # to 0: the step runs the backward kernels)
+    trainer, batch = flagship_trainer(SCORE_BATCH, seq, device=device,
+                                      cfg=cfg)
+    gen2_loss = trainer.step(batch)
+    lineage = tempfile.mkdtemp(prefix="smoke-scoring-lineage-")
+    ck = ElasticCheckpointer(lineage)
+    t0 = time.perf_counter()
+    ck.save(2, {"params": trainer.state.params})
+    gen2_save_s = time.perf_counter() - t0
+    gen2 = trainer.state.params
+    del trainer, batch
+    rows = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (256, seq), dtype=np.int64)
+
+    cluster = FakeCluster()
+    for name, domain in (("node0", "nvlink0"), ("node1", "nvlink1")):
+        cluster.add_node(name, cpu_milli=16_000, memory_mega=64_000, gpus=1,
+                         nvlink_domain=domain)
+    ctl = Controller(cluster, updater_convert_seconds=0.05,
+                     updater_confirm_seconds=0.025,
+                     serving_stats_for=lambda uid: fleet.stats(
+                         window_s=SCORE_WINDOW_S),
+                     serving_loop_seconds=SCORE_LOOP_S,
+                     coord_for=lambda job: kv)
+    scaler = ctl.serving_scaler
+    scaler.hint_sink = lambda uid, n: fleet.hint(n)
+    scaler.scale_down_cooldown_s = SCORE_DOWN_COOLDOWN_S
+    stop, errors = threading.Event(), []
+    follower = None
+    tallies, sent = {}, []
+    try:
+        zero_launch_counts()
+        forwards0 = {id(r): r.server.forwards for r in built}
+        capacity = closed_loop_capacity(fleet, rows, SCORE_CAPACITY_S)
+        time.sleep(SCORE_WINDOW_S)  # C's completions leave the window
+        job = ServingJob(name=job_name, spec=ServingSpec(
+            min_replicas=1, max_replicas=2, slo_p99_ms=SCORE_SLO_MS,
+            target_qps_per_replica=SCORE_TARGET_SHARE * capacity,
+            max_batch_size=SCORE_BATCH, max_queue_ms=SCORE_QUEUE_MS,
+            resources=ResourceRequirements(requests={"cpu": "1"},
+                                           limits={"nvidia.com/gpu": "1"})))
+        ctl.start()
+        ctl.submit(job)
+        deadline = time.monotonic() + 30
+        while ctl.phase(job) != JobPhase.RUNNING:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase (u): job {ctl.phase(job)}")
+            time.sleep(0.02)
+        follower = threading.Thread(
+            target=follow_pods, args=(fleet, cluster, job, stop, errors),
+            daemon=True)
+        follower.start()
+
+        def make_row(i):
+            return (rows[i % len(rows)],)
+
+        reload: dict = {}
+        restore = ck.restore
+
+        def timed_restore(*args, **kw):
+            t = time.perf_counter()
+            got = restore(*args, **kw)
+            reload["restore_ms"] = 1e3 * (time.perf_counter() - t)
+            return got
+
+        ck.restore = timed_restore
+
+        def reload_mid_burst(after_s: float) -> None:
+            time.sleep(after_s)
+            reload["t0"] = time.perf_counter()
+            reload["gen"] = fleet.reload_from_lineage(ck)
+            reload["t1"] = time.perf_counter()
+
+        for seed, (label, share, seconds) in enumerate(SCORE_PHASES, 11):
+            traffic = serving.PoissonTraffic(fleet, make_row,
+                                             qps=share * capacity, seed=seed)
+            reloader = None
+            if label == "burst":
+                reloader = threading.Thread(target=reload_mid_burst,
+                                            args=(seconds / 2,))
+                reloader.start()
+            traffic.run(seconds)
+            if reloader is not None:
+                reloader.join(120)
+            tallies[label] = traffic
+            sent.extend(traffic.sent)
+        trickle = serving.PoissonTraffic(
+            fleet, make_row, qps=SCORE_TRICKLE_SHARE * capacity, seed=14)
+        t_end = time.monotonic() + SCORE_DRAIN_TIMEOUT_S
+        while time.monotonic() < t_end:
+            trickle.run(0.5)
+            if fleet.replicas_active() == 1 and any(
+                    p["target"] < p["from"] for p in scaler.plan_history):
+                break
+        tallies["trickle"] = trickle
+        sent.extend(trickle.sent)
+        tally = {k: t.await_all(timeout_s=60) for k, t in tallies.items()}
+    finally:
+        stop.set()
+        if follower is not None:
+            follower.join(30)
+        ctl.stop()
+    launches = dict(fa.launches)
+    forwards = sum(r.server.forwards - forwards0.get(id(r), 0)
+                   for r in built if r.server is not None)
+    iterations = sum(r.iterations for r in built)
+    served = sum(t["served"] for t in tally.values())
+    # a serve iteration's device time, outside the traffic path
+    server = fleet.replicas()[0].server
+    iter_ms = None
+    if on_card:
+        ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            server.serve(fleet.example_batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        iter_ms = float(np.median(ms))
+    pairs = [(p["from"], p["target"]) for p in scaler.plan_history]
+    generation = kv.kv_get(f"serving-gen/{fleet.job}")
+    curve = kv.kv_get(f"goodput-curve/{fleet.job}")
+    fleet.stop()
+
+    # the sampled answers against the plain path on their generation
+    before = [r for r in tallies["steady"].sent[:SCORE_SAMPLES]]
+    after = [r for r in sent if "t1" in reload
+             and r.t_enqueue > reload["t1"]][:SCORE_SAMPLES]
+    gen0 = tfm.Transformer(cfg, device=dev, seed=0)
+    refs, answers, rows_of = {}, {}, {}
+    for gen, model, reqs in ((0, gen0, before), (2, gen2, after)):
+        model.cfg = dataclasses.replace(model.cfg, use_flash=False)
+        tokens = torch.from_numpy(np.stack([r.payload[0] for r in reqs]))
+        with torch.no_grad():
+            refs[gen] = score_last_token(model, (tokens.to(dev),))
+        answers[gen] = [np.asarray(r.result) for r in reqs]
+        rows_of[gen] = [r.id for r in reqs]
+    del gen0, gen2
+    ck.close()
+    shutil.rmtree(lineage, ignore_errors=True)
+
+    fleet_line = (f"scoring fleet {fleet.job}: FLAGSHIP"
+                  if cfg is tfm.FLAGSHIP else f"scoring fleet {fleet.job}")
+    print(f"{fleet_line} rows of {seq} tokens, batch {SCORE_BATCH}, "
+          f"capacity C {capacity:.1f} rows/s (closed loop, one replica); "
+          f"QPS target {SCORE_TARGET_SHARE} C a replica, p99 SLO "
+          f"{SCORE_SLO_MS} ms; two replicas share {card}", flush=True)
+    for label, t in tally.items():
+        share = dict((lab, sh) for lab, sh, _ in SCORE_PHASES).get(
+            label, SCORE_TRICKLE_SHARE)
+        print(f"scoring {label} at {share} C: sent {t['sent']} served "
+              f"{t['served']} dropped {t['dropped']} errors {t['errors']} "
+              f"timeouts {t['timeouts']} p50_ms {t['p50_ms']} p99_ms "
+              f"{t['p99_ms']} max_ms {t['max_ms']}", flush=True)
+    if "t1" in reload:
+        split = {"before": [], "during": [], "after": []}
+        for r in tallies["burst"].sent:
+            key = ("before" if r.t_enqueue < reload["t0"] else "during"
+                   if r.t_enqueue < reload["t1"] else "after")
+            split[key].append(1e3 * r.latency_s)
+        print("scoring burst by the reload: " + "; ".join(
+            f"{k} {len(v)} requests p50_ms {np.percentile(v, 50):.3f} "
+            f"p99_ms {np.percentile(v, 99):.3f}"
+            for k, v in split.items() if v), flush=True)
+    print(f"scoring plans {pairs}; prewarm hits {fleet.prewarm_hits} "
+          f"misses {fleet.prewarm_misses}; replicas built "
+          f"{[(r.name, r.build_ms) for r in built]} build_ms; iterations "
+          f"{iterations} rows per iteration {served / max(iterations, 1):.2f};"
+          f" serve iteration device ms {iter_ms} on {card}", flush=True)
+    reload_ms = (1e3 * (reload["t1"] - reload["t0"]) if "t1" in reload
+                 else None)
+    swaps = [e.args["swap_ms"] for e in get_tracer().events("serving")
+             if e.name == "serving_weights_reloaded"
+             and e.args.get("replica", "").startswith(fleet.job)]
+    print(f"scoring reload: generation 2 (one trainer step, loss "
+          f"{gen2_loss:.4f}, saved in {gen2_save_s:.3f} s) rolled "
+          f"{reload.get('gen')} in {reload_ms} ms mid-burst (restore "
+          f"{reload.get('restore_ms')} ms, swaps {swaps} ms); serving-gen "
+          f"{generation}; goodput curve {goodput_summary(curve)}",
+          flush=True)
+    print(f"scoring launches {launches} over {forwards} forwards "
+          f"({cfg.n_layers} flash forward launches each)", flush=True)
+
+    failures = list(errors)
+    for label, t in tally.items():
+        if t["dropped"] or t["errors"] or t["timeouts"] or not t["served"]:
+            failures.append(f"{label} tally {t}")
+    if (1, 2) not in pairs or (2, 1) not in pairs[pairs.index((1, 2)):] \
+            or pairs[-1][1] != 1:
+        failures.append(f"plans {pairs}")
+    if fleet.prewarm_hits < 1:
+        failures.append(f"prewarm hits {fleet.prewarm_hits}")
+    if generation != b"2" or reload.get("gen") != 2:
+        failures.append(f"serving-gen {generation}, reload {reload}")
+    if len(before) != SCORE_SAMPLES or len(after) != SCORE_SAMPLES:
+        failures.append(f"sampled {len(before)} before and {len(after)} "
+                        "after the reload")
+    want = {"flash_fwd": cfg.n_layers * forwards if on_card else 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        failures.append(f"launches {launches}, want {want}")
+    if failures:
+        raise AssertionError("phase (u): " + "; ".join(failures))
+    scoring_check(answers, refs, rows_of)
+    main_drill = serve_main_drill(card, device)
+    return dict(launches=launches, capacity=capacity, tally=tally,
+                pairs=pairs, iter_ms=iter_ms, reload_ms=reload_ms,
+                serve_main=main_drill)
+
+
+def goodput_summary(raw) -> dict:
+    from edl_tpu_torch.observability.goodput import ScalingCurve
+
+    return {} if not raw else ScalingCurve.from_json(raw.decode()).summary()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3530,6 +4008,8 @@ def main() -> int:
     paths["bert_tp"] = timed("r", phase_bert_tp, card)
     paths["flagship_multihost"] = timed("s", phase_multihost, card)
     paths["flagship_controlled"] = timed("t", phase_controlled, card)
+    paths["flagship_scoring"] = timed("u", phase_serving_plane,
+                                      card)["launches"]
     rounded = {k: round(v, 1) for k, v in seconds.items()}
     print(f"phase seconds {json.dumps(rounded)} "
           f"total {sum(seconds.values()):.1f} on {card}", flush=True)

@@ -10,10 +10,14 @@ the accelerator resource an NVIDIA GPU.
 The accelerator resource is ``nvidia.com/gpu`` (:data:`RESOURCE_GPU`), a
 count of cards a trainer replica claims (``gpu_limit``,
 ``gpus_per_trainer``).  The JAX package's TPU-only pieces — ``TpuTopology``
-and a trainer's ``topology`` — have no counterpart here, and its
-``ServingJob``/``ServingSpec`` wait for the port's control plane
-(ROADMAP.md, queue 1 item 11): nothing on the elastic job's path reads
-them.
+and a trainer's ``topology`` — have no counterpart here: a job claims a
+count of cards and nothing reads a slice shape (ROADMAP.md, queue 1 item
+11).
+
+:class:`ServingJob` and :class:`ServingSpec` are the serving job's copy:
+a replica claims ``nvidia.com/gpu`` cards (``gpus_per_replica``) where the
+reference claims TPU chips, and ``ServingSpec`` has no ``topology`` (the
+reference's multi-chip replica mesh), for the reason above.
 """
 
 from __future__ import annotations
@@ -38,9 +42,15 @@ DEFAULT_PASSES = 1  # reference pkg/jobparser.go:58-60
 TRAINER_LABEL = "edl-tpu-job"
 COORDINATOR_LABEL = "edl-tpu-job-coordinator"
 PSERVER_LABEL = "edl-tpu-job-pserver"
+#: marks a ServingJob's model-server pods
+SERVING_LABEL = "edl-tpu-serving"
 #: marks a multi-domain job's trainer pods, so the cluster inventory knows
 #: not to pin the job to one NVLink domain.
 MULTI_DOMAIN_LABEL = "edl-tpu-multi-domain"
+
+#: default model-server port (the inference RPC surface; distinct from
+#: the coordinator's 7164 so a job may run both side by side)
+DEFAULT_SERVING_PORT = 8500
 
 
 class SchedPriority(enum.IntEnum):
@@ -164,6 +174,81 @@ class MasterSpec:
 
 
 @dataclass
+class ServingSpec:
+    """One elastic inference fleet: replicated model servers behind a
+    Service, continuously batched, SLO-autoscaled.
+
+    The serving analogue of :class:`TrainerSpec` — ``min_replicas`` /
+    ``max_replicas`` is the elastic dial the SLO policy moves; a replica
+    claims ``resources``' ``nvidia.com/gpu`` cards."""
+
+    #: checkpoint-lineage directory weights load (and rolling reloads
+    #: watch) — an :class:`~edl_tpu_torch.runtime.checkpoint.
+    #: ElasticCheckpointer` store; the serving twin of ``trainer.workspace``
+    model_dir: str = ""
+    #: model architecture the server pod builds before restoring from
+    #: the lineage (``kind:dims``, e.g. ``mlp:784,256,10``) — emitted as
+    #: EDL_SERVING_MODEL; a lineage whose tree doesn't match this shape
+    #: fails the pod at startup instead of serving garbage
+    model: str = "mlp:16,32,4"
+    min_replicas: int = 1
+    max_replicas: int = 1
+    resources: ResourceRequirements = field(default_factory=ResourceRequirements)
+    #: p99 latency objective in milliseconds — what the autoscaler's
+    #: serving policy defends (scale-up fires when the windowed p99
+    #: crosses it); 0 disables latency-driven scaling
+    slo_p99_ms: float = 100.0
+    #: per-replica throughput target; above it a scale-up fires even
+    #: with latency headroom, and sustained load far below it (with p99
+    #: comfortably inside the SLO) lets replicas drain away.  0 = scale
+    #: on latency alone.
+    target_qps_per_replica: float = 0.0
+    #: continuous-batching admission: each serve iteration packs up to
+    #: this many queued requests into the serve step (the fixed batch
+    #: shape, so no new shapes as load moves)
+    max_batch_size: int = 8
+    #: how long an admitted request may wait for co-batchees before the
+    #: iteration launches anyway (milliseconds); 0 = launch immediately
+    #: with whatever is queued
+    max_queue_ms: float = 2.0
+    #: graceful scale-down budget: a draining replica finishes its queue
+    #: within this bound before it is removed (never dropping requests)
+    drain_timeout_s: float = 30.0
+    #: cadence at which replicas watch ``model_dir`` for a newer
+    #: verified checkpoint generation to roll onto; 0 disables the watch
+    #: (reloads become explicit API calls)
+    reload_poll_s: float = 5.0
+    #: user environment for server pods (same merge contract as
+    #: ``TrainerSpec.env``: user values win)
+    env: dict = field(default_factory=dict)
+    #: scheduling priority of the fleet's card claim (same scale as
+    #: ``TrainerSpec.priority``)
+    priority: int = SchedPriority.NORMAL
+    # -- autoregressive decode serving --
+    #: time-to-first-token objective (ms) for decode fleets — a second
+    #: SLO input to the autoscaling policy alongside ``slo_p99_ms``; 0
+    #: disables TTFT-driven scaling
+    slo_ttft_ms: float = 0.0
+    #: per-output-token time objective (ms) per decode iteration
+    slo_tpot_ms: float = 0.0
+    #: decode slots per replica (the decode twin of ``max_batch_size``)
+    decode_slots: int = 8
+    #: paged KV pool shape per replica: ``kv_blocks`` blocks of
+    #: ``kv_block_size`` token positions; a session may hold at most
+    #: ``kv_max_blocks_per_session``
+    kv_blocks: int = 256
+    kv_block_size: int = 16
+    kv_max_blocks_per_session: int = 32
+    #: prompt prefill chunk length (tokens per prefill iteration)
+    prefill_chunk: int = 64
+    #: decode iterations the batcher runs between prefill chunks while
+    #: sessions are decoding
+    decode_per_prefill: int = 2
+    #: prefill-tier replicas for disaggregated serving (0 = aggregated)
+    prefill_replicas: int = 0
+
+
+@dataclass
 class TrainingJobSpec:
     """reference pkg/resource/training_job.go:109-131."""
 
@@ -272,6 +357,60 @@ class TrainingJob:
     def sched_priority(self) -> int:
         """Scheduling priority of the card claim (doc/scheduling.md)."""
         return int(self.spec.trainer.priority)
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class ServingJob:
+    """The user-facing serving object: a replicated model server fleet
+    with continuous batching, SLO-driven autoscaling, and rolling weight
+    reloads from the elastic checkpoint lineage.
+
+    Shares the :class:`TrainingJob` metadata/status shape (phases,
+    per-role replica states) so the controller's phase machine reads the
+    same lifecycle."""
+
+    name: str = ""
+    namespace: str = "default"
+    labels: dict[str, str] = field(default_factory=dict)
+    image: str = ""
+    port: int = 0
+    host_network: bool = False
+    node_selector: dict[str, str] = field(default_factory=dict)
+    spec: ServingSpec = field(default_factory=ServingSpec)
+    status: TrainingJobStatus = field(default_factory=TrainingJobStatus)
+
+    replica_role = "server"
+
+    def elastic(self) -> bool:
+        return self.spec.min_replicas < self.spec.max_replicas
+
+    def gpus_per_replica(self) -> int:
+        """Cards one server replica occupies."""
+        return self.spec.resources.gpu_limit().value()
+
+    def need_gpu(self) -> bool:
+        return self.gpus_per_replica() > 0
+
+    # -- replica-group protocol --------------------------------------------
+
+    def group_range(self) -> tuple[int, int]:
+        return (self.spec.min_replicas, self.spec.max_replicas)
+
+    def group_resources(self) -> ResourceRequirements:
+        return self.spec.resources
+
+    def replaceable_on_failure(self) -> bool:
+        """ReplicaSet semantics: a crashed server is always replaced —
+        the fleet degrades, it never statically fails."""
+        return True
+
+    def sched_priority(self) -> int:
+        """Scheduling priority of the card claim."""
+        return int(self.spec.priority)
 
     @property
     def full_name(self) -> str:

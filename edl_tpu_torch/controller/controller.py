@@ -5,22 +5,26 @@ Role of the reference's Gen-1 controller (reference pkg/controller.go:44-161)
 with the Gen-2 per-job-actor design it was migrating toward (SURVEY §0):
 where the reference watches a k8s informer, this controller exposes an
 explicit ``submit``/``modify``/``delete`` API (the local/in-process
-equivalent of TrainingJob CRUD) and fans events out to
+equivalent of job CRUD) and fans events out to
 
 * a :class:`TrainingJobUpdater` actor per job (lifecycle, phases,
-  ready-confirmation, teardown — the Gen-2 semantics), and
+  ready-confirmation, teardown — the Gen-2 semantics),
 * the :class:`~edl_tpu_torch.scheduler.autoscaler.Autoscaler` (elastic
-  planning — the Gen-1 semantics),
+  planning of a ``TrainingJob`` — the Gen-1 semantics), and
+* the :class:`~edl_tpu_torch.scheduler.autoscaler.ServingScaler` (the SLO
+  policy dialling a ``ServingJob``'s replicas),
 
 fixing the Gen-1 quirks: resources are created via the updater only after
 validation, and master/pserver groups are only created when the spec calls
 for them (contrast reference pkg/controller.go:134-141, which creates both
 unconditionally and never validates).
 
-Not ported yet: a ``ServingJob`` and its SLO scaler (``serving_stats_for``,
-ROADMAP.md queue 1 item 8), the scrape plane (``scraper``) and the
-marginal-goodput objective (``goodput_curves``), both item 11.  Each
-raises, naming its item.
+Not ported yet: the scrape plane (``scraper``) and the marginal-goodput
+objective (``goodput_curves``), both ROADMAP.md queue 1 item 11.  Each
+raises, naming its item.  The reference's train+serve chip arbitration
+(an elastic fleet whose replica dial the goodput planner owns, its SLO
+policy only observing and hinting) needs that curve source, so here the
+SLO policy dials every serving job.
 """
 
 from __future__ import annotations
@@ -28,12 +32,12 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
-from edl_tpu_torch.api.types import JobPhase, TrainingJob
+from edl_tpu_torch.api.types import JobPhase, ServingJob, TrainingJob
 from edl_tpu_torch.api.validation import ValidationError, validate_any
 from edl_tpu_torch.cluster.base import Cluster
 from edl_tpu_torch.controller.updater import TrainingJobUpdater
 from edl_tpu_torch.observability.logging import get_logger
-from edl_tpu_torch.scheduler.autoscaler import Autoscaler
+from edl_tpu_torch.scheduler.autoscaler import Autoscaler, ServingScaler
 from edl_tpu_torch.scheduler.topology import SliceShapePolicy, UNIT_POLICY
 
 log = get_logger("controller")
@@ -55,13 +59,10 @@ class Controller:
         mesh_shape_for=None,
         goodput_curves=None,
         serving_stats_for=None,
+        serving_loop_seconds: float = 2.0,
         coord_for=None,
         scraper=None,
     ) -> None:
-        if serving_stats_for is not None:
-            raise NotImplementedError(
-                "serving_stats_for: the SLO-driven ServingScaler waits for "
-                "the serving plane (ROADMAP.md queue 1 item 8)")
         if scraper is not None:
             raise NotImplementedError(
                 "scraper: observability/scrape.py's MetricsScraper and "
@@ -81,8 +82,20 @@ class Controller:
         #: deletion the controller sweeps the job's coordinator KV
         #: (goodput curve, vw map/cursors, serving generation —
         #: edl_tpu_torch.coord.gc.JOB_KV_PREFIXES); without it those keys
-        #: outlive the job on any shared coordinator
+        #: outlive the job on any shared coordinator.  The serving scaler
+        #: also records each fleet's measured QPS-capacity curve through
+        #: it (goodput-curve/<job>).
         self.coord_for = coord_for
+        #: SLO-driven replica scaling for ServingJob kinds — fed by
+        #: ``serving_stats_for(uid)`` (windowed p50/p99/qps, read off the
+        #: in-process fleet), actuating the same cluster replica-group
+        #: dial the trainer autoscaler uses
+        self.serving_scaler = ServingScaler(
+            cluster=cluster,
+            stats_for=serving_stats_for,
+            loop_seconds=serving_loop_seconds,
+            coord_for=coord_for,
+        )
         self._updater_convert_seconds = updater_convert_seconds
         self._updater_confirm_seconds = updater_confirm_seconds
         self._updaters: dict[str, TrainingJobUpdater] = {}
@@ -91,12 +104,14 @@ class Controller:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        """Run the scaling loop in the background
+        """Run the scaling loops in the background
         (role of Controller.Run, reference pkg/controller.go:64-76)."""
         self.autoscaler.start()
+        self.serving_scaler.start()
 
     def stop(self) -> None:
         self.autoscaler.stop()
+        self.serving_scaler.stop()
         with self._lock:
             updaters = list(self._updaters.values())
         for u in updaters:
@@ -105,8 +120,10 @@ class Controller:
     # -- TrainingJob CRUD (role of onAdd/onUpdate/onDelete,
     #    reference pkg/controller.go:110-161) ------------------------------
 
-    def submit(self, job: TrainingJob) -> TrainingJobUpdater:
-        """Validate, spawn the job's actor, register with the autoscaler."""
+    def submit(self, job: "TrainingJob | ServingJob") -> TrainingJobUpdater:
+        """Validate, spawn the job's actor, register with the matching
+        scaler (trainer autoscaler for TrainingJob, the SLO policy for
+        ServingJob — the updater lifecycle actor is shared)."""
         validate_any(job)  # raises ValidationError on bad spec
         with self._lock:
             if job.full_name in self._updaters:
@@ -118,17 +135,24 @@ class Controller:
                 confirm_seconds=self._updater_confirm_seconds,
             )
             self._updaters[job.full_name] = updater
-        self.autoscaler.on_add(job)
+        if isinstance(job, ServingJob):
+            self.serving_scaler.on_add(job)
+        else:
+            self.autoscaler.on_add(job)
         log.info("job submitted", job=job.full_name,
                  kind=type(job).__name__)
         return updater
 
-    def modify(self, job: TrainingJob) -> None:
+    def modify(self, job: "TrainingJob | ServingJob") -> None:
         validate_any(job)  # same gate as submit
         with self._lock:
             updater = self._updaters.get(job.full_name)
         if updater is None:
             raise KeyError(f"job {job.full_name} not found")
+        if isinstance(job, ServingJob):
+            updater.modify(job)
+            self.serving_scaler.on_update(job)
+            return
         old = updater.job.spec
         if old.trainer.allow_multi_domain != job.spec.trainer.allow_multi_domain:
             # The flag is baked into the running pods' labels (the cluster
@@ -142,14 +166,16 @@ class Controller:
         updater.modify(job)
         self.autoscaler.on_update(job)
 
-    def delete(self, job: TrainingJob) -> None:
-        validate_any(job)  # a serving job raises: it was never submitted
+    def delete(self, job: "TrainingJob | ServingJob") -> None:
         with self._lock:
             updater = self._updaters.pop(job.full_name, None)
         if updater is not None:
             updater.notify_delete()
             updater.join(timeout=10)
-        self.autoscaler.on_del(job)
+        if isinstance(job, ServingJob):
+            self.serving_scaler.on_del(job)
+        else:
+            self.autoscaler.on_del(job)
         self._gc_job_kv(job)
         log.info("job deleted", job=job.full_name)
 

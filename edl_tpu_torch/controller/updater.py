@@ -154,7 +154,7 @@ class TrainingJobUpdater:
     def init_resource(self) -> None:
         """None → Creating → Running|Failed (reference :417-449)."""
         try:
-            validate_any(self.job)  # kind-dispatching (serving raises: item 11)
+            validate_any(self.job)  # kind-dispatching: training OR serving
         except ValidationError as exc:
             self._set_phase(JobPhase.FAILED, f"invalid spec: {exc}")
             return

@@ -20,7 +20,10 @@ on rank 0 the coordinator, the fake cluster, the job and its data);
 cluster, the controller and a checkpointer), and ``controlled_campaign``
 runs it under a seeded campaign of the training fault kinds.
 ``flagship_decode_fleet(device)`` returns the ``DecodeFleet`` that serves
-FLAGSHIP token by token, from seed-0 weights or the ones it is given.  All
+FLAGSHIP token by token, from seed-0 weights or the ones it is given, and
+``flagship_scoring_fleet(device)`` the single-shot ``ServingFleet`` whose
+requests are rows of tokens and whose answers are FLAGSHIP's next-token
+logits.  All
 run on the CUDA device unless ``device`` says otherwise, with the kernels
 on.
 
@@ -54,7 +57,7 @@ from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
 from edl_tpu_torch.runtime import elastic, optim
 from edl_tpu_torch.runtime.data import ShardRegistry
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
-from edl_tpu_torch.runtime.serving import DecodeFleet
+from edl_tpu_torch.runtime.serving import DecodeFleet, ServingFleet
 from edl_tpu_torch.runtime.virtual import VirtualConfig
 
 
@@ -649,6 +652,35 @@ def flagship_decode_fleet(device="cuda",
     if params is None:
         params = tfm.Transformer(cfg, device=dev, seed=0)
     return DecodeFleet(params, cfg, device=dev, **{**DECODE_DEFAULTS, **kw})
+
+
+#: the scoring fleet's request: one row of FLAGSHIP's max_seq_len tokens
+SCORING_SEQ = 1024
+
+
+def score_last_token(model: tfm.Transformer, batch) -> torch.Tensor:
+    """The scoring fleet's forward: the next-token logits ``[b, vocab]``
+    (fp32) of each row of ``batch[0]``, tokens ``[b, s]``."""
+    return tfm.apply(model, batch[0])[:, -1]
+
+
+def flagship_scoring_fleet(device="cuda",
+                           cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                           params: Optional[tfm.Transformer] = None,
+                           seq: int = SCORING_SEQ, **kw) -> ServingFleet:
+    """A single-shot ``ServingFleet`` serving ``cfg`` (FLAGSHIP, bf16) with
+    the flash kernels on ``device``: a request is one row of ``seq`` token
+    ids (int64), its answer the row's next-token logits
+    (:func:`score_last_token`).  ``params`` is the model (default: random
+    weights from seed 0); ``kw`` passes any other fleet argument
+    (``max_batch_size``, ``max_queue_ms``, ``job``, ``kv``, ...)."""
+    dev = resolve(device)
+    if params is None:
+        params = tfm.Transformer(cfg, device=dev, seed=0)
+    params.cfg = dataclasses.replace(params.cfg, use_flash=True)
+    return ServingFleet(score_last_token, params,
+                        example_row=(np.zeros((seq,), np.int64),),
+                        device=dev, **kw)
 
 
 # -- the multi-rank dryrun ----------------------------------------------------

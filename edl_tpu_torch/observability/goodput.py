@@ -1,6 +1,10 @@
 """Goodput ledger: attribute every chip-second of a job to a phase — the
 part of edl_tpu.observability.goodput that the trainer's resize path and
-the multi-process supervisor (runtime/multihost.py) call.
+the multi-process supervisor (runtime/multihost.py) call — and the
+per-job scaling curve (:class:`ScalingCurve`, persisted in coordinator KV
+by :class:`CurveStore`) that the serving scaler records each fleet's
+measured (replicas → qps) points into.  The marginal-goodput allocator
+that reads the curves waits for ROADMAP.md queue 1 item 11.
 
 A :class:`GoodputLedger` attributes wall-clock time, weighted by the world
 size holding chips, to its accruing phase; durations measured elsewhere
@@ -20,6 +24,7 @@ stall so).  The runtime feeds the process ledger through the module-level
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from typing import Callable, Optional
@@ -314,3 +319,218 @@ def register_metrics(ledger: GoodputLedger, registry=None) -> None:
             (lambda p=phase: ledger.chip_seconds(p)),
             help="non-productive chip-seconds by phase", job=job,
             phase=phase)
+
+
+# -- scaling curve -----------------------------------------------------------
+
+class ScalingCurve:
+    """Per-job throughput-vs-world-size curve, aggregated from
+    steady-state window samples.
+
+    Each ``(world_size, mesh_shape)`` cell keeps a running mean of the
+    observed tokens/second (and MFU when reported) plus the sample
+    count; :meth:`tokens_per_second` answers per world size with the
+    best shape's mean — the planner cares what the job *can* do at N
+    chips, and the runtime's shape policy already picks the layout.
+    """
+
+    def __init__(self, job: str = "") -> None:
+        self.job = job
+        #: (world_size, shape) → {"tok_s": mean, "mfu_pct": mean|None,
+        #:                         "n": count}
+        self._cells: dict[tuple[int, str], dict] = {}
+        self._lock = threading.Lock()
+
+    def observe(self, world_size: int, tokens_per_second: float,
+                shape: str = "", mfu_pct: Optional[float] = None,
+                max_samples: Optional[int] = None) -> None:
+        """Fold one steady-state window sample into the curve.
+
+        ``max_samples`` bounds the cell's effective sample count: past
+        it the running mean becomes an EWMA with weight 1/max_samples,
+        so a curve fed continuously (the serving capacity recorder — one
+        point per scaler tick for the fleet's lifetime) tracks CURRENT
+        behavior within ~max_samples ticks instead of freezing into a
+        lifetime average a traffic step can never move."""
+        key = (int(world_size), shape)
+        with self._lock:
+            cell = self._cells.get(key)
+            if cell is None:
+                cell = {"tok_s": 0.0, "mfu_pct": None, "n": 0, "mfu_n": 0}
+                self._cells[key] = cell
+            n = cell["n"]
+            if max_samples is not None and n >= max_samples > 0:
+                cell["tok_s"] += (tokens_per_second
+                                  - cell["tok_s"]) / max_samples
+                cell["n"] = n + 1
+                return
+            cell["tok_s"] = (cell["tok_s"] * n + tokens_per_second) / (n + 1)
+            if mfu_pct is not None:
+                # weighted by the number of samples that actually
+                # REPORTED mfu — tok/s samples without one must not
+                # dilute the mean
+                m = cell.get("mfu_n", 0)
+                prev = cell["mfu_pct"]
+                cell["mfu_pct"] = (mfu_pct if prev is None
+                                   else (prev * m + mfu_pct) / (m + 1))
+                cell["mfu_n"] = m + 1
+            cell["n"] = n + 1
+
+    def world_sizes(self) -> list[int]:
+        with self._lock:
+            return sorted({ws for ws, _ in self._cells})
+
+    def sample_count(self) -> int:
+        with self._lock:
+            return sum(c["n"] for c in self._cells.values())
+
+    def tokens_per_second(self, world_size: int) -> Optional[float]:
+        """Best mean tok/s observed at ``world_size`` across shapes."""
+        with self._lock:
+            vals = [c["tok_s"] for (ws, _), c in self._cells.items()
+                    if ws == world_size]
+            return max(vals) if vals else None
+
+    def nearest_world_size(self, world_size: int) -> Optional[int]:
+        """The measured size a question about ``world_size`` should be
+        answered from: the largest measured size ≤ it, else the smallest
+        measured size (an extrapolating reader must know it is reading
+        the curve's edge — the returned size says which point ruled)."""
+        sizes = self.world_sizes()
+        if not sizes:
+            return None
+        smaller = [ws for ws in sizes if ws <= world_size]
+        return max(smaller) if smaller else min(sizes)
+
+    def marginal_tokens_per_second_per_chip(self, world_size: int
+                                            ) -> Optional[float]:
+        """The scheduler's number: d(throughput)/d(chips) at
+        ``world_size``, as the slope from the nearest smaller measured
+        size (average tok/s per chip when ``world_size`` is the smallest
+        measured point — the first chips have no smaller anchor)."""
+        here = self.tokens_per_second(world_size)
+        if here is None:
+            return None
+        smaller = [ws for ws in self.world_sizes() if ws < world_size]
+        if not smaller:
+            return here / world_size if world_size else None
+        prev = max(smaller)
+        prev_tok = self.tokens_per_second(prev)
+        if prev_tok is None:  # pragma: no cover - sizes imply samples
+            return None
+        return (here - prev_tok) / (world_size - prev)
+
+    # -- (de)serialization — the KV wire format ------------------------------
+
+    def to_json(self) -> str:
+        with self._lock:
+            cells = [{"world_size": ws, "shape": sh, **c}
+                     for (ws, sh), c in sorted(self._cells.items())]
+        return json.dumps({"job": self.job, "version": 1, "cells": cells})
+
+    @classmethod
+    def from_json(cls, raw: str) -> "ScalingCurve":
+        doc = json.loads(raw)
+        curve = cls(job=doc.get("job", ""))
+        for cell in doc.get("cells", []):
+            key = (int(cell["world_size"]), cell.get("shape", ""))
+            curve._cells[key] = {
+                "tok_s": float(cell["tok_s"]),
+                "mfu_pct": cell.get("mfu_pct"),
+                "n": int(cell.get("n", 1)),
+                # older blobs without the count: one sample iff a mean
+                # exists (keeps the weighting sane across re-loads)
+                "mfu_n": int(cell.get(
+                    "mfu_n", 1 if cell.get("mfu_pct") is not None else 0)),
+            }
+        return curve
+
+    def summary(self) -> dict:
+        """world_size → mean tok/s (artifact/log form)."""
+        return {ws: round(self.tokens_per_second(ws), 1)
+                for ws in self.world_sizes()}
+
+
+#: KV key template the curve persists under — a plain coordinator KV key,
+#: so it streams to the HA standby with every other mutation and is
+#: GC-exempt (not per-generation; prune_generations never touches it)
+CURVE_KEY = "goodput-curve/{job}"
+
+
+class CurveStore:
+    """Persist one job's :class:`ScalingCurve` in coordinator KV.
+
+    The local curve is authoritative for this writer (one driver per job
+    records windows); every :meth:`record` folds the sample in and
+    republishes the whole JSON under ``goodput-curve/<job>`` — small
+    (one cell per (size, shape)), idempotent, and riding the coordinator's
+    persistence + HA replication, which is what makes the curve survive
+    both trainer restarts and a primary failover.  Readers (autoscaler,
+    tooling) use :meth:`load` against any coordinator endpoint.
+    """
+
+    def __init__(self, coord, job: str, registry=None) -> None:
+        self._coord = coord
+        self.job = job
+        self.curve = ScalingCurve(job=job)
+        self._registry = registry
+
+    @property
+    def key(self) -> str:
+        return CURVE_KEY.format(job=self.job)
+
+    def record(self, world_size: int, tokens_per_second: float,
+               shape: str = "", mfu_pct: Optional[float] = None,
+               max_samples: Optional[int] = None) -> None:
+        """Fold a steady-state sample in, persist, refresh the gauges."""
+        # calibration (best-effort, no-op unarmed): what the curve
+        # PREDICTED this world size delivers — the number the goodput
+        # planner granted chips on — vs the steady-state window now
+        # measured at that size, paired BEFORE the sample folds in
+        pred = self.curve.tokens_per_second(world_size)
+        if pred is not None:
+            from edl_tpu_torch.observability import calib
+
+            calib.record("goodput_curve", pred, tokens_per_second,
+                         unit="tok/s", job=self.job,
+                         world_size=world_size)
+        self.curve.observe(world_size, tokens_per_second, shape=shape,
+                           mfu_pct=mfu_pct, max_samples=max_samples)
+        self._coord.kv_set(self.key, self.curve.to_json().encode())
+        self._sync_metrics()
+
+    def load(self) -> Optional[ScalingCurve]:
+        """The persisted curve, from whichever coordinator answers."""
+        raw = self._coord.kv_get(self.key)
+        if not raw:
+            return None
+        try:
+            return ScalingCurve.from_json(raw.decode())
+        except (ValueError, KeyError):
+            return None
+
+    def _sync_metrics(self) -> None:
+        """Curve cells as real gauges (set on record, labels dynamic):
+        ``edl_goodput_curve_tokens_per_second{job=,world_size=}`` and the
+        marginal-throughput-per-chip series the scheduler will read."""
+        registry = self._registry
+        if registry is None:
+            from edl_tpu_torch.observability.metrics import get_registry
+
+            registry = get_registry()
+        tok = registry.gauge("goodput_curve_tokens_per_second",
+                             help="per-job throughput curve sample mean")
+        marg = registry.gauge(
+            "goodput_marginal_tokens_per_second_per_chip",
+            help="marginal throughput per added chip at world_size")
+        for ws in self.curve.world_sizes():
+            tok.set(self.curve.tokens_per_second(ws),
+                    job=self.job, world_size=ws)
+            m = self.curve.marginal_tokens_per_second_per_chip(ws)
+            if m is not None:
+                marg.set(m, job=self.job, world_size=ws)
+
+
+def load_curve(coord, job: str) -> Optional[ScalingCurve]:
+    """Read-only curve fetch (the autoscaler/tooling side of CurveStore)."""
+    return CurveStore(coord, job).load()

@@ -1,5 +1,5 @@
 """Metrics registry and Prometheus text exposition: the part of
-edl_tpu.observability.metrics that the decode serving plane uses, and the
+edl_tpu.observability.metrics that the serving planes use, and the
 flight record a stall dumps (:func:`dump_flight_record`).
 
 Every series renders with the ``edl_`` prefix; counters get the ``_total``
@@ -41,6 +41,9 @@ SERVING_TPOT_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
 
 #: rendered-name prefix of every series
 PREFIX = "edl_"
+
+#: the exposition's HTTP content type (text format 0.0.4)
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 _NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
@@ -145,6 +148,12 @@ class Gauge(_Family):
     def set(self, v: float, **labels) -> None:
         with self._lock:
             self._values[_label_key(labels)] = float(v)
+
+    def remove(self, **labels) -> None:
+        """Drop one label-set's series (an entity that no longer exists
+        must stop being reported, not freeze at its last value)."""
+        with self._lock:
+            self._values.pop(_label_key(labels), None)
 
     def render(self, lines: list[str]) -> None:
         name = PREFIX + sanitize_name(self.name)

@@ -22,6 +22,8 @@ logsumexp as ``[b·h, s]`` fp32.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from edl_tpu_torch.ops import _build
@@ -42,6 +44,14 @@ _NEG_INF = -1e30
 #: launches of each kernel since the last :func:`reset_launches` — what
 #: shows that a run went through the kernels
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: serving replicas launch from threads of one process: a dict's ``+=`` is
+#: a read and a write, so the counts go up under this lock
+_launches_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
@@ -203,7 +213,7 @@ def flash_forward_cuda(q, k, v, causal: bool, h: int, hk: int
             lse.data_ptr(), bh, s, d, h, hk, int(causal), d ** -0.5,
             _stream(q))
     _raise_on(err, "flash_fwd")
-    launches["flash_fwd"] += 1
+    _count("flash_fwd")
     return out, lse
 
 
@@ -222,7 +232,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, h: int,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d, h, hk,
             int(causal), d ** -0.5, _stream(q))
     _raise_on(err, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq")
     return dq
 
 
@@ -241,7 +251,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, h: int,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, s, d, h, hk, int(causal), d ** -0.5, _stream(q))
     _raise_on(err, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv")
     return dk, dv
 
 

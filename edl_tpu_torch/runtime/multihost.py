@@ -1336,10 +1336,13 @@ def run_elastic_worker(
     wedging the world forever.
 
     ``metrics_port`` (None reads ``EDL_MH_METRICS_PORT``; absent or
-    negative disables) is the JAX package's ``GET /metrics`` + ``/healthz``
-    endpoint; it needs the port's ``observability/health.py`` and
-    ``scrape.py`` (ROADMAP.md, queue 1 item 11), so a port ≥ 0 raises
-    ``ValueError`` until then.  ``flight_dir`` (default
+    negative disables) serves ``GET /metrics`` + ``/healthz`` for the
+    whole run (:func:`~edl_tpu_torch.observability.health.serve_health`:
+    the ``supervisor`` check, and ``world_progress``, which fails while
+    the current world's stall watchdog reports a stall or does not
+    answer), writes the bound address to ``<ckpt_dir>/metrics-addr-<name>``
+    and publishes it, TTL'd, under the coordinator KV key
+    ``metrics-addr-<name>`` (removed at exit).  ``flight_dir`` (default
     ``EDL_FLIGHTREC_DIR``, else ``ckpt_dir``) is where stall escalation
     drops its ``flightrec-*.json`` post-mortem (trace ring + counters +
     metrics snapshot).
@@ -1378,11 +1381,6 @@ def run_elastic_worker(
             metrics_port = int(os.environ.get("EDL_MH_METRICS_PORT", "-1"))
         except ValueError:
             metrics_port = -1
-    if metrics_port is not None and metrics_port >= 0:
-        raise ValueError(
-            f"metrics_port {metrics_port}: the supervisor's /metrics and "
-            "/healthz endpoint needs the port's observability/health.py "
-            "and scrape.py (ROADMAP.md, queue 1 item 11); pass -1")
     if isinstance(coord, CoordMux):
         coord = coord.client()
     ew = ElasticWorld(coord, name, address=address, settle_s=settle_s,
@@ -1426,6 +1424,51 @@ def run_elastic_worker(
     os.makedirs(ckpt_dir, exist_ok=True)
     if flight_dir is None:
         flight_dir = os.environ.get("EDL_FLIGHTREC_DIR") or ckpt_dir
+    # the watchdog of the CURRENT world, readable by the health check
+    # (one server outlives many worlds)
+    wd_box: dict = {"wd": None}
+    metrics_srv = None
+    metrics_addr_pub = None
+    if metrics_port is not None and metrics_port >= 0:
+        from edl_tpu_torch.observability.health import serve_health
+
+        def _world_progress_ok() -> bool:
+            # single read: the supervisor thread resets wd_box["wd"] to
+            # None at world exit, racing this probe-thread check — two
+            # reads could pass the None test then call .healthy() on None
+            wd = wd_box["wd"]
+            return wd is None or wd.healthy()
+
+        metrics_srv = serve_health(
+            metrics_port,
+            {"supervisor": lambda: True,
+             "world_progress": _world_progress_ok})
+        addr = metrics_srv.server_address
+        try:  # discoverable ephemeral port (scrapers, tests)
+            with open(os.path.join(ckpt_dir, f"metrics-addr-{name}"),
+                      "w") as f:
+                f.write(f"127.0.0.1:{addr[1]}")
+        except OSError:
+            pass
+        # the KV twin: a scraper on another host discovers this
+        # supervisor through the coordinator, not the filesystem; TTL'd
+        # and refreshed so a SIGKILLed supervisor's key expires instead
+        # of lingering as a dead target forever
+        try:
+            from edl_tpu_torch.observability.scrape import (
+                SUPERVISOR_METRICS_ADDR_PREFIX,
+                AddrPublisher,
+                publish_host,
+            )
+
+            metrics_addr_pub = AddrPublisher(
+                coord, f"{SUPERVISOR_METRICS_ADDR_PREFIX}{name}",
+                f"{publish_host()}:{addr[1]}")
+            metrics_addr_pub.start()
+        except Exception as exc:
+            log.warn("metrics addr KV publish failed", error=str(exc))
+        log.info("supervisor metrics serving", port=addr[1])
+
     def spawn_warm():
         pconn, cconn = ctx.Pipe()
         p = ctx.Process(target=_warm_world_child,
@@ -1520,6 +1563,7 @@ def run_elastic_worker(
                     wd = StallWatchdog(floor_s=stall_floor_s, k=stall_k,
                                        scope="multihost",
                                        flight_dir=flight_dir)
+                wd_box["wd"] = wd
                 last_hb: Optional[str] = None
                 world_t0 = time.monotonic()
                 #: goodput: the formation/spawn window stays queued (first
@@ -1633,6 +1677,7 @@ def run_elastic_worker(
                         child_conn.close()
                     except OSError:
                         pass
+                wd_box["wd"] = None  # the watched world is gone
                 tracer.instant(
                     "world_exit", category="membership", epoch=plan.epoch,
                     rank=plan.rank, world=plan.world_size,
@@ -1741,6 +1786,16 @@ def run_elastic_worker(
             os.environ.pop("EDL_TRACE_ID", None)
         else:
             os.environ["EDL_TRACE_ID"] = prev_env_trace
+        if metrics_addr_pub is not None:
+            try:
+                metrics_addr_pub.stop()  # deletes the KV key on the way
+            except Exception:
+                pass
+        if metrics_srv is not None:
+            try:
+                metrics_srv.shutdown()
+            except Exception:
+                pass
         trace_dir = os.environ.get("EDL_MH_TRACE")
         if trace_dir:
             try:

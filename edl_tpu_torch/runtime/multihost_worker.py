@@ -618,10 +618,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-stall-watchdog", action="store_true",
                     help="disable supervisor-side stall detection")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="the supervisor's /metrics endpoint: needs the "
-                         "port's observability/health.py and scrape.py "
-                         "(ROADMAP.md, queue 1 item 11); -1 (default "
-                         "from EDL_MH_METRICS_PORT) disables")
+                    help="the supervisor's /metrics + /healthz port (0: "
+                         "any free port, written to <ckpt-dir>/metrics-"
+                         "addr-<name>); -1 (default from "
+                         "EDL_MH_METRICS_PORT) disables")
     ap.add_argument("--param-sharding", choices=("replicated", "fsdp"),
                     default=os.environ.get("EDL_MH_SHARDING", "replicated"),
                     help="replicated = pure DP with npz generations; "

@@ -1,5 +1,30 @@
-"""Token-level decode serving — the decode half of
-edl_tpu.runtime.serving, on one torch device.
+"""Elastic inference serving — the port of edl_tpu.runtime.serving: the
+single-shot half (one forward a request) and the token-level decode half,
+each on torch devices.
+
+The single-shot half:
+
+* :class:`ElasticServer` — the forward-only twin of
+  :class:`~edl_tpu_torch.runtime.elastic.ElasticTrainer`: its layouts,
+  prewarm and transactional resize, running ``apply_fn(model, batch)``
+  under ``torch.inference_mode`` instead of a train step.
+* :class:`ServingReplica` — one model-server loop with **continuous
+  batching**: every iteration packs whatever requests the admission queue
+  holds (up to ``max_batch_size``, padded to the fixed batch shape) into
+  one serve step; per-request latency lands in an ms-scale histogram and
+  the SLO violation counter.  Weight swaps apply **between** iterations.
+* :class:`ServingFleet` — the replica set: least-queue routing over READY
+  replicas, **hint→prewarm scale-up** (the autoscaler's plan builds and
+  warms the new replica BEFORE traffic shifts — the ready gate opens only
+  once its warm-up forward has run), **graceful drain** on scale-down
+  (zero dropped requests), and **rolling weight reloads** from a training
+  job's checkpoint lineage.  Replicas are threads of one process, each on
+  its own device or sharing one.
+* :class:`PoissonTraffic` — seeded open-loop traffic; :func:`serve_main`
+  — one replica's pod entry point (``python -m
+  edl_tpu_torch.runtime.serving [--device cpu]``).
+
+The decode half:
 
 * Sessions join and leave the running decode batch at every iteration,
   slot-packed into a fixed batch shape; a finished sequence frees its slot
@@ -23,11 +48,19 @@ edl_tpu.runtime.serving, on one torch device.
   iteration boundary with its sessions' caches kept.
 
 Each replica's loop runs on its own thread and launches on its device's
-current stream; it reads the device once an iteration (the argmax of every
-slot).  Replicas take a ``device`` (CUDA by default); a fleet places all
-of its replicas on one device.
+current stream; a decode replica reads the device once an iteration (the
+argmax of every slot), a single-shot one copies its batch in and its
+outputs out once an iteration.  Replicas take a ``device`` (CUDA by
+default); a decode fleet places all of its replicas on one device.
 
-Scrape names (``edl_`` prefix): ``serving_ttft_seconds`` /
+Scrape names (``edl_`` prefix): ``serving_request_seconds`` and
+``serving_span_seconds{phase=admit|queue|batch|forward|respond}``
+(histograms), ``serving_queue_depth`` (histogram, observed per iteration),
+``serving_requests_total`` / ``serving_slo_violations_total`` /
+``serving_dropped_requests_total`` / ``serving_prewarm_hits_total`` /
+``serving_prewarm_misses_total`` (counters), ``serving_replicas_ready`` /
+``serving_replicas_active`` / ``serving_weight_generation`` (gauges,
+labeled ``job=``); ``serving_ttft_seconds`` /
 ``serving_tpot_seconds`` (histograms labeled ``priority=``, pre-registered),
 ``serving_decode_tokens_total`` / ``serving_prefill_chunks_total`` /
 ``serving_sessions_total{outcome=}`` / ``serving_session_migrations_total``
@@ -41,6 +74,7 @@ series of kvcache.py.
 from __future__ import annotations
 
 import collections
+import copy
 import itertools
 import threading
 import time
@@ -48,17 +82,25 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
+from edl_tpu_torch.device import resolve
+from edl_tpu_torch.interop import keystr
 from edl_tpu_torch.models import llama
 from edl_tpu_torch.observability import calib
 from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import (
+    SERVING_LATENCY_BUCKETS,
     SERVING_TPOT_BUCKETS,
     SERVING_TTFT_BUCKETS,
     get_registry,
 )
-from edl_tpu_torch.observability.tracing import get_tracer
+from edl_tpu_torch.observability.tracing import get_tracer, new_trace_id
+from edl_tpu_torch.parallel.mesh import distributed
+from edl_tpu_torch.runtime import optim
+from edl_tpu_torch.runtime.checkpoint import param_path
+from edl_tpu_torch.runtime.elastic import ElasticTrainer, _all_gather
 from edl_tpu_torch.runtime.kvcache import (
     KVBlockPool,
     KVDevicePayload,
@@ -1456,29 +1498,12 @@ class DecodeFleet:
         the parameters are read, into host memory, then cast once for the
         device and swapped in by :meth:`rolling_reload`.  Returns the step
         shipped."""
-        refresh = getattr(checkpointer, "refresh", None)
-        if refresh is not None:
-            refresh()
-        step = checkpointer.latest_verified_step()
-        if step is None or step <= self.generation:
-            return None
-        verified_fn = getattr(checkpointer, "manifest_verified", None)
-        verified = verified_fn(step) if verified_fn is not None else True
-        if verified is None:
-            return None
-        if verified is False:
-            log.warn("decode reload SKIPPED unverified generation",
-                     job=self.job, generation=step)
-            self._counters.inc("serving_reload_skipped_unverified")
+        step = _lineage_step(checkpointer, self.generation, self.job)
+        if step is None:
             return None
         restored = checkpointer.restore(
             {"params": llama.param_template(self.cfg)}, step=step)
-        landed = getattr(checkpointer, "last_restored_step", step)
-        if landed is not None and landed != step:
-            log.warn("decode reload SKIPPED generation that failed "
-                     "verification at restore", job=self.job,
-                     generation=step, landed=landed)
-            self._counters.inc("serving_reload_skipped_unverified")
+        if not _landed(checkpointer, step, self.job):
             return None
         params = llama.as_decode_params(restored.pop("params"), self.device,
                                         self.cfg)
@@ -1592,12 +1617,13 @@ _UNSET = object()
 
 
 class _WeightWatcher(threading.Thread):
-    """:meth:`DecodeFleet.watch_lineage`'s thread: each cycle parks on the
+    """The thread of :meth:`DecodeFleet.watch_lineage` and
+    :meth:`ServingFleet.watch_lineage`: each cycle parks on the
     generation key's change (or sleeps ``poll_s``, at least 0.1 s, when
     the fleet has no coordinator), then scans the lineage when the key
     fired or the scan backstop is due, until :meth:`stop`."""
 
-    def __init__(self, fleet: DecodeFleet, checkpointer,
+    def __init__(self, fleet: "DecodeFleet | ServingFleet", checkpointer,
                  poll_s: float, scan_backstop: int = 1) -> None:
         super().__init__(name=f"serving-reload-{fleet.job}", daemon=True)
         self.fleet = fleet
@@ -1671,3 +1697,1334 @@ class _WeightWatcher(threading.Thread):
     def stop(self) -> None:
         self._halt.set()
         self.join(timeout=30)
+
+
+def _lineage_step(checkpointer, generation: int, job: str) -> Optional[int]:
+    """The lineage step a fleet serving ``generation`` should roll onto:
+    the newest step whose files verify, if it is newer and its manifest
+    carries the verified bit.  A step whose manifest lacks the bit is
+    skipped and counted (``serving_reload_skipped_unverified``); one whose
+    manifest has not landed yet (its writer is still fingerprinting it) is
+    left for a later call, uncounted — the reference ships it unverified."""
+    refresh = getattr(checkpointer, "refresh", None)
+    if refresh is not None:
+        # the lineage is written by another process (the trainer): without
+        # a refresh the cached step list never shows the next generation
+        refresh()
+    step = checkpointer.latest_verified_step()
+    if step is None or step <= generation:
+        return None
+    verified_fn = getattr(checkpointer, "manifest_verified", None)
+    verified = verified_fn(step) if verified_fn is not None else True
+    if verified is None:
+        return None
+    if verified is False:
+        log.warn("serving reload SKIPPED unverified generation", job=job,
+                 generation=step)
+        get_counters().inc("serving_reload_skipped_unverified")
+        return None
+    return step
+
+
+def _landed(checkpointer, step: int, job: str) -> bool:
+    """False (counted as skipped) when the restore of ``step`` fell back to
+    another step — its leaves failed the manifest's folds — so that older
+    tree is never published under the newer generation number."""
+    landed = getattr(checkpointer, "last_restored_step", step)
+    if landed is not None and landed != step:
+        log.warn("serving reload SKIPPED generation that failed "
+                 "verification at restore", job=job, generation=step,
+                 landed=landed)
+        get_counters().inc("serving_reload_skipped_unverified")
+        return False
+    return True
+
+
+# -- the single-shot half: one forward a request -----------------------------
+
+
+def _request_hist():
+    return get_registry().histogram(
+        "serving_request_seconds",
+        help="end-to-end request latency (enqueue to reply)",
+        buckets=SERVING_LATENCY_BUCKETS)
+
+
+def _queue_hist():
+    return get_registry().histogram(
+        "serving_queue_depth",
+        help="admission-queue depth observed at each serve iteration",
+        buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256))
+
+
+def _span_hist():
+    return get_registry().histogram(
+        "serving_span_seconds",
+        help="per-request phase latency (admit/queue/batch/forward/"
+             "respond — the request-span taxonomy)",
+        buckets=SERVING_LATENCY_BUCKETS)
+
+
+@dataclass
+class ServeRequest:
+    """One in-flight inference request: a single example (tuple of
+    per-example arrays, no batch dim), its completion future, and the
+    per-phase timestamps the request-span taxonomy is cut from:
+
+    * **admit** — ``t_enqueue → t_queued``: routing, until the replica's
+      admission queue holds the request;
+    * **queue** — ``t_queued → t_admit``: waiting in the queue (+ the
+      co-batchee admission window);
+    * **batch** — ``t_admit → t_forward0``: padding/stacking to the
+      fixed batch shape;
+    * **forward** — ``t_forward0 → t_forward1``: the serve step + host
+      readback;
+    * **respond** — ``t_forward1 → t_done``: per-row completion.
+
+    ``trace_id`` (propagated from the ``/predict`` ``X-EDL-Trace-Id``
+    header, or any caller) makes the request's phases first-class
+    trace spans; without one, spans are emitted only for SLO violations
+    so a p99 breach is attributable to a phase without flooding the trace
+    ring at full qps."""
+
+    payload: tuple
+    id: int = 0
+    t_enqueue: float = 0.0
+    t_queued: float = 0.0
+    t_admit: float = 0.0
+    t_forward0: float = 0.0
+    t_forward1: float = 0.0
+    t_done: float = 0.0
+    trace_id: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        self._done = threading.Event()
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
+        self.slo_violation = False
+        self._callbacks: list[Callable[["ServeRequest"], None]] = []
+
+    def add_done_callback(self, fn: Callable[["ServeRequest"], None]
+                          ) -> None:
+        """Run ``fn(self)`` when the request completes or fails (on the
+        completing thread) — immediately if it already has."""
+        if self._done.is_set():
+            fn(self)
+            return
+        self._callbacks.append(fn)
+        # completion may have raced the append: never lose the callback
+        # (remove is atomic; a concurrent _fire_callbacks pop wins the
+        # ValueError race and has already called fn)
+        if self._done.is_set():
+            try:
+                self._callbacks.remove(fn)
+            except ValueError:
+                return
+            fn(self)
+
+    def _fire_callbacks(self) -> None:
+        while self._callbacks:
+            try:
+                self._callbacks.pop(0)(self)
+            except Exception:  # a callback must never kill the serve loop
+                log.warn("request done-callback failed", request=self.id)
+
+    def complete(self, result: Any) -> None:
+        self.t_done = time.perf_counter()
+        self.result = result
+        self._done.set()
+        self._fire_callbacks()
+
+    def fail(self, exc: BaseException) -> None:
+        self.t_done = time.perf_counter()
+        self.error = exc
+        self._done.set()
+        self._fire_callbacks()
+
+    def wait(self, timeout: Optional[float] = None):
+        """Block for the reply; raises the replica-side error if the
+        request failed (a dropped request surfaces, never hangs)."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"request {self.id} not served in {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_done - self.t_enqueue
+
+
+class RequestDropped(RuntimeError):
+    """The replica stopped without serving this request (only a forced,
+    non-draining stop can cause it — counted, and held to zero)."""
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """One device→host copy of ``t`` as numpy (bf16, which numpy lacks,
+    widened to fp32 on the host)."""
+    t = t.detach().to("cpu")
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+class ElasticServer:
+    """Forward-only elastic model server: an
+    :class:`~edl_tpu_torch.runtime.elastic.ElasticTrainer` (its layouts,
+    prewarm and transactional resize) that runs ``apply_fn(params, batch)
+    -> outputs`` instead of a train step.  ``params`` is the model (an
+    ``nn.Module``); ``trainer_kwargs`` go to the trainer (``devices``,
+    ``initial_world_size``, ``param_sharding``, ``spec``, ...).  There is
+    no optimizer state: an identity optimizer, so a resize moves the
+    params only.
+
+    Under a process group the server is SPMD like the trainer: every rank
+    constructs it and calls :meth:`serve` with the same batch; each live
+    rank runs its slice of the batch and the outputs are gathered over the
+    data axes, so every live rank returns every row, and a rank standing
+    by returns None."""
+
+    def __init__(self, apply_fn: Callable[[Any, Any], Any], params: Any,
+                 **trainer_kwargs) -> None:
+        self.apply_fn = apply_fn
+        #: forwards run, the warm-up's included
+        self.forwards = 0
+        self._trainer = ElasticTrainer(apply_fn, params, optim.identity(),
+                                       **trainer_kwargs)
+
+    # -- the serving surface ------------------------------------------------
+
+    def serve(self, batch) -> Any:
+        """One forward pass over ``batch`` (a tuple of arrays or tensors
+        with the batch dim first) on the live layout, under
+        ``torch.inference_mode`` inside the trainer's gather, tp and split
+        contexts, as its ``eval_loss`` runs; the outputs stay on the
+        device."""
+        t = self._trainer
+        if not t.live:
+            return None
+        with torch.inference_mode():
+            with t._gathered(), t._tp(), t._split():
+                out = self.apply_fn(t.state.params, t._local(batch))
+            self.forwards += 1
+            n = t._width
+            if n == 1:
+                return out
+
+            def rows(x: torch.Tensor) -> torch.Tensor:
+                flat = x.contiguous().reshape(-1)
+                buf = torch.empty(n * flat.numel(), dtype=x.dtype,
+                                  device=x.device)
+                _all_gather(buf, flat, t.mesh.data, t._data_label)
+                return buf.view(n * x.shape[0], *x.shape[1:])
+
+            return _tree_map(rows, out)
+
+    def warmup(self, batch) -> None:
+        """Run one real forward on the fixed batch shape and wait for it —
+        the ready gate's build step: a replica warms up BEFORE traffic
+        routes to it, so the first request pays neither the first launch
+        (on the card: building and loading the kernel library) nor the
+        allocator's first growth."""
+        self.serve(batch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def load_params(self, params: Any) -> None:
+        """Swap to new-generation weights: ``params`` (a module, or its
+        tensors by parameter name) into the live layout, each rank taking
+        its own block of every leaf.  Callers serialize swaps between
+        serve iterations (ServingReplica does)."""
+        named = (dict(params.named_parameters())
+                 if isinstance(params, torch.nn.Module) else dict(params))
+        self._trainer.load_whole_state(
+            {keystr(("params",) + param_path(n)): t.detach()
+             for n, t in named.items()})
+
+    def params_host(self) -> torch.nn.Module:
+        """A host copy of the model with the live weights whole (the
+        restore template for lineage reloads); collective over the live
+        group on a sharded server's live rank."""
+        t = self._trainer
+        module = t.state.params
+        full = (t.full_params() if t.sharded
+                else dict(module.named_parameters()))
+        memo = {id(p): torch.nn.Parameter(full[n].detach().to("cpu",
+                                                               copy=True),
+                                          requires_grad=False)
+                for n, p in module.named_parameters()}
+        return copy.deepcopy(module, memo)
+
+    # -- elastic passthroughs ----------------------------------------------
+
+    def resize(self, target) -> bool:
+        return self._trainer.resize(target)
+
+    def prewarm(self, sizes, wait: bool = False):
+        return self._trainer.prewarm(sizes, wait=wait)
+
+    @property
+    def device(self) -> torch.device:
+        return self._trainer.device
+
+    @property
+    def world_size(self) -> int:
+        return self._trainer.world_size
+
+    @property
+    def resize_events(self) -> list:
+        return self._trainer.resize_events
+
+
+class ServingReplica:
+    """One replicated model server: an admission queue drained by a
+    continuous-batching loop over an :class:`ElasticServer`.
+
+    Each iteration admits up to ``max_batch_size`` queued requests
+    (waiting at most ``max_queue_ms`` for co-batchees once the first is
+    in hand), stacks them on the host and pads them to the fixed batch
+    shape, copies the batch to the device once, runs ONE serve step,
+    copies the outputs back once, and completes every future with its row
+    — so throughput scales with load while the batch shape never changes.
+    Weight swaps and drain both happen at iteration boundaries: an
+    in-flight request is never dropped by a reload or a scale-down."""
+
+    def __init__(self, name: str, build: Callable[[], ElasticServer],
+                 example_batch: tuple, max_batch_size: int = 8,
+                 max_queue_ms: float = 2.0, job: str = "job",
+                 slo_p99_ms: float = 0.0,
+                 on_done: Optional[Callable[[ServeRequest], None]] = None
+                 ) -> None:
+        self.name = name
+        self.job = job
+        self.max_batch_size = max(int(max_batch_size), 1)
+        self.max_queue_ms = max(float(max_queue_ms), 0.0)
+        self.slo_p99_ms = float(slo_p99_ms)
+        self._build = build
+        self._example_batch = example_batch
+        self._on_done = on_done
+        self.server: Optional[ElasticServer] = None
+        self.state = BUILDING
+        self.generation: int = 0
+        self.iterations = 0
+        self.requests_served = 0
+        #: wall milliseconds from start() to READY (build + warm-up)
+        self.build_ms: Optional[float] = None
+        self._queue: "collections.deque[ServeRequest]" = collections.deque()
+        self._cond = threading.Condition()
+        self._pending_weights: Optional[tuple[Any, int]] = None
+        #: set while no staged weights wait to be applied
+        self._swap_applied = threading.Event()
+        self._swap_applied.set()
+        self._ready_at: Optional[float] = None
+        self._built = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # metric handles resolved ONCE: the serve loop is the path whose
+        # p99 the SLO defends — per-iteration registry lookups (a global
+        # lock each) have no business on it
+        self._hist = _request_hist()
+        self._qhist = _queue_hist()
+        self._shist = _span_hist()
+        self._counters = get_counters()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "ServingReplica":
+        """Build and warm up on a background thread, then serve.  The
+        replica reports READY only once its warm-up forward has run — the
+        ready gate that keeps the build off the traffic path."""
+        self._thread = threading.Thread(target=self._run,
+                                        name=f"serving-{self.name}")
+        self._thread.start()
+        return self
+
+    def wait_ready(self, timeout_s: float = 120.0) -> bool:
+        return self._built.wait(timeout_s) and self.state != STOPPED
+
+    def _run(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.server = self._build()
+            self.server.warmup(self._example_batch)
+        except Exception as exc:
+            log.error("replica build failed", replica=self.name,
+                      error=str(exc)[:200])
+            self.state = STOPPED
+            self._built.set()
+            self._fail_queue(exc)
+            return
+        self.build_ms = round((time.perf_counter() - t0) * 1000, 1)
+        with self._cond:
+            if self.state == BUILDING:
+                self.state = READY
+            self._ready_at = time.perf_counter()
+        self._built.set()
+        get_tracer().instant("serving_replica_ready", category="serving",
+                             replica=self.name, build_ms=self.build_ms)
+        log.info("serving replica ready", replica=self.name,
+                 build_ms=self.build_ms)
+        self._loop()
+
+    def stop(self, drain: bool = True, timeout_s: float = 30.0) -> bool:
+        """Stop serving.  ``drain=True`` (the graceful path) serves out
+        the queue first — zero dropped requests; ``drain=False`` fails
+        whatever is left (each one counted ``serving_dropped_requests``
+        and surfaced to its waiter as :class:`RequestDropped`)."""
+        with self._cond:
+            self.state = DRAINING if drain else STOPPED
+            self._cond.notify_all()
+        t = self._thread
+        if t is not None:
+            t.join(timeout_s)
+        with self._cond:
+            self.state = STOPPED
+            self._cond.notify_all()
+        self._swap_applied.set()  # nothing staged will be applied now
+        self._fail_queue(RequestDropped(
+            f"replica {self.name} stopped before serving"))
+        return t is None or not t.is_alive()
+
+    def _fail_queue(self, exc: BaseException) -> None:
+        dropped = []
+        with self._cond:
+            while self._queue:
+                dropped.append(self._queue.popleft())
+        for req in dropped:
+            self._counters.inc("serving_dropped_requests", job=self.job)
+            req.fail(exc)
+
+    # -- admission ----------------------------------------------------------
+
+    def submit(self, req: ServeRequest) -> None:
+        with self._cond:
+            if self.state == STOPPED:
+                raise RequestDropped(f"replica {self.name} is stopped")
+            req.t_queued = time.perf_counter()
+            self._queue.append(req)
+            self._cond.notify_all()
+
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    def routable(self) -> bool:
+        """READY with no weights waiting: a replica that still has to
+        take the fleet's generation takes no traffic."""
+        return self.state == READY and self._pending_weights is None
+
+    def gate(self) -> bool:
+        """READY → RELOADING, atomically: the reload gate must not
+        clobber a concurrent stop()'s DRAINING/STOPPED (the serve loop
+        would never see the drain signal and a forced timeout would drop
+        the queue).  True iff this call took the gate."""
+        with self._cond:
+            if self.state != READY:
+                return False
+            self.state = RELOADING
+            return True
+
+    def ungate(self) -> None:
+        """RELOADING → READY — only if still gated; a stop() that won
+        the race keeps its state."""
+        with self._cond:
+            if self.state == RELOADING:
+                self.state = READY
+            self._cond.notify_all()
+
+    # -- weight reload ------------------------------------------------------
+
+    def swap_weights(self, params: Any, generation: int,
+                     timeout_s: float = 30.0) -> bool:
+        """Hand the loop new weights; applied at the next iteration
+        boundary (never mid-batch).  Blocks until applied."""
+        return (self.stage_weights(params, generation)
+                and self.wait_weights(timeout_s))
+
+    def stage_weights(self, params: Any, generation: int) -> bool:
+        """Queue new weights without waiting for them: the loop applies
+        them before it admits another batch (a replica still building
+        applies them right after its warm-up), and the replica is not
+        routable until it has."""
+        with self._cond:
+            if self.state == STOPPED:
+                return False
+            self._swap_applied.clear()
+            self._pending_weights = (params, generation)
+            self._cond.notify_all()
+        return True
+
+    def wait_weights(self, timeout_s: float = 30.0) -> bool:
+        """Wait until no staged weights are left to apply; False on a
+        timeout or when the replica stopped with weights unapplied."""
+        return (self._swap_applied.wait(timeout_s)
+                and self._pending_weights is None)
+
+    def _maybe_swap(self) -> None:
+        with self._cond:
+            pending = self._pending_weights
+        if pending is None:
+            return
+        params, generation = pending
+        t0 = time.perf_counter()
+        self.server.load_params(params)
+        self.generation = generation
+        with self._cond:
+            # weights staged again meanwhile wait for the next boundary
+            if self._pending_weights is pending:
+                self._pending_weights = None
+                self._swap_applied.set()
+        self._counters.inc("serving_reloads", job=self.job)
+        get_tracer().instant(
+            "serving_weights_reloaded", category="serving",
+            replica=self.name, generation=generation,
+            swap_ms=round((time.perf_counter() - t0) * 1000, 2))
+        get_registry().gauge(
+            "serving_weight_generation",
+            help="checkpoint generation the replica serves"
+        ).set(generation, job=self.job, replica=self.name)
+
+    # -- the continuous-batching loop ---------------------------------------
+
+    def _admit(self) -> Optional[list[ServeRequest]]:
+        """Block for the next batch: the first queued request opens an
+        admission window of ``max_queue_ms`` (or until the batch is
+        full) — iteration-level batching, so a lone request never waits
+        for a full batch and a burst packs the step."""
+        with self._cond:
+            while not self._queue:
+                if self.state in (DRAINING, STOPPED):
+                    return None
+                if self._pending_weights is not None:
+                    return []  # idle swap: wake the loop to apply it
+                self._cond.wait(0.1)
+            if self.state == STOPPED:
+                return None  # forced stop: stop() fails the queue
+            if self._pending_weights is not None:
+                return []  # staged weights land before the next batch
+            if self.max_queue_ms > 0 and self.state == READY:
+                deadline = time.perf_counter() + self.max_queue_ms / 1000.0
+                while (len(self._queue) < self.max_batch_size
+                       and self.state == READY):
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    self._cond.wait(remaining)
+            batch = [self._queue.popleft()
+                     for _ in range(min(len(self._queue),
+                                        self.max_batch_size))]
+        t_admit = time.perf_counter()
+        for r in batch:
+            r.t_admit = t_admit
+        return batch
+
+    def _loop(self) -> None:
+        while True:
+            self._maybe_swap()
+            reqs = self._admit()
+            if reqs is None:
+                with self._cond:
+                    if self.state == DRAINING and self._queue:
+                        continue  # raced a late submit while draining
+                self._maybe_swap()  # a swap racing the drain still lands
+                return
+            if not reqs:
+                continue  # woke for a weight swap (applied at the top)
+            self._qhist.observe(self.queue_depth() + len(reqs),
+                                replica=self.name)
+            n = len(reqs)
+            # pad to the fixed shape: the step always sees max_batch_size
+            # rows, so admission depth never changes what it launches
+            rows = [r.payload for r in reqs]
+            rows += [rows[-1]] * (self.max_batch_size - n)
+            batch = tuple(np.stack(col) for col in zip(*rows))
+            t_fwd0 = time.perf_counter()
+            try:
+                host = _tree_map(_host, self.server.serve(batch))
+            except Exception as exc:
+                log.error("serve iteration failed", replica=self.name,
+                          error=str(exc)[:200])
+                for req in reqs:
+                    self._counters.inc("serving_request_errors",
+                                       job=self.job)
+                    req.fail(exc)
+                continue
+            t_fwd1 = time.perf_counter()
+            self.iterations += 1
+            # iteration-level phases observed once per request so the
+            # phase histograms and the request histogram share a
+            # denominator
+            for i, req in enumerate(reqs):
+                req.t_forward0, req.t_forward1 = t_fwd0, t_fwd1
+                req.complete(_tree_map(lambda a: a[i], host))
+                self.requests_served += 1
+                lat = req.latency_s
+                self._hist.observe(lat, job=self.job)
+                self._shist.observe(
+                    max(req.t_queued - req.t_enqueue, 0.0), phase="admit")
+                self._shist.observe(
+                    max(req.t_admit - req.t_queued, 0.0), phase="queue")
+                self._shist.observe(
+                    max(t_fwd0 - req.t_admit, 0.0), phase="batch")
+                self._shist.observe(t_fwd1 - t_fwd0, phase="forward")
+                self._shist.observe(
+                    max(req.t_done - t_fwd1, 0.0), phase="respond")
+                self._counters.inc("serving_requests", job=self.job)
+                if self.slo_p99_ms and lat * 1000.0 > self.slo_p99_ms:
+                    req.slo_violation = True
+                    self._counters.inc("serving_slo_violations",
+                                       job=self.job)
+                if req.trace_id or req.slo_violation:
+                    self._emit_request_spans(req)
+                if self._on_done is not None:
+                    self._on_done(req)
+
+    def _emit_request_spans(self, req: ServeRequest) -> None:
+        """Turn one request's phase timestamps into a trace span tree
+        (admit → queue → batch → forward → respond under one
+        ``serving_request`` root).  Emitted for requests carrying a
+        propagated trace_id and for SLO violations.  (The reference also
+        attaches each span to its histogram bucket as an exemplar; the
+        port's histograms carry none until the scrape plane is ported.)"""
+        tracer = get_tracer()
+        tid = req.trace_id or new_trace_id()
+        root = tracer.record_span(
+            "serving_request", "serving", req.t_enqueue, req.t_done,
+            trace_id=tid,
+            replica=self.name, job=self.job,
+            request_id=req.id, latency_ms=round(req.latency_s * 1e3, 3),
+            slo_violation=req.slo_violation,
+            queue_ms=round(max(req.t_admit - req.t_queued, 0.0) * 1e3, 3),
+            forward_ms=round((req.t_forward1 - req.t_forward0) * 1e3, 3))
+        for phase, t0, t1 in (
+                ("admit", req.t_enqueue, req.t_queued),
+                ("queue", req.t_queued, req.t_admit),
+                ("batch", req.t_admit, req.t_forward0),
+                ("forward", req.t_forward0, req.t_forward1),
+                ("respond", req.t_forward1, req.t_done)):
+            tracer.record_span(f"serving_request.{phase}", "serving",
+                               t0, max(t1, t0), trace_id=tid,
+                               parent_id=root)
+
+
+#: the ROADMAP item that serving replicas wider than one card wait for
+WIDE_REPLICA_ITEM = "ROADMAP.md queue 1 item 12"
+
+#: completions a ServingFleet keeps for its windowed stats
+STATS_WINDOW = 2048
+
+
+class ServingFleet:
+    """The replica set behind one serving Service: least-queue routing,
+    hint→prewarm scale-up, graceful drain scale-down, rolling reloads.
+
+    ``apply_fn(model, batch) -> outputs`` is the forward, ``init_params``
+    the model (an ``nn.Module``, copied for each replica), ``example_row``
+    one request's arrays (no batch dim).  Each replica is a thread holding
+    a world-1 :class:`ElasticServer` (no process group: the fleet refuses
+    to run in a process that joined one); replica ``slot`` runs on
+    ``cuda:(slot mod device count)`` when ``device`` is CUDA without an
+    index, else on ``device``.  On one card every replica shares it, which
+    proves the protocol, not added capacity.  A replica spans one device:
+    ``chips_per_replica > 1`` raises."""
+
+    def __init__(
+        self,
+        apply_fn: Callable[[Any, Any], Any],
+        init_params: Any,
+        example_row: tuple,
+        *,
+        job: str = "job",
+        max_batch_size: int = 8,
+        max_queue_ms: float = 2.0,
+        slo_p99_ms: float = 0.0,
+        drain_timeout_s: float = 30.0,
+        chips_per_replica: int = 1,
+        device="cuda",
+        kv=None,
+    ) -> None:
+        if int(chips_per_replica) > 1:
+            raise NotImplementedError(
+                f"chips_per_replica {chips_per_replica}: a replica wider "
+                "than one card needs each admitted batch broadcast from a "
+                f"rank-0 loop to the replica's ranks ({WIDE_REPLICA_ITEM})")
+        if distributed():
+            raise RuntimeError(
+                "ServingFleet runs its replicas as world-1 servers on "
+                "threads; this process joined a process group, which "
+                "every server would take for its world")
+        self.apply_fn = apply_fn
+        self.init_params = init_params
+        self.job = job
+        self.max_batch_size = max(int(max_batch_size), 1)
+        self.max_queue_ms = float(max_queue_ms)
+        self.slo_p99_ms = float(slo_p99_ms)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self.device = resolve(device)
+        self._kv = kv
+        #: the fixed batch: example_row stacked to max_batch_size
+        self.example_batch = tuple(
+            np.stack([np.asarray(a)] * self.max_batch_size)
+            for a in example_row)
+        self._lock = threading.RLock()
+        self._ids = itertools.count(1)
+        self._rr = itertools.count()
+        #: routable replicas (the active set the autoscaler dials)
+        self._replicas: list[ServingReplica] = []
+        #: hint-built standbys: building/warmed but NOT routable — a
+        #: later scale_to() activates them (the prewarm hit)
+        self._hinted: list[ServingReplica] = []
+        #: lifetime count of drained/failed replicas — references are
+        #: DROPPED once stopped (each retired replica holds a full set
+        #: of weights on its device; retaining them turns a
+        #: scale-oscillating fleet into a slow OOM)
+        self.replicas_retired = 0
+        #: (weights, generation) a replica must hold before it becomes
+        #: routable: set by every rolling reload under the fleet lock, in
+        #: the same section that picks the replicas it swaps, so a replica
+        #: that joins later serves the fleet's CURRENT generation, not the
+        #: boot weights
+        self._gen: tuple[Any, int] = (init_params, 0)
+        self.generation = 0
+        self.prewarm_hits = 0
+        self.prewarm_misses = 0
+        #: rolling completion window: (t_done, latency_s)
+        self._window: "collections.deque[tuple[float, float]]" = (
+            collections.deque(maxlen=STATS_WINDOW))
+        self._watcher: Optional[_WeightWatcher] = None
+        self._metrics_srv = None
+        self._addr_publisher = None
+        self.register_metrics()
+
+    # -- replica construction ----------------------------------------------
+
+    def _slot_device(self, slot: int) -> torch.device:
+        if self.device.type == "cuda" and self.device.index is None:
+            return torch.device("cuda", slot % torch.cuda.device_count())
+        return self.device
+
+    def _new_replica(self, slot: int) -> ServingReplica:
+        dev = self._slot_device(slot)
+        params = self.init_params
+
+        def build() -> ElasticServer:
+            return ElasticServer(self.apply_fn, copy.deepcopy(params),
+                                 devices=[dev])
+
+        r = ServingReplica(
+            name=f"{self.job}/r{slot}", build=build,
+            example_batch=self.example_batch,
+            max_batch_size=self.max_batch_size,
+            max_queue_ms=self.max_queue_ms, job=self.job,
+            slo_p99_ms=self.slo_p99_ms, on_done=self._record)
+        r.slot = slot
+        return r.start()
+
+    def _next_slot(self) -> int:
+        """Smallest device slot no live replica occupies — a drained
+        replica's device is reusable by the next scale-up."""
+        used = {getattr(r, "slot", -1) for r in self._replicas + self._hinted}
+        slot = 0
+        while slot in used:
+            slot += 1
+        return slot
+
+    # -- scaling ------------------------------------------------------------
+
+    def hint(self, target: int) -> int:
+        """The autoscaler's plan hint: start building (and warming up)
+        the replicas a scale-up to ``target`` will need, BEFORE the
+        actuation/pods/traffic move — the serving twin of
+        ``ElasticTrainer.prewarm``.  Returns how many builds started.
+        Never blocks; never touches routing."""
+        started = 0
+        with self._lock:
+            target = int(target)
+            want = target - len(self._replicas) - len(self._hinted)
+            for _ in range(max(want, 0)):
+                self._hinted.append(self._new_replica(self._next_slot()))
+                started += 1
+        if started:
+            get_counters().inc("serving_prewarms", started, job=self.job)
+            log.info("serving prewarm hint", job=self.job, target=target,
+                     builds_started=started)
+        return started
+
+    def scale_to(self, target: int, wait_ready_s: float = 120.0) -> int:
+        """Actuate the replica count.  Growing first adopts hint-built
+        standbys (each one a recorded ``serving_prewarm_hit`` — its
+        build started back at plan time, off the traffic path), then
+        builds the remainder inline (misses).  Shrinking drains the
+        newest replicas gracefully: routing stops immediately, queued
+        requests are served out, nothing is dropped.  Returns the new
+        active count."""
+        to_stop: list[ServingReplica] = []
+        adopted_total = 0
+        with self._lock:
+            target = max(1, int(target))
+            while len(self._replicas) > target:
+                to_stop.append(self._replicas.pop())
+        # fill-then-prune, bounded: a replica whose background build
+        # FAILED (state STOPPED) must not be counted as active capacity
+        # forever — prune it and retry the slot a bounded number of
+        # times; persistent failures leave the fleet under target, which
+        # the scaler observes (replicas_active < target) and re-plans.
+        for _attempt in range(3):
+            adopted: list[ServingReplica] = []
+            with self._lock:
+                params, gen = self._gen
+                while len(self._replicas) < target:
+                    if self._hinted:
+                        r = self._hinted.pop(0)
+                        if r.state == STOPPED:
+                            # the standby's build already failed: not a
+                            # prewarm hit — drop it and fill the slot
+                            # from the next source
+                            self.replicas_retired += 1
+                            get_counters().inc(
+                                "serving_replica_build_failures",
+                                job=self.job)
+                            continue
+                        self.prewarm_hits += 1
+                        get_counters().inc("serving_prewarm_hits",
+                                           job=self.job)
+                    else:
+                        r = self._new_replica(self._next_slot())
+                        self.prewarm_misses += 1
+                        get_counters().inc("serving_prewarm_misses",
+                                           job=self.job)
+                    if r.generation != gen:
+                        # staged BEFORE it joins the routable set: it
+                        # takes no traffic until the weights have landed
+                        r.stage_weights(params, gen)
+                    self._replicas.append(r)
+                    adopted.append(r)
+            for r in adopted:
+                # the ready gate: traffic only routes to a replica once
+                # its warm-up has run and it holds the fleet's generation
+                # — with a hint's head start this wait is ~0; without one
+                # it is the inline build, which still never rides a
+                # REQUEST (existing replicas keep serving; the router
+                # skips BUILDING ones)
+                if r.wait_ready(wait_ready_s):
+                    r.wait_weights(self.drain_timeout_s)
+            adopted_total += len(adopted)
+            with self._lock:
+                dead = [r for r in self._replicas if r.state == STOPPED]
+                for r in dead:
+                    self._replicas.remove(r)
+                    self.replicas_retired += 1
+            for r in dead:
+                log.warn("serving replica build failed; slot retried",
+                         replica=r.name)
+                get_counters().inc("serving_replica_build_failures",
+                                   job=self.job)
+            if not dead:
+                break
+        for r in to_stop:
+            r.stop(drain=True, timeout_s=self.drain_timeout_s)
+            with self._lock:
+                self.replicas_retired += 1
+        if to_stop or adopted_total:
+            get_tracer().instant(
+                "serving_scaled", category="serving", job=self.job,
+                target=target, adopted=adopted_total,
+                drained=len(to_stop), prewarm_hits=self.prewarm_hits)
+        return len(self._replicas)
+
+    # -- routing ------------------------------------------------------------
+
+    def submit(self, payload: tuple,
+               trace_id: Optional[str] = None) -> ServeRequest:
+        """Admit one request: routed to the READY replica with the
+        shortest queue (a building/reloading replica receives no new
+        traffic; with none ready — transient, e.g. a single replica
+        mid-build — the request queues on the least-loaded live replica
+        and waits rather than failing).  ``trace_id`` makes the request's
+        phase spans first-class trace events."""
+        req = ServeRequest(payload=tuple(np.asarray(a) for a in payload),
+                           id=next(self._ids),
+                           t_enqueue=time.perf_counter(),
+                           trace_id=trace_id)
+        while True:
+            with self._lock:
+                live = [r for r in self._replicas if r.state != STOPPED]
+                ready = [r for r in live if r.routable()]
+                pool = ready or live
+                if not pool:
+                    raise RequestDropped(f"fleet {self.job} has no replicas")
+                # round-robin among equal queue depths so single-burst
+                # traffic spreads instead of piling on replica 0
+                k = next(self._rr)
+                target = min(
+                    range(len(pool)),
+                    key=lambda i: (pool[i].queue_depth(),
+                                   (i - k) % len(pool)))
+                replica = pool[target]
+            try:
+                replica.submit(req)
+                return req
+            except RequestDropped:
+                continue  # raced a stop; re-route
+
+    def _record(self, req: ServeRequest) -> None:
+        with self._lock:
+            self._window.append((req.t_done, req.latency_s))
+
+    # -- observation --------------------------------------------------------
+
+    def replicas(self) -> list[ServingReplica]:
+        """The active replicas (a copy of the list)."""
+        with self._lock:
+            return list(self._replicas)
+
+    def replicas_ready(self) -> int:
+        with self._lock:
+            return sum(1 for r in self._replicas if r.routable())
+
+    def replicas_active(self) -> int:
+        with self._lock:
+            return len(self._replicas)
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return sum(r.queue_depth() for r in self._replicas)
+
+    def stats(self, window_s: float = 10.0) -> FleetStats:
+        """Windowed p50/p99/qps over recent completions — the signal the
+        SLO policy scales on."""
+        now = time.perf_counter()
+        with self._lock:
+            window = list(self._window)
+            saturated = len(window) == self._window.maxlen
+            ready, active = (sum(1 for r in self._replicas if r.routable()),
+                             len(self._replicas))
+            depth = sum(r.queue_depth() for r in self._replicas)
+        recent = [(t, lat) for t, lat in window if now - t <= window_s]
+        if recent:
+            lats = np.sort(np.asarray([lat for _, lat in recent]))
+            p50 = float(lats[int(0.50 * (len(lats) - 1))]) * 1000.0
+            p99 = float(lats[int(0.99 * (len(lats) - 1))]) * 1000.0
+        else:
+            p50 = p99 = 0.0
+        # QPS denominator: normally the window length — but when the
+        # bounded deque EVICTED completions that were still inside the
+        # window (high load), the span the kept entries cover is the
+        # honest denominator
+        denom = window_s
+        if saturated and recent and (now - window[0][0]) <= window_s:
+            denom = max(now - recent[0][0], 1e-3)
+        return FleetStats(
+            p50_ms=round(p50, 3), p99_ms=round(p99, 3),
+            qps=round(len(recent) / denom, 2), queue_depth=depth,
+            replicas_ready=ready, replicas_active=active,
+            requests_windowed=len(recent))
+
+    def register_metrics(self, registry=None) -> None:
+        reg = registry if registry is not None else get_registry()
+        reg.gauge_fn("serving_replicas_ready", self.replicas_ready,
+                     help="replicas currently routable", job=self.job)
+        reg.gauge_fn("serving_replicas_active", self.replicas_active,
+                     help="replicas in the active set", job=self.job)
+        reg.gauge_fn("serving_fleet_queue_depth", self.queue_depth,
+                     help="queued requests across the fleet", job=self.job)
+
+    def serve_metrics(self, port: int = 0, replica: Optional[str] = None,
+                      ttl_s: Optional[float] = None):
+        """Serve this process's ``/metrics`` + ``/healthz`` on every
+        interface (shared registry — every ``edl_serving_*`` series this
+        fleet records) and, when a coordinator KV client was given
+        (``kv=``), publish the bound address under the TTL'd
+        ``serving-metrics-addr/<job>/<replica>`` key.  Returns the HTTP
+        server (also shut down by :meth:`stop`)."""
+        import os
+        import socket
+
+        from edl_tpu_torch.observability.health import serve_health
+        from edl_tpu_torch.observability.scrape import (
+            DEFAULT_ADDR_TTL_S,
+            SERVING_METRICS_ADDR_PREFIX,
+            AddrPublisher,
+            publish_host,
+        )
+
+        self._metrics_srv = serve_health(
+            port, {"replicas_ready": lambda: self.replicas_ready() >= 1})
+        bound = self._metrics_srv.server_address[1]
+        if self._kv is not None:
+            rep = replica or f"{socket.gethostname()}-{os.getpid()}"
+            key = f"{SERVING_METRICS_ADDR_PREFIX}{self.job}/{rep}"
+            self._addr_publisher = AddrPublisher(
+                self._kv, key, f"{publish_host()}:{bound}",
+                ttl_s=ttl_s if ttl_s is not None else DEFAULT_ADDR_TTL_S)
+            self._addr_publisher.start()
+            log.info("serving metrics published", job=self.job, key=key,
+                     port=bound)
+        return self._metrics_srv
+
+    # -- rolling weight reloads --------------------------------------------
+
+    def rolling_reload(self, params: Any, generation: int) -> int:
+        """Swap every active replica to ``generation`` (``params``: a
+        module, or its tensors by parameter name) ONE AT A TIME behind the
+        ready gate: while a replica reloads it takes no new traffic (peers
+        absorb it), its queued requests are served before the swap
+        applies, and in-flight iterations always finish on the weights
+        they started with — zero dropped requests by construction.  A
+        single-replica fleet swaps in place (the iteration boundary is the
+        gate).  Returns replicas swapped."""
+        swapped = 0
+        with self._lock:
+            self._gen = (params, generation)
+            replicas = list(self._replicas)
+        for r in replicas:
+            if r.state == STOPPED:
+                continue
+            with self._lock:
+                others_ready = sum(1 for o in self._replicas
+                                   if o is not r and o.routable())
+            # the gate is a CAS under the REPLICA's lock: a concurrent
+            # stop()/drain that won the state must not be clobbered
+            gate = bool(others_ready) and r.gate()
+            # wait for the gated replica's queue to empty so the swap
+            # lands between iterations with nothing of the old
+            # generation left waiting
+            deadline = time.perf_counter() + self.drain_timeout_s
+            while gate and r.queue_depth() > 0 \
+                    and time.perf_counter() < deadline:
+                time.sleep(0.001)
+            if r.swap_weights(params, generation,
+                              timeout_s=self.drain_timeout_s):
+                swapped += 1
+            if gate:
+                r.ungate()
+        self.generation = generation
+        if self._kv is not None:
+            try:
+                self._kv.kv_set(SERVING_GEN_KEY.format(job=self.job),
+                                str(generation).encode())
+            except Exception as exc:  # KV is observability here, not truth
+                log.warn("serving generation publish failed", job=self.job,
+                         error=str(exc)[:120])
+        log.info("rolling reload complete", job=self.job,
+                 generation=generation, replicas=swapped)
+        return swapped
+
+    def reload_from_lineage(self, checkpointer) -> Optional[int]:
+        """Roll onto the newest VERIFIED step of a training job's lineage
+        (an :class:`~edl_tpu_torch.runtime.checkpoint.ElasticCheckpointer`
+        whose steps hold ``{"params": model}``) if it is newer than what
+        the fleet serves: the step is chosen and checked as
+        :meth:`DecodeFleet.reload_from_lineage` chooses it, restored into a
+        live replica's host copy of the model
+        (:meth:`ElasticServer.params_host`) and swapped in by
+        :meth:`rolling_reload`.  Returns the generation rolled to, or None
+        when already current or skipped."""
+        step = _lineage_step(checkpointer, self.generation, self.job)
+        if step is None:
+            return None
+        with self._lock:
+            template = next((r.server for r in self._replicas
+                             if r.server is not None), None)
+        if template is None:
+            return None
+        restored = checkpointer.restore({"params": template.params_host()},
+                                        step=step)
+        if not _landed(checkpointer, step, self.job):
+            return None
+        self.rolling_reload(restored["params"], step)
+        return step
+
+    def watch_lineage(self, checkpointer, poll_s: float = 5.0,
+                      scan_backstop: int = 1) -> "_WeightWatcher":
+        """Start the reload driver, as :meth:`DecodeFleet.watch_lineage`
+        does: a thread that long-polls ``serving-gen/<job>`` when the
+        fleet has a coordinator (``kv=``), else sleeps ``poll_s``, and
+        calls :meth:`reload_from_lineage`; :meth:`stop` stops it."""
+        self._watcher = _WeightWatcher(self, checkpointer, poll_s,
+                                       scan_backstop=scan_backstop)
+        self._watcher.start()
+        return self._watcher
+
+    # -- teardown -----------------------------------------------------------
+
+    def stop(self, drain: bool = True) -> None:
+        if self._watcher is not None:
+            self._watcher.stop()
+            self._watcher = None
+        if self._addr_publisher is not None:
+            self._addr_publisher.stop()  # best-effort kv_del of the key
+            self._addr_publisher = None
+        if self._metrics_srv is not None:
+            self._metrics_srv.shutdown()
+            self._metrics_srv = None
+        with self._lock:
+            replicas = self._replicas + self._hinted
+            self._replicas, self._hinted = [], []
+        for r in replicas:
+            r.stop(drain=drain, timeout_s=self.drain_timeout_s)
+
+
+# -- traffic generation (harness) -----------------------------------------
+
+
+class PoissonTraffic:
+    """Seeded Poisson (exponential inter-arrival) open-loop traffic
+    against a fleet: arrivals don't wait for replies, so a latency
+    regression shows up as queue growth and p99, exactly like
+    production."""
+
+    def __init__(self, fleet: ServingFleet, make_row: Callable[[int], tuple],
+                 qps: float, seed: int = 0) -> None:
+        self.fleet = fleet
+        self.make_row = make_row
+        self.qps = float(qps)
+        self.rng = np.random.default_rng(seed)
+        self.sent: list[ServeRequest] = []
+
+    def run(self, duration_s: float) -> list[ServeRequest]:
+        """Fire requests for ``duration_s``; returns them all (callers
+        wait()/assert).  Runs open-loop on the calling thread."""
+        t_end = time.perf_counter() + duration_s
+        i = len(self.sent)
+        next_at = time.perf_counter()
+        while True:
+            now = time.perf_counter()
+            if now >= t_end:
+                return self.sent
+            if now < next_at:
+                time.sleep(min(next_at - now, 0.005))
+                continue
+            self.sent.append(self.fleet.submit(self.make_row(i)))
+            i += 1
+            next_at += float(self.rng.exponential(1.0 / self.qps))
+
+    def await_all(self, timeout_s: float = 30.0) -> dict:
+        """Wait for every sent request; returns the closed-loop tally
+        (served / dropped / errors / timeouts / latencies).  One SHARED
+        condition wait: every request signals a common counter via its
+        done-callback, so a wedged tail costs one deadline wait total."""
+        pending = [r for r in self.sent if not r._done.is_set()]
+        remaining = [len(pending)]
+        cond = threading.Condition()
+
+        def on_done(_req) -> None:
+            with cond:
+                remaining[0] -= 1
+                if remaining[0] <= 0:
+                    cond.notify_all()
+
+        for req in pending:
+            req.add_done_callback(on_done)
+        deadline = time.perf_counter() + timeout_s
+        with cond:
+            while remaining[0] > 0:
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                cond.wait(left)
+        served = dropped = errors = timeouts = 0
+        lats: list[float] = []
+        for req in self.sent:
+            if not req._done.is_set():
+                timeouts += 1
+            elif req.error is None:
+                served += 1
+                lats.append(req.latency_s)
+            elif isinstance(req.error, RequestDropped):
+                dropped += 1
+            else:
+                errors += 1
+        lat = np.sort(np.asarray(lats)) if lats else np.asarray([0.0])
+        return {
+            "sent": len(self.sent), "served": served,
+            "dropped": dropped, "errors": errors, "timeouts": timeouts,
+            "p50_ms": round(float(lat[int(0.50 * (len(lat) - 1))]) * 1e3, 3),
+            "p99_ms": round(float(lat[int(0.99 * (len(lat) - 1))]) * 1e3, 3),
+            "max_ms": round(float(lat[-1]) * 1e3, 3),
+        }
+
+
+# -- pod entrypoint ----------------------------------------------------------
+
+
+def serve_main(env=None, device="cuda") -> int:
+    """Run one replica's model server from the EDL_SERVING_* env contract,
+    on ``device`` (the card unless the caller asks for another).
+
+    Loads the newest verified checkpoint generation from
+    ``EDL_SERVING_MODEL_DIR`` (an ``ElasticCheckpointer`` lineage holding
+    ``{"params": model}``), builds the model named by ``EDL_SERVING_MODEL``
+    (``mlp:IN,HID..,OUT``), serves JSON ``POST /predict`` on
+    ``EDL_SERVING_PORT``, watches the lineage for rolling reloads, and
+    answers ``/healthz`` 503 until the replica's warm-up forward has run —
+    the readiness gate the pod template probes.  SIGTERM drains the fleet
+    and returns 0.  ``EDL_SERVING_FRONTDOOR`` picks the front door:
+    ``legacy`` is the thread-per-connection HTTP/1.1 server; the
+    reference's default, ``async``, waits for ``runtime/frontdoor.py``
+    (ROADMAP.md queue 1 item 8) and raises before any port is bound."""
+    import json as _json
+    import os
+    import signal
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from edl_tpu_torch.coord.client import client_from_env
+    from edl_tpu_torch.models import mlp
+    from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+
+    env = os.environ if env is None else env
+    frontdoor_kind = env.get("EDL_SERVING_FRONTDOOR", "async")
+    if frontdoor_kind != "legacy":
+        raise NotImplementedError(
+            f"EDL_SERVING_FRONTDOOR={frontdoor_kind!r}: the async front door "
+            "(runtime/frontdoor.py) waits for ROADMAP.md queue 1 item 8; "
+            "set EDL_SERVING_FRONTDOOR=legacy")
+    model_dir = env.get("EDL_SERVING_MODEL_DIR", "")
+    if not model_dir:
+        print("error: EDL_SERVING_MODEL_DIR not set (the jobparser emits "
+              "it from spec.server.model_dir)")
+        return 2
+    model = env.get("EDL_SERVING_MODEL", "mlp:16,32,4")
+    kind, _, shape = model.partition(":")
+    if kind != "mlp":
+        print(f"error: unknown EDL_SERVING_MODEL kind {kind!r}")
+        return 2
+    sizes = [int(x) for x in shape.split(",")]
+
+    ckpt = ElasticCheckpointer(model_dir)
+    template = {"params": mlp.MLP(sizes, device="cpu", seed=0)}
+    step = ckpt.latest_verified_step()
+    params = (ckpt.restore(template, step=step)["params"]
+              if step is not None else template["params"])
+    job = (f"{env.get('EDL_NAMESPACE', 'default')}/"
+           f"{env.get('EDL_JOB_NAME', 'serving')}")
+    # coordinator KV (optional): where the replica publishes its /metrics
+    # address and the lineage watcher long-polls serving-gen/<job> — set
+    # EDL_COORD_ENDPOINT (host:port) to enable
+    kv = client_from_env(env, disabled="metrics address not published")
+    fleet = ServingFleet(
+        lambda p, b: mlp.apply(p, b[0]), params,
+        example_row=(np.zeros((sizes[0],), np.float32),),
+        job=job, kv=kv, device=device,
+        max_batch_size=int(env.get("EDL_SERVING_MAX_BATCH", "8")),
+        max_queue_ms=float(env.get("EDL_SERVING_MAX_QUEUE_MS", "2.0")),
+        slo_p99_ms=float(env.get("EDL_SERVING_SLO_P99_MS", "0")),
+        drain_timeout_s=float(env.get("EDL_SERVING_DRAIN_S", "30")))
+    fleet.generation = step or 0
+    fleet.scale_to(1)
+    poll_s = float(env.get("EDL_SERVING_RELOAD_POLL_S", "5"))
+    if poll_s > 0:
+        # EDL_SERVING_SCAN_BACKSTOP > 1 trusts the serving-gen KV key as
+        # the reload signal and scans the lineage only every N cycles
+        fleet.watch_lineage(
+            ckpt, poll_s,
+            scan_backstop=int(env.get("EDL_SERVING_SCAN_BACKSTOP", "1")))
+
+    health_port = int(env.get("EDL_HEALTH_PORT", "8080"))
+    health = None
+    if health_port >= 0:
+        # the readiness gate AND the scrape endpoint, its bound address
+        # published to coordinator KV when a coordinator is reachable
+        health = fleet.serve_metrics(
+            health_port,
+            replica=env.get("EDL_POD_NAME") or None,
+            ttl_s=float(env.get("EDL_SERVING_METRICS_TTL_S", "30")))
+
+    class Handler(BaseHTTPRequestHandler):
+        # HTTP/1.1 with Content-Length on every reply = keep-alive; the
+        # read timeout bounds how long an idle keep-alive client may pin
+        # its thread
+        protocol_version = "HTTP/1.1"
+        timeout = 60
+
+        def do_GET(self):  # noqa: N802 (http.server casing)
+            if self.path != "/healthz":
+                self.send_error(404)
+                return
+            ready = fleet.replicas_ready() >= 1
+            self.send_response(200 if ready else 503)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def do_POST(self):  # noqa: N802 (http.server casing)
+            if self.path != "/predict":
+                self.send_error(404)
+                return
+            try:
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length", "0")))
+                row = _json.loads(body.decode())["inputs"]
+                # X-EDL-Trace-Id rides into the request's phase spans and
+                # back out on the reply
+                trace_id = self.headers.get("X-EDL-Trace-Id") or None
+                req = fleet.submit((np.asarray(row, np.float32),),
+                                   trace_id=trace_id)
+                out = req.wait(timeout=30.0)
+                payload = _json.dumps({
+                    "outputs": np.asarray(out).tolist(),
+                    "generation": fleet.generation,
+                    "latency_ms": round(req.latency_s * 1000, 3),
+                }).encode()
+            except Exception as exc:
+                self.send_error(500, str(exc)[:120])
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            if trace_id:
+                self.send_header("X-EDL-Trace-Id", trace_id)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):  # quiet; metrics carry the signal
+            pass
+
+    port = int(env.get("EDL_SERVING_PORT", "8500"))
+    srv = ThreadingHTTPServer(("0.0.0.0", port), Handler)
+    bound = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    log.info("model server ready", job=job, generation=fleet.generation,
+             port=bound, frontdoor=frontdoor_kind)
+    # machine-parseable ready marker (harnesses wait on it to learn an
+    # ephemeral port)
+    print(f"model server ready port={bound} frontdoor={frontdoor_kind} "
+          f"generation={fleet.generation}", flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, lambda *_: stop.set())
+        except ValueError:
+            pass  # not the main thread
+    try:
+        while not stop.wait(0.5):
+            pass
+    finally:
+        srv.shutdown()
+        # graceful: finish the queue, drop nothing; also unpublishes the
+        # metrics address and stops /metrics
+        fleet.stop(drain=True)
+        if health is not None:
+            health.shutdown()
+        if kv is not None:
+            try:
+                kv.close()
+            except Exception:
+                pass
+        ckpt.close()
+    return 0
+
+
+if __name__ == "__main__":
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        description="one model server replica from the EDL_SERVING_* env")
+    parser.add_argument("--device", default="cuda")
+    sys.exit(serve_main(device=parser.parse_args().device))

@@ -1,8 +1,8 @@
 """Elastic scheduler: the pure dry-run planner and the autoscaler loop
 (role of reference pkg/autoscaler.go) — the port's copy of
-edl_tpu.scheduler's count objective.  The marginal-goodput allocator, its
-curves and ``sim.py``, and the serving scaler wait (ROADMAP.md, queue 1
-items 8 and 11)."""
+edl_tpu.scheduler's count objective, and the serving SLO policy.  The
+marginal-goodput allocator and ``sim.py`` wait (ROADMAP.md, queue 1 item
+11)."""
 
 from edl_tpu_torch.scheduler.planner import (
     GoodputPlan,
@@ -13,7 +13,7 @@ from edl_tpu_torch.scheduler.planner import (
     sorted_jobs,
 )
 from edl_tpu_torch.scheduler.topology import POW2_POLICY, SliceShapePolicy
-from edl_tpu_torch.scheduler.autoscaler import Autoscaler
+from edl_tpu_torch.scheduler.autoscaler import Autoscaler, ServingScaler
 
 __all__ = [
     "GoodputPlan",
@@ -25,4 +25,5 @@ __all__ = [
     "SliceShapePolicy",
     "POW2_POLICY",
     "Autoscaler",
+    "ServingScaler",
 ]

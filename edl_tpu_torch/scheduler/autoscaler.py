@@ -16,12 +16,17 @@ Plans come from the count objective (:func:`~edl_tpu_torch.scheduler.
 planner.plan_cluster` with ``objective="count"``).  A ``goodput_curves``
 hook — the marginal-goodput objective's curve source — raises, naming
 ROADMAP.md queue 1 item 11; the count objective never stands in for it.
-The SLO-driven ``ServingScaler`` waits for the serving plane (item 8).
+
+:class:`ServingScaler` is the serving policy: it dials a ``ServingJob``'s
+replica count on p99-vs-SLO and per-replica throughput, fires the fleet's
+prewarm hint before it actuates, and records each fleet's measured
+(replicas → qps) points into the job's goodput curve in coordinator KV.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 import queue
 import threading
 import time
@@ -30,7 +35,9 @@ from typing import Callable, Optional
 
 from edl_tpu_torch.api.types import TrainingJob
 from edl_tpu_torch.cluster.base import Cluster
+from edl_tpu_torch.observability import calib
 from edl_tpu_torch.observability.collector import get_counters
+from edl_tpu_torch.observability.goodput import CurveStore
 from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import get_registry
 from edl_tpu_torch.scheduler.planner import PlannedJob, plan_cluster
@@ -355,3 +362,357 @@ class Autoscaler:
                 except Exception as exc:
                     log.warn("error updating trainer group", job=uid,
                              error=str(exc), remaining_retry=UPDATE_RETRIES - retry - 1)
+
+
+# -- serving: SLO-driven replica scaling -------------------------------------
+
+
+class ServingScaler:
+    """The serving policy: scale replica counts on p99-vs-SLO and
+    per-replica throughput instead of trainer load.
+
+    Where :class:`Autoscaler` packs trainer counts against cluster
+    capacity, a serving fleet defends a LATENCY objective: the windowed
+    p99 crossing ``slo_p99_ms`` (or QPS exceeding the per-replica
+    target) grows the fleet immediately; sustained headroom shrinks it
+    after a cooldown.  Scale-ups fire :attr:`hint_sink` BEFORE
+    actuation — the same head start the training prewarm pipeline gets:
+    the new replica builds and warms up while the pod is still being
+    created, so the ready gate opens (and traffic shifts) with the build
+    already paid.
+
+    ``stats_for(uid)`` supplies the signal — a
+    :class:`~edl_tpu_torch.runtime.serving.FleetStats`-shaped object
+    (windowed p50/p99/qps/queue depth), such as the in-process
+    ``fleet.stats``; the scrape plane's ``FleetView`` and the goodput
+    planner's train+serve arbitration wait for ROADMAP.md queue 1 item 11.
+    ``actuate(uid, n)`` applies the plan; when None, the cluster's
+    replica-group dial (``update_trainer_parallelism`` — the group dial
+    is workload-agnostic) is used with the same bounded retries the
+    trainer path gets.  Deterministic like Autoscaler: :meth:`tick` runs
+    one pass; :meth:`run` wraps it for production.
+    """
+
+    def __init__(
+        self,
+        cluster: Optional[Cluster] = None,
+        stats_for: Optional[Callable[[str], object]] = None,
+        actuate: Optional[Callable[[str, int], None]] = None,
+        loop_seconds: float = 2.0,
+        scale_down_cooldown_s: float = 30.0,
+        scale_up_cooldown_s: float = 2.0,
+        shrink_headroom: float = 0.3,
+        coord_for: Optional[Callable[[object], object]] = None,
+        clock=time.monotonic,
+    ) -> None:
+        self.cluster = cluster
+        self.stats_for = stats_for
+        self.actuate = actuate
+        #: optional ``coord_for(job) -> kv-client | None``: when set,
+        #: every observed tick RECORDS the fleet's (replica_count → qps)
+        #: point into the job's goodput :class:`CurveStore`
+        #: (``goodput-curve/<job>`` in coordinator KV) — so serving jobs
+        #: arrive at the goodput planner with a real measured
+        #: QPS-capacity curve, not just the optimistic prior
+        self.coord_for = coord_for
+        self._curve_stores: dict[str, object] = {}
+        self.loop_seconds = loop_seconds
+        #: a shrink must wait this long after ANY scaling action — p99
+        #: recovers slowly after a resize and a premature shrink would
+        #: oscillate; scale-UPS take only the short up-cooldown (an SLO
+        #: breach is an emergency, flapping protection still applies)
+        self.scale_down_cooldown_s = scale_down_cooldown_s
+        self.scale_up_cooldown_s = scale_up_cooldown_s
+        #: shrink only while p99 is under this fraction of the SLO (and
+        #: the queue is empty) — the hysteresis band between "breach ⇒
+        #: grow" and "idle ⇒ shrink"
+        self.shrink_headroom = shrink_headroom
+        self._clock = clock
+        self.jobs: dict[str, object] = {}  # uid → ServingJob
+        self._last_change: dict[str, float] = {}
+        self._targets: dict[str, int] = {}
+        self.plan_history: list[dict] = []
+        #: uid → the last plan's post-scale PREDICTION ({target, t,
+        #: pred_qps, pred_p99}), resolved against the realized window
+        #: once the fleet has settled at the target (calibration plane)
+        self._pending_calib: dict[str, dict] = {}
+        #: how long after a plan the fleet must sit at the target before
+        #: its window counts as the plan's realized outcome (p99 windows
+        #: need post-resize requests, not the breach that triggered it)
+        self.calib_settle_s = 2 * loop_seconds
+        #: fires (uid, target_replicas) the moment a plan is decided,
+        #: BEFORE actuation — wire to ServingFleet.hint (in-process) or
+        #: to whatever warms pods in a deployment.  Exceptions are
+        #: swallowed: hints are an optimization, never a dependency.
+        self.hint_sink: Optional[Callable[[str, int], None]] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- registry ----------------------------------------------------------
+
+    def on_add(self, job) -> None:
+        self.jobs[job.full_name] = job
+        self._targets.setdefault(job.full_name, job.spec.min_replicas)
+
+    def on_update(self, job) -> None:
+        self.jobs[job.full_name] = job
+
+    def on_del(self, job) -> None:
+        self.jobs.pop(job.full_name, None)
+        self._last_change.pop(job.full_name, None)
+        self._targets.pop(job.full_name, None)
+        self._curve_stores.pop(job.full_name, None)
+        self._pending_calib.pop(job.full_name, None)
+        get_registry().gauge("serving_target_replicas").remove(
+            job=job.full_name)
+
+    # -- the policy --------------------------------------------------------
+
+    def decide(self, job, stats, current: int) -> Optional[int]:
+        """Pure policy: (spec, windowed stats, current replicas) → new
+        target, or None to hold.  Grow on an SLO p99 breach or QPS above
+        the per-replica target (queue pressure adds replicas
+        proportionally, not one-at-a-time — a traffic step function
+        should converge in one or two plans); shrink one step at a time
+        inside the headroom band."""
+        s = job.spec
+        lo, hi = job.group_range()
+        current = max(int(current), 1)
+        # no window yet (cold fleet, idle service): nothing to decide on
+        if stats is None or stats.requests_windowed == 0:
+            return None
+        want = current
+        if s.slo_p99_ms and stats.p99_ms > s.slo_p99_ms:
+            # breach: add capacity for the queue we can see — at least
+            # one replica, more when the backlog is deep
+            backlog = stats.queue_depth / max(s.max_batch_size, 1)
+            want = current + max(1, min(int(backlog / max(current, 1)),
+                                        current))
+        ttft = getattr(stats, "ttft_p99_ms", 0.0)
+        slo_ttft = getattr(s, "slo_ttft_ms", 0.0)
+        if slo_ttft and ttft > slo_ttft:
+            # decode fleet breaching its first-token objective: prefill
+            # is starved behind decode — same proportional response
+            backlog = stats.queue_depth / max(
+                getattr(s, "decode_slots", 1) or 1, 1)
+            want = max(want, current + max(
+                1, min(int(backlog / max(current, 1)), current)))
+        if s.target_qps_per_replica:
+            by_qps = int(math.ceil(stats.qps / s.target_qps_per_replica))
+            want = max(want, by_qps)
+        if want <= current:
+            # consider shrinking: p99 comfortably inside the SLO, no
+            # queue, and the remaining replicas could absorb the load
+            fits_after = (not s.target_qps_per_replica
+                          or stats.qps <= s.target_qps_per_replica
+                          * (current - 1))
+            ttft_ok = (not slo_ttft
+                       or ttft < slo_ttft * self.shrink_headroom)
+            if (current > lo and stats.queue_depth == 0 and fits_after
+                    and ttft_ok
+                    and (not s.slo_p99_ms
+                         or stats.p99_ms < s.slo_p99_ms
+                         * self.shrink_headroom)):
+                want = current - 1
+        want = max(lo, min(want, hi))
+        return want if want != current else None
+
+    def tick(self) -> dict[str, int]:
+        """One observe-decide-hint-actuate pass; returns actuated
+        targets."""
+        actuated: dict[str, int] = {}
+        now = self._clock()
+        for uid, job in list(self.jobs.items()):
+            stats = None
+            if self.stats_for is not None:
+                try:
+                    stats = self.stats_for(uid)
+                except Exception as exc:
+                    log.warn("serving stats source failed", job=uid,
+                             error=str(exc)[:200])
+                    continue
+            current = self._current(uid, job, stats)
+            self._record_capacity(uid, job, stats, current)
+            self._resolve_calib(uid, stats, current, now)
+            target = self.decide(job, stats, current)
+            if target is None:
+                continue
+            last = self._last_change.get(uid, -1e18)
+            cooldown = (self.scale_up_cooldown_s if target > current
+                        else self.scale_down_cooldown_s)
+            if now - last < cooldown:
+                get_counters().inc("resizes_suppressed",
+                                   reason="serving_cooldown")
+                continue
+            self._plan(uid, job, stats, current, target, now)
+            actuated[uid] = target
+        return actuated
+
+    def _record_capacity(self, uid: str, job, stats, current: int) -> None:
+        """Fold the live fleet observation into the job's goodput
+        curve: one (replica_count → fleet qps) sample per observed tick,
+        persisted under ``goodput-curve/<job>`` so the goodput planner
+        prices this fleet's chips from MEASURED capacity.  A saturated
+        fleet's curve rises ~linearly with replicas (steep marginal —
+        it outbids a flat-curve trainer); a fleet past its demand goes
+        flat (its marginal collapses and the chips flow elsewhere).
+        Best-effort: a missing coordinator or a raising store never
+        perturbs the scaling decision."""
+        if (self.coord_for is None or stats is None or current < 1
+                or stats.requests_windowed == 0
+                or getattr(stats, "qps", 0) <= 0):
+            return
+        try:
+            store = self._curve_stores.get(uid)
+            if store is None:
+                coord = self.coord_for(job)
+                if coord is None:
+                    return
+                store = CurveStore(coord, uid)
+                # seed from the persisted curve: CurveStore's local
+                # curve is the authoritative copy it republishes WHOLE
+                # on every record — a fresh store after a controller
+                # restart must not clobber the fleet's accumulated
+                # multi-point curve with a single new cell
+                persisted = store.load()
+                if persisted is not None:
+                    store.curve = persisted
+                self._curve_stores[uid] = store
+            # recency-bounded fold (~1 min of ticks): the capacity curve
+            # must track a traffic step, not freeze into a lifetime
+            # demand average the planner can never re-price from
+            store.record(current, stats.qps, shape="serving",
+                         max_samples=30)
+        except Exception as exc:
+            log.warn("serving capacity curve record failed", job=uid,
+                     error=str(exc)[:200])
+
+    def _resolve_calib(self, uid: str, stats, current: int,
+                       now: float) -> None:
+        """Close the loop on the last plan's prediction: once the fleet
+        has SETTLED at the planned target (settle window elapsed, a
+        realized request window exists), pair the plan's predicted
+        post-scale qps/p99 with what the window measured.  A superseded
+        or never-reached target resolves to nothing — a prediction
+        scored against a different fleet size calibrates nothing."""
+        pend = self._pending_calib.get(uid)
+        if pend is None or stats is None:
+            return
+        age = now - pend["t"]
+        if age < self.calib_settle_s:
+            return
+        if current != pend["target"] or age > 20 * self.calib_settle_s:
+            self._pending_calib.pop(uid, None)
+            return
+        if stats.requests_windowed == 0:
+            return  # settled but idle: keep waiting for a real window
+        if pend.get("pred_qps"):
+            calib.record("serving_scale_qps", pend["pred_qps"],
+                         getattr(stats, "qps", 0.0), unit="qps", job=uid)
+        if pend.get("pred_p99"):
+            calib.record("serving_scale_p99", pend["pred_p99"],
+                         getattr(stats, "p99_ms", 0.0), unit="ms",
+                         job=uid)
+        self._pending_calib.pop(uid, None)
+
+    def _current(self, uid: str, job, stats) -> int:
+        if stats is not None and getattr(stats, "replicas_active", 0):
+            return stats.replicas_active
+        if self.cluster is not None:
+            try:
+                return self.cluster.get_trainer_parallelism(job)
+            except Exception:
+                pass
+        return self._targets.get(uid, job.spec.min_replicas)
+
+    def _plan(self, uid: str, job, stats, current: int, target: int,
+              now: float) -> None:
+        direction = "up" if target > current else "down"
+        log.info("serving scaling plan", job=uid, replicas=current,
+                 target=target, direction=direction,
+                 p99_ms=getattr(stats, "p99_ms", None),
+                 qps=getattr(stats, "qps", None),
+                 queue=getattr(stats, "queue_depth", None),
+                 slo_p99_ms=job.spec.slo_p99_ms)
+        self.plan_history.append({
+            "job": uid, "from": current, "target": target,
+            "p99_ms": getattr(stats, "p99_ms", None),
+            "qps": getattr(stats, "qps", None)})
+        # calibration: stash what this plan PREDICTS the post-scale
+        # window looks like.  Post-scale qps: the measured capacity
+        # curve at the target when growing into known capacity, else
+        # demand carryover (a resize does not change offered load).
+        # Post-scale p99: the SLO the plan promises to restore (that IS
+        # the scaler's latency model).  Resolved by _resolve_calib.
+        pred_qps = None
+        store = self._curve_stores.get(uid)
+        if store is not None and target > current:
+            try:
+                pred_qps = store.curve.tokens_per_second(target)
+            except Exception:
+                pred_qps = None
+        if not pred_qps:
+            pred_qps = getattr(stats, "qps", None)
+        self._pending_calib[uid] = {
+            "target": target, "t": now, "pred_qps": pred_qps,
+            "pred_p99": job.spec.slo_p99_ms or None}
+        get_counters().inc("autoscaler_serving_plans", direction=direction)
+        get_registry().gauge(
+            "serving_target_replicas",
+            help="the serving policy's current replica target"
+        ).set(target, job=uid)
+        if self.hint_sink is not None and target > current:
+            # hint BEFORE actuation: the plan is the earliest moment the
+            # new replica count is known — every millisecond of head
+            # start is serve-step compile time off the traffic path
+            try:
+                self.hint_sink(uid, target)
+            except Exception as exc:
+                log.warn("serving prewarm hint sink failed", job=uid,
+                         error=str(exc)[:200])
+        self._targets[uid] = target
+        self._last_change[uid] = now
+        if self.actuate is not None:
+            try:
+                self.actuate(uid, target)
+            except Exception as exc:
+                log.warn("serving actuation failed", job=uid,
+                         error=str(exc)[:200])
+            return
+        if self.cluster is not None:
+            for retry in range(UPDATE_RETRIES):
+                try:
+                    self.cluster.update_trainer_parallelism(job, target)
+                    break
+                except Exception as exc:
+                    log.warn("error updating server group", job=uid,
+                             error=str(exc),
+                             remaining_retry=UPDATE_RETRIES - retry - 1)
+
+    # -- loop --------------------------------------------------------------
+
+    def run(self) -> None:
+        while not self._stop.is_set():
+            self.tick()
+            self._stop.wait(self.loop_seconds)
+
+    def start(self) -> None:
+        self.register_metrics()
+        self._thread = threading.Thread(target=self.run, daemon=True,
+                                        name="serving-scaler")
+        self._thread.start()
+
+    def register_metrics(self, registry=None) -> None:
+        if registry is None:
+            registry = get_registry()
+        registry.gauge_fn("serving_jobs_tracked",
+                          lambda: len(self.jobs),
+                          help="serving jobs under SLO autoscaling")
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def is_alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()

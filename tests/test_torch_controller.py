@@ -2,8 +2,10 @@
 edl_tpu_torch.api.validation): tests/test_controller.py's training-job
 scenarios run on the JAX package and on the port alike (``pkg``), each with
 the reference's assertions, the two held equal where a scenario is
-deterministic.  The serving half (``ServingJob``, its SLO scaler, the
-scrape plane, the goodput objective) raises, naming its ROADMAP item.
+deterministic.  The serving job's scenarios are in
+tests/test_torch_serving_control.py; what of the serving half is not ported
+(the scrape plane, the goodput objective, replicas wider than one card, the
+async front door) raises, naming its ROADMAP item.
 
 All timers are shrunk so the actor loops run at test speed; phases are
 polled with deadlines rather than sleeps.
@@ -106,19 +108,35 @@ def test_defaults_and_validation_match_the_reference():
 
 
 def test_a_serving_job_raises_naming_its_item():
-    serving = jtypes.ServingJob(name="s")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tvalidation.validate_any(serving)
+    """A serving job passes the gate and every controller verb; what of
+    its plane is not ported raises, naming its item: a replica wider than
+    one card (item 12) and the async front door (item 8)."""
+    import numpy as np
+
+    from edl_tpu_torch.models import mlp
+    from edl_tpu_torch.runtime.serving import ServingFleet, serve_main
+
+    serving = ttypes.ServingJob(name="s")
+    tvalidation.validate_any(serving)
+    assert serving.port == ttypes.DEFAULT_SERVING_PORT
     c = TorchCluster()
     ctl = TorchController(c)
-    for verb in (ctl.submit, ctl.modify, ctl.delete):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            verb(serving)
-    ctl.stop()
+    try:
+        ctl.submit(serving)
+        ctl.modify(serving)
+        ctl.delete(serving)
+    finally:
+        ctl.stop()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ServingFleet(lambda p, b: mlp.apply(p, b[0]),
+                     mlp.MLP([4, 2], device="cpu"),
+                     example_row=(np.zeros(4, np.float32),),
+                     chips_per_replica=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        serve_main({"EDL_SERVING_MODEL_DIR": "/nonexistent"}, device="cpu")
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(serving_stats_for=lambda uid: None), "item 8"),
     (dict(scraper=object()), "item 11"),
     (dict(goodput_curves=lambda uid: None), "item 11"),
 ])

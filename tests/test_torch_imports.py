@@ -69,7 +69,19 @@ MULTI_PROCESS = ("edl_tpu_torch.coord.bindings", "edl_tpu_torch.coord.client",
                  "edl_tpu_torch.observability.goodput")
 
 
-@pytest.mark.parametrize("module", CONTROL_PLANE + MULTI_PROCESS)
+#: the single-shot serving plane and its control loop: the fleet and
+#: serve_main, the SLO scaler, the health and address-publishing halves
+#: of observability, the goodput curves, the identity optimizer
+SERVING = ("edl_tpu_torch.runtime.serving",
+           "edl_tpu_torch.scheduler.autoscaler",
+           "edl_tpu_torch.observability.health",
+           "edl_tpu_torch.observability.scrape",
+           "edl_tpu_torch.observability.goodput",
+           "edl_tpu_torch.observability.metrics",
+           "edl_tpu_torch.runtime.optim", "edl_tpu_torch.entry")
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE + MULTI_PROCESS + SERVING)
 def test_the_control_plane_modules_are_covered(module):
     assert module in set(_port_modules())
 

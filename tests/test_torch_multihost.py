@@ -186,12 +186,107 @@ class TestPlanningParity:
         assert sorted(os.listdir(tmp_path)) == [
             "gen-3.npz", "gen-4.npz", "store-3-abcd1234", "store-4-abcd1234"]
 
-    def test_metrics_endpoint_waits_for_its_item(self, tmp_path):
-        with pytest.raises(ValueError, match="item 11"):
-            mh.run_elastic_worker(
-                PyCoordService(), "w", init_state=None, train_world=None,
-                save_state=None, load_state=None, ckpt_dir=str(tmp_path),
-                metrics_port=0)
+    @pytest.mark.timeout_s(180)
+    def test_metrics_endpoint_serves_health_and_publishes_its_address(
+            self, tmp_path, monkeypatch):
+        """A supervisor run in this process (the MLP task, one world
+        child on the CPU) with ``metrics_port=0`` answers /healthz 200
+        while its world steps, 503 while the world's stall watchdog is
+        wedged (its ``world_progress`` check times out), publishes its
+        address in the coordinator's KV for the run, and takes it down at
+        exit."""
+        import functools
+        import json
+        import urllib.error
+        import urllib.request
+
+        from edl_tpu_torch.coord.client import CoordClient
+        from edl_tpu_torch.coord.server import spawn_server
+        from edl_tpu_torch.observability.scrape import parse_addr_value
+        from edl_tpu_torch.runtime import watchdog
+        from edl_tpu_torch.runtime.data import ShardRegistry, ensure_seeded
+
+        watchdogs: list = []
+
+        class Recorded(watchdog.StallWatchdog):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                watchdogs.append(self)
+
+        monkeypatch.setattr(watchdog, "StallWatchdog", Recorded)
+        monkeypatch.setenv("EDL_MH_STEP_SLEEP", "0.05")
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        handle = spawn_server(member_ttl_ms=3000, task_timeout_ms=5000)
+        coord = CoordClient("127.0.0.1", handle.port)
+        task = mw.MlpTask()
+        registry = ShardRegistry()
+        ids = registry.register_arrays(task.make_dataset(), 16)
+        ensure_seeded(coord, "w0", lambda beat: registry.enqueue(coord, ids))
+        out: dict = {}
+
+        def run():
+            try:
+                out["outcome"] = mh.run_elastic_worker(
+                    coord, "w0",
+                    init_state=functools.partial(mw.init_state, task,
+                                                 "cpu", "replicated"),
+                    train_world=functools.partial(
+                        mw.train_world, coord=coord, name="w0",
+                        registry=registry, verbose=False, task=task,
+                        ckpt_dir=str(tmp_path)),
+                    save_state=functools.partial(mw.save_state, name="w0"),
+                    load_state=mw.load_state, ckpt_dir=str(tmp_path),
+                    settle_s=0.1, warm_spawn=False, stall_floor_s=60.0,
+                    metrics_port=0, device="cpu")
+            except BaseException as exc:  # surfaced by the assertions
+                out["error"] = exc
+
+        def health(port):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        def wait(pred, timeout_s=90.0):
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline and "error" not in out:
+                if pred():
+                    return True
+                time.sleep(0.05)
+            return pred()
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        try:
+            addr_file = tmp_path / "metrics-addr-w0"
+            assert wait(addr_file.exists), out
+            port = int(addr_file.read_text().rpartition(":")[2])
+            # the world steps: its heartbeat file is written every step
+            assert wait(lambda: watchdogs and (tmp_path / "hb-w0").exists()
+                        and watchdogs[-1]._last_step >= 0), out
+            code, doc = health(port)
+            assert code == 200, doc
+            assert doc["supervisor"] is True and doc["world_progress"] is True
+            addr, expired = parse_addr_value(coord.kv_get("metrics-addr-w0"))
+            assert addr.endswith(f":{port}") and not expired
+            # wedge the live world's watchdog: its verdict cannot be read
+            with watchdogs[-1]._lock:
+                code, doc = health(port)
+            assert code == 503, doc
+            assert doc["world_progress"] is False
+            assert doc["checks"]["world_progress"]["timed_out"] is True
+            assert doc["supervisor"] is True
+            assert wait(lambda: health(port)[0] == 200, 30)
+        finally:
+            th.join(120)
+            coord_kv = coord.kv_get("metrics-addr-w0")
+            coord.close()
+            handle.stop()
+        assert "error" not in out, out
+        assert out["outcome"].step > 0
+        assert coord_kv is None  # deleted at exit
 
     def test_numpy_tree_round_trips_with_and_without_a_template(
             self, tmp_path):

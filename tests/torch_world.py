@@ -2555,6 +2555,60 @@ def suite_controlled_four(rank: int, world: int, store: str,
                            if fn.__name__ in names], rank)
 
 
+# -- the single-shot serving suite --------------------------------------------
+
+
+def _mlp_apply(model, batch):
+    return mlp.apply(model, batch[0])
+
+
+def suite_serving(rank: int, world: int, store: str, mlp_params: dict,
+                  mlp_params2: dict, batch: np.ndarray) -> dict:
+    """Two ranks: an ``ElasticServer`` on the MLP holding ``mlp_params``
+    (a JAX numpy tree), replicated and fsdp, serves ``batch`` on a world
+    of 1 (rank 1 standing by), resizes to 2 and serves it again; the fsdp
+    server then takes ``mlp_params2`` through ``load_params`` and serves,
+    and its ``params_host`` (collective) gives the whole weights.  Each
+    rank returns what it served (None standing by)."""
+    from edl_tpu_torch.runtime.serving import ElasticServer
+
+    _join(rank, world, store)
+
+    def module(params):
+        return interop.params_from_numpy(
+            mlp.MLP([16, 32, 4], device="cpu"), params)
+
+    def served(srv):
+        out = srv.serve((batch,))
+        return None if out is None else out.numpy().copy()
+
+    def run(kind: str, spec: MeshSpec) -> dict:
+        srv = ElasticServer(_mlp_apply, module(mlp_params),
+                            devices=[torch.device("cpu")],
+                            initial_world_size=1, param_sharding=kind,
+                            spec=spec)
+        srv.warmup((batch,))
+        one = served(srv)
+        resized = srv.resize(2)
+        out = dict(world1=one, resized=resized, world=srv.world_size,
+                   world2=served(srv), forwards=srv.forwards)
+        if kind == "fsdp":
+            srv.load_params(module(mlp_params2))
+            out["reloaded"] = served(srv)
+            host = srv.params_host()
+            out["host"] = {n: p.detach().numpy().copy()
+                           for n, p in host.named_parameters()}
+        return out
+
+    def replicated(rank):
+        return run("replicated", MeshSpec(dp=-1))
+
+    def fsdp(rank):
+        return run("fsdp", FSDP)
+
+    return _run_scenarios([replicated, fsdp], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
@@ -2563,4 +2617,5 @@ SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "bert_tp_two": suite_bert_tp_two,
           "bert_tp_eight": suite_bert_tp_eight, "local": suite_local,
           "local_four": suite_local_four, "controlled": suite_controlled,
-          "controlled_four": suite_controlled_four}
+          "controlled_four": suite_controlled_four,
+          "serving": suite_serving}
