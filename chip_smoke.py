@@ -283,13 +283,43 @@ Phases, each of which raises on failure:
     a subprocess on the card (``mlp:16,64,4``, the legacy front door, a
     lineage watched every 0.5 s): ``/healthz`` 200, 64 ``/predict`` rows
     equal to the plain MLP within 1e-5, generation 2's answers within
-    ``SERVE_MAIN_PICKUP_S`` of its save, and exit 0 on SIGTERM.
+    ``SERVE_MAIN_PICKUP_S`` of its save, and exit 0 on SIGTERM;
+(v) the serving data plane: the port's native coordinator, two replica
+    processes of ``entry.flagship_frontdoor_replica`` on the card
+    (FLAGSHIP at 8 layers, batches of ``FD_BATCH``, seed-0 weights as
+    generation 1), each behind a ``ChaosProxy`` whose address it publishes
+    to ``serving-addr/<job>/``, and a ``ServingLB`` discovering them; the
+    clients are ``FD_CLIENTS`` keep-alive connections pipelining raw-f32
+    rows of 1 024 token ids, every answer held by (d)'s rule to its row's
+    plain-path logits on generation 1 or 2.  Windows: the capacity C
+    through the LB (closed loop), one door alone at C/4, steady at C/2,
+    a reload (generation 2 from a lineage, ``POST /admin/reload`` to r0,
+    routed around), the five serving fault kinds of
+    ``FaultPlan.random(FD_CHAOS_SEED, kinds=SERVING_KINDS)`` through the
+    proxies (the gray in its corrupt mode: wrong-nonce echoes with garbage
+    bodies), and r1 SIGKILLed (rescued onto r0), all at C/2.  Gates: no
+    wrong payload; errors at most ``FD_ERROR_SHARE`` of the chaos window
+    and none in the others; each kind injected and recovered once; the
+    LB's nonce check caught at least one corrupt answer; each breaker
+    closed → open → half-open → closed; 8 flash forward launches a
+    forward in each replica (r1's read idle before the kill window; its
+    launches up to the SIGKILL are what the kernels line counts), no
+    backward; sampled answers of each
+    generation straight from a door within (d)'s rule, another row's
+    failing it.  While the replicas build: ``/generate`` over one socket
+    to a ``FleetApp`` on ``flagship_decode_fleet`` (8 sessions, tokens
+    equal to the same fleet's undisturbed greedy tokens, no session
+    failed), and ``serve_main`` on its async front door (u-2's drill with
+    rows also pipelined over one socket).  Prints C, p50/p99 a window
+    through the LB and through the door alone, hedges, rescues and sheds,
+    each replica's build and ready seconds, and the reload's ms.
 
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after ((s)'s world children are fresh processes, each counting from 0).  Each kernel is held to the element-wise rule of
+after ((s)'s world children and (v)'s replicas are fresh processes, each
+counting from 0).  Each kernel is held to the element-wise rule of
 ``edl_tpu_torch/ops/kernel_check.py``; ``python -m
 edl_tpu_torch.ops.kernel_check`` shows that faults planted in the kernels
 fail it.
@@ -301,19 +331,26 @@ there is no CUDA device.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
+import random
+import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -338,9 +375,10 @@ from edl_tpu_torch.runtime import checkpoint as ckpt
 from edl_tpu_torch.runtime import serving
 from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
 from edl_tpu_torch.runtime.elastic import AccumulationAborted
-from edl_tpu_torch.runtime.faults import (TRAINING_KINDS, CorruptGradient,
-                                          FaultContext, FaultPlan,
-                                          FaultPlanEngine, PoisonLoss)
+from edl_tpu_torch.runtime.faults import (SERVING_KINDS, TRAINING_KINDS,
+                                          CorruptGradient, FaultContext,
+                                          FaultPlan, FaultPlanEngine,
+                                          PoisonLoss)
 from edl_tpu_torch.runtime import sdc
 from edl_tpu_torch.observability.tracing import get_tracer
 from edl_tpu_torch.runtime.kvcache import KVBlockPool
@@ -516,6 +554,35 @@ SCORE_SAMPLES = 8
 SERVE_MAIN_MODEL, SERVE_MAIN_ROWS = (16, 64, 4), 64
 SERVE_MAIN_POLL_S, SERVE_MAIN_PICKUP_S = 0.5, 5.0
 SERVE_MAIN_TIMEOUT_S = 120
+#: phase (v): the data plane's job, its two replica processes, their batch,
+#: the load's keep-alive connections and closed-loop depth a connection,
+#: the client rows (their plain-path answers are computed for both
+#: generations, so every answer is checked), the seconds of the capacity,
+#: door-alone and steady windows, the reload and kill windows and when in
+#: them the event fires, the serving chaos plan (steps are deciseconds of
+#: the window) with its deadline and error budget, the /generate sessions,
+#: the sampled answers a generation, the replicas' start deadline, and the
+#: LB's settings (the serving soak's breaker, but tripped by 2 errors in a
+#: row, so that a partition or a connection flap on one replica trips it as
+#: a gray replica trips the other's; a 5 s request timeout)
+FD_JOB = "default/flagship-frontdoor"
+FD_REPLICAS = ("r0", "r1")
+FD_BATCH = 8  # flagship_frontdoor_replica's max_batch
+FD_CLIENTS, FD_DEPTH = 4, 8
+FD_ROWS = 64
+FD_CAPACITY_S, FD_WINDOW_S = 2.0, 2.0
+FD_RELOAD_S, FD_RELOAD_AT_S = 4.0, 1.0
+FD_KILL_S, FD_KILL_AT_S = 3.0, 1.0
+FD_CHAOS_SEED, FD_CHAOS_TIMEOUT_S, FD_ERROR_SHARE = 7, 30.0, 0.15
+FD_CHAOS_PLAN = dict(n_faults=5, first_step=5, last_step=45, min_gap=8,
+                     flake_duration_s=0.8)
+FD_GEN_SESSIONS, FD_GEN_PROMPT, FD_GEN_NEW = 8, 64, 16
+FD_SAMPLES = 8
+FD_READY_TIMEOUT_S = 240
+FD_LB = dict(pool=2, discovery_s=0.1, sweep_ms=3.0, hedge_floor_ms=25.0,
+             hedge_cap_ms=250.0, request_timeout_s=5.0, breaker_errors=2,
+             breaker_ratio=0.5, breaker_min=10, breaker_window_s=0.5,
+             breaker_cooldown_s=0.3, breaker_probes=1)
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -3551,11 +3618,12 @@ def closed_loop_capacity(fleet, rows: np.ndarray, seconds: float) -> float:
     return served / elapsed
 
 
-def scoring_check(answers: dict, refs: dict, rows_of: dict) -> None:
-    """(u): each generation's sampled answers against the plain attention
-    path's last-token logits of their rows on that generation, by (d)'s
-    rule; the control (each answer against another row's reference) must
-    fail it."""
+def scoring_check(answers: dict, refs: dict, rows_of: dict,
+                  phase: str = "u") -> None:
+    """(u), (v): each generation's sampled answers against the plain
+    attention path's last-token logits of their rows on that generation,
+    by (d)'s rule; the control (each answer against another row's
+    reference) must fail it."""
     for gen, got in answers.items():
         ref = refs[gen]
         got = torch.from_numpy(np.stack(got)).to(ref.device)
@@ -3569,19 +3637,21 @@ def scoring_check(answers: dict, refs: dict, rows_of: dict) -> None:
               f"{c['worst']:.3f} of it ({c['need_atol']:.4f} rms)",
               flush=True)
         if not r["worst"] <= 1.0:
-            raise AssertionError(f"phase (u): generation {gen}'s answers "
-                                 "off the plain path")
+            raise AssertionError(f"phase ({phase}): generation {gen}'s "
+                                 "answers off the plain path")
         if c["worst"] <= 1.0:
-            raise AssertionError("phase (u): the scoring check passes its "
-                                 "control")
+            raise AssertionError(f"phase ({phase}): the scoring check "
+                                 "passes its control")
 
 
-def serve_main_drill(card: str, device: str = "cuda") -> dict:
-    """(u-2): ``python -m edl_tpu_torch.runtime.serving`` over a lineage
-    holding generation 1 of the MLP SERVE_MAIN_MODEL (seed 0), on the
-    legacy front door: /healthz, SERVE_MAIN_ROWS rows against the plain
-    MLP, generation 2 (seed 1) saved and picked up, SIGTERM."""
-    import urllib.request
+def serve_main_drill(card: str, device: str = "cuda",
+                     frontdoor: str = "legacy") -> dict:
+    """(u-2), and (v-3) with ``frontdoor="async"``: ``python -m
+    edl_tpu_torch.runtime.serving`` over a lineage holding generation 1 of
+    the MLP SERVE_MAIN_MODEL (seed 0), on the given front door: /healthz,
+    SERVE_MAIN_ROWS rows against the plain MLP (on the async door also
+    pipelined over one socket, JSON and raw f32 in turn, answered in
+    order), generation 2 (seed 1) saved and picked up, SIGTERM."""
 
     from edl_tpu_torch.models import mlp
 
@@ -3593,7 +3663,7 @@ def serve_main_drill(card: str, device: str = "cuda") -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, EDL_SERVING_MODEL_DIR=os.path.join(tmp, "lineage"),
                EDL_SERVING_MODEL="mlp:" + ",".join(map(str, sizes)),
-               EDL_SERVING_FRONTDOOR="legacy", EDL_SERVING_PORT="0",
+               EDL_SERVING_FRONTDOOR=frontdoor, EDL_SERVING_PORT="0",
                EDL_HEALTH_PORT="-1",
                EDL_SERVING_RELOAD_POLL_S=str(SERVE_MAIN_POLL_S),
                PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -3653,6 +3723,8 @@ def serve_main_drill(card: str, device: str = "cuda") -> dict:
         if health != 200:
             raise AssertionError(f"phase (u-2): /healthz {health}")
         err1 = answers(port, 1)
+        if frontdoor == "async":
+            err1 = max(err1, pipelined_answers(port, rows, want[1]))
         t_save = time.perf_counter()
         ck.save(2, {"params": gens[2]})
         saved = time.perf_counter()
@@ -3680,7 +3752,8 @@ def serve_main_drill(card: str, device: str = "cuda") -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out = dict(ready_s=ready_s, err1=err1, err2=err2,
                save_s=saved - t_save, pickup_s=pickup)
-    print(f"serve_main mlp:{','.join(map(str, sizes))} on {device}: ready "
+    print(f"serve_main mlp:{','.join(map(str, sizes))} on {device} "
+          f"({frontdoor} front door): ready "
           f"in {ready_s:.2f} s, /healthz 200, {SERVE_MAIN_ROWS} rows of "
           f"generation 1 max |diff| {err1:.3e} vs the plain MLP; "
           f"generation 2 saved in {out['save_s']:.3f} s and served "
@@ -3688,6 +3761,38 @@ def serve_main_drill(card: str, device: str = "cuda") -> dict:
           f"{SERVE_MAIN_ROWS} rows max |diff| {err2:.3e}; SIGTERM exit 0 "
           f"on {card}", flush=True)
     return out
+
+
+def pipelined_answers(port: int, rows: np.ndarray, want: np.ndarray
+                      ) -> float:
+    """(v-3): every row pipelined over ONE socket, JSON and raw f32 in
+    turn; the answers must come back in order, each within 1e-5 of the
+    plain MLP.  Returns the largest difference."""
+    from edl_tpu_torch.runtime.frontdoor import build_predict_request
+
+    blob = b""
+    for i, row in enumerate(rows):
+        if i % 2:
+            body = json.dumps({"inputs": row.tolist()}).encode()
+            blob += (b"POST /predict HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(body)) + body
+        else:
+            blob += build_predict_request(row)
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+        sock.sendall(blob)
+        reader = WireReader(sock)
+        worst = 0.0
+        for i, w in enumerate(want):
+            status, head, body = reader.next(timeout=30)
+            got = (np.asarray(json.loads(body)["outputs"], np.float32)
+                   if i % 2 else np.frombuffer(body, "<f4"))
+            if status != 200 or not np.allclose(got, w, rtol=1e-5,
+                                                atol=1e-5):
+                raise AssertionError(f"phase (v-3): pipelined row {i} "
+                                     f"answered {status} {got} for {w}")
+            worst = max(worst, float(np.abs(got - w).max()))
+    return worst
 
 
 def phase_serving_plane(card: str, cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
@@ -3937,6 +4042,749 @@ def phase_serving_plane(card: str, cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                 serve_main=main_drill)
 
 
+# -- phase (v): the serving data plane ---------------------------------------
+
+
+class WireReader:
+    """Incremental HTTP/1.1 response reader over one socket: a bytearray
+    consumed by offset, so a deep pipeline of 64 KiB answers is not
+    re-copied per answer."""
+
+    def __init__(self, sock: socket.socket) -> None:
+        self.sock = sock
+        self.buf = bytearray()
+        self.pos = 0
+
+    def next(self, timeout: float = 30.0) -> tuple[int, bytes, bytes]:
+        self.sock.settimeout(timeout)
+        while True:
+            idx = self.buf.find(b"\r\n\r\n", self.pos)
+            if idx >= 0:
+                head = bytes(self.buf[self.pos:idx + 4])
+                m = re.search(rb"\r\n[Cc]ontent-[Ll]ength: (\d+)", head)
+                end = idx + 4 + (int(m.group(1)) if m else 0)
+                if len(self.buf) >= end:
+                    body = bytes(self.buf[idx + 4:end])
+                    self.pos = end
+                    if self.pos > (1 << 20):
+                        del self.buf[:self.pos]
+                        self.pos = 0
+                    return int(head.split(b" ", 2)[1]), head, body
+            chunk = self.sock.recv(1 << 20)
+            if not chunk:
+                raise ConnectionError("connection closed")
+            self.buf += chunk
+
+
+def http_call(port: int, method: str, path: str, body: bytes = b"",
+              timeout: float = 30.0) -> tuple[int, bytes]:
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        s.sendall(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        status, _head, out = WireReader(s).next(timeout)
+    return status, out
+
+
+def scrape(port: int) -> dict:
+    """A replica child's ``/metrics``: its flash launches by kernel, its
+    forwards (the warm-up's included) and the generation it serves."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        text = r.read().decode()
+    out = {"launches": {k: 0 for k in FLASH}}
+    for line in text.splitlines():
+        m = re.match(r'edl_flash_launches_total\{kernel="(\w+)"\} (\d+)',
+                     line)
+        if m:
+            out["launches"][m.group(1)] = int(m.group(2))
+        for name in ("frontdoor_forwards_total", "frontdoor_generation"):
+            if line.startswith(f"edl_{name} "):
+                out[name.split("_")[1]] = int(float(line.split()[1]))
+    return out
+
+
+class AnswerCheck:
+    """Holds an answer against its row's plain-path logits on each
+    generation, by (d)'s rule: which generation it matches, or wrong."""
+
+    def __init__(self, refs: dict) -> None:
+        self.refs = refs  # generation -> [rows, vocab] fp32 numpy
+        self.atol = {g: MODEL_ATOL * np.sqrt(np.square(r).mean(axis=1))
+                     for g, r in refs.items()}
+
+    def __call__(self, row: int, body: bytes) -> str:
+        got = np.frombuffer(body, "<f4")
+        for gen, ref in self.refs.items():
+            want = ref[row]
+            if got.shape == want.shape and np.all(
+                    np.abs(got - want)
+                    <= kc.BF16_RTOL * np.abs(want) + self.atol[gen][row]):
+                return f"gen{gen}"
+        return "wrong"
+
+
+class LoadClient:
+    """One keep-alive connection pipelining raw-f32 rows of token ids: a
+    sender (closed loop at a fixed depth, or open loop at Poisson times)
+    and a receiver that pairs answers with requests in order and holds
+    each against its row's answers."""
+
+    def __init__(self, port: int, reqs: list, check: AnswerCheck,
+                 seed: int) -> None:
+        self.port, self.reqs, self.check = port, reqs, check
+        self.rng = np.random.default_rng(seed)
+        self.results: list = []
+        self.pending: collections.deque = collections.deque()
+        self.lock = threading.Lock()
+        self.room: Optional[threading.Semaphore] = None
+        self.sock = None
+        #: one permit a request sent on the current connection
+        self.sent: Optional[threading.Semaphore] = None
+
+    def _connect(self) -> None:
+        self.sock = socket.create_connection(("127.0.0.1", self.port),
+                                             timeout=30)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.sent = threading.Semaphore(0)
+        threading.Thread(target=self._receive, args=(self.sock, self.sent),
+                         daemon=True).start()
+
+    def _receive(self, sock, sent: threading.Semaphore) -> None:
+        reader = WireReader(sock)
+        while True:
+            if not sent.acquire(timeout=0.5):
+                if sock.fileno() < 0:
+                    return
+                continue
+            with self.lock:
+                entry = self.pending[0]
+            try:
+                status, _head, body = reader.next(timeout=60)
+                verdict = (self.check(entry[0], body) if status == 200
+                           else None)
+            except (OSError, ConnectionError):
+                status, verdict = -1, None
+            with self.lock:
+                self.pending.popleft()
+                self.results.append((entry[2], status,
+                                     time.perf_counter() - entry[1],
+                                     entry[0], verdict))
+            if self.room is not None:
+                self.room.release()
+            if status == -1:
+                with self.lock:
+                    dead = list(self.pending)
+                    self.pending.clear()
+                    for e in dead:
+                        self.results.append((e[2], -1, 0.0, e[0], None))
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                if self.sock is sock:
+                    self.sock = None
+                return
+
+    def send(self, label: str) -> None:
+        if self.sock is None:
+            self._connect()
+        row = int(self.rng.integers(len(self.reqs)))
+        with self.lock:
+            self.pending.append((row, time.perf_counter(), label))
+        self.sent.release()
+        try:
+            self.sock.sendall(self.reqs[row])
+        except OSError:
+            pass  # the receiver records the connection's failure
+
+    def closed_loop(self, label: str, depth: int,
+                    stop: threading.Event) -> None:
+        self.room = threading.Semaphore(depth)
+        while not stop.is_set():
+            if self.room.acquire(timeout=0.05):
+                self.send(label)
+
+    def open_loop(self, label: str, rate: float,
+                  stop: threading.Event) -> None:
+        self.room = None
+        next_at = time.perf_counter()
+        while not stop.wait(max(next_at - time.perf_counter(), 0.0)):
+            self.send(label)
+            next_at += float(self.rng.exponential(1.0 / rate))
+
+    def drain(self, timeout_s: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self.lock:
+                if not self.pending:
+                    return
+            time.sleep(0.01)
+        raise AssertionError(f"phase (v): {len(self.pending)} requests "
+                             f"unanswered after {timeout_s} s")
+
+    def close(self) -> None:
+        if self.sock is not None:
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+
+
+def lb_counts(job: str) -> dict:
+    c = get_counters()
+    return dict(
+        hedges=c.get("lb_hedges_fired", job=job),
+        hedge_wins=c.get("lb_hedges", job=job, result="win"),
+        rescues=c.get("lb_rescues", job=job),
+        sheds=sum(c.get("lb_overload_sheds", job=job, priority=p)
+                  for p in ("high", "normal", "low")),
+        timeouts=c.get("lb_timeouts", job=job),
+        integrity_failures=c.get("lb_integrity_failures", job=job))
+
+
+def run_window(clients: list, label: str, *, job: str,
+               rate: Optional[float] = None, depth: Optional[int] = None,
+               seconds: float = 0.0, during=None) -> dict:
+    """One traffic window: every client sends (closed loop at ``depth``,
+    or open loop at ``rate`` rows/s shared among them) until ``seconds``
+    pass or ``during(t0)`` returns, then every answer is awaited.
+    Returns the window's tally and the LB's counters over it."""
+    before = lb_counts(job)
+    stop = threading.Event()
+    senders = [threading.Thread(
+        target=c.closed_loop if depth else c.open_loop,
+        args=(label, depth if depth else rate / len(clients), stop),
+        daemon=True) for c in clients]
+    t0 = time.perf_counter()
+    for t in senders:
+        t.start()
+    extra = during(t0) if during is not None else None
+    while time.perf_counter() - t0 < seconds:
+        time.sleep(0.01)
+    stop.set()
+    elapsed = time.perf_counter() - t0
+    for t in senders:
+        t.join(30)
+    for c in clients:
+        c.drain()
+    got = [r for c in clients for r in c.results if r[0] == label]
+    lats = np.sort([r[2] for r in got if r[1] == 200]) * 1e3
+    after = lb_counts(job)
+    out = dict(label=label, sent=len(got), seconds=elapsed,
+               ok=sum(r[1] == 200 for r in got),
+               shed=sum(r[1] == 429 for r in got),
+               errors=sum(r[1] not in (200, 429) for r in got),
+               wrong=sum(r[4] == "wrong" for r in got),
+               gens={g: sum(r[4] == g for r in got)
+                     for g in ("gen1", "gen2")},
+               rows_per_s=sum(r[1] == 200 for r in got) / elapsed,
+               p50_ms=float(np.percentile(lats, 50)) if len(lats) else None,
+               p99_ms=float(np.percentile(lats, 99)) if len(lats) else None,
+               max_ms=float(lats[-1]) if len(lats) else None,
+               lb={k: after[k] - before[k] for k in after}, extra=extra)
+    return out
+
+
+class SeverableKV:
+    """The LB's discovery client, with a window in which every read fails
+    as a partitioned coordinator's would (CoordPartition's hook)."""
+
+    def __init__(self, kv) -> None:
+        self.kv = kv
+        self.until = 0.0
+
+    def sever(self, seconds: float) -> None:
+        self.until = time.monotonic() + seconds
+
+    def _check(self) -> None:
+        if time.monotonic() < self.until:
+            raise OSError("coordinator partitioned (injected)")
+
+    def kv_keys(self, prefix: str = ""):
+        self._check()
+        return self.kv.kv_keys(prefix)
+
+    def kv_get(self, key: str):
+        self._check()
+        return self.kv.kv_get(key)
+
+    def close(self) -> None:
+        self.kv.close()
+
+
+def breaker_arcs(events: list, names) -> dict:
+    """Each upstream's breaker states in order (0 closed, 1 open, 2 half
+    open), repeats folded, from discovery (closed)."""
+    arcs = {n: [0] for n in names}
+    for _t, name, state in events:
+        if name in arcs and arcs[name][-1] != state:
+            arcs[name].append(state)
+    return arcs
+
+
+def completed_arc(states: list) -> bool:
+    """closed → open → half-open → closed, in that order, ending closed."""
+    want, i = [0, 1, 2, 0], 0
+    for s in states:
+        if i < len(want) and s == want[i]:
+            i += 1
+    return i == len(want) and states[-1] == 0
+
+
+def fd_wait_ready(logs: dict, procs: dict, t_spawn: float,
+                  deadline: float) -> dict:
+    """Each replica child's ready line and the seconds from the spawn to
+    it; raises with a log's tail when its child exits first (no CUDA
+    device, a failed build) or never gets ready."""
+    lines: dict = {}
+    while len(lines) < len(logs) and time.monotonic() < deadline:
+        for name, log in logs.items():
+            if name in lines:
+                continue
+            with open(log) as f:
+                got = [ln for ln in f if ln.startswith("frontdoor ready ")]
+            if got:
+                lines[name] = (got[0].strip(), time.perf_counter() - t_spawn)
+            elif procs[name].poll() is not None:
+                deadline = 0.0  # fails below with this child's log
+        time.sleep(0.05)
+    for name, log in logs.items():
+        if name not in lines:
+            with open(log) as f:
+                raise AssertionError(
+                    f"phase (v): replica {name} exit {procs[name].poll()} "
+                    f"without a ready line:\n{f.read()[-3000:]}")
+    return lines
+
+
+def door_answers(port: int, reqs: list) -> list:
+    """``reqs`` pipelined straight to one replica's door; its answers."""
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+        sock.sendall(b"".join(reqs))
+        reader = WireReader(sock)
+        out = []
+        for _ in reqs:
+            status, _head, body = reader.next()
+            if status != 200:
+                raise AssertionError(f"phase (v): door {port} answered "
+                                     f"{status}")
+            out.append(np.frombuffer(body, "<f4"))
+    return out
+
+
+def generate_drill(card: str, cfg: tfm.TransformerConfig, device: str
+                   ) -> dict:
+    """(v-2): ``FleetApp(decode_fleet=flagship_decode_fleet())`` behind a
+    ``FrontDoor``: FD_GEN_SESSIONS ``/generate`` sessions pipelined over
+    one socket, then the same prompts submitted to the fleet directly;
+    their greedy tokens must be equal, every answer carrying its
+    ``X-EDL-Session``, no session failed."""
+    from edl_tpu_torch.runtime.frontdoor import FleetApp, FrontDoor
+
+    fleet = flagship_decode_fleet(device=device, cfg=cfg,
+                                  job="default/flagship-generate")
+    door = FrontDoor(FleetApp(None, 1, decode_fleet=fleet),
+                     host="127.0.0.1", job="default/flagship-generate")
+    door.start()
+    try:
+        prompts = np.random.default_rng(21).integers(
+            0, cfg.vocab_size, (FD_GEN_SESSIONS, FD_GEN_PROMPT)).tolist()
+        blob = b""
+        for p in prompts:
+            body = json.dumps({"prompt": p,
+                               "max_new_tokens": FD_GEN_NEW}).encode()
+            blob += (b"POST /generate HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(body)) + body
+        t0 = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", door.port),
+                                      timeout=60) as sock:
+            sock.sendall(blob)
+            reader = WireReader(sock)
+            resps = [reader.next(timeout=120) for _ in prompts]
+        wall_s = time.perf_counter() - t0
+        docs, failures = [], []
+        for i, (status, head, body) in enumerate(resps):
+            if status != 200:
+                failures.append(f"session {i} status {status}")
+                continue
+            doc = json.loads(body)
+            docs.append(doc)
+            if f"X-EDL-Session: {doc['session']}".encode() not in head:
+                failures.append(f"session {i} without X-EDL-Session")
+        direct = [fleet.submit(p, FD_GEN_NEW) for p in prompts]
+        want = [s.wait(120) for s in direct]
+        got = [d["tokens"] for d in docs]
+        equal = sum(g == w for g, w in zip(got, want))
+        ttft = [d["ttft_ms"] for d in docs]
+        print(f"generate: {len(prompts)} sessions of {FD_GEN_PROMPT} + "
+              f"{FD_GEN_NEW} tokens pipelined over one socket in "
+              f"{wall_s:.3f} s; {equal} of {len(prompts)} token-equal to "
+              f"the undisturbed fleet's greedy tokens; TTFT p50 "
+              f"{np.percentile(ttft, 50) if ttft else None} ms; sessions "
+              f"failed {fleet.sessions_failed} on {card}", flush=True)
+        if equal != len(prompts):
+            failures.append(f"{equal} of {len(prompts)} token-equal")
+        if fleet.sessions_failed:
+            failures.append(f"sessions failed {fleet.sessions_failed}")
+        if failures:
+            raise AssertionError("phase (v-2): " + "; ".join(failures))
+        return dict(wall_s=wall_s, equal=equal)
+    finally:
+        door.stop()
+        fleet.stop()
+
+
+def phase_data_plane(card: str, cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                     device: str = "cuda", seq: int = S,
+                     config: str = "flagship") -> dict:
+    """(v): FLAGSHIP served through the port's LB tier to two replica
+    processes on the card, then ``/generate`` and ``serve_main``'s async
+    front door.  ``cfg``, ``device``, ``seq`` and ``config`` (the
+    children's ``--config``) let the phase be rehearsed on the CPU at
+    TINY.  Returns the replicas' flash launches."""
+    from edl_tpu_torch.coord.server import spawn_server
+    from edl_tpu_torch.entry import spawn_flagship_frontdoor_replica
+    from edl_tpu_torch.runtime.faults import ChaosProxy, GrayReplica
+    from edl_tpu_torch.runtime.frontdoor import (FD_RELOADING,
+                                                 bootstrap_kv,
+                                                 build_predict_request)
+    from edl_tpu_torch.runtime.lb import ServingLB
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="smoke-frontdoor-")
+    lineage = os.path.join(tmp, "lineage")
+    job = FD_JOB
+    srv = spawn_server()
+    coord = f"127.0.0.1:{srv.port}"
+    procs, proxies, logs, clients = {}, {}, {}, []
+    lb = kv = None
+    drill: dict = {}
+    drill_thread = None
+    try:
+        # generation 2 in the lineage the replicas reload from
+        ck = ElasticCheckpointer(lineage)
+        ck.save(2, {"params": tfm.Transformer(cfg, device=dev, seed=2)})
+        ck.close()
+
+        def main_drill():
+            try:
+                drill["out"] = serve_main_drill(card, device, "async")
+            except BaseException as exc:  # surfaced after the join
+                drill["error"] = exc
+
+        drill_thread = threading.Thread(target=main_drill, daemon=True)
+        drill_thread.start()
+        ports = {}
+        t_spawn = time.perf_counter()
+        for name in FD_REPLICAS:
+            with socket.socket() as probe:
+                probe.bind(("127.0.0.1", 0))
+                ports[name] = probe.getsockname()[1]
+            proxies[name] = ChaosProxy(("127.0.0.1", ports[name]))
+            logs[name] = os.path.join(tmp, f"{name}.log")
+            procs[name] = spawn_flagship_frontdoor_replica(
+                name, coord=coord, job=job, device=device, config=config,
+                port=ports[name], advertise_port=proxies[name].port,
+                lineage=lineage, generation=1, log_path=logs[name])
+        # while the replicas build: the plain path's answers for every
+        # client row on both generations, and /generate
+        rows = np.random.default_rng(31).integers(
+            0, cfg.vocab_size, (FD_ROWS, seq), dtype=np.int64)
+        refs = {}
+        for gen, seed in ((1, 0), (2, 2)):
+            model = tfm.Transformer(cfg, device=dev, seed=seed)
+            model.cfg = dataclasses.replace(model.cfg, use_flash=False)
+            with torch.no_grad():
+                refs[gen] = torch.cat([
+                    score_last_token(model, (torch.from_numpy(
+                        rows[i:i + FD_BATCH]).to(dev),)).float().cpu()
+                    for i in range(0, FD_ROWS, FD_BATCH)]).numpy()
+            del model
+        check = AnswerCheck(refs)
+        gen_out = generate_drill(card, cfg, device)
+        ready = {}
+        for name, (line, seen_s) in fd_wait_ready(
+                logs, procs, t_spawn,
+                time.monotonic() + FD_READY_TIMEOUT_S).items():
+            ready[name] = dict(
+                port=int(mh_field(line, "port")),
+                metrics=int(mh_field(line, "metrics_port")),
+                build_s=float(mh_field(line, "build_s")),
+                main_s=float(mh_field(line, "ready_s")),
+                spawn_s=round(seen_s, 3))
+        drill_thread.join(SERVE_MAIN_TIMEOUT_S + 60)
+        if "error" in drill:
+            raise drill["error"]
+        kv = SeverableKV(bootstrap_kv({"EDL_COORD_ENDPOINT": coord},
+                                      disabled="no discovery"))
+        lb = ServingLB(job=job, host="127.0.0.1", kv=kv, **FD_LB).start()
+        transitions: list = []
+        gauge_set = lb.app._breaker_gauge.set
+
+        def record(v, **labels):
+            transitions.append((time.perf_counter(), labels.get("upstream"),
+                                int(v)))
+            gauge_set(v, **labels)
+
+        lb.app._breaker_gauge.set = record
+        deadline = time.monotonic() + 30
+        while sum(u.routable() for u in lb.app.upstreams.values()) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase (v): LB upstreams "
+                                     f"{lb.app.upstreams}")
+            time.sleep(0.02)
+        reqs = [build_predict_request(r.astype(np.float32)) for r in rows]
+        clients = [LoadClient(lb.port, reqs, check, seed=40 + i)
+                   for i in range(FD_CLIENTS)]
+        windows = {}
+        windows["capacity"] = run_window(clients, "capacity", job=job,
+                                         depth=FD_DEPTH,
+                                         seconds=FD_CAPACITY_S)
+        capacity = windows["capacity"]["rows_per_s"]
+        door_clients = [LoadClient(ready["r0"]["port"], reqs, check,
+                                   seed=50 + i) for i in range(2)]
+        windows["door r0 alone"] = run_window(
+            door_clients, "door r0 alone", job=job, rate=capacity / 4,
+            seconds=FD_WINDOW_S)
+        for c in door_clients:
+            c.close()
+        windows["steady"] = run_window(clients, "steady", job=job,
+                                       rate=capacity / 2,
+                                       seconds=FD_WINDOW_S)
+
+        def reload(t0):
+            time.sleep(FD_RELOAD_AT_S)
+            t_post = time.perf_counter()
+            status, _ = http_call(ready["r0"]["port"], "POST",
+                                  "/admin/reload")
+            seen = set()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                seen.add(lb.app.upstreams["r0"].state)
+                if (FD_RELOADING in seen
+                        and lb.app.upstreams["r0"].state == "ready"
+                        and scrape(ready["r0"]["metrics"])["generation"]
+                        == 2):
+                    break
+                time.sleep(0.005)
+            ms = 1e3 * (time.perf_counter() - t_post)
+            time.sleep(0.5)
+            return dict(status=status, ms=ms, seen=sorted(seen))
+
+        windows["reload"] = run_window(clients, "reload", job=job,
+                                       rate=capacity / 2,
+                                       seconds=FD_RELOAD_S, during=reload)
+        plan = FaultPlan.random(FD_CHAOS_SEED, kinds=SERVING_KINDS,
+                                **FD_CHAOS_PLAN)
+        targets = itertools.cycle(FD_REPLICAS)
+        for a in plan.actions:
+            if isinstance(a, GrayReplica):
+                # corrupt: wrong-nonce echoes with garbage bodies, which
+                # only the LB's integrity check can catch
+                a.rate, a.mode = max(a.rate, 0.85), "corrupt"
+            if hasattr(a, "replica"):
+                a.replica = next(targets)
+
+        def gray(name):
+            def hook(rate, mode, duration_s):
+                status, _ = http_call(ready[name]["port"], "POST",
+                                      "/admin/gray",
+                                      f"{rate} {mode} {duration_s}".encode())
+                if status != 200:
+                    raise RuntimeError(f"/admin/gray on {name}: {status}")
+            return hook
+
+        def partition_coord(duration_s):
+            kv.sever(duration_s)
+            until = time.monotonic() + duration_s
+            return lambda: (time.monotonic() >= until + 0.3
+                            and len(lb.app.upstreams) == len(FD_REPLICAS))
+
+        ctx = FaultContext(replica_proxies=proxies,
+                           gray={n: gray(n) for n in FD_REPLICAS},
+                           serving_lb=lb.app,
+                           partition_coord=partition_coord,
+                           rng=random.Random(FD_CHAOS_SEED))
+        counters = get_counters()
+        inj0 = {k: counters.get("faults_injected", type=k)
+                for k in SERVING_KINDS}
+        rec0 = {k: counters.get("recoveries_completed", type=k)
+                for k in SERVING_KINDS}
+        engine = FaultPlanEngine(plan, ctx)
+
+        def chaos(t0):
+            t_start = time.monotonic()
+            while time.monotonic() - t_start < FD_CHAOS_TIMEOUT_S:
+                engine(int((time.monotonic() - t_start) * 10))
+                if engine.quiescent():
+                    break
+                time.sleep(0.02)
+            # a recovery predicate can see a breaker closed between two
+            # strikes of one fault: the window lasts until every breaker is
+            # closed again, then a little traffic runs on the healed plane
+            healed = time.monotonic() + FD_CHAOS_TIMEOUT_S
+            while time.monotonic() < healed and any(
+                    u.breaker.state for u in lb.app.upstreams.values()):
+                time.sleep(0.01)
+            time.sleep(0.5)
+            return dict(quiescent=engine.quiescent(),
+                        fired=[k for _, k in engine.fired],
+                        recovered=list(engine.recovered),
+                        seconds=time.monotonic() - t_start)
+
+        t_chaos = time.perf_counter()
+        windows["chaos"] = run_window(clients, "chaos", job=job,
+                                      rate=capacity / 2, during=chaos)
+        arcs = breaker_arcs([e for e in transitions if e[0] >= t_chaos],
+                            FD_REPLICAS)
+        injected = {k: counters.get("faults_injected", type=k) - inj0[k]
+                    for k in SERVING_KINDS}
+        recovered = {k: counters.get("recoveries_completed", type=k)
+                     - rec0[k] for k in SERVING_KINDS}
+        # the victim's counts and generation-1 samples, read while it is
+        # idle, before it dies: the counts gate launches per forward
+        time.sleep(0.3)
+        victim = FD_REPLICAS[1]
+        sample_rows = {1: np.arange(FD_SAMPLES),
+                       2: np.arange(FD_SAMPLES, 2 * FD_SAMPLES)}
+        answers = {1: door_answers(ready[victim]["port"],
+                                   [reqs[i] for i in sample_rows[1]])}
+        counts = {victim: scrape(ready[victim]["metrics"])}
+
+        def kill(t0):
+            time.sleep(FD_KILL_AT_S)
+            # its launches up to the SIGKILL, under load (a forward may be
+            # in flight, so this read counts launches, not forwards)
+            counts[victim]["at_kill"] = scrape(ready[victim]["metrics"])
+            procs[victim].kill()
+            procs[victim].wait(30)
+            return dict(killed=victim)
+
+        windows["kill"] = run_window(clients, "kill", job=job,
+                                     rate=capacity / 2, seconds=FD_KILL_S,
+                                     during=kill)
+        # sampled answers on their generation, straight from each door:
+        # generation 2 from the reloaded r0, generation 1 from r1 before
+        # it dies (read above, before the kill window)
+        answers[2] = door_answers(ready["r0"]["port"],
+                                  [reqs[i] for i in sample_rows[2]])
+        lb.stop()
+        lb = None
+        for c in clients:
+            c.close()
+        procs["r0"].send_signal(signal.SIGTERM)
+        rc0 = procs["r0"].wait(60)
+        with open(logs["r0"]) as f:
+            lines = [ln for ln in f if ln.startswith("frontdoor launches ")]
+        if rc0 != 0 or not lines:
+            raise AssertionError(f"phase (v): r0 exit {rc0}, no launches "
+                                 "line")
+        counts["r0"] = json.loads(lines[-1][len("frontdoor launches "):])
+    finally:
+        if lb is not None:
+            lb.stop()
+        for c in clients:
+            c.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        for p in proxies.values():
+            p.close()
+        if kv is not None:
+            kv.close()
+        srv.process.kill()
+        if drill_thread is not None:
+            drill_thread.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    label = "FLAGSHIP" if cfg is tfm.FLAGSHIP else "TINY"
+    print(f"frontdoor tier: {label} ({cfg.n_layers} layers) rows of {seq} "
+          f"token ids as raw f32, {len(FD_REPLICAS)} replica processes on "
+          f"{card} behind chaos proxies, one ServingLB discovering "
+          f"serving-addr/{job}/, {FD_CLIENTS} keep-alive client "
+          f"connections; each replica's seconds from its spawn to its ready "
+          f"line (spawn_s), from its main to ready (main_s, imports before "
+          f"it) and from its door's bind to ready (build_s: the model, the "
+          f"warm-up forward): "
+          + "; ".join(f"{n} spawn_s {r['spawn_s']} main_s {r['main_s']} "
+                      f"build_s {r['build_s']}" for n, r in ready.items()),
+          flush=True)
+    print(f"frontdoor capacity C {capacity:.1f} rows/s through the LB "
+          f"(closed loop, depth {FD_DEPTH} a connection) on {card}",
+          flush=True)
+    for w in windows.values():
+        print(f"frontdoor window {w['label']}: {w['sent']} sent in "
+              f"{w['seconds']:.2f} s, {w['rows_per_s']:.1f} rows/s served, "
+              f"200 {w['ok']} 429 {w['shed']} errors {w['errors']} wrong "
+              f"{w['wrong']} {w['gens']}; p50_ms {w['p50_ms']} p99_ms "
+              f"{w['p99_ms']} max_ms {w['max_ms']}; LB {w['lb']}"
+              + (f"; {w['extra']}" if w["extra"] else ""), flush=True)
+    reload_ms = windows["reload"]["extra"]["ms"]
+    print(f"frontdoor reload: POST /admin/reload to r0, gate "
+          f"{windows['reload']['extra']['seen']} seen by the LB, generation "
+          f"2 served {reload_ms:.1f} ms after the POST", flush=True)
+    print(f"frontdoor chaos: plan {plan.describe()}; injected {injected}; "
+          f"recovered {recovered}; breaker states "
+          f"{ {n: [('closed', 'open', 'half_open')[s] for s in a]
+               for n, a in arcs.items()} }", flush=True)
+    print(f"frontdoor launches {counts} ({cfg.n_layers} flash forward "
+          f"launches a forward)", flush=True)
+
+    failures = []
+    for w in windows.values():
+        if w["wrong"]:
+            failures.append(f"{w['label']}: {w['wrong']} wrong payloads")
+        if not w["ok"]:
+            failures.append(f"{w['label']}: nothing served")
+    for label_ in ("capacity", "door r0 alone", "steady"):
+        if windows[label_]["gens"]["gen2"] or windows[label_]["errors"]:
+            failures.append(f"{label_}: {windows[label_]}")
+    for label_ in ("reload", "kill"):
+        if windows[label_]["errors"]:
+            failures.append(f"{label_}: {windows[label_]['errors']} errors")
+    rl = windows["reload"]["extra"]
+    if rl["status"] != 200 or FD_RELOADING not in rl["seen"] \
+            or not windows["reload"]["gens"]["gen2"]:
+        failures.append(f"reload {rl}, {windows['reload']['gens']}")
+    ch = windows["chaos"]
+    if ch["errors"] > FD_ERROR_SHARE * ch["sent"]:
+        failures.append(f"chaos errors {ch['errors']} of {ch['sent']}")
+    if not ch["extra"]["quiescent"] or any(
+            injected[k] != 1 or recovered[k] != 1 for k in SERVING_KINDS):
+        failures.append(f"chaos injected {injected} recovered {recovered}")
+    if not all(completed_arc(a) for a in arcs.values()):
+        failures.append(f"breaker arcs {arcs}")
+    if not windows["kill"]["lb"]["rescues"]:
+        failures.append(f"kill: no rescue {windows['kill']['lb']}")
+    if ch["lb"]["integrity_failures"] < 1:
+        failures.append(f"chaos: the corrupt gray was never caught by the "
+                        f"nonce {ch['lb']}")
+    for name, cnt in counts.items():
+        want = {"flash_fwd": cfg.n_layers * cnt["forwards"]
+                if dev.type == "cuda" else 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if cnt["launches"] != want or not cnt["forwards"]:
+            failures.append(f"{name} launches {cnt}, want {want}")
+    late = counts[victim]["at_kill"]["launches"]
+    if late["flash_fwd"] < counts[victim]["launches"]["flash_fwd"] or \
+            late["flash_bwd_dq"] or late["flash_bwd_dkv"]:
+        failures.append(f"{victim} launches at its kill {late}")
+    if failures:
+        raise AssertionError("phase (v): " + "; ".join(failures))
+    scoring_check(answers, {g: torch.from_numpy(refs[g][sample_rows[g]])
+                            for g in answers},
+                  {g: list(sample_rows[g]) for g in answers}, phase="v")
+    launches = {k: sum(c.get("at_kill", c)["launches"][k]
+                       for c in counts.values()) for k in FLASH}
+    return dict(launches=launches, capacity=capacity, windows=windows,
+                reload_ms=reload_ms, generate=gen_out,
+                serve_main=drill["out"])
+
+
 def goodput_summary(raw) -> dict:
     from edl_tpu_torch.observability.goodput import ScalingCurve
 
@@ -4010,6 +4858,8 @@ def main() -> int:
     paths["flagship_controlled"] = timed("t", phase_controlled, card)
     paths["flagship_scoring"] = timed("u", phase_serving_plane,
                                       card)["launches"]
+    paths["flagship_frontdoor"] = timed("v", phase_data_plane,
+                                        card)["launches"]
     rounded = {k: round(v, 1) for k, v in seconds.items()}
     print(f"phase seconds {json.dumps(rounded)} "
           f"total {sum(seconds.values()):.1f} on {card}", flush=True)

@@ -23,7 +23,11 @@ runs it under a seeded campaign of the training fault kinds.
 FLAGSHIP token by token, from seed-0 weights or the ones it is given, and
 ``flagship_scoring_fleet(device)`` the single-shot ``ServingFleet`` whose
 requests are rows of tokens and whose answers are FLAGSHIP's next-token
-logits.  All
+logits.  ``flagship_frontdoor_replica(device)`` is one replica of the
+serving data plane: the same scoring forward behind a ``BatchApp`` front
+door that publishes its ready gate for the LB tier, and
+``spawn_flagship_frontdoor_replica`` runs it as a process of its own
+(``python -m edl_tpu_torch.entry frontdoor-replica ...``).  All
 run on the CUDA device unless ``device`` says otherwise, with the kernels
 on.
 
@@ -57,7 +61,9 @@ from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
 from edl_tpu_torch.runtime import elastic, optim
 from edl_tpu_torch.runtime.data import ShardRegistry
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
-from edl_tpu_torch.runtime.serving import DecodeFleet, ServingFleet
+from edl_tpu_torch.runtime.frontdoor import BatchApp, FrontDoor
+from edl_tpu_torch.runtime.serving import (DecodeFleet, ElasticServer,
+                                           ServingFleet)
 from edl_tpu_torch.runtime.virtual import VirtualConfig
 
 
@@ -683,6 +689,182 @@ def flagship_scoring_fleet(device="cuda",
                         device=dev, **kw)
 
 
+def score_f32_rows(model: tfm.Transformer, batch) -> torch.Tensor:
+    """The data plane's scoring forward: a request is one raw-f32 row of
+    token ids (exact: every id of FLAGSHIP's 16 384 is far under 2^24),
+    cast to int64 on the device before the embedding; the answer is
+    :func:`score_last_token`'s."""
+    return score_last_token(model, (batch[0].to(torch.int64),))
+
+
+def flagship_frontdoor_replica(device="cuda",
+                               cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                               params: Optional[tfm.Transformer] = None, *,
+                               job: str = "default/flagship-scoring",
+                               replica: str = "r0", kv=None,
+                               host: str = "127.0.0.1", port: int = 0,
+                               advertise_port: Optional[int] = None,
+                               seq: int = SCORING_SEQ, max_batch: int = 8,
+                               lineage: Optional[str] = None,
+                               generation: int = 0,
+                               **app_kw) -> FrontDoor:
+    """One replica of the serving data plane, started: a ``BatchApp``
+    whose server is ``ElasticServer(score_f32_rows, cfg)`` with the flash
+    kernels on ``device`` (random weights from seed 0 unless ``params``
+    is given), behind a ``FrontDoor`` on ``host:port``.  With ``kv`` (a
+    coordinator client) the door publishes ``serving-addr/<job>/
+    <replica>`` with its ready gate; ``advertise_port`` puts another port
+    in that address (a middlebox in front of the door).  With ``lineage``
+    (an ``ElasticCheckpointer`` directory holding ``{"params": model}``)
+    ``POST /admin/reload`` rolls the replica onto the newest verified
+    step newer than ``generation`` (the generation the weights it starts
+    with are published as).  The build and warm-up run on the app's
+    batcher thread: call ``door.app.wait_ready()``.  ``app_kw`` passes any
+    other ``BatchApp`` argument."""
+    dev = resolve(device)
+    if params is None:
+        params = tfm.Transformer(cfg, device=dev, seed=0)
+    params.cfg = dataclasses.replace(params.cfg, use_flash=True)
+
+    def build() -> ElasticServer:
+        return ElasticServer(score_f32_rows, params, devices=[dev])
+
+    app = BatchApp(build, seq, job=job, replica=replica, kv=kv,
+                   max_batch=max_batch, advertise_host=host,
+                   advertise_port=advertise_port, **app_kw)
+    app.generation = int(generation)
+    if lineage is not None:
+        from edl_tpu_torch.runtime.checkpoint import ElasticCheckpointer
+        from edl_tpu_torch.runtime.serving import _landed, _lineage_step
+
+        ck = ElasticCheckpointer(lineage)
+
+        def reload_hook():
+            step = _lineage_step(ck, app.generation, job)
+            if step is None:
+                return None
+            restored = ck.restore({"params": app.server.params_host()},
+                                  step=step)
+            if not _landed(ck, step, job):
+                return None
+            return restored["params"], step
+
+        app.reload_hook = reload_hook
+    return FrontDoor(app, host=host, port=port, job=job).start()
+
+
+def spawn_flagship_frontdoor_replica(replica: str, *, coord: str,
+                                     job: str = "default/flagship-scoring",
+                                     device: str = "cuda",
+                                     config: str = "flagship",
+                                     port: int = 0,
+                                     advertise_port: Optional[int] = None,
+                                     lineage: Optional[str] = None,
+                                     generation: int = 0,
+                                     log_path: Optional[str] = None):
+    """Start :func:`flagship_frontdoor_replica` as a process of its own
+    (``python -m edl_tpu_torch.entry frontdoor-replica``; ``config``
+    ``"tiny"`` runs TINY instead of FLAGSHIP, for the CPU) publishing to
+    the coordinator at ``coord`` (``host:port``); returns the
+    ``subprocess.Popen``.  Its output goes to ``log_path``: a ``frontdoor
+    ready port=... metrics_port=... build_s=... ready_s=...`` line once
+    warm, and on SIGTERM a ``frontdoor launches {...}`` JSON line (its
+    flash launches and forwards, warm-up included)."""
+    import subprocess
+
+    argv = [sys.executable, "-m", "edl_tpu_torch.entry", "frontdoor-replica",
+            "--replica", replica, "--coord", coord, "--job", job,
+            "--device", device, "--config", config, "--port", str(port),
+            "--generation", str(generation)]
+    if advertise_port is not None:
+        argv += ["--advertise-port", str(advertise_port)]
+    if lineage is not None:
+        argv += ["--lineage", lineage]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    penv = dict(os.environ)
+    penv["PYTHONPATH"] = root + os.pathsep + penv.get("PYTHONPATH", "")
+    out = open(log_path, "w") if log_path else subprocess.DEVNULL
+    try:
+        return subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT,
+                                env=penv, cwd=root)
+    finally:
+        if log_path:
+            out.close()
+
+
+def frontdoor_replica_main(argv: list[str]) -> int:
+    """The process behind :func:`spawn_flagship_frontdoor_replica`
+    (:func:`~edl_tpu_torch.runtime.frontdoor.run_replica`'s life, the
+    ``EDL_FD_METRICS_PORT``, ``EDL_TRACE_DIR`` and ``EDL_FD_LAG_PROBE_MS``
+    env included): exit 3 when the coordinator never answers or the build
+    fails (no CUDA device included), 0 after a SIGTERM drain."""
+    import argparse
+
+    from edl_tpu_torch.observability.metrics import get_registry
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.runtime.frontdoor import (CoordBootstrapError,
+                                                 bootstrap_replica_kv,
+                                                 run_replica)
+
+    t_start = time.perf_counter()
+    ap = argparse.ArgumentParser(prog="edl_tpu_torch.entry frontdoor-replica")
+    ap.add_argument("--replica", required=True)
+    ap.add_argument("--coord", default="")
+    ap.add_argument("--job", default="default/flagship-scoring")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--config", choices=("flagship", "tiny"),
+                    default="flagship")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--advertise-port", type=int, default=None)
+    ap.add_argument("--lineage", default=None)
+    ap.add_argument("--generation", type=int, default=0)
+    args = ap.parse_args(argv)
+    env = dict(os.environ, EDL_COORD_ENDPOINT=args.coord)
+    try:
+        kv = bootstrap_replica_kv(env, args.replica)
+    except CoordBootstrapError:
+        return 3
+    cfg = tfm.FLAGSHIP if args.config == "flagship" else tfm.TINY
+    try:
+        door = flagship_frontdoor_replica(
+            args.device, cfg, job=args.job, replica=args.replica, kv=kv,
+            port=args.port, advertise_port=args.advertise_port,
+            seq=min(SCORING_SEQ, cfg.max_seq_len), lineage=args.lineage,
+            generation=args.generation)
+    except Exception as exc:
+        print(f"frontdoor FAILED replica={args.replica} ({exc})", flush=True)
+        if kv is not None:
+            kv.close()
+        return 3
+    app = door.app
+    t_door = time.perf_counter()
+    reg = get_registry()
+    for name in fa.launches:
+        reg.counter_fn("flash_launches", lambda n=name: fa.launches[n],
+                       help="flash kernel launches in this process",
+                       kernel=name)
+    reg.counter_fn("frontdoor_forwards",
+                   lambda: app.server.forwards if app.server else 0,
+                   help="forwards run, the warm-up's included")
+    reg.gauge_fn("frontdoor_generation", lambda: app.generation,
+                 help="the weights' generation")
+
+    def ready_fields() -> str:
+        now = time.perf_counter()
+        return f"build_s={now - t_door:.3f} ready_s={now - t_start:.3f}"
+
+    def on_exit() -> None:
+        print("frontdoor launches " + json.dumps(dict(
+            replica=args.replica, launches=dict(fa.launches),
+            forwards=app.server.forwards, generation=app.generation,
+            requests_served=app.requests_served,
+            iterations=app.iterations)), flush=True)
+
+    return run_replica(door, kv, env, replica=args.replica,
+                       build_timeout_s=600, ready_fields=ready_fields,
+                       on_exit=on_exit, metrics_host="127.0.0.1")
+
+
 # -- the multi-rank dryrun ----------------------------------------------------
 
 #: dryrun_multichip's layouts, the reference's (``__graft_entry__.py``): n 2
@@ -865,6 +1047,8 @@ def dryrun_multichip(n: int, device="cuda") -> dict:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if args[:1] == ["frontdoor-replica"]:
+        sys.exit(frontdoor_replica_main(args[1:]))
     if args[:1] != ["dryrun"] or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--device"):
         sys.exit("usage: python -m edl_tpu_torch.entry dryrun N "

@@ -79,6 +79,17 @@ def _label_key(labels: dict) -> tuple[tuple[str, str], ...]:
     return tuple(sorted((k, str(v)) for k, v in labels.items()))
 
 
+def _render_exemplar(ex: Optional[tuple[str, float, float]]) -> str:
+    """OpenMetrics-style exemplar suffix for a bucket sample line —
+    `` # {trace_id="…"} <value> <ts>`` — or empty, so a series without
+    exemplars renders byte-identically to one that never had any."""
+    if ex is None:
+        return ""
+    trace_id, value, ts = ex
+    return (f' # {{trace_id="{escape_label_value(trace_id)}"}} '
+            f"{format_value(value)} {ts:.3f}")
+
+
 def _render_labels(key: tuple[tuple[str, str], ...],
                    extra: tuple[tuple[str, str], ...] = ()) -> str:
     pairs = list(key) + list(extra)
@@ -182,6 +193,13 @@ class Histogram(_Family):
         # per label-set: [bucket counts..., +Inf count], and the sum
         self._counts: dict[tuple, list[int]] = {}
         self._sums: dict[tuple, float] = {}
+        #: per label-set: bucket index → (trace_id, value, wall_ts), the
+        #: newest exemplar whose observation fell in that bucket
+        self._exemplars: dict[tuple, dict[int, tuple[str, float, float]]] = {}
+        #: exemplars older than this stop rendering: a once-ever outlier
+        #: must not be re-exposed after its trace dumps have rotated
+        self.exemplar_ttl_s: float = 600.0
+        self._bucket_arr = None
 
     def _series_locked(self, key: tuple) -> list[int]:
         counts = self._counts.get(key)
@@ -207,6 +225,57 @@ class Histogram(_Family):
         bucket/sum/count block renders from the first scrape."""
         with self._lock:
             self._series_locked(_label_key(labels))
+
+    def observe_many(self, values, **labels) -> None:
+        """Vectorized :meth:`observe` for block-oriented callers (the
+        serving data plane records latencies per admitted block): one
+        lock, one ``np.searchsorted`` over the whole block."""
+        import numpy as np
+
+        arr = np.asarray(values, dtype=np.float64).ravel()
+        if arr.size == 0:
+            return
+        if self._bucket_arr is None:
+            self._bucket_arr = np.asarray(self.buckets)
+        # bucket i counts v <= buckets[i]: cumulative, like observe()
+        idx = np.searchsorted(self._bucket_arr, arr, side="left")
+        cum = np.cumsum(np.bincount(idx, minlength=len(self.buckets) + 1))
+        total, s = int(arr.size), float(arr.sum())
+        with self._lock:
+            key = _label_key(labels)
+            counts = self._series_locked(key)
+            for i in range(len(self.buckets)):
+                counts[i] += int(cum[i])
+            counts[-1] += total
+            self._sums[key] += s
+
+    def put_exemplar(self, v: float, trace_id: str, **labels) -> None:
+        """Attach a trace-id exemplar for an observation of ``v`` (paired
+        by the caller with its observe/observe_many); kept per bucket,
+        last writer wins."""
+        v = float(v)
+        idx = len(self.buckets)  # +Inf
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                idx = i
+                break
+        with self._lock:
+            self._exemplars.setdefault(_label_key(labels), {})[idx] = (
+                str(trace_id), v, time.time())
+
+    def exemplars(self, **labels) -> list[tuple[str, float, float]]:
+        """This label set's current exemplars: (trace_id, value, ts)."""
+        with self._lock:
+            return list(self._exemplars.get(_label_key(labels), {}).values())
+
+    def count(self, **labels) -> int:
+        with self._lock:
+            counts = self._counts.get(_label_key(labels))
+            return counts[-1] if counts else 0
+
+    def sum(self, **labels) -> float:
+        with self._lock:
+            return self._sums.get(_label_key(labels), 0.0)
 
     def merged_counts(self, **match) -> list[int]:
         """Bucket counts (the +Inf count last) summed over every label set
@@ -235,18 +304,30 @@ class Histogram(_Family):
         name = PREFIX + sanitize_name(self.name)
         lines.append(f"# HELP {name} {self.help or self.name}")
         lines.append(f"# TYPE {name} histogram")
+        cutoff = (time.time() - self.exemplar_ttl_s
+                  if self.exemplar_ttl_s > 0 else None)
         with self._lock:
             snap = {k: (list(self._counts[k]), self._sums[k])
                     for k in sorted(self._counts)}
+            exem = {}
+            for k in snap:
+                ex = self._exemplars.get(k)
+                if not ex:
+                    continue
+                if cutoff is not None:
+                    for i in [i for i, e in ex.items() if e[2] < cutoff]:
+                        del ex[i]  # expired: stop re-exposing it
+                exem[k] = dict(ex)
         for key, (counts, total) in snap.items():
+            ex = exem.get(key) or {}
             for i, b in enumerate(self.buckets):
                 lines.append(
                     f"{name}_bucket"
                     f"{_render_labels(key, (('le', format_value(b)),))}"
-                    f" {counts[i]}")
+                    f" {counts[i]}{_render_exemplar(ex.get(i))}")
             lines.append(
                 f"{name}_bucket{_render_labels(key, (('le', '+Inf'),))}"
-                f" {counts[-1]}")
+                f" {counts[-1]}{_render_exemplar(ex.get(len(self.buckets)))}")
             lines.append(f"{name}_sum{_render_labels(key)} "
                          f"{format_value(total)}")
             lines.append(f"{name}_count{_render_labels(key)} {counts[-1]}")
@@ -356,12 +437,17 @@ def get_registry() -> MetricsRegistry:
 
 
 def dump_flight_record(dir_path: str, reason: str,
-                       extra: Optional[dict] = None, keep: int = 20) -> str:
+                       extra: Optional[dict] = None, keep: int = 20,
+                       cooldown_s: float = 0.0) -> str:
     """Dump the process's trace ring, counters and rendered metrics to a
     timestamped ``flightrec-<utc>-<reason>-<pid>-<seq>.json`` under
     ``dir_path`` (temp file and rename) and return its path; keeps the
     ``keep`` newest records.  Called on a stall's escalation, so that the
-    post-mortem exists even with no profiler or scraper attached."""
+    post-mortem exists even with no profiler or scraper attached.
+    ``cooldown_s`` > 0 dedupes same-reason dumps inside the window (the
+    serving plane's breaker and loop-lag escalations come in floods): the
+    deduped call returns the previous record's path and counts
+    ``flight_dumps_deduped``."""
     from edl_tpu_torch.observability.collector import get_counters
     from edl_tpu_torch.observability.tracing import get_tracer
 
@@ -369,6 +455,11 @@ def dump_flight_record(dir_path: str, reason: str,
     stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
     slug = re.sub(r"[^a-zA-Z0-9_-]", "-", reason)[:48] or "event"
     with _flight_lock:
+        if cooldown_s > 0:
+            prev = _last_dump.get((dir_path, slug))
+            if prev is not None and time.monotonic() - prev[0] < cooldown_s:
+                get_counters().inc("flight_dumps_deduped", reason=slug)
+                return prev[1]
         _flight_seq[0] += 1
         path = os.path.join(dir_path, f"flightrec-{stamp}-{slug}-"
                                       f"{os.getpid()}-{_flight_seq[0]}.json")
@@ -389,8 +480,11 @@ def dump_flight_record(dir_path: str, reason: str,
                 os.remove(os.path.join(dir_path, f))
             except OSError:
                 pass
+        _last_dump[(dir_path, slug)] = (time.monotonic(), path)
     return path
 
 
 _flight_lock = threading.Lock()
 _flight_seq = [0]
+#: (dir, reason slug) → (monotonic time, path) of the newest dump
+_last_dump: dict[tuple[str, str], tuple[float, str]] = {}

@@ -7,8 +7,10 @@ Every span carries a ``span_id``; a reform opens a *root* span whose
 environment variable and a coordinator KV key (runtime/multihost.py), so
 the supervisor's and the world child's events read as one span tree.
 :meth:`Tracer.dump` writes Chrome ``chrome://tracing`` JSON with the
-process's wall-clock anchor.  The trace forest, the sinks and the merge of
-dumps wait for the port's control plane (ROADMAP.md, queue 1 item 11).
+process's wall-clock anchor, and a :class:`TraceFileSink` rewrites that
+dump every second for a live serving process.  The trace forest and the
+merge of dumps wait for the port's control plane (ROADMAP.md, queue 1
+item 11).
 """
 
 from __future__ import annotations
@@ -197,3 +199,45 @@ _default_tracer = Tracer()
 def get_tracer() -> Tracer:
     """The process-wide tracer."""
     return _default_tracer
+
+
+class TraceFileSink(threading.Thread):
+    """Periodic atomic dumper of a tracer's ring to
+    ``<dir>/trace-<name>.json``, so a live process's sampled request
+    traces are recoverable without attaching anything.  Final dump on
+    :meth:`stop`; a SIGKILLed process leaves its last interval's dump."""
+
+    def __init__(self, trace_dir: str, name: str,
+                 interval_s: float = 1.0, tracer: Optional[Tracer] = None
+                 ) -> None:
+        super().__init__(name=f"trace-sink-{name}", daemon=True)
+        self.trace_dir = trace_dir
+        self.proc_name = name
+        self.interval_s = max(float(interval_s), 0.05)
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.path = os.path.join(trace_dir, f"trace-{name}.json")
+        self.dumps = 0
+        self._halt = threading.Event()
+
+    def dump_once(self) -> None:
+        os.makedirs(self.trace_dir, exist_ok=True)
+        tmp = f"{self.path}.tmp-{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                f.write(self.tracer.to_chrome_trace(self.proc_name))
+            os.replace(tmp, self.path)
+            self.dumps += 1
+        except OSError:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+    def run(self) -> None:
+        while not self._halt.wait(self.interval_s):
+            self.dump_once()
+        self.dump_once()  # final: the ring as of shutdown
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(timeout=5)

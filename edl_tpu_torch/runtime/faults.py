@@ -31,9 +31,15 @@ update), :class:`FlipParamBits` (one bit of a live parameter) and
 recovery is the SDC plane's own: a rollback for the first two, a refuted
 verdict for the third.
 
-The serving five (:data:`SERVING_KINDS`) come with the serving plane
-(ROADMAP.md, queue 1 item 11); naming one raises ``ValueError`` with its
-item.
+The serving five (:data:`SERVING_KINDS`) strike the data plane with gray
+failures the crash drills cannot find: :class:`SlowUpstream` (molasses on
+one LB↔replica path), :class:`GrayReplica` (the front door answers 500s or
+corrupted payloads at a rate), :class:`ConnFlap` (periodic connection
+resets), :class:`PartialPartition` (an LB↔replica black hole, the
+coordinator untouched) and :class:`CoordPartition` (the data plane loses
+discovery and serves on from last-known addresses).  Their defenses live in
+``runtime/lb.py`` (circuit breaker, retry budget, response-integrity nonce)
+and ``runtime/frontdoor.py`` (brownout).
 """
 
 from __future__ import annotations
@@ -264,6 +270,23 @@ class FaultContext:
     #: hangs, the harness knows HOW.
     stall: Optional[Callable[[Optional[float]], None]] = None
     wedge: Optional[Callable[[], bool]] = None
+    #: serving-plane drills.
+    #: ``replica_proxies`` maps replica name → the :class:`ChaosProxy`
+    #: sitting between the LB and that replica's front door (per-replica
+    #: latency / reset / blackhole injection); ``gray`` maps replica name
+    #: → a ``set_gray(rate, mode, duration_s)`` hook on that replica's
+    #: BatchApp (the front door itself answers 500s or corrupted
+    #: payloads); ``serving_lb`` is the LBApp under test, used read-only
+    #: by recovery predicates (breaker back to CLOSED = re-admitted);
+    #: ``coord_proxy`` fronts the coordination server for whole-plane
+    #: partitions, and ``partition_coord`` is the in-process alternative:
+    #: a harness hook that severs the LB's discovery KV for a duration
+    #: and returns the recovery predicate.
+    replica_proxies: Optional[dict] = None
+    gray: Optional[dict] = None
+    serving_lb: Any = None
+    coord_proxy: Optional[ChaosProxy] = None
+    partition_coord: Optional[Callable[[float], Callable[[], bool]]] = None
     rng: random.Random = field(default_factory=random.Random)
 
     def running_trainers(self) -> list:
@@ -740,12 +763,225 @@ class PoisonLoss(FaultAction):
         return FIRED, lambda: _sdc_refuted_total() > before
 
 
+# -- the serving five ---------------------------------------------------------
+#
+# Gray failures the crash drills cannot find; the defenses they exercise
+# live in runtime/lb.py (circuit breaker, retry budget, response-integrity
+# nonce) and runtime/frontdoor.py (brownout).
+
+def _pick_replica(ctx: FaultContext, replica: Optional[str],
+                  pool: Optional[dict], what: str) -> str:
+    """Resolve which replica a serving fault strikes: an explicit name,
+    else a seeded draw from the harness-provided pool (sorted so the
+    same seed always picks the same victim)."""
+    if pool is None or not pool:
+        raise RuntimeError(f"{what} needs replica hooks in the ctx")
+    if replica is not None:
+        if replica not in pool:
+            raise RuntimeError(f"{what}: unknown replica {replica!r}")
+        return replica
+    return ctx.rng.choice(sorted(pool))
+
+
+def _breaker_closed(ctx: FaultContext, name: str) -> bool:
+    """True when the LB's circuit breaker for ``name`` is CLOSED again —
+    the re-admit half of a gray-failure recovery.  Read-only peek at the
+    LB's upstream table (plain attribute reads, GIL-safe); absence of an
+    LB (or of the upstream) degrades to True so harnesses without an LB
+    can still run the fault."""
+    lb = ctx.serving_lb
+    if lb is None:
+        return True
+    try:
+        up = lb.upstreams.get(name)
+        if up is None:
+            return False  # still ejected/aged out — not recovered
+        return up.breaker.state == 0  # BRK_CLOSED
+    except Exception:
+        return True
+
+
+@dataclass
+class SlowUpstream(FaultAction):
+    """Molasses, not a crash: the LB↔replica path answers, slowly.  Each
+    response chunk through the replica's :class:`ChaosProxy` is delayed
+    for a window — the fault the hedger (and, when sustained, the
+    breaker's timeout accounting) must absorb without wrong answers."""
+
+    replica: Optional[str] = None
+    duration_s: float = 1.0
+    per_chunk_s: float = 0.05
+
+    kind: str = "slow_upstream"
+
+    def fire(self, ctx: FaultContext):
+        name = _pick_replica(ctx, self.replica, ctx.replica_proxies,
+                             "SlowUpstream")
+        proxy = ctx.replica_proxies[name]
+        log.warn("fault: slow upstream", replica=name,
+                 duration_s=self.duration_s, per_chunk_s=self.per_chunk_s)
+        proxy.delay(self.duration_s, per_chunk_s=self.per_chunk_s)
+        return FIRED, lambda: not proxy.faults_active()
+
+    def describe(self) -> dict:
+        d = {**super().describe(), "duration_s": self.duration_s,
+             "per_chunk_s": self.per_chunk_s}
+        if self.replica is not None:
+            d["replica"] = self.replica
+        return d
+
+
+@dataclass
+class GrayReplica(FaultAction):
+    """THE gray failure: the replica's front door keeps accepting and
+    answering, but a fraction of responses are 500s (``mode="error"``) or
+    carry a corrupted body + wrong nonce echo (``mode="corrupt"`` — the
+    misroute/desync bug class, detectable only by the LB's end-to-end
+    integrity check).  Recovery = the window lapsed AND the LB's breaker
+    for that upstream is back to CLOSED (the half-open probe re-admitted
+    it) — an ejection without re-admission is not a recovery."""
+
+    replica: Optional[str] = None
+    rate: float = 0.5
+    mode: str = "error"  # error | corrupt
+    duration_s: float = 1.5
+
+    kind: str = "gray_replica"
+
+    def fire(self, ctx: FaultContext):
+        name = _pick_replica(ctx, self.replica, ctx.gray, "GrayReplica")
+        log.warn("fault: gray replica", replica=name, rate=self.rate,
+                 mode=self.mode, duration_s=self.duration_s)
+        ctx.gray[name](self.rate, self.mode, self.duration_s)
+        until = time.monotonic() + self.duration_s
+
+        def recovered() -> bool:
+            return (time.monotonic() >= until
+                    and _breaker_closed(ctx, name))
+
+        return FIRED, recovered
+
+    def describe(self) -> dict:
+        d = {**super().describe(), "rate": self.rate, "mode": self.mode,
+             "duration_s": self.duration_s}
+        if self.replica is not None:
+            d["replica"] = self.replica
+        return d
+
+
+@dataclass
+class ConnFlap(FaultAction):
+    """Periodic connection resets on one LB↔replica path: every live
+    proxied connection is RST-closed ``resets`` times, ``period_s``
+    apart (a flapping NIC / conntrack flush).  Each reset sends every
+    in-flight block down the rescue-resend path; recovery = the flapping
+    stopped and the LB's breaker shows the upstream re-admitted."""
+
+    replica: Optional[str] = None
+    resets: int = 3
+    period_s: float = 0.25
+
+    kind: str = "conn_flap"
+
+    def fire(self, ctx: FaultContext):
+        name = _pick_replica(ctx, self.replica, ctx.replica_proxies,
+                             "ConnFlap")
+        proxy = ctx.replica_proxies[name]
+        log.warn("fault: connection flapping", replica=name,
+                 resets=self.resets, period_s=self.period_s)
+        done = threading.Event()
+
+        def flap() -> None:
+            for i in range(self.resets):
+                proxy.reset_all()
+                if i + 1 < self.resets:
+                    time.sleep(self.period_s)
+            done.set()
+
+        threading.Thread(target=flap, daemon=True,
+                         name="fault-conn-flap").start()
+        return FIRED, lambda: (done.is_set()
+                               and _breaker_closed(ctx, name))
+
+    def describe(self) -> dict:
+        d = {**super().describe(), "resets": self.resets,
+             "period_s": self.period_s}
+        if self.replica is not None:
+            d["replica"] = self.replica
+        return d
+
+
+@dataclass
+class PartialPartition(FaultAction):
+    """LB↔one-replica black hole while the coordinator stays reachable:
+    the replica's proxy parks accepted connections for the window (new
+    dials hang, in-flight requests vanish), so the LB must time out /
+    rescue around it while discovery keeps listing the replica healthy.
+    Recovery = the window lapsed and the breaker re-admitted the path."""
+
+    replica: Optional[str] = None
+    duration_s: float = 1.0
+
+    kind: str = "partial_partition"
+
+    def fire(self, ctx: FaultContext):
+        name = _pick_replica(ctx, self.replica, ctx.replica_proxies,
+                             "PartialPartition")
+        proxy = ctx.replica_proxies[name]
+        log.warn("fault: partial partition (LB↔replica)", replica=name,
+                 duration_s=self.duration_s)
+        proxy.blackhole(self.duration_s)
+        return FIRED, lambda: (not proxy.faults_active()
+                               and _breaker_closed(ctx, name))
+
+    def describe(self) -> dict:
+        d = {**super().describe(), "duration_s": self.duration_s}
+        if self.replica is not None:
+            d["replica"] = self.replica
+        return d
+
+
+@dataclass
+class CoordPartition(FaultAction):
+    """The serving plane loses the coordinator mid-traffic.  Discovery
+    must FREEZE (the LB keeps routing to last-known addresses instead of
+    aging out the whole fleet) and serving must continue — the drill
+    that pins the control plane's failure domain out of the data path.
+    Injection prefers the harness's ``partition_coord`` hook (severs the
+    LB's KV in-process and hands back the recovery predicate); with a
+    :class:`ChaosProxy` fronting the coord server (``coord_proxy``) it
+    blackholes the proxy instead and recovery is the window lapsing plus
+    the coordinator answering probes again."""
+
+    duration_s: float = 1.5
+
+    kind: str = "coord_partition"
+
+    def fire(self, ctx: FaultContext):
+        log.warn("fault: coordinator partition (serving plane)",
+                 duration_s=self.duration_s)
+        if ctx.partition_coord is not None:
+            recovery = ctx.partition_coord(self.duration_s)
+            return FIRED, recovery
+        if ctx.coord_proxy is not None:
+            proxy = ctx.coord_proxy
+            proxy.blackhole(self.duration_s)
+            return FIRED, lambda: (not proxy.faults_active()
+                                   and ctx.coord_alive())
+        raise RuntimeError("CoordPartition needs a partition_coord hook "
+                           "or a coord_proxy in the ctx")
+
+    def describe(self) -> dict:
+        return {**super().describe(), "duration_s": self.duration_s}
+
+
 #: the training eight, frozen as the reference freezes them, so a
 #: seeded campaign draws the same faults as the registry grows
 TRAINING_KINDS = ("kill_trainer", "kill_coordinator", "network_flake",
                   "preempt_domain", "corrupt_checkpoint", "disk_full",
                   "stall_step", "wedge_collective")
-#: the serving five; their actions are a later item of the port
+#: the serving five (gray failures): pass ``kinds=SERVING_KINDS`` to
+#: :meth:`FaultPlan.random` for a data-plane drill
 SERVING_KINDS = ("slow_upstream", "gray_replica", "conn_flap",
                  "partial_partition", "coord_partition")
 
@@ -753,16 +989,18 @@ SERVING_KINDS = ("slow_upstream", "gray_replica", "conn_flap",
 #: for a corruption campaign
 SDC_KINDS = ("corrupt_gradient", "flip_param_bits", "poison_loss")
 
-#: kind string → action class (the ported kinds)
+#: kind string → action class
 ACTION_TYPES = {
     cls.kind: cls  # type: ignore[attr-defined]
     for cls in (KillTrainer, KillCoordinator, NetworkFlake, PreemptDomain,
                 CorruptCheckpoint, DiskFull, StallStep, WedgeCollective,
-                CorruptGradient, FlipParamBits, PoisonLoss)
+                CorruptGradient, FlipParamBits, PoisonLoss,
+                SlowUpstream, GrayReplica, ConnFlap, PartialPartition,
+                CoordPartition)
 }
 
-#: each kind the port lacks → the ROADMAP.md item that brings it
-UNPORTED_KINDS = {k: "queue 1 item 11" for k in SERVING_KINDS}
+#: each kind the port lacks → the ROADMAP.md item that brings it (none)
+UNPORTED_KINDS: dict[str, str] = {}
 
 
 def _check_ported(kinds) -> None:
@@ -797,8 +1035,9 @@ class FaultPlan:
         (each kind at least once when ``n_faults`` allows), at strictly
         increasing steps at least ``min_gap`` apart, so each recovery has
         room to land before the next strike.  ``kinds`` defaults to the
-        training eight; pass :data:`SDC_KINDS` for a corruption campaign.
-        ``flake_duration_s`` shapes the network flakes."""
+        training eight; pass :data:`SDC_KINDS` for a corruption campaign,
+        :data:`SERVING_KINDS` for a data-plane drill.  ``flake_duration_s``
+        shapes the network flakes and the serving windows."""
         _check_ported(kinds)
         rng = random.Random(seed)
         if n_faults < len(kinds):
@@ -824,6 +1063,22 @@ class FaultPlan:
                     at_step=step, mode=rng.choice(("flip", "truncate"))))
             elif kind == "disk_full":
                 actions.append(DiskFull(at_step=step, saves=1))
+            elif kind == "slow_upstream":
+                actions.append(SlowUpstream(
+                    at_step=step, duration_s=flake_duration_s,
+                    per_chunk_s=round(rng.uniform(0.02, 0.08), 3)))
+            elif kind == "gray_replica":
+                actions.append(GrayReplica(
+                    at_step=step, rate=round(rng.uniform(0.3, 0.9), 2),
+                    mode=rng.choice(("error", "corrupt")),
+                    duration_s=flake_duration_s))
+            elif kind == "conn_flap":
+                actions.append(ConnFlap(
+                    at_step=step, resets=rng.randrange(2, 5),
+                    period_s=round(flake_duration_s / 4, 3)))
+            elif kind in ("partial_partition", "coord_partition"):
+                actions.append(ACTION_TYPES[kind](
+                    at_step=step, duration_s=flake_duration_s))
             else:
                 actions.append(ACTION_TYPES[kind](at_step=step))
         return cls(actions=actions, seed=seed)

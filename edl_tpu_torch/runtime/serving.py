@@ -1785,7 +1785,9 @@ class ServeRequest:
     header, or any caller) makes the request's phases first-class
     trace spans; without one, spans are emitted only for SLO violations
     so a p99 breach is attributable to a phase without flooding the trace
-    ring at full qps."""
+    ring at full qps.  ``parent_span`` (the LB's injected
+    ``X-EDL-Parent-Span``) roots the span tree under the origin tier's
+    admission span, so the cross-process tree stitches."""
 
     payload: tuple
     id: int = 0
@@ -1796,6 +1798,7 @@ class ServeRequest:
     t_forward1: float = 0.0
     t_done: float = 0.0
     trace_id: Optional[str] = None
+    parent_span: Optional[str] = None
 
     def __post_init__(self) -> None:
         self._done = threading.Event()
@@ -2289,14 +2292,14 @@ class ServingReplica:
         """Turn one request's phase timestamps into a trace span tree
         (admit → queue → batch → forward → respond under one
         ``serving_request`` root).  Emitted for requests carrying a
-        propagated trace_id and for SLO violations.  (The reference also
-        attaches each span to its histogram bucket as an exemplar; the
-        port's histograms carry none until the scrape plane is ported.)"""
+        propagated trace_id and for SLO violations, each phase and the
+        whole request also attached to its histogram bucket as a trace-id
+        exemplar."""
         tracer = get_tracer()
         tid = req.trace_id or new_trace_id()
         root = tracer.record_span(
             "serving_request", "serving", req.t_enqueue, req.t_done,
-            trace_id=tid,
+            trace_id=tid, parent_id=req.parent_span,
             replica=self.name, job=self.job,
             request_id=req.id, latency_ms=round(req.latency_s * 1e3, 3),
             slo_violation=req.slo_violation,
@@ -2311,6 +2314,8 @@ class ServingReplica:
             tracer.record_span(f"serving_request.{phase}", "serving",
                                t0, max(t1, t0), trace_id=tid,
                                parent_id=root)
+            self._shist.put_exemplar(max(t1 - t0, 0.0), tid, phase=phase)
+        self._hist.put_exemplar(req.latency_s, tid, job=self.job)
 
 
 #: the ROADMAP item that serving replicas wider than one card wait for
@@ -2540,18 +2545,19 @@ class ServingFleet:
 
     # -- routing ------------------------------------------------------------
 
-    def submit(self, payload: tuple,
-               trace_id: Optional[str] = None) -> ServeRequest:
+    def submit(self, payload: tuple, trace_id: Optional[str] = None,
+               parent_span: Optional[str] = None) -> ServeRequest:
         """Admit one request: routed to the READY replica with the
         shortest queue (a building/reloading replica receives no new
         traffic; with none ready — transient, e.g. a single replica
         mid-build — the request queues on the least-loaded live replica
         and waits rather than failing).  ``trace_id`` makes the request's
-        phase spans first-class trace events."""
+        phase spans first-class trace events; ``parent_span`` parents
+        their root (the LB's admission span)."""
         req = ServeRequest(payload=tuple(np.asarray(a) for a in payload),
                            id=next(self._ids),
                            t_enqueue=time.perf_counter(),
-                           trace_id=trace_id)
+                           trace_id=trace_id, parent_span=parent_span)
         while True:
             with self._lock:
                 live = [r for r in self._replicas if r.state != STOPPED]
@@ -2865,10 +2871,12 @@ def serve_main(env=None, device="cuda") -> int:
     ``EDL_SERVING_PORT``, watches the lineage for rolling reloads, and
     answers ``/healthz`` 503 until the replica's warm-up forward has run —
     the readiness gate the pod template probes.  SIGTERM drains the fleet
-    and returns 0.  ``EDL_SERVING_FRONTDOOR`` picks the front door:
-    ``legacy`` is the thread-per-connection HTTP/1.1 server; the
-    reference's default, ``async``, waits for ``runtime/frontdoor.py``
-    (ROADMAP.md queue 1 item 8) and raises before any port is bound."""
+    and returns 0.  ``EDL_SERVING_FRONTDOOR`` picks the front door: the
+    default ``async`` is :class:`~edl_tpu_torch.runtime.frontdoor.
+    FrontDoor` over a :class:`~edl_tpu_torch.runtime.frontdoor.FleetApp`
+    (keep-alive, pipelining, the raw-f32 fast path beside JSON);
+    ``legacy`` is the thread-per-connection HTTP/1.1 server; any other
+    value raises ``ValueError`` before a port is bound."""
     import json as _json
     import os
     import signal
@@ -2880,11 +2888,11 @@ def serve_main(env=None, device="cuda") -> int:
 
     env = os.environ if env is None else env
     frontdoor_kind = env.get("EDL_SERVING_FRONTDOOR", "async")
-    if frontdoor_kind != "legacy":
-        raise NotImplementedError(
-            f"EDL_SERVING_FRONTDOOR={frontdoor_kind!r}: the async front door "
-            "(runtime/frontdoor.py) waits for ROADMAP.md queue 1 item 8; "
-            "set EDL_SERVING_FRONTDOOR=legacy")
+    if frontdoor_kind not in ("async", "legacy"):
+        # before anything is bound or made: a typo must not silently pick
+        # a front door
+        raise ValueError(f"EDL_SERVING_FRONTDOOR={frontdoor_kind!r}: the "
+                         "front doors are 'async' and 'legacy'")
     model_dir = env.get("EDL_SERVING_MODEL_DIR", "")
     if not model_dir:
         print("error: EDL_SERVING_MODEL_DIR not set (the jobparser emits "
@@ -2986,9 +2994,17 @@ def serve_main(env=None, device="cuda") -> int:
             pass
 
     port = int(env.get("EDL_SERVING_PORT", "8500"))
-    srv = ThreadingHTTPServer(("0.0.0.0", port), Handler)
-    bound = srv.server_address[1]
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    srv = door = None
+    if frontdoor_kind == "legacy":
+        srv = ThreadingHTTPServer(("0.0.0.0", port), Handler)
+        bound = srv.server_address[1]
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    else:
+        from edl_tpu_torch.runtime.frontdoor import FleetApp, FrontDoor
+
+        door = FrontDoor(FleetApp(fleet, sizes[0]), port=port, job=job)
+        door.start()
+        bound = door.port
     log.info("model server ready", job=job, generation=fleet.generation,
              port=bound, frontdoor=frontdoor_kind)
     # machine-parseable ready marker (harnesses wait on it to learn an
@@ -3005,7 +3021,10 @@ def serve_main(env=None, device="cuda") -> int:
         while not stop.wait(0.5):
             pass
     finally:
-        srv.shutdown()
+        if srv is not None:
+            srv.shutdown()
+        if door is not None:
+            door.stop()
         # graceful: finish the queue, drop nothing; also unpublishes the
         # metrics address and stops /metrics
         fleet.stop(drain=True)

@@ -110,7 +110,9 @@ def test_defaults_and_validation_match_the_reference():
 def test_a_serving_job_raises_naming_its_item():
     """A serving job passes the gate and every controller verb; what of
     its plane is not ported raises, naming its item: a replica wider than
-    one card (item 12) and the async front door (item 8)."""
+    one card (item 12).  The async front door is ported: serve_main
+    raises only for a front door it does not know, before touching the
+    lineage."""
     import numpy as np
 
     from edl_tpu_torch.models import mlp
@@ -132,8 +134,9 @@ def test_a_serving_job_raises_naming_its_item():
                      mlp.MLP([4, 2], device="cpu"),
                      example_row=(np.zeros(4, np.float32),),
                      chips_per_replica=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve_main({"EDL_SERVING_MODEL_DIR": "/nonexistent"}, device="cpu")
+    with pytest.raises(ValueError, match="'async' and 'legacy'"):
+        serve_main({"EDL_SERVING_MODEL_DIR": "/nonexistent",
+                    "EDL_SERVING_FRONTDOOR": "item-8"}, device="cpu")
 
 
 @pytest.mark.parametrize("kw, item", [

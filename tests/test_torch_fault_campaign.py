@@ -123,10 +123,18 @@ def test_fault_plan_covers_all_kinds_with_spacing():
 
 @pytest.mark.parametrize("kind", tfaults.SERVING_KINDS)
 def test_serving_kinds_still_raise_naming_their_item(kind):
-    with pytest.raises(ValueError, match="queue 1 item 11"):
-        tfaults.FaultPlan.random(0, n_faults=1, kinds=(kind,))
-    assert tfaults.UNPORTED_KINDS == {
-        k: "queue 1 item 11" for k in tfaults.SERVING_KINDS}
+    """The serving five are ported: no kind is left to raise for, each
+    draws as the reference draws, and only a kind neither package knows
+    still raises."""
+    assert tfaults.UNPORTED_KINDS == {}
+    assert tfaults.ACTION_TYPES[kind].kind == kind
+    for seed in range(4):
+        assert tfaults.FaultPlan.random(
+            seed, n_faults=2, kinds=(kind,)).describe() == \
+            jfaults.FaultPlan.random(seed, n_faults=2,
+                                     kinds=(kind,)).describe()
+    with pytest.raises(ValueError, match="not ported"):
+        tfaults.FaultPlan.random(0, n_faults=1, kinds=(kind + "_typo",))
 
 
 def test_fault_plan_describe_carries_params():

@@ -81,7 +81,14 @@ SERVING = ("edl_tpu_torch.runtime.serving",
            "edl_tpu_torch.runtime.optim", "edl_tpu_torch.entry")
 
 
-@pytest.mark.parametrize("module", CONTROL_PLANE + MULTI_PROCESS + SERVING)
+#: the serving data plane: the async front door and its apps, the LB tier,
+#: the tracing sink its processes start
+DATA_PLANE = ("edl_tpu_torch.runtime.frontdoor", "edl_tpu_torch.runtime.lb",
+              "edl_tpu_torch.observability.tracing")
+
+
+@pytest.mark.parametrize("module",
+                         CONTROL_PLANE + MULTI_PROCESS + SERVING + DATA_PLANE)
 def test_the_control_plane_modules_are_covered(module):
     assert module in set(_port_modules())
 
@@ -162,6 +169,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     model = tfm.Transformer(tfm.TINY, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ElasticTrainer(tfm.loss_fn, model, optim.adamw(1e-3))
+    from edl_tpu_torch.entry import flagship_frontdoor_replica
+
+    with pytest.raises(RuntimeError, match="CUDA"):  # before binding
+        flagship_frontdoor_replica(cfg=tfm.TINY)
 
 
 def test_entry_on_the_cpu_builds_the_flagship():

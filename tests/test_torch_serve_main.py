@@ -4,8 +4,11 @@ subprocess over an ``ElasticCheckpointer`` lineage holding the MLP at the
 JAX init, on the legacy front door.  ``/healthz`` answers 200 once ready,
 ``/predict`` answers the JAX package's ``mlp.apply`` on the same rows
 within 1e-5, a generation saved into the lineage is picked up by the
-watcher, and SIGTERM drains and exits 0.  The async front door raises
-before any port is bound."""
+watcher, and SIGTERM drains and exits 0.  The default (async) front door
+answers pipelined JSON and raw-f32 ``/predict`` over one socket in order,
+each within 1e-5 of the JAX package's ``mlp.apply``, and exits 0 on
+SIGTERM; a front door it does not know raises before any port is
+bound."""
 
 from __future__ import annotations
 
@@ -129,14 +132,15 @@ def test_serve_main_serves_reloads_and_drains(tmp_path):
 
 
 def test_async_front_door_raises_before_binding(tmp_path):
+    """The async front door serves now (the test below); what still
+    raises before binding is a front door serve_main does not know."""
     port, health_port = _free_port(), _free_port()
     env = {"EDL_SERVING_MODEL_DIR": str(tmp_path / "none"),
            "EDL_SERVING_PORT": str(port),
            "EDL_HEALTH_PORT": str(health_port)}
-    for kind in (None, "async"):
-        if kind is not None:
-            env["EDL_SERVING_FRONTDOOR"] = kind
-        with pytest.raises(NotImplementedError, match="item 8"):
+    for kind in ("asyncio", "threaded"):
+        env["EDL_SERVING_FRONTDOOR"] = kind
+        with pytest.raises(ValueError, match="'async' and 'legacy'"):
             serve_main(env, device="cpu")
     # neither port was bound, and no lineage directory was made
     for p in (port, health_port):
@@ -153,3 +157,63 @@ def test_serve_main_refuses_a_bad_env(tmp_path, capsys):
                        "EDL_SERVING_MODEL": "resnet:50"},
                       device="cpu") == 2
     assert "unknown EDL_SERVING_MODEL kind" in capsys.readouterr().out
+
+
+@pytest.mark.timeout_s(180)
+def test_serve_main_async_front_door_pipelines_in_order(tmp_path):
+    """The default front door: JSON and raw-f32 ``/predict`` pipelined
+    over ONE socket come back in request order, each row within 1e-5 of
+    the JAX package's ``mlp.apply``; SIGTERM exits 0."""
+    from edl_tpu_torch.runtime.frontdoor import build_predict_request
+    from tests.torch_wire import connect, read_responses
+
+    p1 = jmlp.init(jax.random.key(0), SIZES)
+    lineage = tmp_path / "lineage"
+    ckpt = ElasticCheckpointer(lineage)
+    ckpt.save(1, {"params": _module(p1)})
+    env = dict(os.environ)
+    env.pop("EDL_SERVING_FRONTDOOR", None)
+    env.update(
+        EDL_SERVING_MODEL_DIR=str(lineage), EDL_SERVING_MODEL="mlp:16,64,4",
+        EDL_SERVING_PORT="0", EDL_HEALTH_PORT="-1",
+        EDL_SERVING_RELOAD_POLL_S="0", OMP_NUM_THREADS="1",
+        PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    log = tmp_path / "server.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "edl_tpu_torch.runtime.serving",
+             "--device", "cpu"], stdout=out, stderr=subprocess.STDOUT,
+            env=env, cwd=str(ROOT))
+    try:
+        port = _wait_ready(proc, log, 120)
+        assert "frontdoor=async" in log.read_text()
+        rows = np.random.default_rng(5).normal(size=(6, 16)).astype(
+            np.float32)
+        want = np.asarray(jmlp.apply(p1, rows))
+        blob, kinds = b"", []
+        for i, row in enumerate(rows):
+            if i % 2:
+                body = json.dumps({"inputs": row.tolist()}).encode()
+                blob += (b"POST /predict HTTP/1.1\r\nHost: t\r\n"
+                         b"Content-Type: application/json\r\n"
+                         b"Content-Length: %d\r\n\r\n" % len(body)) + body
+                kinds.append("json")
+            else:
+                blob += build_predict_request(row)
+                kinds.append("f32")
+        s = connect(port)
+        s.sendall(blob)
+        resps = read_responses(s, len(rows))
+        s.close()
+        assert [st for st, _ in resps] == [200] * len(rows)
+        for (_, body), kind, w in zip(resps, kinds, want):
+            got = (np.asarray(json.loads(body.decode())["outputs"])
+                   if kind == "json" else np.frombuffer(body, "<f4"))
+            assert np.allclose(got, w, atol=ATOL, rtol=ATOL), (kind, got, w)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, log.read_text()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        ckpt.close()

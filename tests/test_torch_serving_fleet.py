@@ -495,3 +495,41 @@ def test_launch_counts_survive_concurrent_replicas():
         sys.setswitchinterval(old)
     assert fa.launches["flash_fwd"] - before["flash_fwd"] == 8 * 5000
     fa.launches.update(before)
+
+
+# ---------------------------------------------- the data plane's hook
+
+
+@fleet_test
+def test_submit_parent_span_parents_the_request_spans():
+    """``submit(parent_span=...)`` (the LB's injected X-EDL-Parent-Span)
+    roots the request's ``serving_request`` span under it, the phases
+    under that root, and attaches the trace to the histograms' buckets."""
+    from edl_tpu_torch.observability.tracing import get_tracer, new_trace_id
+
+    fleet = make_fleet(job="t/parent")
+    try:
+        fleet.scale_to(1)
+        tid = new_trace_id()
+        fleet.submit(row(1), trace_id=tid, parent_span="lb-root-7").wait(10)
+        deadline = time.monotonic() + 5
+        evs = []
+        while time.monotonic() < deadline and len(evs) < 6:
+            evs = [e for e in get_tracer().events() if e.trace_id == tid]
+            time.sleep(0.02)
+        root = next(e for e in evs if e.name == "serving_request")
+        assert root.parent_id == "lb-root-7"
+        phases = [e for e in evs if e.name.startswith("serving_request.")]
+        assert len(phases) == 5
+        assert {e.parent_id for e in phases} == {root.span_id}
+        assert tid in {t for t, _v, _ts in
+                       serving._request_hist().exemplars(job="t/parent")}
+        plain = fleet.submit(row(2), trace_id=new_trace_id())
+        plain.wait(10)
+        time.sleep(0.1)
+        other = next(e for e in get_tracer().events()
+                     if e.trace_id == plain.trace_id
+                     and e.name == "serving_request")
+        assert other.parent_id is None
+    finally:
+        fleet.stop()
