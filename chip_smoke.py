@@ -34,9 +34,10 @@ Phases, each of which raises on failure:
     d 64, non-causal), at (k)'s micro-batch (b 2, FLAGSHIP's s, h, hk and
     d, causal), at the local batch of a live rank of (j) and (l) on a
     world of 2 (b 8), at a rank's heads on (m)'s tp 2 (b 16, h 4,
-    hk 1), at (o)'s tp-2 micro-batch (b 2, h 4, hk 1), and at a rank's
+    hk 1), at (o)'s tp-2 micro-batch (b 2, h 4, hk 1), at a rank's
     heads of BERT-base on (r)'s tp 2 (b 32, s 512, h = hk = 6, d 64,
-    non-causal), checked and timed as in (b);
+    non-causal), and at (w)'s ring chunk (b 4, s 2 048, FLAGSHIP's heads,
+    full and causal), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -120,10 +121,12 @@ Phases, each of which raises on failure:
     ``WORLD_LOSS_ATOL`` of the one-rank control; each live rank launching
     every flash kernel once per layer a step and one standing by none; a
     world-2 step's census tp all-reduces alone (its count printed).
-(n) ``entry.dryrun_multichip(2)``, ``(4)`` and ``(8)`` on the card: n
-    ranks share it over gloo and take one step of TINY placed by its
-    partition specs (fsdp 2, dp2×fsdp2, dp2×fsdp2×tp2), the three sizes
-    at once, each printing its ``DRYRUN_COMM`` line.
+(n) ``entry.dryrun_multichip(2)``, ``(4)``, ``(8)`` and ``(16)`` on the
+    card: n ranks share it over gloo and take one step of TINY placed by
+    its partition specs (fsdp 2, dp2×fsdp2, dp2×fsdp2×tp2,
+    dp2×fsdp2×tp2×sp2, the last ringing 16-token chunks over sp), the four
+    sizes at once, each printing its ``DRYRUN_COMM`` line and where its
+    ranks' seconds went.
 (o) the sharded lineage.  (o-1): (k)'s job on fsdp trainers
     (``entry.flagship_virtual_world`` with ``param_sharding="fsdp"`` and
     ``MeshSpec(dp=1, fsdp=-1)``, world 2 being fsdp 2): each save gathers
@@ -313,6 +316,26 @@ Phases, each of which raises on failure:
     rows also pipelined over one socket).  Prints C, p50/p99 a window
     through the LB and through the door alone, hedges, rescues and sheds,
     each replica's build and ready seconds, and the reload's ms.
+(w) sequence parallelism: two ranks share the card over gloo
+    (``entry.flagship_sp_world``: FLAGSHIP, replicated, every world
+    ``MeshSpec(sp=-1)``, a global batch of 4 x 4 096 tokens, each rank of
+    sp 2 training its 2 048-token chunk of every sequence through the
+    flash ring, its hops staged through host memory), a warm-up and 3
+    timed steps on sp 2, ``resize(1)`` and a step on world 1 (rank 1
+    standing by; the flash kernels on the whole sequence), ``resize(2)``
+    and a step.  Gates: every loss finite and within ``WORLD_LOSS_ATOL`` of
+    a world-1 control (the same steps from the same init in this process);
+    the params bitwise equal across the ranks after each sp-2 step and
+    bitwise kept through each resize, the grow's broadcasts the plan's
+    ``bytes_moved`` less Adam's count; rank r launching each flash kernel
+    (r + 1) x 8 times an sp-2 step (the chunk above the diagonal launches
+    nothing), 8 on world 1 and none standing by; the census of an sp-2 step
+    on each rank 64 sp collective-permutes of the bytes the ring sends and
+    one all-reduce; each rank's peak memory over a step's start below the
+    control's.  Then one layer's attention at the step's shapes through the
+    flash ring, held to the same ring on the kernels' plain versions by the
+    kernels' rule and to the plain ring in fp32 by (d)'s rule (the plain
+    ring in bf16 beside it), each ring timed.
 
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
@@ -363,9 +386,10 @@ from edl_tpu_torch.entry import (CONTROLLED_ROWS, CONTROLLED_SHARDS,
                                  flagship_controlled_job,
                                  flagship_decode_fleet, flagship_elastic_world,
                                  flagship_local_job, flagship_scoring_fleet,
-                                 flagship_tp_world, flagship_trainer,
-                                 flagship_virtual_world, resnet_trainer,
-                                 score_last_token)
+                                 flagship_sp_world, flagship_tp_world,
+                                 flagship_trainer,
+                                 flagship_virtual_world, rank_processes,
+                                 resnet_trainer, score_last_token)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
@@ -461,7 +485,7 @@ WORLD_LOSS_ATOL = 2e-2
 #: phase (l): the fsdp trainer's layout (every rank on the fsdp axis)
 FSDP_SPEC = MeshSpec(dp=1, fsdp=-1)
 #: phase (n): the dryrun's sizes, the reference's layouts for each
-DRYRUN_SIZES = (2, 4, 8)
+DRYRUN_SIZES = (2, 4, 8, 16)
 #: phase (k): steps of the job, its checkpoint cadence, the step the first
 #: loop stops at (the kill lands in the next one), the stall watchdog's
 #: deadline floor, and the ranks' join deadline
@@ -583,6 +607,15 @@ FD_LB = dict(pool=2, discovery_s=0.1, sweep_ms=3.0, hedge_floor_ms=25.0,
              hedge_cap_ms=250.0, request_timeout_s=5.0, breaker_errors=2,
              breaker_ratio=0.5, breaker_min=10, breaker_window_s=0.5,
              breaker_cooldown_s=0.3, breaker_probes=1)
+
+#: phase (w): the sp job's global batch (the 16 384 tokens of (c) in
+#: sequences of 4 096, each rank of sp 2 holding a chunk of 2 048), its
+#: schedule (a warm-up and SP_TIMED timed steps on sp 2, then resize(1), a
+#: step, resize(2), a step), and the ring hold's seed and timed repetitions
+SP_B, SP_S = 4, 4096
+SP_TIMED = 3
+SP_SCHEDULE = (2,) * (1 + SP_TIMED) + (1, 2)
+SP_HOLD_SEED, SP_HOLD_REPS = 5, 3
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -1416,10 +1449,12 @@ def world_rank(rank: int, store: str, out: str) -> None:
 
 
 def run_ranks(target, phase: str, timeout_s: float, *args) -> list[dict]:
-    """(j) and (k): spawn WORLD_RANKS processes of ``target(rank, store,
-    out, *args)``, join them within ``timeout_s`` (killing any left), and
-    return each rank's record, the JSON it wrote to ``out``."""
-    ctx = torch.multiprocessing.get_context("spawn")
+    """(j) and (k): start WORLD_RANKS processes of ``target(rank, store,
+    out, *args)`` (forked from ``entry.rank_processes``' server, which has
+    imported this script once), join them within ``timeout_s`` (killing
+    any left), and return each rank's record, the JSON it wrote to
+    ``out``."""
+    ctx = rank_processes()
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(WORLD_RANKS)]
         procs = [ctx.Process(target=target,
@@ -4785,6 +4820,289 @@ def phase_data_plane(card: str, cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                 serve_main=drill["out"])
 
 
+# -- phase (w): sequence parallelism over two ranks sharing the card ---------
+
+
+def ring_hold(rank: int) -> dict:
+    """(w): one layer's attention at the sp step's shapes (this rank's
+    chunk of a global [SP_B, SP_S] batch, FLAGSHIP's heads, bf16, from one
+    seed on both ranks), forward and backward, through the flash ring and:
+
+    * the same ring on the kernels' plain versions
+      (``ring_flash_attention_plain``), which round where the kernels
+      round: out, dq, dk and dv held element by element to the kernels'
+      rule, 2^-7·|plain| + 2^-5·rms(plain);
+    * the plain ring on fp32 copies of the same bf16 values (the exact
+      arithmetic): held to (d)'s rule, 2^-7·|plain| + MODEL_ATOL·rms(plain),
+      since bf16 attention itself is further from it than the kernels'
+      rule, most on the first chunk of a causal sequence, whose early rows
+      sum few terms that cancel; the plain ring in bf16 against the same
+      fp32 run is printed beside it as that floor.
+
+    The flash ring and the plain ring in bf16 are each timed.  The ring's
+    hop is ``exchange`` with the other rank (next and previous are the same
+    rank on a ring of two), outside the trainer's census."""
+    from edl_tpu_torch.parallel import ring_attention as ring
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    peer = 1 - rank
+    sp = ring.SPContext(size=WORLD_RANKS, rank=rank,
+                        hop=lambda ts, reverse=False: ring.exchange(
+                            ts, peer, peer))
+    g = torch.Generator(device=dev).manual_seed(SP_HOLD_SEED)
+
+    def chunk(heads):
+        x = torch.randn(SP_B, SP_S, heads, D, generator=g, device=dev)
+        return ring.local_chunk(x, sp).to(torch.bfloat16).contiguous()
+
+    q, k, v, do = chunk(H), chunk(HK), chunk(HK), chunk(H)
+
+    def run(fn, dtype=torch.bfloat16, repeat=False):
+        qg, kg, vg = (x.detach().to(dtype).requires_grad_()
+                      for x in (q, k, v))
+        kk, vv = kg, vg
+        if repeat:
+            kk, vv = (x.repeat_interleave(H // HK, dim=2) for x in (kg, vg))
+        out = fn(qg, kk, vv, sp=sp)
+        out.backward(do.to(dtype))
+        return out.detach(), qg.grad, kg.grad, vg.grad
+
+    def flash():
+        return run(ring.ring_flash_attention_sharded)
+
+    def plain():
+        return run(ring.ring_attention_sharded, repeat=True)
+
+    rec = {}
+    fa.reset_launches()
+    got = flash()
+    rec["launches"] = dict(fa.launches)
+    exact = run(ring.ring_attention_sharded, torch.float32, repeat=True)
+    for label, ref, other, rule in (
+            ("kernels", run(ring.ring_flash_attention_plain), got,
+             kc.BF16_ATOL),
+            ("exact", exact, got, MODEL_ATOL),
+            ("plain_bf16", exact, plain(), MODEL_ATOL)):
+        rec[label] = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), other, ref):
+            rms = b.float().square().mean().sqrt().item()
+            r = kc.reading(a, b, kc.BF16_RTOL, rule * rms)
+            rec[label][name] = {key: r[key] for key in (
+                "max_abs_err", "worst", "need_atol")}
+    torch.cuda.synchronize()
+    for label, fn in (("flash_ms", flash), ("plain_ms", plain)):
+        times = []
+        for _ in range(SP_HOLD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        rec[label] = float(np.median(times))
+    return rec
+
+
+def sp_rank(rank: int, store: str, out: str) -> None:
+    """(w), one rank of the job: SP_SCHEDULE on FLAGSHIP with the sequence
+    split over sp (``entry.flagship_sp_world``), with what one rank can see
+    of it (losses, step times, each step's peak memory over its start,
+    launches, census, parameter fingerprints, each resize's bytes and
+    whether the whole params were kept), then :func:`ring_hold`, written as
+    JSON to ``out``."""
+    from edl_tpu_torch.runtime import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer, batch = flagship_sp_world(rank, WORLD_RANKS, store, batch=SP_B,
+                                       seq=SP_S)
+    rec = dict(rank=rank, steps=[], resized=[], moved=[], kept=[],
+               n_params=sum(p.numel() for p in trainer.shards.values()))
+    fa.reset_launches()
+    for world in SP_SCHEDULE:
+        if world != trainer.world_size:
+            full = checksum(trainer.full_params().values())
+            elastic.reset_census()
+            rec["resized"].append(trainer.resize(world))
+            rec["moved"].append(elastic.collective_census())
+            after = checksum(trainer.full_params().values())
+            rec["kept"].append(full == after if rank == 0 else None)
+        before = dict(fa.launches)
+        elastic.reset_census()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        rec["steps"].append(dict(
+            world=trainer.world_size, live=trainer.live, loss=loss,
+            ms=1e3 * (time.perf_counter() - t0),
+            launches={k: fa.launches[k] - before[k] for k in fa.launches},
+            census=elastic.collective_census(),
+            rise=torch.cuda.max_memory_allocated() - start,
+            peak=torch.cuda.max_memory_allocated(),
+            params=(checksum(trainer.shards.values())
+                    if trainer.world_size > 1 else None)))
+    rec["launches"] = dict(fa.launches)
+    rec["events"] = trainer.resize_events
+    del trainer, batch
+    torch.cuda.empty_cache()
+    rec["hold"] = ring_hold(rank)
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def sp_control() -> tuple[list, list]:
+    """(w)'s world-1 control: SP_SCHEDULE's steps of ``flagship_trainer``
+    at the sp job's global batch, from the same init on the same batch, in
+    this process, the flash kernels on the whole sequence: (losses, each
+    step's peak memory over its start)."""
+    torch.cuda.empty_cache()
+    trainer, batch = flagship_trainer(SP_B, SP_S)
+    losses, rises = [], []
+    for _ in SP_SCHEDULE:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        losses.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        rises.append(torch.cuda.max_memory_allocated() - start)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return losses, rises
+
+
+def sp_hop_bytes(cfg: tfm.TransformerConfig) -> tuple[int, int]:
+    """(w): the collective-permutes and their bytes a rank sends in a step
+    on sp 2 without remat: each layer's forward hops its k and v chunk
+    once; its backward hops k, v and their fp32 dK/dV once, and dK/dV once
+    more to bring them home."""
+    kv = SP_B * cfg.n_kv_heads * (SP_S // WORLD_RANKS) * cfg.head_dim
+    per_layer = 2 * kv * 2 + 2 * kv * 2 + 2 * kv * 4 + 2 * kv * 4
+    return 8 * cfg.n_layers, per_layer * cfg.n_layers
+
+
+def phase_sp(card: str) -> dict:
+    """(w): FLAGSHIP with its sequence split over sp on two ranks sharing
+    the card, through 2→1→2, against a world-1 control on the whole
+    sequence, and the flash ring held to the plain ring; returns the
+    launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(sp_rank, "w", WORLD_CHILD_TIMEOUT_S)
+    control, control_rise = sp_control()
+    n = tfm.FLAGSHIP.n_layers
+    permutes, nbytes = sp_hop_bytes(tfm.FLAGSHIP)
+    failures = []
+    print(f"sp phase (w): FLAGSHIP, global batch {SP_B} x {SP_S}, sp "
+          f"{WORLD_RANKS} (each rank {SP_B} x {SP_S // WORLD_RANKS}), the "
+          f"flash ring; two ranks sharing the card over gloo (the hops "
+          f"staged through host memory), on {card}", flush=True)
+    for rec in recs:
+        for evt, moved, kept in zip(rec["events"], rec["moved"],
+                                    rec["kept"]):
+            sent = sum(slot["bytes"] for label, slot in moved.items()
+                       if label != "world")
+            print(f"sp rank {rec['rank']} resize to {evt['shape']}: "
+                  f"bytes_moved {evt['bytes_moved']} (plan), broadcast "
+                  f"{sent} bytes, reshard_ms {evt['reshard_ms']}, full "
+                  f"params bitwise kept {kept}", flush=True)
+            # the plan counts Adam's step count, which travels by value
+            if kept is False or not 0 <= evt["bytes_moved"] - sent <= 4:
+                failures.append(f"rank {rec['rank']} resize {evt}: "
+                                f"broadcast {sent}, kept {kept}")
+    for world in sorted(set(SP_SCHEDULE)):
+        ms = {rec["rank"]: [round(st["ms"], 2) for st in rec["steps"]
+                            if st["world"] == world and st["live"]]
+              for rec in recs}
+        print(f"sp world {world} step_ms by rank {ms} (b{SP_B} s{SP_S} "
+              f"global batch; two ranks share one card) on {card}",
+              flush=True)
+    for rec in recs:
+        rises = [st["rise"] for st in rec["steps"]
+                 if st["world"] == WORLD_RANKS]
+        peaks = [st["peak"] for st in rec["steps"]
+                 if st["world"] == WORLD_RANKS]
+        print(f"sp rank {rec['rank']} step memory on sp2: peak over the "
+              f"step's start {max(rises) / 1e9:.4f} GB (peak "
+              f"{max(peaks) / 1e9:.4f} GB); the world-1 control's "
+              f"{max(control_rise[1:]) / 1e9:.4f} GB on {card}", flush=True)
+        if not max(rises) < min(control_rise[1:]):
+            failures.append(f"rank {rec['rank']} step memory {rises} not "
+                            f"below the control's {control_rise}")
+    r0, r1 = recs
+    for rec in recs:
+        census = next(st["census"] for st in rec["steps"]
+                      if st["world"] == WORLD_RANKS)
+        sp_slot = census.get("sp", {"ops": {}, "bytes": 0})
+        got = sp_slot["ops"].get("collective-permute", 0)
+        # beside the hops, one all-reduce of the fp32 gradients and loss
+        hops = sp_slot["bytes"] - 4 * (rec["n_params"] + 1)
+        print(f"sp census of one sp2 step, rank {rec['rank']}: {got} sp "
+              f"collective-permutes of {hops} bytes (want {permutes} of "
+              f"{nbytes}), {json.dumps(census)}", flush=True)
+        if (got != permutes or hops != nbytes or set(census) != {"sp"}
+                or sp_slot["ops"].get("all-reduce") != 1):
+            failures.append(f"rank {rec['rank']} census {census}")
+    losses = [st["loss"] for st in r0["steps"]]
+    diff = [abs(a - b) for a, b in zip(losses, control)]
+    print(f"sp losses {[round(x, 6) for x in losses]} control "
+          f"{[round(x, 6) for x in control]} max |sp - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL})", flush=True)
+    if not all(np.isfinite(losses)) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {losses} vs control {control}")
+    if r0["resized"] != [True, True] or r1["resized"] != [True, True]:
+        failures.append(f"resizes {r0['resized']} {r1['resized']}")
+    if r0["kept"] != [True, True]:
+        failures.append(f"full params kept through the resizes "
+                        f"{r0['kept']}")
+    for i, (a, b) in enumerate(zip(r0["steps"], r1["steps"])):
+        if a["world"] > 1 and (a["params"] != b["params"]
+                               or a["loss"] != b["loss"]):
+            failures.append(f"step {i}: the ranks' params or loss differ")
+        for rank, st in enumerate((a, b)):
+            if not st["live"]:
+                want = 0
+            elif st["world"] == 1:
+                want = n
+            else:  # rank r of the ring computes r + 1 chunks
+                want = (rank + 1) * n
+            if st["launches"] != {k: want for k in FLASH}:
+                failures.append(f"step {i} rank {rank} on world "
+                                f"{st['world']}: launches "
+                                f"{st['launches']}, want {want} each")
+    for rec in recs:
+        hold = rec["hold"]
+        for label, what in (("kernels", "the kernels' plain versions, rule "
+                             "2^-5 rms"),
+                            ("exact", "the plain ring in fp32, (d)'s rule"),
+                            ("plain_bf16", "the plain ring in bf16 against "
+                             "fp32, (d)'s rule")):
+            print(f"sp rank {rec['rank']} ring hold (one layer, b{SP_B} "
+                  f"sc{SP_S // WORLD_RANKS} h{H} hk{HK} d{D} bf16) vs "
+                  f"{what}: " + ", ".join(
+                      f"{o} max |diff| {hold[label][o]['max_abs_err']:.4e} "
+                      f"{hold[label][o]['worst']:.3f} of the limit (floor "
+                      f"needed {hold[label][o]['need_atol']:.4f} rms)"
+                      for o in ("out", "dq", "dk", "dv")), flush=True)
+        print(f"sp rank {rec['rank']} ring fwd+bwd flash_ms "
+              f"{hold['flash_ms']:.3f} plain_ms (bf16) "
+              f"{hold['plain_ms']:.3f}; launches {hold['launches']} on "
+              f"{card}", flush=True)
+        for label in ("kernels", "exact"):
+            bad = [o for o, r in hold[label].items() if not r["worst"] <= 1]
+            if bad:
+                failures.append(f"rank {rec['rank']}: the flash ring's {bad}"
+                                f" off the {label} reference")
+        if hold["launches"] != {k: rec["rank"] + 1 for k in FLASH}:
+            failures.append(f"rank {rec['rank']} hold launches "
+                            f"{hold['launches']}")
+    print(f"sp launches by rank {[rec['launches'] for rec in recs]}",
+          flush=True)
+    if failures:
+        raise AssertionError("phase (w): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
 def goodput_summary(raw) -> dict:
     from edl_tpu_torch.observability.goodput import ScalingCurve
 
@@ -4834,7 +5152,9 @@ def main() -> int:
                                      H // WORLD_RANKS, HK // WORLD_RANKS, D,
                                      (True,))),
             ("bert_tp", (BERT_B, BERT_S, BERT_H // WORLD_RANKS,
-                         BERT_H // WORLD_RANKS, BERT_D, (False,))))}
+                         BERT_H // WORLD_RANKS, BERT_D, (False,))),
+            ("flagship_sp", (SP_B, SP_S // WORLD_RANKS, H, HK, D,
+                             (False, True))))}
 
     extra = timed("f", more_flash)
     paths["resnet50"] = timed("g", phase_resnet, sum(sites.values()))
@@ -4860,6 +5180,7 @@ def main() -> int:
                                       card)["launches"]
     paths["flagship_frontdoor"] = timed("v", phase_data_plane,
                                         card)["launches"]
+    paths["flagship_sp"] = timed("w", phase_sp, card)
     rounded = {k: round(v, 1) for k, v in seconds.items()}
     print(f"phase seconds {json.dumps(rounded)} "
           f"total {sum(seconds.values()):.1f} on {card}", flush=True)

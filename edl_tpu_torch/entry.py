@@ -7,7 +7,8 @@ the FLAGSHIP forward on tokens ``[2, 256]`` — the twin of the JAX package's
 ``ElasticTrainer`` and batch that ``chip_smoke.py`` and
 ``edl_tpu_torch.profile_step`` drive, ``flagship_elastic_world`` the
 same for one rank of a multi-rank job (``flagship_tp_world`` laid out by
-the model's partition specs over tp), and ``flagship_virtual_world`` that
+the model's partition specs over tp, ``flagship_sp_world`` with the
+sequence split over sp), and ``flagship_virtual_world`` that
 rank's trainer (replicated, fsdp or tp) with the virtual-worker job's
 data; ``resnet_trainer`` and ``bert_trainer`` do the same for bench.py's
 model-zoo leg (ResNet-50 at 256 x 224², BERT-base MLM at 32 x 512).
@@ -143,6 +144,24 @@ def flagship_tp_world(rank: int, world: int, store_path, device="cuda",
         param_sharding=tfm.param_partition_specs(cfg), spec=MeshSpec(tp=-1))
 
 
+def flagship_sp_world(rank: int, world: int, store_path, device="cuda",
+                      batch: int = 4, seq: int = 4096,
+                      cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                      initial_world_size: Optional[int] = None):
+    """(trainer, (tokens, targets)) for rank ``rank`` of a ``world``-rank
+    job, as :func:`flagship_elastic_world` builds them, with every world
+    sequence parallel (``MeshSpec(sp=-1)``): each rank of a world holds the
+    whole (replicated) parameters and trains its contiguous chunk of every
+    sequence of the global batch, its attention ringing the other ranks'
+    k/v chunks (the flash ring on the card).  The default batch, 4 × 4 096
+    tokens, is a long-context step of the same 16 384 tokens as
+    :func:`flagship_trainer`'s."""
+    return flagship_elastic_world(
+        rank, world, store_path, device=device, batch=batch, seq=seq,
+        cfg=cfg, initial_world_size=initial_world_size,
+        spec=MeshSpec(sp=-1))
+
+
 def _join_world(rank: int, world: int, store_path, device,
                 backend: Optional[str] = None) -> torch.device:
     """This rank's device, after joining the default process group through
@@ -165,6 +184,19 @@ def _join_world(rank: int, world: int, store_path, device,
                                 store=dist.FileStore(str(store_path), world),
                                 rank=rank, world_size=world)
     return dev
+
+
+def rank_processes():
+    """The multiprocessing context rank processes start from: a fork
+    server that imports the caller's main module and this one once, and
+    never touches CUDA, so each rank is forked from it instead of importing
+    torch and the port anew (what bounds a wide dryrun's start on the
+    card's host); the server forks from its one thread, so fork's hazards
+    in a threaded process do not arise, and each rank brings up CUDA
+    itself."""
+    ctx = torch.multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", "edl_tpu_torch.entry"])
+    return ctx
 
 
 #: the virtual-worker job's dataset: rows of ``seq`` tokens, in shards
@@ -868,14 +900,16 @@ def frontdoor_replica_main(argv: list[str]) -> int:
 # -- the multi-rank dryrun ----------------------------------------------------
 
 #: dryrun_multichip's layouts, the reference's (``__graft_entry__.py``): n 2
-#: is fsdp alone, n 4 dp x fsdp, n 8 dp x fsdp x tp; n 16 needs sp
+#: is fsdp alone, n 4 dp x fsdp, n 8 dp x fsdp x tp, n 16 dp x fsdp x tp x sp
 DRYRUN_SPECS = {2: MeshSpec(dp=1, fsdp=-1), 4: MeshSpec(dp=-1, fsdp=2),
-                8: MeshSpec(dp=-1, fsdp=2, tp=2)}
+                8: MeshSpec(dp=-1, fsdp=2, tp=2),
+                16: MeshSpec(dp=-1, fsdp=2, tp=2, sp=2)}
 #: what the step's collective census must hold on each axis of more than
 #: one rank: dp syncs gradients; fsdp gathers params (its reduce may fold
-#: into an all-reduce); tp sums the row-parallel matmuls' partial sums
+#: into an all-reduce); tp sums the row-parallel matmuls' partial sums; sp
+#: rings the k/v chunks (one collective-permute a tensor a hop)
 DRYRUN_EXPECTED = {"dp": ("all-reduce",), "fsdp": ("all-gather",),
-                   "tp": ("all-reduce",)}
+                   "tp": ("all-reduce",), "sp": ("collective-permute",)}
 DRYRUN_DEADLINE_S = 240
 
 
@@ -915,10 +949,14 @@ def _check_sharding_economy(shards: dict, leaves: dict, specs: dict,
 def _dryrun_rank(rank: int, n: int, store: str, out: str,
                  inject: Optional[str], device: str) -> None:
     """One rank of :func:`dryrun_multichip`: the step, its checks and this
-    rank's record (or its error) as JSON in ``out``."""
+    rank's record (or its error) as JSON in ``out``, with the wall clock
+    (``time.time()``) at which it started, joined the group, built its
+    trainer and ended its step."""
+    clock = {"start": time.time()}
     try:
         torch.set_num_threads(1)
         dev = _join_world(rank, n, store, device)
+        clock["joined"] = time.time()
         cfg = dataclasses.replace(tfm.TINY, one_hot_embed=True)
         model = tfm.Transformer(cfg, device=dev, seed=0)
         nbytes = {k: p.nbytes for k, p in model.named_parameters()}
@@ -932,18 +970,23 @@ def _dryrun_rank(rank: int, n: int, store: str, out: str,
         trainer = ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                                  spec=DRYRUN_SPECS[n], param_sharding=placed,
                                  devices=[dev])
+        clock["built"] = time.time()
         shape = trainer.shape
-        rows = max(shape.dp * shape.fsdp, 2)
-        batch = (torch.zeros((rows, 16), dtype=torch.int64, device=dev),
-                 torch.ones((rows, 16), dtype=torch.int64, device=dev))
+        # the batch divides over dp·fsdp and the sequence over sp (16
+        # tokens a chunk: TINY's attention takes the plain ring, as the
+        # reference's does)
+        rows, seq = max(shape.dp * shape.fsdp, 2), 16 * shape.sp
+        batch = (torch.zeros((rows, seq), dtype=torch.int64, device=dev),
+                 torch.ones((rows, seq), dtype=torch.int64, device=dev))
         elastic.reset_census()
         loss = trainer.step(batch)
+        clock["stepped"] = time.time()
         census = elastic.collective_census()
         if not np.isfinite(loss):
             raise AssertionError(f"non-finite loss in dryrun: {loss}")
         mem = _check_sharding_economy(trainer.shards, nbytes, specs, shape)
         rec = dict(rank=rank, loss=loss, census=census, mem=mem,
-                   mesh=shape.axis_sizes())
+                   mesh=shape.axis_sizes(), clock=clock)
     except Exception:
         rec = dict(rank=rank, error=traceback.format_exc())
     with open(out, "w") as f:
@@ -964,24 +1007,26 @@ def dryrun_multichip(n: int, device="cuda") -> dict:
       specs, and must fail);
     * the step's collectives, counted by the trainer's choke points, hold
       an all-reduce on dp, an all-gather and a reduce (reduce-scatter or
-      all-reduce) on fsdp, and an all-reduce on tp.
+      all-reduce) on fsdp, an all-reduce on tp, and the ring's
+      collective-permutes on sp.
 
     Prints one ``DRYRUN_COMM {json}`` line with the reference's keys and
     returns its record; raises on any failed check."""
     if n not in DRYRUN_SPECS:
         raise ValueError(
             f"dryrun_multichip({n}): the port lays out n 2 (fsdp), 4 "
-            "(dp x fsdp) and 8 (dp x fsdp x tp); n 16 needs sp (ROADMAP.md "
-            "queue 1 item 9)")
+            "(dp x fsdp), 8 (dp x fsdp x tp) and 16 (dp x fsdp x tp x sp), "
+            "the reference's sweep")
     device = str(resolve(device))
     inject = os.environ.get("EDL_DRYRUN_INJECT")
-    ctx = torch.multiprocessing.get_context("spawn")
+    ctx = rank_processes()
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(n)]
         procs = [ctx.Process(target=_dryrun_rank,
                              args=(r, n, os.path.join(tmp, "store"), outs[r],
                                    inject, device))
                  for r in range(n)]
+        spawned = time.time()
         try:
             for p in procs:
                 p.start()
@@ -1005,6 +1050,11 @@ def dryrun_multichip(n: int, device="cuda") -> dict:
         raise AssertionError("dryrun_multichip failed:\n" + errors[0])
     census = recs[0]["census"]
     mesh = recs[0]["mesh"]
+    # where the ranks' time went: the latest rank to reach each point
+    print(f"dryrun_multichip({n}) seconds from the spawn to the last rank's "
+          + ", ".join(f"{k} {max(r['clock'][k] for r in recs) - spawned:.1f}"
+                      for k in ("start", "joined", "built", "stepped")),
+          flush=True)
 
     def axis_ops(axis: str) -> dict:
         ops: dict[str, int] = {}

@@ -17,6 +17,16 @@ keep GQA's grouping), each block's normed input goes through
 ``copy_to_tp`` and its wo and w2 outputs through ``reduce_from_tp``, the
 embedding and the loss are vocab-parallel, and :func:`apply` returns this
 rank's columns of the logits.
+
+Inside an sp context (:mod:`edl_tpu_torch.parallel.ring_attention`, which
+the trainer enters on a mesh with sp > 1) :func:`apply` takes the whole
+sequence, keeps this rank's contiguous chunk of it (RoPE at the chunk's
+global positions), and attention rings the k/v chunks over the sp group:
+the flash ring when ``use_flash`` is set and the tensors are on the card,
+the plain ring on repeated kv heads otherwise, as the reference routes on
+an sp mesh.  :func:`apply` then returns this rank's chunk of the logits
+and :func:`loss_fn` the mean over that chunk's tokens; the chunks are
+equal, so the trainer's mean over the sp ranks is the global mean.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from torch.utils.checkpoint import (
 from edl_tpu_torch.device import resolve
 from edl_tpu_torch.ops.embedding import embed_lookup
 from edl_tpu_torch.ops.flash_attention import attention as flash_attention
+from edl_tpu_torch.parallel import ring_attention as ring
 from edl_tpu_torch.parallel import tensor_parallel as tpar
 
 
@@ -236,8 +247,22 @@ def _attention_block(p: Layer, x: torch.Tensor, angles: torch.Tensor,
     v = (xn @ p.wv.to(dt)).reshape(b, s, kv, hd)
     q = apply_rope(q, angles).to(dt)
     k = apply_rope(k, angles).to(dt)
-    # GQA: the flash path takes the unrepeated kv heads
-    o = flash_attention(q, k, v, causal=True, use_pallas=cfg.use_flash)
+    sp = ring.current()
+    if sp is not None and sp.size > 1:
+        # long context: the sequence is split over sp and attention rings
+        # the k/v chunks; the flash ring on the card (GQA unrepeated), the
+        # plain ring on matched heads elsewhere
+        if cfg.use_flash and q.is_cuda:
+            o = ring.ring_flash_attention_sharded(q, k, v, causal=True,
+                                                  sp=sp)
+        else:
+            if kv != h:
+                k = k.repeat_interleave(h // kv, dim=2)
+                v = v.repeat_interleave(h // kv, dim=2)
+            o = ring.ring_attention_sharded(q, k, v, causal=True, sp=sp)
+    else:
+        # GQA: the flash path takes the unrepeated kv heads
+        o = flash_attention(q, k, v, causal=True, use_pallas=cfg.use_flash)
     out = o.reshape(b, s, h * hd) @ p.wo.to(dt)
     if tp is not None:
         out = tpar.reduce_from_tp(out, tp)
@@ -274,9 +299,15 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def apply(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [b, s] int → logits [b, s, vocab] (fp32); in a tp context,
-    this rank's ``vocab/tp`` columns of them."""
+    this rank's ``vocab/tp`` columns of them; in an sp context, this rank's
+    chunk of the sequence, ``[b, s/sp, …]``."""
     cfg = model.cfg
     tp = tpar.current()
+    sp = ring.current()
+    start = 0
+    if sp is not None and sp.size > 1:
+        tokens = ring.local_chunk(tokens, sp)
+        start = sp.rank * tokens.shape[1]
     if tp is None:
         x = embed_lookup(model.embed, tokens, one_hot=cfg.one_hot_embed,
                          dtype=cfg.dtype)
@@ -284,7 +315,7 @@ def apply(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
         x = tpar.vocab_parallel_embed(model.embed, tokens, tp,
                                       one_hot=cfg.one_hot_embed,
                                       dtype=cfg.dtype)
-    angles = rope_freqs(cfg, torch.arange(tokens.shape[1],
+    angles = rope_freqs(cfg, torch.arange(start, start + tokens.shape[1],
                                           device=tokens.device))
     for p in model.layers:
         if cfg.remat:
@@ -308,9 +339,13 @@ def loss_fn(model: Transformer, batch: tuple[torch.Tensor, torch.Tensor]
 
     logsumexp(logits) − logits[target], as in the JAX package: the
     [b, s, vocab] log-probabilities never materialize.  In a tp context
-    the logits are this rank's columns and the loss vocab-parallel."""
+    the logits are this rank's columns and the loss vocab-parallel; in an
+    sp context the mean is over this rank's chunk of the tokens."""
     tokens, targets = batch
     logits = apply(model, tokens)
+    sp = ring.current()
+    if sp is not None and sp.size > 1:
+        targets = ring.local_chunk(targets, sp)
     tp = tpar.current()
     if tp is not None:
         return tpar.vocab_parallel_cross_entropy(logits, targets, tp)

@@ -277,18 +277,31 @@ def flash_forward(q, k, v, causal: bool, h: int, hk: int
 
 def flash_backward(q, k, v, out, lse, do, causal: bool, h: int, hk: int
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Folded backward from the forward's (out, lse) → (dq, dk, dv)."""
-    # delta = rowsum(dO ∘ O): an elementwise pass outside the kernels, as
-    # the JAX package leaves it to XLA
-    delta = (do.float() * out.float()).sum(dim=-1)
-    if _on_card(q):
-        do = do.contiguous()
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, h, hk)
-        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, h, hk)
-    else:
-        dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, h, hk)
-        dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, h, hk)
+    """Folded backward from the forward's (out, lse) → (dq, dk, dv): the
+    kernels on the card, :func:`flash_backward_plain` on the CPU."""
+    if not _on_card(q):
+        return flash_backward_plain(q, k, v, out, lse, do, causal, h, hk)
+    do = do.contiguous()
+    delta = _delta(do, out)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, h, hk)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, h, hk)
     return dq, dk, dv
+
+
+def flash_backward_plain(q, k, v, out, lse, do, causal: bool, h: int,
+                         hk: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_backward` through the plain versions, on any device."""
+    delta = _delta(do, out)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, h, hk)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, h, hk)
+    return dq, dk, dv
+
+
+def _delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO ∘ O): an elementwise pass outside the kernels, as the JAX
+    package leaves it to XLA."""
+    return (do.float() * out.float()).sum(dim=-1)
 
 
 class FlashAttention(torch.autograd.Function):

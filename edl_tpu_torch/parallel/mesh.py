@@ -26,10 +26,12 @@ Ranks are laid out row-major over the axes in declaration order, as the
 reference lays out devices: at dp2×fsdp2 over ranks 0-3 the fsdp groups
 are {0, 1} and {2, 3} and the dp groups {0, 2} and {1, 3}
 (:func:`axis_groups`); at dp2×fsdp2×tp2 over ranks 0-7 the tp groups are
-{0, 1}, {2, 3}, … and the data groups (dp+fsdp, :func:`data_group`) {0, 2,
-4, 6} and {1, 3, 5, 7}.  :func:`fsdp_sharding` is the reference's fsdp
-rule and :func:`tree_shardings` gives each leaf's layout, each as a
-partition spec (one entry a dimension).
+{0, 1}, {2, 3}, … and the data groups (dp+fsdp+sp, :func:`data_group`)
+{0, 2, 4, 6} and {1, 3, 5, 7}; sp is the axis inside tp, so at tp2×sp2 the
+sp lines are {0, 1} and {2, 3} and the tp lines {0, 2} and {1, 3}.
+:func:`fsdp_sharding` is the reference's fsdp rule and
+:func:`tree_shardings` gives each leaf's layout, each as a partition spec
+(one entry a dimension).
 """
 
 from __future__ import annotations
@@ -147,10 +149,11 @@ class Mesh:
 
     Under a process group, ``ranks`` is the rank prefix the mesh spans,
     ``group`` the process group over it, ``groups`` this rank's process
-    group along each axis of more than one rank (:func:`axis_groups`), and
-    ``data`` its group over the data axes dp+fsdp (:func:`data_group`),
-    and ``devices`` this process's device; without one, ``ranks`` is
-    empty, ``group`` and ``data`` None and ``groups`` empty."""
+    group along each axis of more than one rank (:func:`axis_groups`),
+    ``data`` its group over the data axes dp+fsdp+sp (:func:`data_group`),
+    ``replica`` its group over dp+sp (:func:`replica_group`), and
+    ``devices`` this process's device; without one, ``ranks`` is empty,
+    ``group``, ``data`` and ``replica`` None and ``groups`` empty."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...]
@@ -160,6 +163,8 @@ class Mesh:
     groups: Mapping[str, Any] = field(default_factory=dict, compare=False)
     #: this rank's process group over the data axes (:func:`data_group`)
     data: Any = field(default=None, compare=False)
+    #: this rank's process group over dp+sp (:func:`replica_group`)
+    replica: Any = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -350,37 +355,72 @@ def _build_axis_groups(key: tuple, shape: MeshShape) -> None:
         _axis_groups[key] = groups
 
 
-#: data_group's cache: (default group, shape key) -> group or None
-_data_groups: dict[tuple[Any, tuple], Any] = {}
+#: span_group's cache: (default group, shape key, axes) -> group or None
+_span_groups: dict[tuple[Any, tuple, tuple], Any] = {}
+
+#: the axes a batch is reduced over: its split (dp×fsdp) and, on a mesh with
+#: sp > 1, the sequence's split
+DATA_AXES = (AXIS_DP, AXIS_FSDP, AXIS_SP)
+
+
+def span_group(shape: MeshShape, axes: Sequence[str]):
+    """This rank's process group over ``axes`` together (the ranks of
+    ``shape``'s mesh that differ from it in those coordinates alone, one
+    group a line): the prefix's own group when the axes span it, None when
+    they have one rank or this rank is outside the prefix.  Built like
+    :func:`axis_groups`: collectively, every line in order, once per
+    (shape, axes)."""
+    axes = tuple(a for a in AXES if a in axes)
+    key = (dist.group.WORLD, shape.key(), axes)
+    if key not in _span_groups:
+        _on_build_thread(_build_span_group, key, shape, axes)
+    return _span_groups[key]
+
+
+def _build_span_group(key: tuple, shape: MeshShape, axes: tuple) -> None:
+    if key in _span_groups:
+        return
+    rank, width = dist.get_rank(), 1
+    for a in axes:
+        width *= getattr(shape, a)
+    group = None
+    if width == shape.size:
+        group = rank_group(width) if width > 1 else None
+    elif width > 1:
+        lines = sorted({_span_ranks(shape, axes, r)
+                        for r in range(shape.size)})
+        for line in lines:
+            g = dist.new_group(list(line))
+            if rank in line:
+                group = g
+    _span_groups[key] = group if rank < shape.size else None
+
+
+def _span_ranks(shape: MeshShape, axes: tuple, rank: int) -> tuple:
+    """The ranks that differ from ``rank`` in the coordinates of ``axes``
+    alone, in order."""
+    line = [rank]
+    for a in axes:
+        line = [r for base in line for r in axis_ranks(shape, a, base)]
+    return tuple(sorted(line))
 
 
 def data_group(shape: MeshShape):
-    """This rank's process group over the data axes (dp+fsdp: the ranks
-    of ``shape``'s mesh that differ from it in those coordinates alone,
-    one group a tp line): the prefix's own group when the data axes span
-    it, None when they have one rank or this rank is outside the prefix.
-    Built like :func:`axis_groups`: collectively, every line in order,
-    once per shape."""
-    key = (dist.group.WORLD, shape.key())
-    if key not in _data_groups:
-        _on_build_thread(_build_data_group, key, shape)
-    return _data_groups[key]
+    """This rank's process group over the data axes (:data:`DATA_AXES`,
+    dp+fsdp+sp: one group a tp line), which every gradient and loss is
+    averaged over; :func:`span_group` of them."""
+    return span_group(shape, DATA_AXES)
 
 
-def _build_data_group(key: tuple, shape: MeshShape) -> None:
-    if key not in _data_groups:
-        rank, width = dist.get_rank(), shape.dp * shape.fsdp
-        group = None
-        if width == shape.size:
-            group = rank_group(width) if width > 1 else None
-        elif width > 1:
-            inner = shape.size // width
-            for j in range(inner):
-                line = list(range(j, shape.size, inner))
-                g = dist.new_group(line)
-                if rank in line:
-                    group = g
-        _data_groups[key] = group if rank < shape.size else None
+def replica_group(shape: MeshShape):
+    """This rank's process group over dp+sp: the ranks holding the same
+    block of a leaf split over fsdp, over which that block's gradient is
+    summed after the fsdp reduce-scatter.  The dp axis' own group when sp
+    has one rank, the sp axis' when dp has one, else :func:`span_group`."""
+    if shape.sp == 1 or shape.dp == 1:
+        axis = AXIS_DP if shape.sp == 1 else AXIS_SP
+        return axis_groups(shape).get(axis)
+    return span_group(shape, (AXIS_DP, AXIS_SP))
 
 
 def local_device() -> torch.device:
@@ -413,7 +453,8 @@ def make_mesh(n_devices: Optional[int] = None,
         shape = MeshShape(**sizes)
         return Mesh((dev,), tuple(sizes), tuple(sizes.values()),
                     ranks=tuple(range(n)), group=group,
-                    groups=axis_groups(shape), data=data_group(shape))
+                    groups=axis_groups(shape), data=data_group(shape),
+                    replica=replica_group(shape))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device; pass devices=")

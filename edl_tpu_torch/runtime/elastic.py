@@ -1,11 +1,11 @@
 """The elastic trainer — the port of edl_tpu.runtime.elastic as an SPMD
 trainer, data parallel, fully sharded, or laid out by the model's partition
-specs with Megatron tensor parallelism.
+specs with Megatron tensor parallelism, and sequence parallel over sp.
 
 The reference is a single controller over a prefix of ``jax.devices()``.
 Torch runs one process a rank, so here every rank of the default process
 group constructs the same :class:`ElasticTrainer`, and a world is a rank
-prefix ``[0, n)`` of that group, laid out as a dp×fsdp×tp mesh
+prefix ``[0, n)`` of that group, laid out as a dp×fsdp×tp×sp mesh
 (:mod:`edl_tpu_torch.parallel.mesh`).  Ranks past the prefix stand by:
 they compute nothing until a resize takes them in.  Without a process group
 the world is one device.
@@ -27,18 +27,23 @@ the module's parameters hold nothing between steps.
 A step: every rank is handed the same global batch; each live rank takes
 its contiguous slice of the batch dim (the batch splits over the data axes
 dp×fsdp, by the rank's data coordinate; the ranks of one tp group take the
-same slice), gathers its parameters over its fsdp group (one all-gather
-per dtype; the gathered tensors, whole or this rank's tp block, live for
-the step only), runs the loss and its backward (the flash kernels on the
-card) — in a tp context (:mod:`edl_tpu_torch.parallel.tensor_parallel`)
-when a leaf is split over tp, so that the model writes out the Megatron
-all-reduces — and reduces the gradients over the data axes: a leaf split
-over fsdp by a reduce-scatter over the fsdp group and an all-reduce over
-the dp group, any other leaf's and the loss by one all-reduce over the
-data group (dp+fsdp), each as a flat buffer per dtype; then 1/(dp·fsdp)
-and one optimizer update.  The ranks of a tp group hold the same gradient
-of a leaf not split over tp, so nothing is summed over tp.  Replicated
-state stays bitwise equal across ranks.
+same slice, and so do those of one sp line), gathers its parameters over
+its fsdp group (one all-gather per dtype; the gathered tensors, whole or
+this rank's tp block, live for the step only), runs the loss and its
+backward (the flash kernels on the card) — in a tp context
+(:mod:`edl_tpu_torch.parallel.tensor_parallel`) when a leaf is split over
+tp, so that the model writes out the Megatron all-reduces, and in an sp
+context (:mod:`edl_tpu_torch.parallel.ring_attention`) on a mesh with sp >
+1, so that a model with an sp path (the transformer) takes this rank's
+chunk of the sequence and rings its attention over the sp line, each hop
+through :func:`_ring_hop`; a model with none computes the whole batch on
+every sp rank — and reduces the gradients over the data axes dp+fsdp+sp: a
+leaf split over fsdp by a reduce-scatter over the fsdp group and an
+all-reduce over the dp+sp group, any other leaf's and the loss by one
+all-reduce over the data group, each as a flat buffer per dtype; then
+1/(dp·fsdp·sp) and one optimizer update.  The ranks of a tp group hold the
+same gradient of a leaf not split over tp, so nothing is summed over tp.
+Replicated state stays bitwise equal across ranks.
 
 A resize is transactional and agreed.  Every rank of the default group
 calls ``resize`` with the same target at the same step boundary:
@@ -71,11 +76,12 @@ every leaf).
 Each successful resize appends the reference's ``resize_events`` record and
 feeds the ``resize_phase_seconds`` histogram, the goodput ledger and the
 ``reshard_seconds`` calibration predictor under the reference's names.
-Every collective of the trainer goes through one of four choke points,
-:func:`_broadcast`, :func:`_all_reduce`, :func:`_all_gather` and
-:func:`_reduce_scatter`, each counting its op and bytes by mesh axis
-(:func:`collective_census`; ``"world"`` for the default group's votes,
-``"tp"`` for the model's tp collectives, ``"checkpoint"`` for the gathers of
+Every collective of the trainer goes through one of five choke points,
+:func:`_broadcast`, :func:`_all_reduce`, :func:`_all_gather`,
+:func:`_reduce_scatter` and the ring's :func:`_ring_hop`, each counting its
+op and bytes by mesh axis (:func:`collective_census`; ``"world"`` for the
+default group's votes, ``"tp"`` for the model's tp collectives, ``"sp"``
+for the ring's hops, ``"checkpoint"`` for the gathers of
 :meth:`ElasticTrainer.whole_state`, ``"prewarm"`` for the warm-ups below).
 
 **Prewarm.**  What a resize builds before it moves a byte — the layout's
@@ -126,15 +132,18 @@ from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import get_registry
 from edl_tpu_torch.observability.tracing import get_tracer
-from edl_tpu_torch.parallel import tensor_parallel
+from edl_tpu_torch.parallel import ring_attention, tensor_parallel
 from edl_tpu_torch.parallel.mesh import (
     AXES,
     AXIS_DP,
     AXIS_FSDP,
+    AXIS_SP,
     AXIS_TP,
+    DATA_AXES,
     Mesh,
     MeshShape,
     MeshSpec,
+    axis_ranks,
     data_coordinate,
     distributed,
     local_device,
@@ -150,8 +159,6 @@ from edl_tpu_torch.runtime.optim import OptimizerFactory
 
 log = get_logger("runtime.elastic")
 
-#: the axes a batch and a gradient reduction span
-DATA_AXES = (AXIS_DP, AXIS_FSDP)
 #: the census label of whole_state's gathers
 CHECKPOINT_LABEL = "checkpoint"
 #: the census label of the collectives that warm a prewarmed layout's groups
@@ -171,8 +178,12 @@ def collective_census() -> dict[str, dict]:
     :func:`reset_census`, by axis label (``"dp"``, ``"fsdp"``, ``"tp"``,
     ``"dp+fsdp"`` for the data group, ``"world"`` for the default group):
     ``{"ops": {op: count}, "bytes": result bytes}``, ops named as the
-    reference's HLO census names them.  Gloo takes CUDA tensors for all
-    four ops and stages them through host memory itself."""
+    reference's HLO census names them (a ring hop's tensor is one
+    ``collective-permute``: it goes to the next rank of the line and one
+    comes from the previous).  Gloo takes CUDA tensors for the four
+    collectives and stages them through host memory itself; the ring's
+    point-to-point hop stages them explicitly
+    (:func:`~edl_tpu_torch.parallel.ring_attention.exchange`)."""
     return copy.deepcopy(_census)
 
 
@@ -217,6 +228,17 @@ def _reduce_scatter(out: torch.Tensor, t: torch.Tensor, group,
     rank's flat ``t``."""
     dist.reduce_scatter_tensor(out, t, group=group)
     _count("reduce-scatter", axis, out.nbytes)
+
+
+def _ring_hop(tensors, dst: int, src: int, group,
+              axis: str) -> list[torch.Tensor]:
+    """Every ring hop of the trainer: each of ``tensors`` to global rank
+    ``dst``, as many received from ``src``, over ``group``; one
+    ``collective-permute`` a tensor."""
+    got = ring_attention.exchange(tensors, dst, src, group)
+    for t in tensors:
+        _count("collective-permute", axis, t.nbytes)
+    return got
 
 
 def _fresh(shape: tuple, dtype: torch.dtype,
@@ -331,6 +353,11 @@ class ElasticTrainer:
     None (``param_partition_specs(cfg)``, e.g. with ``MeshSpec(tp=-1)``),
     which every layout, a resize's too, is derived from.  A leaf split
     over tp needs a loss that reads the tp context (the transformer's).
+    A spec with sp > 1 (``MeshSpec(sp=-1)``, or the reference dryrun's
+    ``MeshSpec(dp=-1, fsdp=2, tp=2, sp=2)``) splits the sequence for a loss
+    that reads the sp context (the transformer's) and replicates every
+    leaf over sp, as the reference's specs do; any other loss computes the
+    whole batch on every rank of an sp line.
 
     ``accum_mode`` places :meth:`step_accumulate`'s micro-batches, as in the
     reference: ``"dp"`` packs them into rounds of the world's width,
@@ -752,7 +779,7 @@ class ElasticTrainer:
         opt = self.state.opt_state
         opt.zero_grad(set_to_none=True)
         with self._gathered():
-            with self._tp(), self._split():
+            with self._tp(), self._sp(), self._split():
                 loss = self.loss_fn(self.state.params, self._local(batch))
                 loss.backward()
             loss = loss.detach()
@@ -769,7 +796,8 @@ class ElasticTrainer:
         (None on a rank standing by)."""
         if not self.live:
             return None
-        with torch.no_grad(), self._gathered(), self._tp(), self._split():
+        with torch.no_grad(), self._gathered(), self._tp(), self._sp(), \
+                self._split():
             loss = self.loss_fn(self.state.params, self._local(batch))
         if self._width > 1:
             self._sum_over(self.mesh.data, self._data_label, [loss])
@@ -786,7 +814,7 @@ class ElasticTrainer:
         rank standing by).
 
         ``accum_mode="dp"`` packs the micro-batches into ⌈V/N⌉ rounds of the
-        world's width N (its data axes dp·fsdp), the ranks of data
+        world's width N (its batch axes dp·fsdp), the ranks of data
         coordinate r taking micro-batch ``k·N + r`` of round k, and reduces
         the gradients over the data group once; it needs N to
         divide V (else, as in the reference, the micro-batches run as in
@@ -794,7 +822,9 @@ class ElasticTrainer:
         bounds.  ``"replicated"`` runs every micro-batch on every live rank
         on the gathered parameters with no reduction (each rank keeps its
         block of the summed gradient), so the update is bitwise the same at
-        any world size and layout.
+        any world size and layout without sp; on an sp layout each rank
+        takes its chunk of every micro-batch and the gradients are averaged
+        over the sp line.
 
         ``abort_after=k`` raises :class:`AccumulationAborted` after k
         micro-batches, before the update: state is untouched.
@@ -810,7 +840,7 @@ class ElasticTrainer:
                              "micro-batch")
         if not self.live:
             return None
-        n = self._width
+        n, sp = self._batch_width, self.shape.sp
         use_dp = (self.accum_mode == "dp" and not self.rng_in_loss and n > 1
                   and V % n == 0)
         mine = (micro_batches[self._data_index::n] if use_dp
@@ -819,7 +849,7 @@ class ElasticTrainer:
         opt.zero_grad(set_to_none=True)
         lsum, done = 0.0, 0
         with self._gathered():
-            with self._tp():
+            with self._tp(), self._sp():
                 for v, mb in enumerate(mine):
                     args = (rng_keys[v],) if self.rng_in_loss else ()
                     loss = self.loss_fn(self.state.params,
@@ -836,6 +866,10 @@ class ElasticTrainer:
             if use_dp:
                 self._reduce_grads([total])
             else:
+                if sp > 1:
+                    self._sum_over(self.mesh.groups[AXIS_SP], AXIS_SP, [
+                        p.grad for p in self._module.values()
+                        if p.grad is not None] + [total])
                 self._keep_own_grads()
         if self._corrupt_updates:
             # the CorruptGradient seam: ONE bit of the summed gradient
@@ -851,7 +885,8 @@ class ElasticTrainer:
                      step=self.state.step, leaf=leaf, bit=bit)
             get_tracer().instant("sdc_gradient_corrupted", category="chaos",
                                  step=self.state.step)
-        self._scale(self._shard_grads(), 1.0 / V)
+        # every sum above holds each micro-batch once a rank of the sp line
+        self._scale(self._shard_grads(), 1.0 / (V * sp))
         opt.step()
         opt.zero_grad(set_to_none=True)
         self.state.step += 1
@@ -862,7 +897,7 @@ class ElasticTrainer:
             get_tracer().instant("sdc_loss_poisoned", category="chaos",
                                  step=self.state.step)
             return float("nan")
-        return float(total) / V
+        return float(total) / (V * sp)
 
     # -- SDC chaos seams ---------------------------------------------------
 
@@ -940,7 +975,13 @@ class ElasticTrainer:
 
     @property
     def _width(self) -> int:
-        """The ranks of the live mesh's data axes, dp·fsdp: the batch's
+        """The ranks of the live mesh's data axes, dp·fsdp·sp: what every
+        gradient and the loss are averaged over."""
+        return self._batch_width * self.shape.sp
+
+    @property
+    def _batch_width(self) -> int:
+        """The ranks of the live mesh's batch axes, dp·fsdp: the batch's
         split."""
         return self.shape.dp * self.shape.fsdp
 
@@ -978,6 +1019,25 @@ class ElasticTrainer:
         return tensor_parallel.tp_context(tensor_parallel.TPContext(
             size=shape.tp, rank=self.rank // (shape.sp * shape.ep) % shape.tp,
             reduce=reduce))
+
+    def _sp(self):
+        """The sp context of a step on the live layout (a null context at
+        sp 1): the model's ring hops go through :func:`_ring_hop` to the
+        neighbours on this rank's sp line, counted under ``"sp"``."""
+        shape = self.shape
+        if shape.sp == 1:
+            return contextlib.nullcontext()
+        group = self.mesh.groups[AXIS_SP]
+        line = axis_ranks(shape, AXIS_SP, self.rank)
+        i = line.index(self.rank)
+        nxt, prv = line[(i + 1) % len(line)], line[i - 1]
+
+        def hop(tensors, reverse: bool = False) -> list[torch.Tensor]:
+            dst, src = (prv, nxt) if reverse else (nxt, prv)
+            return _ring_hop(tensors, dst, src, group, AXIS_SP)
+
+        return ring_attention.sp_context(ring_attention.SPContext(
+            size=shape.sp, rank=i, hop=hop))
 
     def _split(self):
         """The batch split of a step on the live layout (a null context at
@@ -1113,7 +1173,7 @@ class ElasticTrainer:
         """Each shard's gradient ← its block of the gradient summed over the
         data axes, and each tensor of ``extra`` ← its sum over them: a leaf
         split over fsdp by a reduce-scatter over the fsdp group then an
-        all-reduce over the dp group, any other leaf and ``extra`` by an
+        all-reduce over the dp+sp group, any other leaf and ``extra`` by an
         all-reduce over the data group.  Nothing is summed over tp: the
         ranks of a tp group hold the same gradient of a leaf it does not
         split, and each its own block's of one it does."""
@@ -1122,8 +1182,9 @@ class ElasticTrainer:
         split = {n: d for n in grads
                  if (d := self._axis_dim(n, AXIS_FSDP)) is not None}
         blocks = self._scatter(grads, split) if split else {}
-        if blocks and self.shape.dp > 1:
-            self._sum_over(self.mesh.groups[AXIS_DP], AXIS_DP,
+        if blocks and self.shape.dp * self.shape.sp > 1:
+            self._sum_over(self.mesh.replica,
+                           self.mesh.label((AXIS_DP, AXIS_SP)),
                            list(blocks.values()))
         whole = [g for n, g in grads.items() if n not in blocks]
         if self._width > 1:
@@ -1157,7 +1218,7 @@ class ElasticTrainer:
     def _local(self, batch):
         """This rank's contiguous slice of the global batch's leading dim
         (by its data coordinate over dp×fsdp), on the device."""
-        n, r = self._width, self._data_index
+        n, r = self._batch_width, self._data_index
         if isinstance(batch, (tuple, list)):
             return type(batch)(self._local(x) for x in batch)
         x = torch.as_tensor(batch)
@@ -1203,12 +1264,12 @@ class ElasticTrainer:
 
     def _check_layout(self, shape: MeshShape) -> None:
         """Raise ValueError unless this trainer can lay out ``shape``."""
-        later = [a for a in ("sp", "ep") if getattr(shape, a) > 1]
-        if later:
+        if shape.ep > 1:
             raise ValueError(
-                f"{shape.describe()}: this trainer lays out dp, fsdp and tp "
-                f"only; the {', '.join(later)} axes are later items of the "
-                "port (ROADMAP.md queue 1 item 9)")
+                f"{shape.describe()}: this trainer lays out dp, fsdp, tp and "
+                "sp; the ep axis is not ported, as no model of the reference "
+                "shards over it (ROADMAP.md queue 2, 'Configurations the "
+                "port does not run')")
         if shape.size > 1 and not distributed():
             raise ValueError(f"a world of {shape.size} needs a process group "
                              f"of {shape.size} ranks; none is initialised")
@@ -1221,7 +1282,7 @@ class ElasticTrainer:
         return shape.size, shape.key()
 
     def _acquire(self, shape: MeshShape) -> tuple[Mesh, bool]:
-        """(the dp×fsdp×tp mesh of ``shape`` over the rank prefix of its
+        """(the dp×fsdp×tp×sp mesh of ``shape`` over the rank prefix of its
         size, whether prewarm built it), from ``_step_cache`` or built: a
         layout still building speculatively is waited for, not built
         twice; a prewarmed one is warmed here if no quiesce has; one never
@@ -1305,7 +1366,7 @@ class ElasticTrainer:
         if union is not None and self.rank < size:
             groups.append(union)
         groups += [mesh.groups[a] for a in AXES if a in mesh.groups]
-        groups.append(mesh.data)
+        groups += [mesh.data, mesh.replica]
         seen = set()
         for group in groups:
             if group is None or id(group) in seen:

@@ -1917,7 +1917,7 @@ class ElasticServer:
             with t._gathered(), t._tp(), t._split():
                 out = self.apply_fn(t.state.params, t._local(batch))
             self.forwards += 1
-            n = t._width
+            n, sp = t._width, t.shape.sp
             if n == 1:
                 return out
 
@@ -1926,7 +1926,10 @@ class ElasticServer:
                 buf = torch.empty(n * flat.numel(), dtype=x.dtype,
                                   device=x.device)
                 _all_gather(buf, flat, t.mesh.data, t._data_label)
-                return buf.view(n * x.shape[0], *x.shape[1:])
+                # the forward runs outside the sp context, so the ranks of
+                # an sp line (the innermost data axis) hold the same rows
+                return buf.view(n, *x.shape)[::sp].reshape(
+                    n // sp * x.shape[0], *x.shape[1:])
 
             return _tree_map(rows, out)
 

@@ -15,6 +15,12 @@ the parameters are laid out by FLAGSHIP's partition specs: each rank holds
 its tp block of every matrix, the ranks of one tp index hold the same
 blocks, and every rank the same norms, which is what is checked then.
 
+With ``--sp P`` the wide world is dp×sp (``MeshSpec(dp=-1, sp=P)``) and
+the global batch 4 x 4096 (the same tokens in sequences four times as
+long): each rank trains its chunk of its dp slice's sequences, its
+attention on the flash ring over its sp line (NCCL moves each hop's CUDA
+tensors as they are), and every rank holds the same parameters.
+
 With ``--prewarm`` each rank calls ``prewarm([N])`` and
 ``prewarm_quiesce()`` after its world-1 steps, before ``resize(N)``: the
 wide layout's process groups are built and their first collective (where
@@ -43,9 +49,12 @@ import torch
 from edl_tpu_torch.entry import flagship_elastic_world
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.ops import _build
+from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.parallel.mesh import MeshShape, MeshSpec
 
 B, S = 16, 1024
+#: ``--sp``'s global batch
+SP_B, SP_S = 4, 4096
 CHILD_TIMEOUT_S = 600
 
 
@@ -62,16 +71,19 @@ def fingerprint(tensors) -> list[int]:
 
 
 def rank_main(rank: int, ranks: int, store: str, out: str,
-              tp: int = 1, prewarm: bool = False) -> None:
+              tp: int = 1, prewarm: bool = False, sp: int = 1) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
-    one, kw = 1, {}
+    one, kw, batch, seq = 1, {}, B, S
     if tp > 1:
         # a world of one is no dp×tp split of the spec: its shape is named
         one = MeshShape()
         kw = dict(spec=MeshSpec(dp=-1, tp=tp),
                   param_sharding=tfm.param_partition_specs(tfm.FLAGSHIP))
-    trainer, batch = flagship_elastic_world(rank, ranks, store, batch=B,
-                                            seq=S, initial_world_size=one,
+    if sp > 1:
+        one, batch, seq = MeshShape(), SP_B, SP_S
+        kw = dict(spec=MeshSpec(dp=-1, sp=sp))
+    trainer, batch = flagship_elastic_world(rank, ranks, store, batch=batch,
+                                            seq=seq, initial_world_size=one,
                                             **kw)
     norms = [n for n, spec in trainer.partition_specs().items()
              if not any(spec)]
@@ -92,6 +104,7 @@ def rank_main(rank: int, ranks: int, store: str, out: str,
             torch.cuda.synchronize()
             rec["resize_ms"].append(1e3 * (time.perf_counter() - t0))
         for _ in range(steps):
+            before = dict(fa.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss = trainer.step(batch)
@@ -100,6 +113,7 @@ def rank_main(rank: int, ranks: int, store: str, out: str,
             rec["steps"].append(dict(
                 world=trainer.world_size, loss=loss,
                 ms=1e3 * (time.perf_counter() - t0),
+                launches={k: fa.launches[k] - before[k] for k in before},
                 params=(fingerprint(trainer.shards.values()) if wide
                         else None),
                 norms=(fingerprint(trainer.shards[n] for n in norms)
@@ -115,6 +129,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--prewarm", action="store_true",
                     help="prewarm the wide layout before resizing to it")
     args = ap.parse_args(argv)
@@ -131,7 +146,7 @@ def main(argv=None) -> int:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(args.ranks)]
         procs = [ctx.Process(target=rank_main, args=(
             r, args.ranks, os.path.join(tmp, "store"), outs[r], args.tp,
-            args.prewarm))
+            args.prewarm, args.sp))
             for r in range(args.ranks)]
         try:
             for p in procs:
@@ -178,7 +193,7 @@ def main(argv=None) -> int:
     for s in recs[0]["steps"]:
         by_world.setdefault(s["world"], []).append(round(s["ms"], 2))
     print(json.dumps(dict(
-        ranks=args.ranks, tp=args.tp, prewarm=args.prewarm,
+        ranks=args.ranks, tp=args.tp, sp=args.sp, prewarm=args.prewarm,
         backend=recs[0]["backend"], card=card,
         resize_ms_by_rank=[rec["resize_ms"] for rec in recs],
         prewarm_ms_by_rank=[rec["prewarm_ms"] for rec in recs],

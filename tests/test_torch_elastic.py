@@ -135,22 +135,23 @@ def test_more_devices_than_one_start_a_world_of_one():
 
 
 def test_unsupported_modes_are_refused():
-    """sp and ep layouts are refused, naming their later item, as are an
-    unknown sharding kind and an fsdp world of two with no process group;
-    a tp layout is taken, and like any world of two needs a process group;
-    both of the reference's accumulation modes are taken, "dp" by
-    default."""
+    """An ep layout is refused, naming where the roadmap keeps it (alone
+    and beside sp), as are an unknown sharding kind and an fsdp world of
+    two with no process group; tp and sp layouts are taken, and like any
+    world of two need a process group; both of the reference's
+    accumulation modes are taken, "dp" by default."""
     model = tfm.Transformer(tfm.TINY, device="cpu")
-    for axis in ("sp", "ep"):
-        with pytest.raises(ValueError, match=f"the {axis} axes are later "
-                           "items.*item 9"):
+    for shape in (MeshShape(ep=2), MeshShape(sp=2, ep=2)):
+        with pytest.raises(ValueError, match="the ep axis is not ported.*"
+                           "Configurations the port does not run"):
+            ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
+                           devices=CPU, spec=MeshSpec(sp=1, ep=1),
+                           initial_world_size=shape)
+    for axis in ("tp", "sp"):
+        with pytest.raises(ValueError, match="process group"):
             ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3),
                            devices=CPU, spec=MeshSpec(**{axis: 1}),
                            initial_world_size=MeshShape(**{axis: 2}))
-    with pytest.raises(ValueError, match="process group"):
-        ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
-                       spec=MeshSpec(tp=1),
-                       initial_world_size=MeshShape(tp=2))
     with pytest.raises(ValueError, match="param_sharding 'zero2'"):
         ElasticTrainer(tfm.loss_fn, model, optim.adam(1e-3), devices=CPU,
                        param_sharding="zero2")

@@ -430,7 +430,7 @@ def suite_four(rank: int, world: int, store: str, tiny_params: dict,
         got = dict(matches=[t.matches(v) for v in (0, "abc", 3, 4)])
         got["soft"] = [t.resize(v) for v in (0, "abc")]
         got["failed_soft"] = t.resizes_failed
-        got["staged"] = [t.resize(v) for v in (8, MeshShape(dp=2, sp=2))]
+        got["staged"] = [t.resize(v) for v in (8, MeshShape(dp=2, ep=2))]
         got.update(failed=t.resizes_failed, world=t.world_size,
                    loss=t.step((x[:64], y[:64])), landed=t.resize(3),
                    world_after=t.world_size)
@@ -1612,7 +1612,7 @@ def suite_prewarm(rank: int, world: int, store: str, data: tuple) -> dict:
     def skips_invalid(rank):
         t = mlp_trainer(n0)
         return t.prewarm([0, -1, 10_000, t.world_size, None,
-                          MeshShape(sp=2)])
+                          MeshShape(ep=2)])
 
     def event_split(rank):
         hits = get_counters().get("prewarm_hits")
@@ -2609,6 +2609,308 @@ def suite_serving(rank: int, world: int, store: str, mlp_params: dict,
     return _run_scenarios([replicated, fsdp], rank)
 
 
+# -- the sequence-parallel suites ---------------------------------------------
+
+
+def ring_context(sp_size: int, index: int, line, group=None, hop=None):
+    """An sp context over the global ranks ``line`` (this rank at
+    ``index``) whose hop is ``hop(tensors, dst, src, group)`` (default:
+    ``ring_attention.exchange``, outside the trainer's census)."""
+    from edl_tpu_torch.parallel import ring_attention as ring
+
+    hop = hop or ring.exchange
+    nxt, prv = line[(index + 1) % sp_size], line[index - 1]
+
+    def go(tensors, reverse=False):
+        dst, src = (prv, nxt) if reverse else (nxt, prv)
+        return hop(tensors, dst, src, group)
+
+    return ring.SPContext(sp_size, index, go)
+
+
+def ring_grads(fn, sp, q, k, v) -> tuple:
+    """(out, dq, dk, dv) as numpy of ``fn(q, k, v, sp=sp)`` on this rank's
+    numpy chunks, the loss the sum of the global output's squares (each
+    rank its chunk's share)."""
+    qt, kt, vt = (torch.from_numpy(np.ascontiguousarray(x))
+                  .requires_grad_() for x in (q, k, v))
+    out = fn(qt, kt, vt, causal=True, sp=sp)
+    (out ** 2).sum().backward()
+    return tuple(t.detach().numpy().copy()
+                 for t in (out, qt.grad, kt.grad, vt.grad))
+
+
+def suite_ring_four(rank: int, world: int, store: str, cases: dict) -> dict:
+    """The ring on four ranks: each rank holds its contiguous quarter of the
+    sequence of ``cases``' global q/k/v and returns its chunk of the output
+    and of the gradients of Σ out² — the plain ring causal and full, the
+    flash ring's CPU form (the plain flash versions per chunk) at GQA 1:1
+    and 2:1, a chunk the flash ring does not take, the hop census through
+    the trainer's choke point, and GQA on a tp-2 × sp-2 layout (this rank's
+    heads of its tp block and its chunk of its sp line)."""
+    from edl_tpu_torch.parallel import mesh as pmesh
+    from edl_tpu_torch.parallel import ring_attention as ring
+
+    _join(rank, world, store)
+    line = list(range(world))
+    sp4 = ring_context(world, rank, line)
+
+    def chunk(x, i=rank, n=world):
+        sc = x.shape[1] // n
+        return x[:, i * sc:(i + 1) * sc]
+
+    def plain(rank):
+        got = {}
+        for causal in (True, False):
+            q, k, v = (chunk(x) for x in cases["plain"])
+            qt, kt, vt = (torch.from_numpy(np.ascontiguousarray(x))
+                          .requires_grad_() for x in (q, k, v))
+            out = ring.ring_attention_sharded(qt, kt, vt, causal=causal,
+                                              sp=sp4)
+            (out ** 2).sum().backward()
+            got[causal] = tuple(t.detach().numpy().copy() for t in
+                                (out, qt.grad, kt.grad, vt.grad))
+        return got
+
+    def flash(rank):
+        return {hk: ring_grads(ring.ring_flash_attention_sharded, sp4,
+                               *(chunk(x) for x in qkv))
+                for hk, qkv in cases["flash"].items()}
+
+    def unaligned(rank):
+        q, k, v = (chunk(x) for x in cases["unaligned"])
+        return dict(eligible=ring.flash_eligible(q.shape[1]),
+                    got=ring_grads(ring.ring_flash_attention_sharded, sp4,
+                                   q, k, v))
+
+    def census(rank):
+        got = {}
+        counted = ring_context(world, rank, line, hop=lambda ts, dst, src,
+                               group: elastic._ring_hop(ts, dst, src, group,
+                                                        "sp"))
+        for label, fn, qkv in (
+                ("flash", ring.ring_flash_attention_sharded,
+                 cases["flash"][2]),
+                ("plain", ring.ring_attention_sharded, cases["plain"])):
+            q, k, v = (torch.from_numpy(np.ascontiguousarray(chunk(x)))
+                       .requires_grad_() for x in qkv)
+            elastic.reset_census()
+            out = fn(q, k, v, causal=True, sp=counted)
+            fwd = elastic.collective_census()
+            (out ** 2).sum().backward()
+            got[label] = dict(fwd=fwd, step=elastic.collective_census())
+        return got
+
+    def gqa_tp_sp(rank):
+        shape = MeshShape(tp=2, sp=2)
+        group = pmesh.axis_groups(shape)["sp"]
+        sp_line = pmesh.axis_ranks(shape, "sp", rank)
+        t = pmesh.axis_ranks(shape, "tp", rank).index(rank)
+        s = sp_line.index(rank)
+        sp2 = ring_context(2, s, sp_line, group)
+        q, k, v = cases["gqa"]
+        h, hk = q.shape[2] // 2, k.shape[2] // 2
+        q = chunk(q, s, 2)[:, :, t * h:(t + 1) * h]
+        k = chunk(k, s, 2)[:, :, t * hk:(t + 1) * hk]
+        v = chunk(v, s, 2)[:, :, t * hk:(t + 1) * hk]
+        return dict(tp=t, sp=s, got=ring_grads(
+            ring.ring_flash_attention_sharded, sp2, q, k, v))
+
+    return _run_scenarios([plain, flash, unaligned, census, gqa_tp_sp],
+                          rank)
+
+
+def sp_tiny(params: dict, spec: MeshSpec, n0: int, remat: bool = False,
+            **kw) -> ElasticTrainer:
+    """The TINY trainer (``remat`` as asked) holding the JAX params, under
+    adamw(1e-3) on ``spec``'s world of ``n0``."""
+    cfg = dataclasses.replace(tfm.TINY, remat=remat)
+    model = interop.params_from_numpy(tfm.Transformer(cfg, device="cpu"),
+                                      params)
+    return ElasticTrainer(tfm.loss_fn, model, optim.adamw(1e-3),
+                          devices=[torch.device("cpu")], spec=spec,
+                          initial_world_size=n0, **kw)
+
+
+def sp_logits(trainer: ElasticTrainer, tokens) -> np.ndarray:
+    """This rank's block of TINY's logits of ``tokens`` on the trainer's
+    live layout: its chunk of the sequence and, split over tp, its
+    vocabulary columns (the trainer's gather, tp and sp contexts)."""
+    with torch.no_grad(), trainer._gathered(), trainer._tp(), \
+            trainer._sp():
+        out = tfm.apply(trainer.state.params, torch.as_tensor(tokens))
+    return out.numpy().copy()
+
+
+def sp_steps(trainer: ElasticTrainer, batches: list) -> dict:
+    """The eval loss at init, a step per batch (the first's census), and
+    the whole params after them."""
+    got = dict(eval=trainer.eval_loss(batches[0]))
+    elastic.reset_census()
+    got["losses"] = [trainer.step(batches[0])]
+    got["census"] = elastic.collective_census()
+    got["losses"] += [trainer.step(b) for b in batches[1:]]
+    got["full"] = full_numpy(trainer)
+    return got
+
+
+SP = MeshSpec(sp=-1)
+
+
+def suite_sp_two(rank: int, world: int, store: str, tiny_params: dict,
+                 batches: list, micro: list, tokens: np.ndarray,
+                 data: tuple, flagship_kw: dict) -> dict:
+    """sp 2 on two ranks: the entry point behind chip_smoke's phase (w) at
+    TINY (the plain ring: TINY is fp32 on the CPU), then TINY's logits,
+    steps with remat off and on, accumulation, the MLP (no sp path), live
+    resizes 1 → sp 2 → 1 and a whole state restored into sp 2."""
+    from edl_tpu_torch.entry import flagship_sp_world
+
+    out = {}
+    try:
+        trainer, batch = flagship_sp_world(rank, world, store, device="cpu",
+                                           **flagship_kw)
+        seen = dict(world=trainer.world_size, losses=[], resized=[],
+                    kept=[], sent=[], census=[], params=[])
+        for target in (2, 2, 1, 2):
+            if target != trainer.world_size:
+                before = full_numpy(trainer)
+                elastic.reset_census()
+                seen["resized"].append(trainer.resize(target))
+                seen["sent"].append(sum(
+                    slot["bytes"] for label, slot in
+                    elastic.collective_census().items() if label != "world"))
+                seen["kept"].append(all(
+                    np.array_equal(before[k], v)
+                    for k, v in full_numpy(trainer).items()))
+            elastic.reset_census()
+            seen["losses"].append(trainer.step(batch))
+            seen["census"].append(elastic.collective_census())
+            seen["params"].append(digest(trainer))
+        seen["events"] = trainer.resize_events
+        out["flagship_world"] = seen
+    except Exception:
+        out["flagship_world"] = ScenarioFailed(traceback.format_exc())
+        return out
+
+    def forward(rank):
+        return sp_logits(sp_tiny(tiny_params, SP, 2), tokens)
+
+    def steps(rank):
+        return {remat: sp_steps(sp_tiny(tiny_params, SP, 2, remat=remat),
+                                batches) for remat in (False, True)}
+
+    def accumulate(rank):
+        got = {}
+        for mode in ("dp", "replicated"):
+            t = sp_tiny(tiny_params, SP, 2, accum_mode=mode)
+            got[mode] = dict(losses=[t.step_accumulate(micro)
+                                     for _ in range(2)],
+                             full=full_numpy(t))
+        return got
+
+    def mlp_sp(rank):
+        x, y = data
+        got = {}
+        for n0 in (1, 2):
+            t = mlp_trainer(n0, spec=SP)
+            losses = [t.step(_slices(x, y, i)) for i in range(4)]
+            got[n0] = dict(losses=losses, digest=digest(t), live=t.live)
+        return got
+
+    def resize(rank):
+        t = sp_tiny(tiny_params, SP, 1)
+        got = dict(losses=[t.step(batches[0])], kept=[], shapes=[],
+                   sent=[])
+        for b, target in zip(batches[1:], (MeshShape(sp=2), 1)):
+            before = full_numpy(t)
+            elastic.reset_census()
+            ok = t.resize(target)
+            got["sent"].append(sum(
+                slot["bytes"] for label, slot in
+                elastic.collective_census().items() if label != "world"))
+            got["kept"].append(ok and all(
+                np.array_equal(before[k], v)
+                for k, v in full_numpy(t).items()))
+            got["shapes"].append(t.shape)
+            got["losses"].append(t.step(b))
+        got["events"] = t.resize_events
+        return got
+
+    def restore(rank):
+        from edl_tpu_torch.runtime import checkpoint as ckpt
+
+        src = sp_tiny(tiny_params, SP, 1)
+        for b in batches[:2]:
+            src.step(b)
+        flat = [ckpt._flatten(src.whole_state()) if rank == 0 else None]
+        dist.broadcast_object_list(flat, src=0)
+        dst = sp_tiny(tiny_params, SP, 2)
+        dst.load_whole_state(flat[0])
+        same = all(np.array_equal(full_numpy(src)[k], v)
+                   for k, v in full_numpy(dst).items()) if rank == 0 \
+            else None
+        got = dict(same=same, sp_loss=dst.step(batches[2]),
+                   sp_full=full_numpy(dst))
+        got["one_loss"] = src.step(batches[2])
+        got["one_full"] = full_numpy(src) if rank == 0 else None
+        return got
+
+    def prewarm(rank):
+        t = sp_tiny(tiny_params, SP, 1)
+        t.step(batches[0])
+        t.prewarm([MeshShape(sp=2)], wait=True)
+        ok = t.resize(MeshShape(sp=2))
+        return dict(ok=ok, hit=t.resize_events[-1]["prewarm_hit"],
+                    loss=t.step(batches[1]))
+
+    out.update(_run_scenarios([forward, steps, accumulate, mlp_sp, resize,
+                               restore, prewarm], rank))
+    return out
+
+
+def suite_sp_four(rank: int, world: int, store: str, tiny_params: dict,
+                  batches: list, tokens: np.ndarray, mlp_params: dict,
+                  rows: np.ndarray) -> dict:
+    """sp on four ranks: TINY laid out by its partition specs over tp 2 ×
+    sp 2 (its logits and steps), the fsdp kind on fsdp 2 × sp 2 (the fsdp
+    blocks' gradients summed over the sp line), replicated on dp 2 × sp 2
+    (the batch split over dp, each half's sequence over sp), and an
+    ``ElasticServer`` on dp 2 × sp 2 (its rows gathered over the data
+    axes)."""
+    from edl_tpu_torch.runtime.serving import ElasticServer
+
+    _join(rank, world, store)
+    specs = tfm.param_partition_specs(tfm.TINY)
+    tp_sp = MeshSpec(tp=2, sp=2)
+
+    def forward_tp_sp(rank):
+        return sp_logits(sp_tiny(tiny_params, tp_sp, 4,
+                                 param_sharding=specs), tokens)
+
+    def steps_tp_sp(rank):
+        return sp_steps(sp_tiny(tiny_params, tp_sp, 4, remat=True,
+                                param_sharding=specs), batches)
+
+    def fsdp_sp(rank):
+        return sp_steps(sp_tiny(tiny_params, MeshSpec(fsdp=2, sp=2), 4,
+                                param_sharding="fsdp"), batches)
+
+    def dp_sp(rank):
+        return sp_steps(sp_tiny(tiny_params, MeshSpec(dp=2, sp=2), 4),
+                        batches)
+
+    def serve_dp_sp(rank):
+        model = interop.params_from_numpy(mlp.MLP([16, 32, 4], device="cpu"),
+                                          mlp_params)
+        srv = ElasticServer(_mlp_apply, model, devices=[torch.device("cpu")],
+                            spec=MeshSpec(dp=2, sp=2))
+        return srv.serve((rows,)).numpy().copy()
+
+    return _run_scenarios([forward_tp_sp, steps_tp_sp, fsdp_sp, dp_sp,
+                           serve_dp_sp], rank)
+
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
@@ -2618,4 +2920,5 @@ SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "bert_tp_eight": suite_bert_tp_eight, "local": suite_local,
           "local_four": suite_local_four, "controlled": suite_controlled,
           "controlled_four": suite_controlled_four,
-          "serving": suite_serving}
+          "serving": suite_serving, "ring_four": suite_ring_four,
+          "sp_two": suite_sp_two, "sp_four": suite_sp_four}
