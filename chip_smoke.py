@@ -337,6 +337,31 @@ Phases, each of which raises on failure:
     kernels' rule and to the plain ring in fp32 by (d)'s rule (the plain
     ring in bf16 beside it), each ring timed.
 
+(x) Train+serve card arbitration: two ranks sharing the card over gloo
+    train FLAGSHIP as (t)'s leased job (``entry.flagship_arbitrated_job``),
+    and rank 0 also holds the arbitration plane (a Controller planning by
+    the goodput objective over the curves in the native coordinator, its
+    scraper) and the FLAGSHIP scoring fleet of (u), whose replicas are
+    threads outside the trainer's process group; ``entry.
+    arbitrated_campaign`` drives both on a FakeCluster of three one-card
+    nodes.  The trainer's curve gets world 1's and world 2's median
+    tokens/s (the planner grows it to 2 when node1's card frees), the
+    fleet is submitted as an arbitrated ServingJob of 1 to 2 replicas at
+    the closed-loop capacity C, and Poisson windows of C/4, 1.25 C and C/10
+    follow.  Gates: every tick after both curves plans in mode goodput and
+    re-plans equal on its recorded inputs; at most 3 cards granted, no
+    world below its min, nothing left pending; the trainer's worlds go
+    1 -> 2 -> 1 and the fleet 1 -> 2 by a rebalance plan; the fleet's
+    uid is observe_only in the SLO policy, which actuates nothing and
+    hints at least once; the losses within 2e-2 of a one-rank control,
+    each leased task once, 8 launches of each flash kernel a live step and
+    8 forward launches a fleet forward; no request lost; the sampled
+    answers within (d)'s rule and another row's outside it; the scraped
+    qps within X_QPS_RTOL and p99 within one bucket of the fleet's own
+    stats; a burn-rate alert within 2 evaluations of an injected SLO
+    breach and a target-down alert within 3 due sweeps of the fleet's
+    /metrics going away; no coordinator left.
+
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
 
@@ -379,8 +404,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from edl_tpu_torch.entry import (CONTROLLED_ROWS, CONTROLLED_SHARDS,
-                                 DECODE_DEFAULTS, VIRTUAL_ROWS,
+from edl_tpu_torch.entry import (ARBITRATION_BATCH, ARBITRATION_DOWN_AFTER,
+                                 ARBITRATION_FLEET_JOB, ARBITRATION_LOOP_S,
+                                 ARBITRATION_QUEUE_MS, ARBITRATION_ROWS,
+                                 ARBITRATION_SCRAPE_S, ARBITRATION_SHARDS,
+                                 ARBITRATION_SLO_MS,
+                                 ARBITRATION_TARGET_SHARE,
+                                 ARBITRATION_WINDOW_S, CONTROLLED_ROWS,
+                                 CONTROLLED_SHARDS, DECODE_DEFAULTS,
+                                 VIRTUAL_ROWS, arbitrated_campaign,
+                                 flagship_arbitrated_job,
                                  VIRTUAL_SHARDS, bert_tp_world, bert_trainer,
                                  controlled_campaign, dryrun_multichip, entry,
                                  flagship_controlled_job,
@@ -393,6 +426,7 @@ from edl_tpu_torch.entry import (CONTROLLED_ROWS, CONTROLLED_SHARDS,
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
 from edl_tpu_torch.observability.collector import get_counters
+from edl_tpu_torch.observability import metrics
 from edl_tpu_torch.observability.metrics import get_registry
 from edl_tpu_torch.parallel.mesh import MeshSpec
 from edl_tpu_torch.runtime import checkpoint as ckpt
@@ -616,6 +650,14 @@ SP_B, SP_S = 4, 4096
 SP_TIMED = 3
 SP_SCHEDULE = (2,) * (1 + SP_TIMED) + (1, 2)
 SP_HOLD_SEED, SP_HOLD_REPS = 5, 3
+
+#: phase (x): the phase's deadline (its schedule is entry.arbitrated_
+#: campaign's defaults: four live steps a world before its curve point,
+#: steps paced to 0.5 s on rank 0, the scoring fleet's batch 8 and p99 SLO
+#: of 1 s, a replica's QPS target 0.2 C, windows of C/4, 1.25 C and C/10),
+#: and how far the scraped qps may sit from the fleet's own
+X_TIMEOUT_S = 600
+X_QPS_RTOL = 0.25
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -5103,6 +5145,299 @@ def phase_sp(card: str) -> dict:
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
 
 
+# -- phase (x): train+serve card arbitration ----------------------------------
+
+
+def answer_readings(answers: np.ndarray, tokens: np.ndarray, dev) -> dict:
+    """(x): the fleet's sampled answers against the plain attention path's
+    last-token logits of their rows (FLAGSHIP from seed 0, the fleet's
+    weights), by (d)'s rule, and the control: each answer against another
+    row's reference."""
+    model = tfm.Transformer(tfm.FLAGSHIP, device=dev, seed=0)
+    model.cfg = dataclasses.replace(model.cfg, use_flash=False)
+    with torch.no_grad():
+        ref = score_last_token(model, (torch.from_numpy(tokens).to(dev),))
+    del model
+    got = torch.from_numpy(answers).to(ref.device)
+    rms = ref.float().square().mean().sqrt().item()
+    r, c = (kc.reading(x, ref, kc.BF16_RTOL, MODEL_ATOL * rms)
+            for x in (got, got.roll(1, 0)))
+    return {k: {f: v[f] for f in ("max_abs_err", "worst", "need_atol")}
+            for k, v in (("answers", r), ("another_row", c))}
+
+
+def arbitrated_rank(rank: int, store: str, out: str) -> None:
+    """(x), one rank of the FLAGSHIP trainer whose cards the goodput
+    planner arbitrates against the FLAGSHIP scoring fleet: rank 0 also
+    holds the arbitration plane (the controller, its scraper, the native
+    coordinator) and the fleet, whose replicas are threads of this process
+    outside the trainer's process group; ``entry.arbitrated_campaign``
+    drives both.  What the rank saw is written as JSON to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = dict(rank=rank, steps=[])
+    runner, plane, _ = flagship_arbitrated_job(rank, WORLD_RANKS, store)
+    instrument_steps(runner.trainer, rec["steps"])
+    order: list = []
+    fleet = rows = None
+    built: list = []
+    if plane is not None:
+        fetch = runner.fetch
+
+        def counted(payload):
+            order.append(json.loads(payload.decode())["shard"])
+            return fetch(payload)
+
+        runner.fetch = counted
+        fleet = flagship_scoring_fleet(
+            job=f"default/{ARBITRATION_FLEET_JOB}",
+            max_batch_size=ARBITRATION_BATCH,
+            max_queue_ms=ARBITRATION_QUEUE_MS,
+            slo_p99_ms=ARBITRATION_SLO_MS, kv=plane.coord)
+        new_replica = fleet._new_replica
+
+        def tracked(slot):
+            r = new_replica(slot)
+            built.append(r)
+            return r
+
+        fleet._new_replica = tracked
+        fleet.scale_to(1)
+        fleet.serve_metrics(port=0, replica="r0")
+        rows = np.random.default_rng(3).integers(
+            0, tfm.FLAGSHIP.vocab_size, (256, S), dtype=np.int64)
+    forwards0 = {id(r): r.server.forwards for r in built}
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    got = arbitrated_campaign(runner, plane, fleet, rows)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(fa.launches)
+    rep = got["report"]
+    rec.update(losses=rep.losses, worlds=rep.world_sizes,
+               resize_steps=rep.resize_steps,
+               resize_seconds=rep.resize_seconds)
+    if plane is not None:
+        rec["forwards"] = sum(r.server.forwards - forwards0.get(id(r), 0)
+                              for r in built if r.server is not None)
+        sampled = got.pop("sampled", None)
+        fleet.stop()
+        stats = plane.coord.stats()
+        plane.close()
+        rec.update({k: v for k, v in got.items()
+                    if k not in ("report", "steps")},
+                   order=order, leaked=plane.leaked_servers(),
+                   stats=dict(done=stats.done, todo=stats.todo,
+                              leased=stats.leased, dropped=stats.dropped))
+        if sampled is not None:
+            rec["sampled_ids"] = sampled["ids"]
+            rec["answer_check"] = answer_readings(
+                sampled["answers"], sampled["tokens"],
+                runner.trainer.device)
+    del runner
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f, default=str)
+
+
+def scrape_agrees(compared: dict) -> tuple[bool, bool]:
+    """(x): the scraped view against the fleet's own stats over one
+    window: qps within X_QPS_RTOL of the fleet's, and p99 within one bucket
+    of the serving latency histogram (their buckets' indices at most 1
+    apart)."""
+    own, seen = compared["fleet"], compared["scraped"]
+    qps_ok = abs(seen["qps"] - own["qps"]) <= X_QPS_RTOL * own["qps"]
+    edges = list(metrics.SERVING_LATENCY_BUCKETS) + [math.inf]
+
+    def bucket(ms: float) -> int:
+        return next(i for i, e in enumerate(edges) if ms / 1e3 <= e)
+
+    return qps_ok, abs(bucket(seen["p99_ms"]) - bucket(own["p99_ms"])) <= 1
+
+
+def phase_arbitrated(card: str) -> dict:
+    """(x): the FLAGSHIP trainer (1 to 2 ranks on the card over gloo) and
+    the FLAGSHIP scoring fleet (1 to 2 one-card replicas) sharing a
+    cluster of three one-card nodes, the goodput planner dividing the cards
+    between them; against a one-rank control fed rank 0's batches in its
+    order.  Returns the launches of both ranks summed."""
+    torch.cuda.empty_cache()
+    recs = run_ranks(arbitrated_rank, "x", X_TIMEOUT_S)
+    r0, r1 = recs
+    runner, reg, _ = flagship_local_job(0, 1, None, rows=ARBITRATION_ROWS,
+                                        shards=ARBITRATION_SHARDS)
+    trainer = runner.trainer
+    control = [trainer.step(reg.get(i)) for i in r0["order"]]
+    del runner, trainer
+    torch.cuda.empty_cache()
+    uid_t, uid_f = r0["trainer_job"], r0["fleet_job"]
+    print(f"arbitrated phase (x): FLAGSHIP trainer {uid_t} (1 to 2 ranks, "
+          f"global batch {B} x {S}, leased tasks) and the FLAGSHIP scoring "
+          f"fleet {uid_f} (1 to 2 replicas, rows of {S} tokens, batch "
+          f"{ARBITRATION_BATCH}) on a FakeCluster of three one-card nodes in "
+          f"three NVLink domains, a Controller planning by the goodput "
+          f"objective (loop {ARBITRATION_LOOP_S} s), the fleet's SLO policy "
+          f"fed by a scraper over its /metrics (sweep every "
+          f"{ARBITRATION_SCRAPE_S} s, window {ARBITRATION_WINDOW_S} s); two "
+          f"ranks sharing {card} over gloo", flush=True)
+    for world, ms, tok_s, t in r0["curve_points"]:
+        print(f"arbitrated trainer curve point world {world}: median step "
+              f"{ms} ms, {tok_s} tok/s (recorded at {t} s) on {card}",
+              flush=True)
+    print(f"arbitrated curves {r0['curves']} on {card}", flush=True)
+    resizes = {uid_t: [(a, b, t) for a, b, t in r0["trainer_resizes"]],
+               uid_f: [(a, b, t0) for a, b, t0, _ in r0["fleet_resizes"]]}
+    for tick in r0["ticks"]:
+        lat = {}
+        for uid, n in tick["target"].items():
+            hit = next((t for a, b, t in resizes.get(uid, ())
+                        if b == n and t >= tick["t"]), None)
+            lat[uid] = None if hit is None else round(hit - tick["t"], 3)
+        print(f"arbitrated tick at {tick['t']} s: mode {tick['mode']} "
+              f"marginals {tick['marginals']} diff {tick['diff']} target "
+              f"{tick['target']} reclaims {tick['reclaims']} re-planned "
+              f"equal {tick['audit_ok']}; tick to resize s {lat} on {card}",
+              flush=True)
+    modes = collections.Counter(m for _, m in r0["modes"])
+    print(f"arbitrated tick modes {dict(modes)} over {len(r0['modes'])} "
+          f"ticks; fleet resizes (from, to, start s, end s) "
+          f"{r0['fleet_resizes']}; trainer resizes (from, to, start s) "
+          f"{[(a, b, round(t, 3)) for a, b, t in r0['trainer_resizes']]}; "
+          f"hints {r0['hints']}; prewarm {r0['fleet_prewarm']} on {card}",
+          flush=True)
+    print(f"arbitrated fleet capacity C {r0['capacity']:.1f} rows/s "
+          f"(closed loop, one replica, the trainer at world 2 on the same "
+          f"card); QPS target {ARBITRATION_TARGET_SHARE} C a replica, p99 "
+          f"SLO {ARBITRATION_SLO_MS} ms on {card}", flush=True)
+    for label, w in r0["windows"].items():
+        t = w["tally"]
+        print(f"arbitrated {label} at {w['share']} C ({w['start']} to "
+              f"{w['end']} s): sent {t['sent']} served {t['served']} "
+              f"dropped {t['dropped']} errors {t['errors']} timeouts "
+              f"{t['timeouts']} p50_ms {t['p50_ms']} p99_ms {t['p99_ms']} "
+              f"max_ms {t['max_ms']}; replicas {w['stats']['replicas_active']}"
+              f" on {card}", flush=True)
+    print(f"arbitrated scrape vs fleet over {r0['compared']['window_s']} s "
+          f"at {r0['compared']['at']} s: fleet {r0['compared']['fleet']} "
+          f"scraped {r0['compared']['scraped']}; sweeps {r0['sweeps']} "
+          f"staleness {r0['staleness']} on {card}", flush=True)
+    burn = r0["burn_drill"]
+    print(f"arbitrated alerts: burn control {burn['control_firing']}"
+          f" fired after (evaluations, s) {burn['fired_after']}; "
+          f"target down at sweep {r0['down_drill']['fired_at_sweep']} "
+          f"(threshold {ARBITRATION_DOWN_AFTER}) on {card}", flush=True)
+    for world in sorted(set(r0["worlds"])):
+        ms = {rec["rank"]: [round(st["ms"], 2) for st in rec["steps"]
+                            if st["world"] == world and st["live"]]
+              for rec in recs}
+        print(f"arbitrated world {world} step_ms by rank {ms} median "
+              f"{float(np.median(ms[0])):.2f} on {card}", flush=True)
+    check = r0.get("answer_check", {})
+    print(f"model check: arbitrated fleet answers (rows "
+          f"{r0.get('sampled_ids')}) vs plain attention logits {check} "
+          f"on {card}", flush=True)
+    diff = [abs(a - b) for a, b in zip(r0["losses"], control)]
+    print(f"arbitrated losses {[round(x, 6) for x in r0['losses']]} control "
+          f"{[round(x, 6) for x in control]} max |job - control| "
+          f"{max(diff):.3e} (limit {WORLD_LOSS_ATOL}); worlds "
+          f"{r0['worlds']}; tasks trained {len(r0['order'])}, coordinator "
+          f"stats {r0['stats']}; launches rank 0 {r0['launches']} rank 1 "
+          f"{r1['launches']} over {r0['forwards']} fleet forwards on "
+          f"{card}", flush=True)
+
+    failures = list(r0["errors"])
+    # the allocator decides
+    both = min((t for w, _, _, t in r0["curve_points"] if w == 2),
+               default=None)
+    after = [m for t, m in r0["modes"] if both is not None and t > both]
+    if not after or set(after) != {"goodput"}:
+        failures.append(
+            f"modes after both curves {collections.Counter(after)}")
+    if not r0["ticks"] or not all(t["audit_ok"] for t in r0["ticks"]):
+        failures.append(f"ticks {r0['ticks']}")
+    # card accounting
+    for t, train, fl, held, pending in r0["card_samples"]:
+        if train + fl + held > 3 or train < 1:
+            failures.append(f"cards at {t} s: trainer {train} fleet {fl} "
+                            f"held {held}")
+            break
+    last = r0["card_samples"][-1] if r0["card_samples"] else None
+    if last is None or last[4] != 0:
+        failures.append(f"pods left pending {last}")
+    if min(r0["worlds"]) < 1:
+        failures.append(f"worlds {r0['worlds']}")
+    # the rebalance happens, each change a planner decision
+    worlds = r0["worlds"]
+    i2 = worlds.index(2) if 2 in worlds else None
+    if (worlds[0] != 1 or i2 is None or 1 not in worlds[i2:]
+            or worlds[-1] != 1 or r1["worlds"] != worlds):
+        failures.append(f"trainer worlds {worlds} / {r1['worlds']}")
+    planned = {(u, n) for tick in r0["ticks"] for u, n in
+               tick["target"].items()}
+    if [(a, b) for a, b, _, _ in r0["fleet_resizes"]] != [(1, 2)] \
+            or (uid_f, 2) not in planned or (uid_t, 1) not in planned \
+            or (uid_t, 2) not in planned:
+        failures.append(f"fleet resizes {r0['fleet_resizes']} plans "
+                        f"{sorted(planned)}")
+    if not any(rc[0] == uid_t and rc[1] == uid_f and rc[4] == "rebalance"
+               for tick in r0["ticks"] for rc in tick["reclaims"]):
+        failures.append("no rebalance of the trainer's card to the fleet")
+    # the fleet's dial is the planner's
+    if not r0["observe_only"] or not r0["in_autoscaler"] \
+            or r0["serving_plans"]:
+        failures.append(f"observe_only {r0['observe_only']} autoscaler "
+                        f"{r0['in_autoscaler']} serving plans "
+                        f"{r0['serving_plans']}")
+    if not any(h[0] == "slo_policy" and h[1] == uid_f for h in r0["hints"]):
+        failures.append(f"no prewarm hint from the SLO policy {r0['hints']}")
+    # the trainer is correct
+    if r0["stats"]["leased"] or r0["stats"]["dropped"] \
+            or r0["stats"]["done"] != len(r0["order"]) \
+            or len(set(r0["order"])) != len(r0["order"]):
+        failures.append(f"tasks {r0['order']} stats {r0['stats']}")
+    if len(r0["losses"]) != len(control) or not all(
+            np.isfinite(r0["losses"])) or max(diff) > WORLD_LOSS_ATOL:
+        failures.append(f"losses {r0['losses']} vs control {control}")
+    live0 = sum(st["live"] for st in r0["steps"])
+    for rec in recs:
+        for st in rec["steps"]:
+            want = tfm.FLAGSHIP.n_layers if st["live"] else 0
+            keys = FLASH if rec["rank"] == 1 else FLASH[1:]
+            if any(st["launches"][k] != want for k in keys):
+                failures.append(f"rank {rec['rank']} launches {st}")
+                break
+    # the fleet is correct: every forward 8 flash forwards, no backward
+    n = tfm.FLAGSHIP.n_layers
+    want0 = {"flash_fwd": n * (live0 + r0["forwards"]),
+             "flash_bwd_dq": n * live0, "flash_bwd_dkv": n * live0}
+    if r0["launches"] != want0:
+        failures.append(f"rank 0 launches {r0['launches']}, want {want0}")
+    tallies = {label: w["tally"] for label, w in r0["windows"].items()}
+    tallies.update(burn_quiet=r0["burn_drill"]["quiet"],
+                   burn_breach=r0["burn_drill"]["tally"])
+    for label, t in tallies.items():
+        if t["dropped"] or t["errors"] or t["timeouts"] or not t["served"]:
+            failures.append(f"{label} tally {t}")
+    if not check or check["answers"]["worst"] > 1.0 \
+            or check["another_row"]["worst"] <= 1.0:
+        failures.append(f"answer check {check}")
+    # the scrape plane matches the fleet
+    qps_ok, p99_ok = scrape_agrees(r0["compared"])
+    if not (qps_ok and p99_ok):
+        failures.append(f"scraped {r0['compared']}")
+    # the alert rules fire
+    if burn["control_firing"] or burn["fired_after"] is None \
+            or burn["fired_after"][0] > 2:
+        failures.append(f"burn drill {burn}")
+    down = r0["down_drill"]["fired_at_sweep"]
+    if down is None or down > ARBITRATION_DOWN_AFTER:
+        failures.append(f"target-down drill {r0['down_drill']}")
+    if r0["leaked"]:
+        failures.append(f"{r0['leaked']} coordinator servers left running")
+    if failures:
+        raise AssertionError("phase (x): " + "; ".join(failures))
+    return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
+
+
 def goodput_summary(raw) -> dict:
     from edl_tpu_torch.observability.goodput import ScalingCurve
 
@@ -5181,6 +5516,7 @@ def main() -> int:
     paths["flagship_frontdoor"] = timed("v", phase_data_plane,
                                         card)["launches"]
     paths["flagship_sp"] = timed("w", phase_sp, card)
+    paths["flagship_arbitrated"] = timed("x", phase_arbitrated, card)
     rounded = {k: round(v, 1) for k, v in seconds.items()}
     print(f"phase seconds {json.dumps(rounded)} "
           f"total {sum(seconds.values()):.1f} on {card}", flush=True)

@@ -19,12 +19,14 @@ validation, and master/pserver groups are only created when the spec calls
 for them (contrast reference pkg/controller.go:134-141, which creates both
 unconditionally and never validates).
 
-Not ported yet: the scrape plane (``scraper``) and the marginal-goodput
-objective (``goodput_curves``), both ROADMAP.md queue 1 item 11.  Each
-raises, naming its item.  The reference's train+serve chip arbitration
-(an elastic fleet whose replica dial the goodput planner owns, its SLO
-policy only observing and hinting) needs that curve source, so here the
-SLO policy dials every serving job.
+Train+serve card arbitration: with a ``goodput_curves`` source and the
+goodput objective on, an elastic card-holding ``ServingJob`` registers with
+both loops — the goodput planner owns its replica dial (its measured
+QPS-capacity curve priced against every trainer's scaling curve), the SLO
+policy only observes, records the curve and prewarm-hints.  A ``scraper``
+(:class:`~edl_tpu_torch.observability.scrape.MetricsScraper`) is rolled up
+through a ``FleetView`` that feeds the SLO policy from scraped replica
+``/metrics``; the controller starts and stops it.
 """
 
 from __future__ import annotations
@@ -58,16 +60,20 @@ class Controller:
         min_resize_delta: int = 1,
         mesh_shape_for=None,
         goodput_curves=None,
+        goodput_objective: bool = True,
         serving_stats_for=None,
         serving_loop_seconds: float = 2.0,
         coord_for=None,
         scraper=None,
+        scrape_window_s: float = 10.0,
     ) -> None:
-        if scraper is not None:
-            raise NotImplementedError(
-                "scraper: observability/scrape.py's MetricsScraper and "
-                "FleetView wait for ROADMAP.md queue 1 item 11")
         self.cluster = cluster
+        #: the packing objective: default ON, cards are granted by
+        #: marginal goodput whenever ``goodput_curves`` resolves a
+        #: measured ScalingCurve — priorities, preemption and gang
+        #: placement included; with no curve source (or flag off) the
+        #: reference count-based packing rules unchanged
+        self.goodput_objective = goodput_objective
         self.autoscaler = Autoscaler(
             cluster,
             max_load_desired=max_load_desired,
@@ -77,7 +83,21 @@ class Controller:
             min_resize_delta=min_resize_delta,
             mesh_shape_for=mesh_shape_for,
             goodput_curves=goodput_curves,
+            goodput_objective=goodput_objective,
         )
+        #: the scrape plane: when a MetricsScraper is handed in, the
+        #: controller owns its lifecycle, rolls it up through a
+        #: FleetView, and feeds the serving scaler FROM SCRAPED REPLICA
+        #: /metrics.  ``serving_stats_for`` remains the in-process test
+        #: seam and wins when explicitly given.
+        self.scraper = scraper
+        self.fleet_view = None
+        if scraper is not None:
+            from edl_tpu_torch.observability.scrape import FleetView
+
+            self.fleet_view = FleetView(scraper, window_s=scrape_window_s)
+            if serving_stats_for is None:
+                serving_stats_for = self.fleet_view.stats_for
         #: optional ``coord_for(job) -> kv-client | None`` hook: on job
         #: deletion the controller sweeps the job's coordinator KV
         #: (goodput curve, vw map/cursors, serving generation —
@@ -87,9 +107,10 @@ class Controller:
         #: it (goodput-curve/<job>).
         self.coord_for = coord_for
         #: SLO-driven replica scaling for ServingJob kinds — fed by
-        #: ``serving_stats_for(uid)`` (windowed p50/p99/qps, read off the
-        #: in-process fleet), actuating the same cluster replica-group
-        #: dial the trainer autoscaler uses
+        #: ``serving_stats_for(uid)`` (windowed p50/p99/qps; scraped
+        #: from replica /metrics through the FleetView above, or read
+        #: off the in-process fleet), actuating the same cluster
+        #: replica-group dial the trainer autoscaler uses
         self.serving_scaler = ServingScaler(
             cluster=cluster,
             stats_for=serving_stats_for,
@@ -106,12 +127,16 @@ class Controller:
     def start(self) -> None:
         """Run the scaling loops in the background
         (role of Controller.Run, reference pkg/controller.go:64-76)."""
+        if self.scraper is not None:
+            self.scraper.start()
         self.autoscaler.start()
         self.serving_scaler.start()
 
     def stop(self) -> None:
         self.autoscaler.stop()
         self.serving_scaler.stop()
+        if self.scraper is not None:
+            self.scraper.stop()
         with self._lock:
             updaters = list(self._updaters.values())
         for u in updaters:
@@ -137,11 +162,29 @@ class Controller:
             self._updaters[job.full_name] = updater
         if isinstance(job, ServingJob):
             self.serving_scaler.on_add(job)
+            if self._arbitrated(job):
+                # train+serve card arbitration: an elastic card-holding
+                # fleet's replica dial is owned by the goodput planner —
+                # its measured QPS-capacity curve (recorded by the
+                # serving scaler from FleetView data) is priced in the
+                # same marginal loop as every trainer's scaling curve, so
+                # a saturated fleet outbids a flat-curve trainer for the
+                # next card.  The SLO policy keeps observing and
+                # prewarm-hinting, but stops dialing.
+                self.autoscaler.on_add(job)
+                self.serving_scaler.observe_only.add(job.full_name)
         else:
             self.autoscaler.on_add(job)
         log.info("job submitted", job=job.full_name,
                  kind=type(job).__name__)
         return updater
+
+    def _arbitrated(self, job: ServingJob) -> bool:
+        """True when this serving fleet's cards are arbitrated by the
+        goodput planner rather than dialed by the SLO policy alone."""
+        return (self.goodput_objective
+                and self.autoscaler.goodput_curves is not None
+                and job.need_gpu() and job.elastic())
 
     def modify(self, job: "TrainingJob | ServingJob") -> None:
         validate_any(job)  # same gate as submit
@@ -152,6 +195,19 @@ class Controller:
         if isinstance(job, ServingJob):
             updater.modify(job)
             self.serving_scaler.on_update(job)
+            # reconcile arbitration ownership: a spec change can flip
+            # eligibility (e.g. min==max made elastic, or the reverse) —
+            # exactly one loop may own the replica dial afterwards
+            was = job.full_name in self.serving_scaler.observe_only
+            now = self._arbitrated(job)
+            if now and not was:
+                self.autoscaler.on_add(job)
+                self.serving_scaler.observe_only.add(job.full_name)
+            elif was and not now:
+                self.autoscaler.on_del(job)
+                self.serving_scaler.observe_only.discard(job.full_name)
+            elif now:
+                self.autoscaler.on_update(job)
             return
         old = updater.job.spec
         if old.trainer.allow_multi_domain != job.spec.trainer.allow_multi_domain:
@@ -173,6 +229,10 @@ class Controller:
             updater.notify_delete()
             updater.join(timeout=10)
         if isinstance(job, ServingJob):
+            # membership truth, not a spec recomputation: deletion must
+            # unregister wherever submit/modify actually registered
+            if job.full_name in self.serving_scaler.observe_only:
+                self.autoscaler.on_del(job)
             self.serving_scaler.on_del(job)
         else:
             self.autoscaler.on_del(job)

@@ -398,6 +398,21 @@ CONTROLLED_NODES = (("node0", "nvlink0"), ("node1", "nvlink1"))
 #: during which rank 0 holds its lease without renewing it
 CONTROL_LOOP_S = 0.05
 CONTROL_TIMEOUT_MS = 30_000
+#: the arbitration cluster: three one-card nodes, each its own NVLink
+#: domain; the trainer's job starts with node1's and node2's cards held
+ARBITRATION_NODES = (("node0", "nvlink0"), ("node1", "nvlink1"),
+                     ("node2", "nvlink2"))
+#: the arbitration plane's loops (autoscaler, updater, serving scaler),
+#: the scraper's sweep interval and the FleetView's window: a sweep renders
+#: and parses the fleet's whole registry under this process's interpreter
+#: lock, so it runs at 4 Hz, not at the control loop's rate
+ARBITRATION_LOOP_S = 0.1
+ARBITRATION_SCRAPE_S = 0.25
+ARBITRATION_WINDOW_S = 2.0
+#: the arbitrated trainer's dataset: rows of ``seq`` tokens, in one task a
+#: global batch of 16 — more tasks than the run leases (it trains until
+#: its campaign is done; the rest stay queued)
+ARBITRATION_ROWS, ARBITRATION_SHARDS = 4096, 256
 
 
 def controlled_training_job(name: str, max_instance: int,
@@ -473,12 +488,23 @@ class ControlPlane:
 
 
 def control_plane(job, work_dir, nodes=CONTROLLED_NODES,
-                  held_nodes=()) -> ControlPlane:
+                  held_nodes=(), arbitrated: bool = False) -> ControlPlane:
     """Build rank 0's :class:`ControlPlane` under ``work_dir`` and submit
     ``job`` through its ``Controller`` (``max_load_desired`` 1.0, loops of
     CONTROL_LOOP_S): ``nodes`` are ``(name, nvlink_domain)`` pairs of one
     card each, and a system pod holds the card of each node in
-    ``held_nodes`` from the start.  Returns once the job is Running."""
+    ``held_nodes`` from the start.  Returns once the job is Running.
+
+    ``arbitrated`` makes it the train+serve arbitration plane: the
+    controller plans by the goodput objective (``goodput_curves`` reads
+    each job's curve from the coordinator, ``load_curve``), records each
+    planning tick's inputs (``Autoscaler.record_plans``), reaches the
+    coordinator for every job (``coord_for``: the serving scaler records
+    each fleet's capacity curve there), and owns a ``MetricsScraper`` that
+    discovers the serving replicas' ``/metrics`` through the coordinator
+    (``kv_targets``) and feeds the serving scaler through a ``FleetView``
+    (ARBITRATION_SCRAPE_S, ARBITRATION_WINDOW_S, loops of
+    ARBITRATION_LOOP_S)."""
     from edl_tpu_torch.api.types import JobPhase
     from edl_tpu_torch.cluster.fake import FakeCluster
     from edl_tpu_torch.controller import Controller
@@ -502,10 +528,26 @@ def control_plane(job, work_dir, nodes=CONTROLLED_NODES,
                          nvlink_domain=domain)
     for name in held_nodes:
         cluster.add_system_pod(f"hold-{name}", name, gpus=1)
+    kw: dict = {}
+    loop_s = CONTROL_LOOP_S
+    if arbitrated:
+        from edl_tpu_torch.observability.goodput import load_curve
+        from edl_tpu_torch.observability.scrape import (MetricsScraper,
+                                                        kv_targets)
+
+        loop_s = ARBITRATION_LOOP_S
+        kw = dict(goodput_curves=lambda uid: load_curve(coord, uid),
+                  coord_for=lambda _job: coord,
+                  scraper=MetricsScraper(discover=[kv_targets(coord)],
+                                         interval_s=ARBITRATION_SCRAPE_S,
+                                         timeout_s=2.0),
+                  scrape_window_s=ARBITRATION_WINDOW_S,
+                  serving_loop_seconds=ARBITRATION_LOOP_S)
     controller = Controller(cluster, max_load_desired=1.0,
-                            autoscaler_loop_seconds=CONTROL_LOOP_S,
-                            updater_convert_seconds=CONTROL_LOOP_S,
-                            updater_confirm_seconds=CONTROL_LOOP_S / 2)
+                            autoscaler_loop_seconds=loop_s,
+                            updater_convert_seconds=loop_s,
+                            updater_confirm_seconds=loop_s / 2, **kw)
+    controller.autoscaler.record_plans = arbitrated
     controller.start()
     controller.submit(job)
     deadline = time.monotonic() + 30
@@ -667,6 +709,466 @@ def controlled_campaign(runner, plane: Optional[ControlPlane], seed: int,
     out.update(report=report, fired=list(engine.fired),
                recovered=list(engine.recovered), unfired=engine.unfired(),
                quiescent=engine.quiescent())
+    return out
+
+
+def flagship_arbitrated_job(rank: int, world: int, store_path, device="cuda",
+                            cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+                            global_batch: int = 16, seq: int = 1024,
+                            rows: int = ARBITRATION_ROWS,
+                            shards: int = ARBITRATION_SHARDS,
+                            work_dir=None):
+    """(LocalElasticJob, ControlPlane or None, ShardRegistry or None) for
+    rank ``rank`` of the trainer of the train+serve arbitration: as
+    :func:`flagship_controlled_job`, but rank 0's plane is the arbitration
+    plane (``control_plane(arbitrated=True)``: the goodput objective over
+    the coordinator's curves, a scraper, :data:`ARBITRATION_NODES` with
+    node1's and node2's cards held by system pods at the start)."""
+    from edl_tpu_torch.runtime.local import LocalElasticJob
+
+    dev = _join_world(rank, world, store_path, device)
+    trainer = _flagship(cfg, dev, initial_world_size=1,
+                        spec=MeshSpec(dp=-1))
+    name = "flagship-arbitrated"
+    plane = registry = None
+    if rank == 0:
+        registry, ids = _token_registry(cfg, rows, seq, shards)
+        if work_dir is None:
+            work_dir = os.path.join(os.path.dirname(os.fspath(store_path)),
+                                    f"{name}-plane")
+        plane = control_plane(controlled_training_job(name, world),
+                              work_dir, nodes=ARBITRATION_NODES,
+                              held_nodes=("node1", "node2"), arbitrated=True)
+        registry.enqueue(plane.coord, ids)
+    runner = LocalElasticJob(
+        plane.job if plane else None, plane.cluster if plane else None,
+        trainer, plane.coord if plane else None,
+        fetch=registry.fetch if registry is not None else None,
+        batch_size=global_batch, job_name=f"default/{name}")
+    return runner, plane, registry
+
+
+#: the arbitration's fleet: its job, batch and admission window, p99
+#: objective (lax: two replicas share one card) and a replica's QPS target
+#: as a share of the measured capacity C; the live steps the trainer takes
+#: at a world before its curve point (the world's first left out of the
+#: median); the Poisson windows (label, share of C, seconds); the window
+#: whose scraped view is held to the fleet's own stats, and how far in;
+#: the sampled answers; the alert drills' fast burn window and
+#: target-down threshold; the fleet-following period and the run's
+#: deadline
+ARBITRATION_FLEET_JOB = "flagship-scoring"
+ARBITRATION_BATCH, ARBITRATION_QUEUE_MS = 8, 2.0
+ARBITRATION_SLO_MS, ARBITRATION_TARGET_SHARE = 1000.0, 0.2
+ARBITRATION_WORLD_STEPS = 4
+ARBITRATION_TRAFFIC = (("steady", 0.25, 3.0), ("burst", 1.25, 5.0),
+                       ("trickle", 0.1, 3.0))
+ARBITRATION_COMPARE = ("burst", 0.8)
+ARBITRATION_SAMPLES = 8
+ARBITRATION_BURN_WINDOW_S, ARBITRATION_DOWN_AFTER = 2.0, 3
+ARBITRATION_FOLLOW_S, ARBITRATION_TIMEOUT_S = 0.05, 300.0
+
+
+def arbitrated_campaign(runner, plane: Optional[ControlPlane], fleet, rows,
+                        pace_s: float = 0.5, capacity_s: float = 2.0,
+                        windows: tuple = ARBITRATION_TRAFFIC,
+                        settle_s: float = 30.0, on_step=None) -> dict:
+    """Run the train+serve arbitration on every rank: ``runner`` is this
+    rank's ``LocalElasticJob`` of :func:`flagship_arbitrated_job`; on rank
+    0, ``plane`` its arbitration plane, ``fleet`` a single-shot
+    ``ServingFleet`` at one replica (built with ``kv=plane.coord``, so its
+    ``/metrics`` address is published where the plane's scraper discovers
+    it) and ``rows`` the token rows its traffic sends (None elsewhere).
+    ``pace_s`` floors a step's period on rank 0 (room for the shared host
+    and card between the trainer's steps), ``capacity_s`` is the
+    closed-loop capacity run's length, ``windows`` the Poisson windows and
+    ``settle_s`` how long the last may run on for the rebalance to land.
+
+    The trainer steps at world 1 while system pods hold node1's and
+    node2's cards; after ARBITRATION_WORLD_STEPS live steps rank 0 records
+    the
+    world's median tokens/s into the job's curve (``CurveStore``, the
+    first step of a world left out) and frees node1, and the goodput
+    planner grows the trainer to 2; after as many steps at world 2 it
+    records that world and frees node2.  Then a director thread on rank 0
+    measures the fleet's closed-loop capacity C, submits the fleet as an
+    elastic ``ServingJob`` of 1 to 2 one-card replicas (the controller
+    arbitrates it: the goodput planner owns its dial, the SLO policy,
+    fed by the scraped ``FleetView``, only observes, records its capacity
+    curve and hints), follows its Running pods with ``scale_to`` as
+    rank 0's ``LocalElasticJob`` follows the trainer's, and sends the
+    Poisson windows, the first starting a scraped window before the
+    submission; the last runs on until the trainer is back at 1 and the
+    fleet at 2.  The scraped view is held to the fleet's own ``stats()``
+    once, inside the window ARBITRATION_COMPARE names.  The
+    alert drills follow: an SLO breach (every replica's objective set to
+    1 µs under trickle traffic) against a ``BurnRateRule`` evaluated every
+    fast window, then the fleet's ``/metrics`` shut against a
+    ``TargetDownRule`` over sweeps of the stopped scraper.  The trainer
+    steps until the director is done (``LocalElasticJob.run(until=)``):
+    tasks it never leased stay queued.  ``on_step(step, loss, world)``
+    runs first, on every rank.
+
+    Returns the run's ``RunReport`` on every rank as ``report`` with each
+    step's ``(world, live, ms)`` as ``steps``, and on rank 0 what the
+    gates read: the curves, C, each window's tally and latencies, the
+    compared stats, the ticks (each planning tick's mode, marginals, diff
+    and actuated target, and whether the planner re-run on the tick's
+    recorded inputs gave the same plan), the trainer's and the fleet's
+    resizes with their times, the hints, the card samples, the sampled
+    requests' rows and answers, the alert drills and the scraper's sweep
+    and staleness figures."""
+    import statistics
+    import threading
+
+    from edl_tpu_torch.api.types import (JobPhase, ResourceRequirements,
+                                         ServingJob, ServingSpec)
+    from edl_tpu_torch.observability.goodput import (CurveStore, ScalingCurve,
+                                                     load_curve)
+    from edl_tpu_torch.observability.metrics import get_registry
+    from edl_tpu_torch.observability.scrape import (AlertEngine,
+                                                    BurnRateRule,
+                                                    TargetDownRule)
+    from edl_tpu_torch.runtime.serving import PoissonTraffic
+    from edl_tpu_torch.scheduler.planner import PlannedJob, plan_cluster
+
+    trainer = runner.trainer
+    on_card = trainer.device.type == "cuda"
+    steps: list = []
+    real_step = trainer.step
+
+    def timed(batch):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = real_step(batch)
+        if on_card:
+            torch.cuda.synchronize()
+        steps.append(dict(world=trainer.world_size, live=trainer.live,
+                          ms=1e3 * (time.perf_counter() - t0)))
+        return loss
+
+    trainer.step = timed
+    if plane is None:
+        report = runner.run(on_step=on_step)
+        trainer.step = real_step
+        return dict(report=report, steps=steps)
+
+    t_origin = time.monotonic()
+    tokens = runner.batch_size * int(np.asarray(rows).shape[1])
+    ctl, cluster = plane.controller, plane.cluster
+    auto, scaler = ctl.autoscaler, ctl.serving_scaler
+    uid_train = plane.job.full_name
+    uid_fleet = f"default/{ARBITRATION_FLEET_JOB}"
+    store = CurveStore(plane.coord, uid_train)
+    out: dict = dict(curve_points=[], hints=[], fleet_resizes=[],
+                     card_samples=[], windows={}, errors=[], step_ends=[])
+    measured = threading.Event()
+    director_done = threading.Event()
+    stop = threading.Event()
+    recorded: set = set()
+    last_end = [time.monotonic()]
+
+    def rel(t: float) -> float:
+        return round(t - t_origin, 4)
+
+    # -- the harness's side of the trainer: curve points, card releases ----
+
+    def step_hook(step: int, loss, world: int) -> None:
+        if on_step is not None:
+            on_step(step, loss, world)
+        out["step_ends"].append((rel(time.monotonic()), world))
+        run = []
+        for st in reversed(steps):
+            if st["world"] != world or not st["live"]:
+                break
+            run.append(st["ms"])
+        if world not in recorded and len(run) >= ARBITRATION_WORLD_STEPS:
+            ms = statistics.median(run[:-1])  # a world's first step left out
+            tok_s = tokens / (ms / 1e3)
+            store.record(world, tok_s)
+            recorded.add(world)
+            out["curve_points"].append((world, round(ms, 3), round(tok_s, 1),
+                                        rel(time.monotonic())))
+            cluster.remove_system_pod(f"hold-node{world}")
+            if world == 2:
+                measured.set()
+        rest = pace_s - (time.monotonic() - last_end[0])
+        if rest > 0:
+            time.sleep(rest)
+        last_end[0] = time.monotonic()
+
+    # -- the fleet's hints, its pods, and the card accounting --------------
+
+    def fleet_hint(uid, n, source):
+        out["hints"].append((source, uid, int(n), rel(time.monotonic())))
+        if uid == uid_fleet:
+            fleet.hint(int(n))
+
+    scaler.hint_sink = lambda uid, n: fleet_hint(uid, n, "slo_policy")
+    auto.hint_sink = lambda uid, n: fleet_hint(uid, n, "planner")
+
+    def follow() -> None:
+        while not stop.wait(ARBITRATION_FOLLOW_S):
+            try:
+                n = sum(p.phase.value == "Running" for p in
+                        cluster.list_pods(job_uid=uid_fleet, role="server"))
+                if n and n != fleet.replicas_active():
+                    t0 = time.monotonic()
+                    before = fleet.replicas_active()
+                    fleet.scale_to(n)
+                    out["fleet_resizes"].append((before, n, rel(t0),
+                                                 rel(time.monotonic())))
+            except Exception as exc:
+                out["errors"].append(f"follow: {exc!r}")
+                return
+
+    def count_cards() -> None:
+        while not stop.wait(ARBITRATION_FOLLOW_S):
+            pods = cluster.list_pods()
+            running = [p for p in pods if p.phase.value == "Running"]
+            out["card_samples"].append((
+                rel(time.monotonic()),
+                sum(p.gpu_limit for p in running
+                    if p.job_uid == uid_train),
+                sum(p.gpu_limit for p in running
+                    if p.job_uid == uid_fleet),
+                sum(p.gpu_limit for p in running if not p.job_uid),
+                sum(p.phase.value == "Pending" for p in pods)))
+
+    # -- the director --------------------------------------------------------
+
+    def closed_loop(seconds: float) -> float:
+        inflight: list = []
+        served, i = 0, 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            while len(inflight) < 2 * fleet.max_batch_size:
+                inflight.append(fleet.submit((rows[i % len(rows)],)))
+                i += 1
+            inflight.pop(0).wait(60)
+            served += 1
+        elapsed = time.perf_counter() - t0
+        for req in inflight:
+            req.wait(60)
+        return served / elapsed
+
+    def compare(window_s: float) -> None:
+        own = fleet.stats(window_s=window_s)
+        seen = ctl.fleet_view.serving_stats(uid_fleet, window_s=window_s)
+        out["compared"] = dict(
+            at=rel(time.monotonic()), window_s=window_s,
+            fleet=dict(qps=own.qps, p50_ms=own.p50_ms, p99_ms=own.p99_ms,
+                       requests=own.requests_windowed),
+            scraped=dict(qps=seen.qps, p50_ms=seen.p50_ms,
+                         p99_ms=seen.p99_ms,
+                         requests=seen.requests_windowed))
+
+    def settled() -> bool:
+        return (fleet.replicas_active() == 2
+                and runner.desired_world_size() == 1
+                and trainer.world_size == 1)
+
+    def drills(capacity: float) -> None:
+        view = ctl.fleet_view
+        burn = BurnRateRule(job=uid_fleet,
+                            fast_window_s=ARBITRATION_BURN_WINDOW_S,
+                            slow_window_s=4 * ARBITRATION_BURN_WINDOW_S,
+                            min_requests=5)
+        engine = AlertEngine(view, rules=[burn])
+        # the control: under trickle traffic, once the burst's backlog has
+        # drained out of the fast window, the rule must be quiet
+        quiet = PoissonTraffic(fleet, lambda i: (rows[i % len(rows)],),
+                               qps=0.1 * capacity, seed=20)
+        end = time.monotonic() + settle_s
+        while True:
+            quiet.run(ARBITRATION_BURN_WINDOW_S)
+            control = [a.rule for a in engine.evaluate()
+                       if a.rule == "slo_fast_burn"]
+            if not control or time.monotonic() > end:
+                break
+        replicas = fleet.replicas()
+        slos = [r.slo_p99_ms for r in replicas]
+        for r in replicas:
+            r.slo_p99_ms = 1e-3  # every request now breaches
+        traffic = PoissonTraffic(fleet, lambda i: (rows[i % len(rows)],),
+                                 qps=0.1 * capacity, seed=21)
+        t0 = time.monotonic()
+        fired_after = None
+        for k in range(1, 3):
+            traffic.run(ARBITRATION_BURN_WINDOW_S)
+            if "slo_fast_burn" in [a.rule for a in engine.evaluate()]:
+                fired_after = (k, round(time.monotonic() - t0, 3))
+                break
+        tally = traffic.await_all(timeout_s=60)
+        for r, slo in zip(replicas, slos):
+            r.slo_p99_ms = slo
+        out["burn_drill"] = dict(control_firing=control,
+                                 fired_after=fired_after, tally=tally,
+                                 quiet=quiet.await_all(timeout_s=60))
+        # the fleet's /metrics goes away: the scrape plane must notice
+        ctl.scraper.stop()
+        fleet._metrics_srv.shutdown()
+        down = AlertEngine(view, rules=[TargetDownRule(
+            down_after_failures=ARBITRATION_DOWN_AFTER)])
+        due_sweeps, fired = 0, None
+        deadline = time.monotonic() + 60
+        while fired is None and time.monotonic() < deadline:
+            rep = ctl.scraper.sweep()
+            if rep["due"]:
+                due_sweeps += 1
+            if any(a.rule == "scrape_target_down" for a in down.evaluate()):
+                fired = due_sweeps
+                break
+            time.sleep(ctl.scraper.interval_s / 2)
+        out["down_drill"] = dict(fired_at_sweep=fired,
+                                 states=ctl.scraper.target_states())
+
+    def submit(capacity: float) -> None:
+        job = ServingJob(name=ARBITRATION_FLEET_JOB, spec=ServingSpec(
+            min_replicas=1, max_replicas=2, slo_p99_ms=ARBITRATION_SLO_MS,
+            target_qps_per_replica=ARBITRATION_TARGET_SHARE * capacity,
+            max_batch_size=ARBITRATION_BATCH,
+            max_queue_ms=ARBITRATION_QUEUE_MS,
+            resources=ResourceRequirements(
+                requests={"cpu": "1"}, limits={"nvidia.com/gpu": "1"})))
+        out["submitted_at"] = rel(time.monotonic())
+        ctl.submit(job)
+        deadline = time.monotonic() + 30
+        while ctl.phase(job) != JobPhase.RUNNING:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"fleet job {ctl.phase(job)}")
+            time.sleep(0.02)
+        out["observe_only"] = uid_fleet in scaler.observe_only
+        deadline = time.monotonic() + 5
+        while uid_fleet not in auto.jobs and time.monotonic() < deadline:
+            time.sleep(0.02)  # the autoscaler takes it at its next tick
+        out["in_autoscaler"] = uid_fleet in auto.jobs
+        threads.append(threading.Thread(target=follow, daemon=True))
+        threads[-1].start()
+
+    def director() -> None:
+        try:
+            if not measured.wait(ARBITRATION_TIMEOUT_S):
+                raise RuntimeError("the trainer's curve never got world 2")
+            capacity = closed_loop(capacity_s)
+            out["capacity"] = capacity
+            # C's completions age out of the scraped window (and its last
+            # scrape) before the first window's traffic starts
+            time.sleep(2 * ARBITRATION_WINDOW_S + ARBITRATION_SCRAPE_S)
+            sent, traffics = [], {}
+            for k, (label, share, seconds) in enumerate(windows):
+                traffic = PoissonTraffic(
+                    fleet, lambda i: (rows[i % len(rows)],),
+                    qps=share * capacity, seed=11 + k)
+                timer = None
+                if label == ARBITRATION_COMPARE[0]:
+                    timer = threading.Timer(
+                        ARBITRATION_COMPARE[1] * seconds, compare,
+                        args=(ARBITRATION_WINDOW_S,))
+                    timer.start()
+                t0 = time.monotonic()
+                if k == 0:
+                    # the fleet is already serving when its job arrives:
+                    # the first window runs a full scraped window before
+                    # the submission, so the SLO policy's first look at
+                    # the arbitrated fleet sees the window's rate
+                    lead = ARBITRATION_WINDOW_S + 2 * ARBITRATION_SCRAPE_S
+                    first = threading.Thread(target=traffic.run,
+                                             args=(lead + seconds,))
+                    first.start()
+                    time.sleep(lead)
+                    submit(capacity)
+                    first.join()
+                else:
+                    traffic.run(seconds)
+                if label == windows[-1][0]:
+                    end = time.monotonic() + settle_s
+                    while not settled() and time.monotonic() < end:
+                        traffic.run(0.5)
+                if timer is not None:
+                    timer.join()
+                out["windows"][label] = dict(
+                    share=share, start=rel(t0), end=rel(time.monotonic()),
+                    stats=dataclasses.asdict(fleet.stats(
+                        window_s=min(time.monotonic() - t0,
+                                     ARBITRATION_WINDOW_S))))
+                traffics[label] = traffic
+                sent.extend(traffic.sent)
+            for label, traffic in traffics.items():
+                out["windows"][label]["tally"] = traffic.await_all(
+                    timeout_s=60)
+            out["settled"] = settled()
+            picked = [r for r in sent
+                      if r.error is None][:ARBITRATION_SAMPLES]
+            out["sampled"] = dict(
+                ids=[int(r.id) for r in picked],
+                tokens=np.stack([np.asarray(r.payload[0]) for r in picked]),
+                answers=np.stack([np.asarray(r.result, np.float32)
+                                  for r in picked]))
+            drills(capacity)
+        except Exception as exc:
+            out["errors"].append(f"director: {exc!r}")
+        finally:
+            stop.set()
+            director_done.set()
+
+    threads = [threading.Thread(target=director, daemon=True),
+               threading.Thread(target=count_cards, daemon=True)]
+    for th in threads:
+        th.start()
+    report = runner.run(on_step=step_hook, until=director_done.is_set)
+    trainer.step = real_step
+    stop.set()
+    for th in list(threads):
+        th.join(30)
+
+    # -- what the planner decided, re-run on each tick's recorded inputs ----
+    planned = dict(auto.jobs)
+    ticks = []
+    for rec in list(auto.plan_records):
+        cv = {u: (None if raw is None else ScalingCurve.from_json(raw))
+              for u, raw in rec["curves"].items()}
+        jobs = [PlannedJob(config=planned[u].config, parallelism=p,
+                           pending=pend, pending_age=age,
+                           shape_policy=planned[u].shape_policy)
+                for u, (p, pend, age) in rec["jobs"].items()]
+        again = plan_cluster(jobs, rec["resource"].copy(),
+                             auto.max_load_desired, curves=cv.get,
+                             objective="goodput")
+        plan = rec["plan"]
+        ticks.append(dict(
+            t=rel(rec["t"]), mode=plan.mode,
+            marginals={u: round(m, 3) for u, m in plan.marginals.items()},
+            diff={u: d for u, d in plan.diff.items() if d},
+            target=rec["target"],
+            reclaims=[(r["victim"], r.get("for_job"), r["from"], r["to"],
+                       r["reason"]) for r in plan.reclaims],
+            audit_ok=(again.diff == plan.diff and again.mode == plan.mode
+                      and again.reclaims == plan.reclaims
+                      and again.preemptions == plan.preemptions
+                      and again.marginals == plan.marginals)))
+    reg = get_registry()
+    sweep_h = reg.histogram("scrape_sweep_seconds")
+    stale_h = reg.histogram("scrape_staleness_seconds")
+    curves = {u: (None if load_curve(plane.coord, u) is None
+                  else load_curve(plane.coord, u).summary())
+              for u in (uid_train, uid_fleet)}
+    out.update(
+        report=report, steps=steps, ticks=ticks, curves=curves,
+        trainer_resizes=[(report.world_sizes[s - 1] if s else 1,
+                          report.world_sizes[s], out["step_ends"][s][0]
+                          - report.resize_seconds[i])
+                         for i, s in enumerate(report.resize_steps)],
+        sweeps=dict(n=sweep_h.count(), mean_ms=round(
+            1e3 * sweep_h.sum() / max(sweep_h.count(), 1), 3)),
+        staleness=dict(n=stale_h.count(), mean_ms=round(
+            1e3 * stale_h.sum() / max(stale_h.count(), 1), 3)),
+        modes=[(rel(t), m) for t, m in list(auto.mode_log)],
+        serving_plans=list(scaler.plan_history),
+        fleet_prewarm=dict(hits=fleet.prewarm_hits,
+                           misses=fleet.prewarm_misses),
+        fleet_job=uid_fleet, trainer_job=uid_train)
     return out
 
 

@@ -3,8 +3,10 @@ part of edl_tpu.observability.goodput that the trainer's resize path and
 the multi-process supervisor (runtime/multihost.py) call — and the
 per-job scaling curve (:class:`ScalingCurve`, persisted in coordinator KV
 by :class:`CurveStore`) that the serving scaler records each fleet's
-measured (replicas → qps) points into.  The marginal-goodput allocator
-that reads the curves waits for ROADMAP.md queue 1 item 11.
+measured (replicas → qps) points into and the marginal-goodput allocator
+(``scheduler/planner.py::scale_all_jobs_goodput``) prices cards by:
+``marginal_tokens_per_second_per_chip`` read at ``nearest_world_size``,
+the last measured slope ruling beyond the measured range.
 
 A :class:`GoodputLedger` attributes wall-clock time, weighted by the world
 size holding chips, to its accruing phase; durations measured elsewhere

@@ -5,8 +5,10 @@ flight record a stall dumps (:func:`dump_flight_record`).
 Every series renders with the ``edl_`` prefix; counters get the ``_total``
 suffix; histograms use fixed buckets so series of different replicas
 merge.  Labels are keyword arguments, folded into the key in sorted order.
-The text is version 0.0.4 of the exposition format, the grammar the JAX
-package's strict ``parse_exposition`` holds it to.
+The text is version 0.0.4 of the exposition format, the grammar
+:func:`parse_exposition` (and :func:`iter_samples`, the structured form
+the scrape plane ingests) holds any exposition to, this module's own
+renderer included.
 """
 
 from __future__ import annotations
@@ -134,6 +136,10 @@ class Counter(_Family):
         with self._lock:
             return dict(self._values)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._values.clear()
+
     def render(self, lines: list[str]) -> None:
         name = PREFIX + sanitize_name(self.name)
         if not name.endswith("_total"):
@@ -159,6 +165,14 @@ class Gauge(_Family):
     def set(self, v: float, **labels) -> None:
         with self._lock:
             self._values[_label_key(labels)] = float(v)
+
+    def value(self, **labels) -> float:
+        with self._lock:
+            return self._values.get(_label_key(labels), 0)
+
+    def label_sets(self) -> list[dict]:
+        with self._lock:
+            return [dict(k) for k in self._values]
 
     def remove(self, **labels) -> None:
         """Drop one label-set's series (an entity that no longer exists
@@ -428,6 +442,223 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
+_PARSE_METRIC_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>[^}]*)\})? "
+    r"(?P<value>[0-9eE+.\-]+|\+Inf|-Inf|NaN)$")
+_PARSE_LABEL_RE = re.compile(
+    r'^(?P<k>[a-zA-Z_][a-zA-Z0-9_]*)="(?P<v>(?:[^"\\]|\\.)*)"$')
+
+
+class ExpositionError(AssertionError):
+    """A grammar/contract violation in Prometheus exposition text.
+
+    Subclasses AssertionError so the strictness tests that predate the
+    promotion (``assert``-shaped) keep passing unchanged."""
+
+
+def _split_label_pairs(labels: str) -> list[str]:
+    """Split a label body on commas outside quoted values."""
+    out, cur, in_q, esc = [], "", False, False
+    for ch in labels:
+        if esc:
+            cur += ch
+            esc = False
+        elif ch == "\\":
+            cur += ch
+            esc = True
+        elif ch == '"':
+            cur += ch
+            in_q = not in_q
+        elif ch == "," and not in_q:
+            out.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    if cur:
+        out.append(cur)
+    return out
+
+
+def _unescape_label_value(value: str) -> str:
+    """Single left-to-right scan: sequential str.replace would corrupt
+    values where one escape's output abuts another's trigger (spec form
+    ``dir\\\\name`` must yield ``dir\\name``, not a newline)."""
+    if "\\" not in value:
+        return value
+    out: list[str] = []
+    i = 0
+    n = len(value)
+    while i < n:
+        ch = value[i]
+        if ch == "\\" and i + 1 < n:
+            nxt = value[i + 1]
+            if nxt == "n":
+                out.append("\n")
+                i += 2
+                continue
+            if nxt in ('"', "\\"):
+                out.append(nxt)
+                i += 2
+                continue
+        out.append(ch)
+        i += 1
+    return "".join(out)
+
+
+_PARSE_EXEMPLAR_RE = re.compile(
+    r"^\{(?P<labels>[^}]*)\} "
+    r"(?P<value>[0-9eE+.\-]+|\+Inf|-Inf|NaN)"
+    r"(?: (?P<ts>[0-9eE+.\-]+))?$")
+
+
+def _split_exemplar(line: str) -> tuple[str, str]:
+    """Split a sample line from its exemplar suffix at the first
+    `` # `` OUTSIDE quoted label values — a label value legitimately
+    containing ``" # "`` (valid, and produced verbatim by this module's
+    own renderer) must not be mistaken for an exemplar separator."""
+    in_q = False
+    esc = False
+    for i, ch in enumerate(line):
+        if esc:
+            esc = False
+        elif ch == "\\":
+            esc = True
+        elif ch == '"':
+            in_q = not in_q
+        elif (ch == "#" and not in_q and i >= 1
+              and line[i - 1] == " " and line[i + 1:i + 2] == " "):
+            return line[:i - 1], line[i + 2:]
+    return line, ""
+
+
+def iter_samples(text: str,
+                 exemplars: Optional[list] = None
+                 ) -> list[tuple[str, dict, float]]:
+    """Parse exposition text into structured ``(name, labels, value)``
+    samples, enforcing the full strict grammar (see
+    :func:`parse_exposition`).  This is the form the scrape plane
+    ingests — label values are unescaped back to their raw form.
+
+    OpenMetrics-style exemplar suffixes on sample lines
+    (`` # {trace_id="…"} <value> [<ts>]``) are accepted; pass a list as
+    ``exemplars`` to collect them as
+    ``(name, labels, exemplar_labels, exemplar_value, ts_or_None)``
+    tuples — a malformed exemplar is a grammar violation like any
+    other."""
+    samples: list[tuple[str, dict, float]] = []
+    seen: set[str] = set()
+    typed: dict[str, str] = {}
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("# HELP "):
+            if len(line.split(" ", 3)) < 3:
+                raise ExpositionError(f"bad HELP: {line!r}")
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            if len(parts) < 4:
+                raise ExpositionError(f"bad TYPE: {line!r}")
+            if parts[3] not in ("counter", "gauge", "histogram",
+                               "summary", "untyped"):
+                raise ExpositionError(f"unknown type: {line!r}")
+            if parts[2] in typed:
+                raise ExpositionError(f"duplicate TYPE for {parts[2]}")
+            typed[parts[2]] = parts[3]
+            continue
+        if line.startswith("#"):
+            raise ExpositionError(f"unknown comment: {line!r}")
+        line, ex_body = _split_exemplar(line)
+        ex_parsed: Optional[tuple[dict, float, Optional[float]]] = None
+        if ex_body:
+            em = _PARSE_EXEMPLAR_RE.match(ex_body)
+            if not em:
+                raise ExpositionError(f"malformed exemplar: {ex_body!r}")
+            ex_labels: dict[str, str] = {}
+            if em.group("labels"):
+                for pair in _split_label_pairs(em.group("labels")):
+                    lm = _PARSE_LABEL_RE.match(pair)
+                    if not lm:
+                        raise ExpositionError(
+                            f"bad exemplar label {pair!r}")
+                    ex_labels[lm.group("k")] = _unescape_label_value(
+                        lm.group("v"))
+            ev = em.group("value")
+            ex_value = (math.inf if ev == "+Inf"
+                        else -math.inf if ev == "-Inf" else float(ev))
+            ex_ts = float(em.group("ts")) if em.group("ts") else None
+            ex_parsed = (ex_labels, ex_value, ex_ts)
+        m = _PARSE_METRIC_RE.match(line)
+        if not m:
+            raise ExpositionError(f"malformed sample line: {line!r}")
+        labels_body = m.group("labels")
+        labels: dict[str, str] = {}
+        if labels_body:
+            for pair in _split_label_pairs(labels_body):
+                lm = _PARSE_LABEL_RE.match(pair)
+                if not lm:
+                    raise ExpositionError(
+                        f"bad label {pair!r} in {line!r}")
+                labels[lm.group("k")] = _unescape_label_value(lm.group("v"))
+        key = m.group("name") + ("{" + labels_body + "}"
+                                 if labels_body else "")
+        if key in seen:
+            raise ExpositionError(f"duplicate series: {key}")
+        seen.add(key)
+        v = m.group("value")
+        value = (math.inf if v == "+Inf"
+                 else -math.inf if v == "-Inf" else float(v))
+        samples.append((m.group("name"), labels, value))
+        if ex_parsed is not None and exemplars is not None:
+            exemplars.append((m.group("name"), labels) + ex_parsed)
+    _check_histogram_contracts(samples, typed)
+    return samples
+
+
+def _check_histogram_contracts(samples, typed) -> None:
+    """Histogram contracts: buckets monotone in le AND in count, with a
+    terminal +Inf bucket."""
+    for name, kind in typed.items():
+        if kind != "histogram":
+            continue
+        by_labels: dict[tuple, list[tuple[float, float]]] = {}
+        for sname, labels, v in samples:
+            if sname != name + "_bucket":
+                continue
+            if "le" not in labels:
+                raise ExpositionError(f"{name}: bucket without le")
+            le_raw = labels["le"]
+            le = math.inf if le_raw == "+Inf" else float(le_raw)
+            rest = tuple(sorted((k, lv) for k, lv in labels.items()
+                                if k != "le"))
+            by_labels.setdefault(rest, []).append((le, v))
+        for rest, buckets in by_labels.items():
+            buckets.sort()
+            if buckets[-1][0] != math.inf:
+                raise ExpositionError(f"{name}: no +Inf bucket")
+            counts = [c for _, c in buckets]
+            if counts != sorted(counts):
+                raise ExpositionError(f"{name}: non-monotone buckets")
+
+
+def parse_exposition(text: str) -> dict[str, float]:
+    """Strict Prometheus text-format (0.0.4) parser: exposition text →
+    ``{series_key: float}``, raising :class:`ExpositionError` on any
+    grammar or histogram-contract violation.  ``series_key`` is the
+    sample line's name + literal label body (escaped form), matching
+    what the exposition renders — ``edl_x_total{job="a"}``."""
+    series: dict[str, float] = {}
+    for name, labels, value in iter_samples(text):
+        if labels:
+            inner = ",".join(f'{k}="{escape_label_value(v)}"'
+                             for k, v in labels.items())
+            series[name + "{" + inner + "}"] = value
+        else:
+            series[name] = value
+    return series
+
+
 #: the process-wide registry, which get_counters() is backed by
 _default_registry = MetricsRegistry()
 
@@ -438,7 +669,7 @@ def get_registry() -> MetricsRegistry:
 
 def dump_flight_record(dir_path: str, reason: str,
                        extra: Optional[dict] = None, keep: int = 20,
-                       cooldown_s: float = 0.0) -> str:
+                       cooldown_s: float = 0.0, tracer=None) -> str:
     """Dump the process's trace ring, counters and rendered metrics to a
     timestamped ``flightrec-<utc>-<reason>-<pid>-<seq>.json`` under
     ``dir_path`` (temp file and rename) and return its path; keeps the
@@ -447,10 +678,13 @@ def dump_flight_record(dir_path: str, reason: str,
     ``cooldown_s`` > 0 dedupes same-reason dumps inside the window (the
     serving plane's breaker and loop-lag escalations come in floods): the
     deduped call returns the previous record's path and counts
-    ``flight_dumps_deduped``."""
+    ``flight_dumps_deduped``.  ``tracer`` is the ring dumped (default the
+    process's)."""
     from edl_tpu_torch.observability.collector import get_counters
     from edl_tpu_torch.observability.tracing import get_tracer
 
+    if tracer is None:
+        tracer = get_tracer()
     os.makedirs(dir_path, exist_ok=True)
     stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
     slug = re.sub(r"[^a-zA-Z0-9_-]", "-", reason)[:48] or "event"
@@ -468,7 +702,11 @@ def dump_flight_record(dir_path: str, reason: str,
                "counters": get_counters().snapshot(),
                "metrics_text": get_registry().render(),
                "trace_events": [dataclasses.asdict(e)
-                                for e in get_tracer().events()]}
+                                for e in tracer.events()],
+               # the anchor that aligns these events with other
+               # processes' dumps (tracing.load_trace_events)
+               "trace_wall_anchor_s": getattr(tracer, "_wall_anchor",
+                                              None)}
         fd, tmp = tempfile.mkstemp(dir=dir_path, prefix=".flightrec-")
         with os.fdopen(fd, "w") as f:
             json.dump(doc, f, default=str)

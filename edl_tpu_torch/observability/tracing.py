@@ -8,9 +8,13 @@ environment variable and a coordinator KV key (runtime/multihost.py), so
 the supervisor's and the world child's events read as one span tree.
 :meth:`Tracer.dump` writes Chrome ``chrome://tracing`` JSON with the
 process's wall-clock anchor, and a :class:`TraceFileSink` rewrites that
-dump every second for a live serving process.  The trace forest and the
-merge of dumps wait for the port's control plane (ROADMAP.md, queue 1
-item 11).
+dump every second for a live serving process.  :meth:`Tracer.merge_files`
+merges several dumps onto one wall-clock axis, and the loaders
+(:func:`load_trace_events`, :func:`build_span_forest`,
+:func:`render_trace_tree`, :func:`discover_trace_files`) read dumps and
+flight records back into one trace's stitched cross-process span tree.
+The ``edl-tpu trace`` command that prints it comes with the port's
+``cli.py`` (ROADMAP.md, queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import uuid
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional
 
 
 @dataclass(frozen=True)
@@ -192,6 +196,54 @@ class Tracer:
         with open(path, "w") as f:
             f.write(self.to_chrome_trace(process_name))
 
+    # -- cross-process merge -------------------------------------------------
+
+    @staticmethod
+    def merge_files(paths, out_path: Optional[str] = None) -> dict:
+        """Merge per-process chrome traces (written by :meth:`dump`) into
+        one job-level timeline: each input file becomes one pid row, and
+        every timestamp is shifted onto a shared wall-clock axis using
+        the per-file ``edl.wall_anchor_s`` — so a reform recorded by the
+        supervisor and its world child's startup phases line up as the
+        one span tree they are.  Files without the anchor merge at their
+        raw timestamps (degraded but never fatal).  Returns the merged
+        document; writes it to ``out_path`` when given."""
+        docs = []
+        for p in paths:
+            try:
+                with open(p) as f:
+                    docs.append((os.path.basename(p), json.load(f)))
+            except (OSError, json.JSONDecodeError):
+                continue
+        anchors = [d.get("edl", {}).get("wall_anchor_s") for _, d in docs]
+        # base over ANCHORED files only: an anchorless file (a pre-plane
+        # dump, a foreign chrome trace) merges at its raw timestamps —
+        # folding its implicit 0.0 into min() would instead shift every
+        # anchored file by its full wall-clock epoch (~decades)
+        known = [a for a in anchors if a is not None]
+        base = min(known) if known else 0.0
+        merged: list[dict] = []
+        names: list[str] = []
+        for pid, ((fname, doc), anchor) in enumerate(zip(docs, anchors)):
+            pname = doc.get("edl", {}).get("process") or fname
+            names.append(pname)
+            merged.append({"name": "process_name", "ph": "M", "pid": pid,
+                           "tid": 0, "args": {"name": pname}})
+            shift_us = (anchor - base) * 1e6 if anchor is not None else 0.0
+            for e in doc.get("traceEvents", []):
+                if e.get("ph") == "M":
+                    continue  # replaced by our per-pid metadata
+                e = dict(e)
+                e["pid"] = pid
+                e["ts"] = e.get("ts", 0.0) + shift_us
+                merged.append(e)
+        out = {"traceEvents": merged,
+               "edl": {"wall_anchor_s": base, "merged_from": names}}
+        if out_path:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+        return out
+
 
 _default_tracer = Tracer()
 
@@ -199,6 +251,175 @@ _default_tracer = Tracer()
 def get_tracer() -> Tracer:
     """The process-wide tracer."""
     return _default_tracer
+
+
+# -- cross-process trace stitching (the `edl-tpu trace` surface) -------------
+#
+# The serving data plane samples request traces at the LB (origin) and
+# propagates the trace id via X-EDL-Trace-Id into the front-door
+# replicas (doc/serving.md §request tracing).  Each process dumps its
+# ring as a merge_files-compatible chrome trace (TraceFileSink below) or
+# embeds it in a flight record; these helpers read BOTH formats, align
+# every event onto the shared wall-clock axis, and render one trace id's
+# spans as the stitched cross-process tree an operator reads.
+
+
+def load_trace_events(paths: Iterable[str],
+                      trace_id: Optional[str] = None) -> list[dict]:
+    """Read per-process trace dumps (``Tracer.dump`` chrome JSON) and
+    flight records (``flightrec-*.json`` — their ``trace_events`` ride
+    the same correlation ids) into normalized event dicts::
+
+        {name, category, ts_s (wall), dur_s, proc, trace_id, span_id,
+         parent_id, args}
+
+    Timestamps are wall-aligned via each file's anchor (chrome dumps:
+    ``edl.wall_anchor_s``; flight records: ``trace_wall_anchor_s``);
+    anchorless files keep raw timestamps (degraded, never fatal).
+    ``trace_id`` filters to one trace; unreadable files are skipped.
+    The same span appearing in several sources (a ``trace-*.json`` dump
+    AND a flight record embedding the same ring, or two flight records
+    from one process) is deduplicated by span id — otherwise every
+    duplicate occurrence would repeat whole subtrees in the rendered
+    tree."""
+    out: list[dict] = []
+    seen: set[tuple] = set()
+
+    def keep(e: dict) -> bool:
+        key = ((e["trace_id"], e["span_id"]) if e["span_id"]
+               else (e["trace_id"], e["name"], round(e["ts_s"], 9),
+                     round(e["dur_s"], 9)))
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+    for p in paths:
+        try:
+            with open(p) as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+            continue
+        if "traceEvents" in doc:  # chrome dump (Tracer.dump)
+            meta = doc.get("edl", {})
+            anchor = meta.get("wall_anchor_s") or 0.0
+            proc = meta.get("process") or os.path.basename(p)
+            for e in doc.get("traceEvents", []):
+                if e.get("ph") == "M":
+                    continue
+                args = dict(e.get("args") or {})
+                tid = args.pop("trace_id", None)
+                sid = args.pop("span_id", None)
+                pid = args.pop("parent_id", None)
+                if trace_id is not None and tid != trace_id:
+                    continue
+                ev = {
+                    "name": e.get("name", ""),
+                    "category": e.get("cat", ""),
+                    "ts_s": e.get("ts", 0.0) / 1e6 + anchor,
+                    "dur_s": e.get("dur", 0.0) / 1e6,
+                    "proc": proc, "trace_id": tid, "span_id": sid,
+                    "parent_id": pid, "args": args,
+                }
+                if keep(ev):
+                    out.append(ev)
+        elif "trace_events" in doc:  # flight record (metrics.py)
+            anchor = doc.get("trace_wall_anchor_s") or 0.0
+            proc = f"flightrec-pid{doc.get('pid', '?')}"
+            for e in doc.get("trace_events", []):
+                tid = e.get("trace_id")
+                if trace_id is not None and tid != trace_id:
+                    continue
+                ev = {
+                    "name": e.get("name", ""),
+                    "category": e.get("category", ""),
+                    "ts_s": e.get("start_s", 0.0) + anchor,
+                    "dur_s": e.get("duration_s", 0.0),
+                    "proc": proc, "trace_id": tid,
+                    "span_id": e.get("span_id"),
+                    "parent_id": e.get("parent_id"),
+                    "args": dict(e.get("args") or {}),
+                }
+                if keep(ev):
+                    out.append(ev)
+    out.sort(key=lambda e: e["ts_s"])
+    return out
+
+
+def build_span_forest(events: list[dict]) -> list[dict]:
+    """Nest span events by ``parent_id`` into a forest: each node is the
+    event dict plus a ``children`` list (start-time ordered).  Spans
+    whose parent is absent from ``events`` (a dropped dump, a ring that
+    rotated) surface as roots rather than vanishing."""
+    nodes = {e["span_id"]: {**e, "children": []}
+             for e in events if e.get("span_id")}
+    roots: list[dict] = []
+    for e in events:
+        node = nodes.get(e.get("span_id"))
+        if node is None:  # an instant without a span id: its own root
+            node = {**e, "children": []}
+        parent = nodes.get(e.get("parent_id")) if e.get("parent_id") else None
+        if parent is not None and parent is not node:
+            parent["children"].append(node)
+        else:
+            roots.append(node)
+    for n in nodes.values():
+        n["children"].sort(key=lambda c: c["ts_s"])
+    roots.sort(key=lambda c: c["ts_s"])
+    return roots
+
+
+def render_trace_tree(events: list[dict],
+                      trace_id: Optional[str] = None) -> str:
+    """Render one trace's stitched cross-process span tree.
+
+    Offsets are milliseconds relative to the trace's earliest event;
+    every line carries the recording process, the span's duration, and
+    its annotations (hedge winner/loser, rescue kinds, phase names) —
+    the ``edl-tpu trace <id>`` output."""
+    if trace_id is not None:
+        events = [e for e in events if e.get("trace_id") == trace_id]
+    if not events:
+        return "trace not found"
+    t0 = min(e["ts_s"] for e in events)
+    procs = sorted({e["proc"] for e in events})
+    span_n = sum(1 for e in events if e.get("span_id"))
+    dur_ms = (max(e["ts_s"] + e["dur_s"] for e in events) - t0) * 1e3
+    tid = trace_id or events[0].get("trace_id") or "?"
+    lines = [f"trace {tid}  —  {span_n} spans, {len(procs)} "
+             f"process{'es' if len(procs) != 1 else ''}, "
+             f"{dur_ms:.1f} ms total"]
+
+    def fmt(node: dict) -> str:
+        rel = (node["ts_s"] - t0) * 1e3
+        args = " ".join(f"{k}={v}" for k, v in sorted(node["args"].items()))
+        return (f"{node['name']}  [{node['proc']}]  "
+                f"+{rel:.2f}ms {node['dur_s'] * 1e3:.2f}ms"
+                + (f"  {args}" if args else ""))
+
+    def walk(node: dict, prefix: str, last: bool) -> None:
+        branch = "└─ " if last else "├─ "
+        lines.append(prefix + branch + fmt(node))
+        child_prefix = prefix + ("   " if last else "│  ")
+        kids = node["children"]
+        for i, c in enumerate(kids):
+            walk(c, child_prefix, i == len(kids) - 1)
+
+    roots = build_span_forest(events)
+    for i, r in enumerate(roots):
+        walk(r, "", i == len(roots) - 1)
+    return "\n".join(lines)
+
+
+def discover_trace_files(trace_dir: str) -> list[str]:
+    """Every readable trace source under ``trace_dir``: chrome dumps
+    (``trace-*.json``) and flight records (``flightrec-*.json``)."""
+    try:
+        names = sorted(os.listdir(trace_dir))
+    except OSError:
+        return []
+    return [os.path.join(trace_dir, n) for n in names
+            if n.endswith(".json")
+            and (n.startswith("trace-") or n.startswith("flightrec-"))]
 
 
 class TraceFileSink(threading.Thread):

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
@@ -236,9 +237,32 @@ def data_coordinate(shape: MeshShape, rank: int) -> int:
     return rank // (shape.tp * shape.sp * shape.ep)
 
 
+#: per-thread flag of :func:`outside_group`
+_thread_state = threading.local()
+
+
 def distributed() -> bool:
-    """True when this process is a rank of an initialised process group."""
-    return dist.is_available() and dist.is_initialized()
+    """True when this process is a rank of an initialised process group,
+    and the calling thread has not stepped outside it
+    (:func:`outside_group`)."""
+    return (not getattr(_thread_state, "outside", False)
+            and dist.is_available() and dist.is_initialized())
+
+
+@contextmanager
+def outside_group():
+    """Run the calling thread as if this process had joined no process
+    group: meshes, trainers and servers built and run inside are world-1
+    over the devices they are given.  A serving fleet's replica threads
+    run so, which lets a fleet share a process with an SPMD trainer rank
+    (the train+serve arbitration layout) without any replica taking the
+    trainer's group for its world."""
+    prev = getattr(_thread_state, "outside", False)
+    _thread_state.outside = True
+    try:
+        yield
+    finally:
+        _thread_state.outside = prev
 
 
 #: the thread every process group of this process is built on, made at

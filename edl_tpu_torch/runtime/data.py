@@ -269,6 +269,28 @@ class TaskLeaseBatches:
         self.poll_seconds = poll_seconds
         self.drop_remainder = drop_remainder
         self.on_task_done = on_task_done
+        #: the task whose every batch has been handed out and which is not
+        #: completed yet (completion waits for the next batch's request)
+        self._handed_out: Optional[int] = None
+
+    def finish(self) -> None:
+        """Complete the task whose batches have all been handed out: what
+        the next request would do first, for a consumer that stops asking
+        (``LocalElasticJob.run(until=)``).  A no-op mid-task."""
+        tid, self._handed_out = self._handed_out, None
+        if tid is not None:
+            self._complete(tid)
+
+    def _complete(self, task_id: int) -> None:
+        if not self.coord.complete(task_id, self.worker):
+            # Lease expired and moved despite renewals (e.g. a stall
+            # longer than the timeout): the shard will be re-trained
+            # by another worker — log it, losing the race is safe but
+            # duplicate gradients deserve a trace.
+            log.warn("lease lost before completion; shard may be "
+                     "trained twice", task_id=task_id, worker=self.worker)
+        elif self.on_task_done is not None:
+            self.on_task_done(task_id)
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, ...]]:
         while True:
@@ -283,18 +305,16 @@ class TaskLeaseBatches:
             stop = (n // self.batch_size) * self.batch_size \
                 if self.drop_remainder else n
             for lo in range(0, stop, self.batch_size):
+                if lo + self.batch_size >= stop:
+                    self._handed_out = task_id
                 yield tuple(a[lo:lo + self.batch_size] for a in arrays)
+                if self._handed_out is None and lo + self.batch_size >= stop:
+                    break  # finish() completed it while suspended
                 # Keep-alive: a long shard must not look like a dead worker
                 # (the 16 s clock measures silence, not shard size).
                 renew = getattr(self.coord, "renew", None)
                 if renew is not None:
                     renew(task_id, self.worker)
-            if not self.coord.complete(task_id, self.worker):
-                # Lease expired and moved despite renewals (e.g. a stall
-                # longer than the timeout): the shard will be re-trained
-                # by another worker — log it, losing the race is safe but
-                # duplicate gradients deserve a trace.
-                log.warn("lease lost before completion; shard may be "
-                         "trained twice", task_id=task_id, worker=self.worker)
-            elif self.on_task_done is not None:
-                self.on_task_done(task_id)
+            else:
+                self._handed_out = None
+                self._complete(task_id)

@@ -340,10 +340,12 @@ class LocalElasticJob:
         self,
         max_steps: Optional[int] = None,
         on_step: Optional[Callable[[int, float, int], None]] = None,
+        until: Optional[Callable[[], bool]] = None,
     ) -> RunReport:
-        """Train until the task queue is drained (all passes) or
-        ``max_steps``, on every rank.  Membership changes are applied at
-        step boundaries, so there is never a half-resized step.  With a
+        """Train until the task queue is drained (all passes),
+        ``max_steps``, or ``until()`` (rank 0's call, before it leases the
+        next batch) says so, on every rank.  Membership changes are
+        applied at step boundaries, so there is never a half-resized step.  With a
         :class:`~edl_tpu_torch.runtime.virtual.VirtualConfig` configured
         (and not opted out), the drive is the virtual-worker stream
         instead: see :meth:`_run_virtual`.  ``on_step(step, loss, world)``
@@ -354,13 +356,17 @@ class LocalElasticJob:
                 and self.fetch_shard is not None):
             return self._run_virtual(max_steps, on_step)
         report = RunReport()
-        stream = (iter(TaskLeaseBatches(
+        leases = (TaskLeaseBatches(
             self.coord, worker=f"{self.job_name}/trainer", fetch=self.fetch,
-            batch_size=self.batch_size)) if self.rank == 0 else None)
+            batch_size=self.batch_size) if self.rank == 0 else None)
+        stream = iter(leases) if leases is not None else None
         defer = {"deadline": None, "target": None}
 
         def next_step() -> tuple[dict, tuple]:
             if max_steps is not None and report.steps >= max_steps:
+                return {"end": True}, ()
+            if until is not None and until():
+                leases.finish()  # the last trained task is done
                 return {"end": True}, ()
             batch = next(stream, None)
             if batch is None:

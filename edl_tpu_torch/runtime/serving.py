@@ -97,7 +97,7 @@ from edl_tpu_torch.observability.metrics import (
     get_registry,
 )
 from edl_tpu_torch.observability.tracing import get_tracer, new_trace_id
-from edl_tpu_torch.parallel.mesh import distributed
+from edl_tpu_torch.parallel.mesh import outside_group
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.checkpoint import param_path
 from edl_tpu_torch.runtime.elastic import ElasticTrainer, _all_gather
@@ -156,6 +156,9 @@ class FleetStats:
     chips: int = 0
     tok_s_per_chip: float = 0.0
     spec_accept_rate: float = 0.0
+    #: windowed prefix-share hit rate: prefix-index hits per session
+    #: admission (0 when sharing is off or the fleet is stateless)
+    prefix_hit_rate: float = 0.0
 
 
 class SessionDropped(RuntimeError):
@@ -2055,6 +2058,11 @@ class ServingReplica:
         return self._built.wait(timeout_s) and self.state != STOPPED
 
     def _run(self) -> None:
+        # a replica is a world-1 server, whatever group this process joined
+        with outside_group():
+            self._serve_life()
+
+    def _serve_life(self) -> None:
         t0 = time.perf_counter()
         try:
             self.server = self._build()
@@ -2335,8 +2343,9 @@ class ServingFleet:
     ``apply_fn(model, batch) -> outputs`` is the forward, ``init_params``
     the model (an ``nn.Module``, copied for each replica), ``example_row``
     one request's arrays (no batch dim).  Each replica is a thread holding
-    a world-1 :class:`ElasticServer` (no process group: the fleet refuses
-    to run in a process that joined one); replica ``slot`` runs on
+    a world-1 :class:`ElasticServer`: each replica thread runs outside any
+    process group this process joined (``mesh.outside_group``), so a fleet
+    may share a process with an SPMD trainer rank; replica ``slot`` runs on
     ``cuda:(slot mod device count)`` when ``device`` is CUDA without an
     index, else on ``device``.  On one card every replica shares it, which
     proves the protocol, not added capacity.  A replica spans one device:
@@ -2362,11 +2371,6 @@ class ServingFleet:
                 f"chips_per_replica {chips_per_replica}: a replica wider "
                 "than one card needs each admitted batch broadcast from a "
                 f"rank-0 loop to the replica's ranks ({WIDE_REPLICA_ITEM})")
-        if distributed():
-            raise RuntimeError(
-                "ServingFleet runs its replicas as world-1 servers on "
-                "threads; this process joined a process group, which "
-                "every server would take for its world")
         self.apply_fn = apply_fn
         self.init_params = init_params
         self.job = job

@@ -12,15 +12,21 @@ plan-and-actuate pass (what the 5 s ticker triggers in the reference) so
 tests drive the loop synchronously; :meth:`Autoscaler.run` wraps it in the
 timed loop for production.
 
-Plans come from the count objective (:func:`~edl_tpu_torch.scheduler.
-planner.plan_cluster` with ``objective="count"``).  A ``goodput_curves``
-hook — the marginal-goodput objective's curve source — raises, naming
-ROADMAP.md queue 1 item 11; the count objective never stands in for it.
+With a ``goodput_curves`` source wired (and ``goodput_objective`` on, the
+default) plans come from the marginal-goodput allocator
+(:func:`~edl_tpu_torch.scheduler.planner.plan_cluster` with
+``objective="goodput"``: priorities, preemption, gang placement, and
+train+serve arbitration), degrading bit-for-bit to count packing when no
+curve resolves; without one, from the reference's count packer.
 
 :class:`ServingScaler` is the serving policy: it dials a ``ServingJob``'s
 replica count on p99-vs-SLO and per-replica throughput, fires the fleet's
 prewarm hint before it actuates, and records each fleet's measured
 (replicas → qps) points into the job's goodput curve in coordinator KV.
+Fed from the scrape plane (:meth:`ServingScaler.feed_from` a
+``FleetView``), it sees exactly what a scraper can see; a fleet whose dial
+the goodput planner owns is ``observe_only``: observed, recorded and
+prewarm-hinted, never actuated.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import math
 import queue
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -40,7 +47,11 @@ from edl_tpu_torch.observability.collector import get_counters
 from edl_tpu_torch.observability.goodput import CurveStore
 from edl_tpu_torch.observability.logging import get_logger
 from edl_tpu_torch.observability.metrics import get_registry
-from edl_tpu_torch.scheduler.planner import PlannedJob, plan_cluster
+from edl_tpu_torch.scheduler.planner import (
+    PlannedJob,
+    plan_cluster,
+    scale_all_jobs_dry_run,
+)
 from edl_tpu_torch.scheduler.topology import SliceShapePolicy, UNIT_POLICY
 
 DEFAULT_LOOP_SECONDS = 5.0  # reference autoscaler.go:31
@@ -78,15 +89,9 @@ class Autoscaler:
         min_resize_delta: int = DEFAULT_MIN_RESIZE_DELTA,
         mesh_shape_for: Optional[Callable[[str, int], object]] = None,
         goodput_curves: Optional[Callable[[str], object]] = None,
+        goodput_objective: bool = True,
         clock=time.monotonic,
     ) -> None:
-        if goodput_curves is not None:
-            # a curve source must not be quietly planned by count
-            raise NotImplementedError(
-                "goodput_curves: the marginal-goodput objective (goodput's "
-                "ScalingCurve and CurveStore, scheduler/sim.py and "
-                "scale_all_jobs_goodput) waits for ROADMAP.md queue 1 item "
-                "11; the port's autoscaler plans by count")
         self.cluster = cluster
         self.max_load_desired = max_load_desired
         self.shape_policy = shape_policy
@@ -129,9 +134,41 @@ class Autoscaler:
         #: and actuation still walk instance counts; the shape is carried
         #: alongside, never instead.
         self.mesh_shape_for = mesh_shape_for
-        #: the last plan's objective mode — what
-        #: edl_autoscaler_objective{mode=} reports
-        self.objective_mode: str = "count"
+        #: goodput curve hook: maps a job uid to its measured
+        #: :class:`~edl_tpu_torch.observability.goodput.ScalingCurve` (e.g.
+        #: ``lambda uid: goodput.load_curve(coord, uid)``).  With
+        #: ``goodput_objective`` on (the default) the curves DRIVE the
+        #: packing: plans come from the marginal-goodput allocator
+        #: (planner.scale_all_jobs_goodput — priorities, preemption,
+        #: gang placement), degrading bit-for-bit to count packing when
+        #: no curve resolves.  Every actuated plan still logs the
+        #: marginal advisory + the
+        #: ``edl_autoscaler_marginal_tokens_per_chip{job=}`` gauge.
+        self.goodput_curves = goodput_curves
+        #: objective switch: True (default) prices cards by marginal
+        #: goodput whenever a curve source is wired; False pins the
+        #: reference's count-based packing regardless.
+        self.goodput_objective = goodput_objective
+        #: log of (uid, target, measured_at, marginal) advisories, for
+        #: tests/observability — BOUNDED: this is appended on every
+        #: actuated plan for the life of the controller process
+        self.advisory_history: "deque[dict]" = deque(maxlen=256)
+        #: the last plan's objective mode ("count" | "goodput" |
+        #: "degraded") — what edl_autoscaler_objective{mode=} reports
+        self.objective_mode: str = ("goodput" if goodput_objective
+                                    else "count")
+        #: with ``record_plans`` on, each goodput tick appends its
+        #: ``(t, mode)`` to ``mode_log``, and each one whose plan moves a
+        #: job appends what it planned from and what it decided to
+        #: ``plan_records`` — ``{"t", "jobs" (uid → parallelism,
+        #: pending, pending_age), "resource" (the ClusterResource
+        #: snapshot), "curves" (uid → the curve's JSON or None, as the
+        #: tick's memo resolved it), "plan", "target"}`` — so an audit
+        #: can re-run the planner on exactly that tick's inputs.  Both
+        #: bounded like the advisory log.
+        self.record_plans = False
+        self.mode_log: "deque[tuple[float, str]]" = deque(maxlen=4096)
+        self.plan_records: "deque[dict]" = deque(maxlen=256)
         #: monotonic time of each tick's start and its actuated targets
         #: ``(t, {uid: target})`` — what a tick-to-resize latency reads
         self.tick_history: "list[tuple[float, dict[str, int]]]" = []
@@ -158,7 +195,14 @@ class Autoscaler:
             except queue.Empty:
                 return
             if evt.type in (EventType.ADD, EventType.UPDATE):
-                j = PlannedJob(config=evt.job, shape_policy=self.shape_policy)
+                # serving fleets are replica groups, not meshes: their
+                # replicas are independent, so the trainer slice-shape
+                # quantization (e.g. a pow2 policy) must not bind their
+                # dial — a 5-replica fleet is a perfectly good fleet
+                policy = (UNIT_POLICY
+                          if getattr(evt.job, "replica_role", "trainer")
+                          == "server" else self.shape_policy)
+                j = PlannedJob(config=evt.job, shape_policy=policy)
                 self.jobs[j.uid] = j
                 self._sync_parallelism(j)
             elif evt.type == EventType.DEL:
@@ -169,6 +213,12 @@ class Autoscaler:
                 # a long-lived controller must not leak one float per
                 # deleted job)
                 self._last_resize.pop(evt.job.full_name, None)
+                # and the advisory gauge series: a deleted job must stop
+                # being reported, not freeze at its last marginal value
+                # (nor grow the series set without bound as jobs churn)
+                get_registry().gauge(
+                    "autoscaler_marginal_tokens_per_chip").remove(
+                        job=evt.job.full_name)
 
     def tick(self) -> dict[str, int]:
         """One plan-and-actuate pass; returns the actuated targets
@@ -182,10 +232,26 @@ class Autoscaler:
             return {}
 
         candidates = self._reschedulable_jobs()
-        plan = plan_cluster(candidates, r, self.max_load_desired,
-                            objective="count")
-        diff = plan.diff
-        self._note_objective(plan.mode)
+        plan = None
+        curves = self._tick_curve_source()
+        if self.goodput_objective and curves is not None:
+            snapshot = r.copy() if self.record_plans else None
+            try:
+                plan = plan_cluster(candidates, r, self.max_load_desired,
+                                    curves=curves, objective="goodput")
+                diff = plan.diff
+            except Exception as exc:
+                # the loop thread must survive ANY planner failure: log,
+                # fall back to the reference packer for this tick
+                log.error("goodput plan failed; count packing this tick",
+                          error=str(exc)[:300])
+                diff = scale_all_jobs_dry_run(candidates, r,
+                                              self.max_load_desired)
+        else:
+            snapshot = None
+            diff = scale_all_jobs_dry_run(candidates, r,
+                                          self.max_load_desired)
+        self._note_objective(plan)
 
         # Zero deltas are dropped: no no-op actuation writes, no plan spam
         # (the reference re-writes unchanged Parallelism every tick — a
@@ -209,6 +275,42 @@ class Autoscaler:
                 suppressed[uid] = "cooldown"
                 continue
             target[uid] = self.jobs[uid].parallelism + delta
+        if plan is not None:
+            # preemption overrides hysteresis: a higher-priority gang's
+            # admission must not wait out its victim's resize cooldown
+            for rec in plan.preemptions:
+                v = rec["victim"]
+                if v in suppressed and v in self.jobs and diff.get(v):
+                    del suppressed[v]
+                    target[v] = self.jobs[v].parallelism + diff[v]
+            # a rebalance is one decision with two legs (victim shrink +
+            # winner grant): hysteresis must drop them ATOMICALLY — a
+            # suppressed shrink with an actuated grant strands the
+            # winner's pods, an actuated shrink with a suppressed grant
+            # idles the freed cards for a whole cooldown
+            for rec in plan.reclaims:
+                if rec.get("reason") != "rebalance":
+                    continue
+                v, w = rec["victim"], rec["for_job"]
+                if v in suppressed and w in target:
+                    suppressed[w] = "paired_reclaim"
+                    del target[w]
+                elif w in suppressed and v in target:
+                    suppressed[v] = "paired_reclaim"
+                    del target[v]
+        if snapshot is not None and plan is not None:
+            self.mode_log.append((started, plan.mode))
+        if (snapshot is not None and plan is not None
+                and any(plan.diff.values())):
+            self.plan_records.append(dict(
+                t=started,
+                jobs={j.uid: (j.parallelism, j.pending, j.pending_age)
+                      for j in candidates},
+                resource=snapshot,
+                curves={j.uid: (None if curves(j.uid) is None
+                                else curves(j.uid).to_json())
+                        for j in candidates},
+                plan=plan, target=dict(target)))
         if suppressed:
             for uid, reason in suppressed.items():
                 log.info("resize suppressed", job=uid, reason=reason,
@@ -242,13 +344,40 @@ class Autoscaler:
                     except Exception as exc:
                         log.warn("prewarm hint sink failed", job=uid,
                                  error=str(exc))
+            self._advise_goodput(target, plan, curves)
         self._scale_all_jobs(target)
         return target
 
-    def _note_objective(self, mode: str) -> None:
+    def _tick_curve_source(self):
+        """One curve fetch per job per tick: wrap ``goodput_curves`` in
+        a tick-scoped memo so the planner's resolve pass and the
+        advisory path share one KV round-trip per job — with a
+        ``load_curve`` wiring every call is a synchronous coordinator
+        fetch.  A raising source memoizes None (the planner and the
+        advisory both degrade)."""
+        src = self.goodput_curves
+        if src is None:
+            return None
+        memo: dict[str, object] = {}
+
+        def cached(uid: str):
+            if uid not in memo:
+                try:
+                    memo[uid] = src(uid)
+                except Exception as exc:
+                    log.warn("goodput curve lookup failed", job=uid,
+                             error=str(exc)[:200])
+                    memo[uid] = None
+            return memo[uid]
+
+        return cached
+
+    def _note_objective(self, plan) -> None:
         """Record which objective ruled this tick (the
         ``edl_autoscaler_objective{mode=}`` gauge — 1 on the active mode,
-        0 on the others, so a scrape always sees all three series)."""
+        0 on the others, so a scrape always sees all three series) plus
+        the preemption/rollback evidence counters."""
+        mode = plan.mode if plan is not None else "count"
         self.objective_mode = mode
         gauge = get_registry().gauge(
             "autoscaler_objective",
@@ -256,6 +385,62 @@ class Autoscaler:
                  "last plan): goodput | count | degraded")
         for m in ("goodput", "count", "degraded"):
             gauge.set(1.0 if m == mode else 0.0, mode=m)
+        if plan is None:
+            return
+        if plan.preemptions:
+            get_counters().inc("sched_preemptions",
+                               n=len(plan.preemptions))
+            for p in plan.preemptions:
+                log.info("preemption planned", **p)
+        if plan.reclaims:
+            get_counters().inc("sched_reclaims", n=len(plan.reclaims))
+        if plan.rollbacks:
+            get_counters().inc("sched_gang_rollbacks",
+                               n=len(plan.rollbacks))
+            for rb in plan.rollbacks:
+                log.info("gang admission rolled back", **rb)
+
+    def _advise_goodput(self, target: dict[str, int], plan=None,
+                        curves=None) -> None:
+        """Log each actuated job's measured marginal throughput per card
+        at its new target — the price the goodput objective paid for the
+        plan, surfaced next to the decision (and still just a log line
+        in count mode).  Reads the tick-scoped curve memo (no second KV
+        fetch) and carries the plan's own step price when it granted
+        one.  A missing/raising curve source degrades to silence — the
+        advisory is never a dependency."""
+        if curves is None:
+            curves = self._tick_curve_source()
+        if curves is None:
+            return
+        for uid, n in target.items():
+            try:
+                curve = curves(uid)
+                if curve is None:
+                    continue
+                at = curve.nearest_world_size(n)
+                marginal = (curve.marginal_tokens_per_second_per_chip(at)
+                            if at is not None else None)
+            except Exception as exc:
+                log.warn("goodput curve lookup failed", job=uid,
+                         error=str(exc)[:200])
+                continue
+            if marginal is None:
+                continue
+            advisory = {"job": uid, "target": n, "measured_at": at,
+                        "marginal_tok_s_per_chip": round(marginal, 2)}
+            if plan is not None and uid in plan.marginals:
+                # the exact per-card price the allocator paid for this
+                # job's last granted step (GoodputPlan.marginals)
+                advisory["priced_at_grant"] = round(
+                    plan.marginals[uid], 2)
+            log.info("goodput advisory", **advisory)
+            self.advisory_history.append(advisory)
+            get_counters().inc("autoscaler_goodput_advisories")
+            get_registry().gauge(
+                "autoscaler_marginal_tokens_per_chip",
+                help="measured marginal tok/s per card at the plan's "
+                     "target (advisory)").set(marginal, job=uid)
 
     def run(self) -> None:
         """Timed loop (role of Run + ticker, reference autoscaler.go:451-459)."""
@@ -383,10 +568,11 @@ class ServingScaler:
 
     ``stats_for(uid)`` supplies the signal — a
     :class:`~edl_tpu_torch.runtime.serving.FleetStats`-shaped object
-    (windowed p50/p99/qps/queue depth), such as the in-process
-    ``fleet.stats``; the scrape plane's ``FleetView`` and the goodput
-    planner's train+serve arbitration wait for ROADMAP.md queue 1 item 11.
-    ``actuate(uid, n)`` applies the plan; when None, the cluster's
+    (windowed p50/p99/qps/queue depth).  The deployed source is the scrape
+    plane: :meth:`feed_from` wires a
+    :class:`~edl_tpu_torch.observability.scrape.FleetView` built over
+    scraped replica ``/metrics``; handing the in-process ``fleet.stats``
+    directly remains as a test seam.  ``actuate(uid, n)`` applies the plan; when None, the cluster's
     replica-group dial (``update_trainer_parallelism`` — the group dial
     is workload-agnostic) is used with the same bounded retries the
     trainer path gets.  Deterministic like Autoscaler: :meth:`tick` runs
@@ -445,8 +631,22 @@ class ServingScaler:
         #: to whatever warms pods in a deployment.  Exceptions are
         #: swallowed: hints are an optimization, never a dependency.
         self.hint_sink: Optional[Callable[[str, int], None]] = None
+        #: uids whose replica dial the GOODPUT PLANNER owns (train+serve
+        #: card arbitration): this policy still observes, records the
+        #: capacity curve, and fires prewarm hints, but never actuates —
+        #: two loops dialing one group would fight
+        self.observe_only: set[str] = set()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+
+    def feed_from(self, view) -> "ServingScaler":
+        """Feed the policy from the scrape plane: ``view`` is a
+        :class:`~edl_tpu_torch.observability.scrape.FleetView` whose
+        ``stats_for(uid)`` rolls scraped replica ``/metrics`` up into
+        the FleetStats shape :meth:`decide` consumes — the scaler sees
+        exactly what a scraper can see, no in-process hook."""
+        self.stats_for = view.stats_for
+        return self
 
     # -- registry ----------------------------------------------------------
 
@@ -463,6 +663,7 @@ class ServingScaler:
         self._targets.pop(job.full_name, None)
         self._curve_stores.pop(job.full_name, None)
         self._pending_calib.pop(job.full_name, None)
+        self.observe_only.discard(job.full_name)
         get_registry().gauge("serving_target_replicas").remove(
             job=job.full_name)
 
@@ -537,6 +738,17 @@ class ServingScaler:
             target = self.decide(job, stats, current)
             if target is None:
                 continue
+            if uid in self.observe_only:
+                # card arbitration: the goodput planner owns the dial;
+                # this policy's decision survives as the prewarm hint
+                # (scale-ups build ahead regardless of who actuates)
+                if self.hint_sink is not None and target > current:
+                    try:
+                        self.hint_sink(uid, target)
+                    except Exception as exc:
+                        log.warn("serving prewarm hint sink failed",
+                                 job=uid, error=str(exc)[:200])
+                continue
             last = self._last_change.get(uid, -1e18)
             cooldown = (self.scale_up_cooldown_s if target > current
                         else self.scale_down_cooldown_s)
@@ -549,7 +761,7 @@ class ServingScaler:
         return actuated
 
     def _record_capacity(self, uid: str, job, stats, current: int) -> None:
-        """Fold the live fleet observation into the job's goodput
+        """Fold the live FleetView observation into the job's goodput
         curve: one (replica_count → fleet qps) sample per observed tick,
         persisted under ``goodput-curve/<job>`` so the goodput planner
         prices this fleet's chips from MEASURED capacity.  A saturated

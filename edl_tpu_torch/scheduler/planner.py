@@ -24,22 +24,52 @@ edl_tpu_torch.scheduler.topology).  With the default unit policy the
 behavior is the reference's, which tests/test_torch_planner.py holds side
 by side with the JAX package's planner on the same snapshots.
 
-:func:`plan_cluster` is the one entry point the autoscaler calls.  Its
-``objective="count"`` is the reference's count-based packer, wrapped in
-the :class:`GoodputPlan` result shape.  The marginal-goodput allocator
-(``objective="goodput"``) waits for goodput's ``ScalingCurve`` and
-``CurveStore`` and the scheduler simulation (ROADMAP.md, queue 1 item
-11); asking for it raises.
+Two objectives live here, behind the one entry point the autoscaler and
+the scheduler simulation (scheduler/sim.py) call, :func:`plan_cluster`:
+
+* :func:`scale_all_jobs_dry_run` — the reference's COUNT-based packer:
+  every card granted to every job is worth the same, jobs are leveled by
+  fulfillment.  Unchanged, and the degraded-mode fallback.
+* :func:`scale_all_jobs_goodput` — the MARGINAL-GOODPUT allocator: cards
+  are granted (and reclaimed) by descending measured
+  ``marginal_tokens_per_second_per_chip`` from each job's
+  :class:`~edl_tpu_torch.observability.goodput.ScalingCurve`, layered with
+  priorities, pending-gang preemption (planned resizes of cheapest-
+  marginal victims, floored at min_instance, rolled back whole when no
+  domain can land the gang) and whole-gang NVLink placement.  Jobs may be
+  TrainingJobs or ServingJobs — a serving fleet's "curve" is its measured
+  QPS-capacity vs replica count, so a saturated fleet (steep curve)
+  outbids a flat-curve trainer in the same loop.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Optional
 
 from edl_tpu_torch.api.types import TrainingJob
 from edl_tpu_torch.cluster.resource import ClusterResource
 from edl_tpu_torch.scheduler.topology import SliceShapePolicy, UNIT_POLICY
+
+#: marginal value assumed for a job with no measured curve: optimistic
+#: (+inf outranks every measured marginal) so unmeasured jobs still get
+#: capacity and become measured — exploration is never starved by honest
+#: pricing of the already-measured fleet
+OPTIMISTIC_PRIOR = float("inf")
+
+#: a same-priority reclaim (shrink B to grow A) requires A's marginal to
+#: beat B's by this fractional headroom — the hysteresis band that keeps
+#: two jobs with near-equal curves from trading the same cards forever
+REBALANCE_HEADROOM = 0.25
+
+#: starvation aging: an INFEASIBLE gang (no domain can hold it right
+#: now) is excluded from the over-commit arithmetic — but only for this
+#: many consecutive plans.  Past it, the gang's claim re-enters the
+#: drain so capacity is carved toward it anyway (the count packer's
+#: blind-drain behavior) — throughput-protective exclusion must never
+#: become tail-latency starvation.
+GANG_STARVATION_PLANS = 3
 
 
 @dataclass
@@ -49,9 +79,9 @@ class PlannedJob:
     Role of the reference's ``job`` struct (autoscaler.go:34-37), with the
     live batch ``Job``'s Parallelism flattened to an int.  ``config`` is
     any kind speaking the replica-group protocol (group_range /
-    group_resources / gpus_per_replica / sched_priority): a
-    TrainingJob's trainer group, and a serving fleet once its types are
-    ported.
+    group_resources / gpus_per_replica / sched_priority) — a
+    TrainingJob's trainer group or a ServingJob's server fleet plan
+    through the same accessors.
     """
 
     config: TrainingJob
@@ -416,6 +446,9 @@ def scale_all_jobs_dry_run(
     return diff
 
 
+# ---------------------------------------------------------------------------
+# The marginal-goodput objective
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -441,22 +474,529 @@ class GoodputPlan:
     marginals: dict[str, float] = field(default_factory=dict)
 
 
+def _step_marginal(curve, n_to: int, gpus_per_instance: int,
+                   prior: float, calib_factor: float = 1.0) -> float:
+    """Price one up-step ending at ``n_to`` instances: the curve's
+    marginal tok/s per card read at the nearest measured size (the slope
+    of the last measured step rules beyond the measured range — linear
+    extrapolation; the smallest measured point's average rules below
+    it), normalized by this job's cards per instance.  No curve → the
+    optimistic prior.
+
+    ``calib_factor`` is the calibration plane's measured/predicted
+    correction for curve-derived predictions (the ``goodput_curve``
+    factor): it scales ONLY the measured branch — the optimistic prior
+    is a deliberate exploration bonus, not a curve prediction, and
+    correcting it would just rename the prior."""
+    if curve is None:
+        return prior
+    try:
+        at = curve.nearest_world_size(n_to)
+        if at is None:
+            return prior
+        m = curve.marginal_tokens_per_second_per_chip(at)
+    except Exception:
+        return prior
+    if m is None:
+        return prior
+    return m / max(gpus_per_instance, 1) * calib_factor
+
+
+def scale_all_jobs_goodput(
+    jobs: Iterable[PlannedJob],
+    r: ClusterResource,
+    max_load_desired: float = 1.0,
+    curves: Optional[Callable[[str], object]] = None,
+    optimistic_prior: float = OPTIMISTIC_PRIOR,
+    rebalance_headroom: float = REBALANCE_HEADROOM,
+    calibration=None,
+) -> GoodputPlan:
+    """The marginal-goodput allocator: grant (and reclaim) cards by
+    descending measured marginal-throughput-per-card, under priorities,
+    pending-gang preemption, and whole-gang NVLink placement.
+
+    Phases, in order, over a copy of ``r`` (the same value-semantics
+    discipline as the count packer):
+
+    0. **clamp** — jobs found over max step down to the largest valid
+       count (parity with the count packer's forced-down rule).
+    1. **gang admission + preemption** — each pending gang, highest
+       priority first, either reserves free cards in a feasible NVLink
+       domain, or (if it outranks running work) shrinks strictly-lower-
+       priority elastic victims in one domain — cheapest marginal first,
+       never below min_instance — until the whole gang fits there.  A
+       gang no domain can hold is ROLLED BACK whole: nothing is shrunk
+       for it, and its pending claim is excluded from the over-commit
+       arithmetic so it cannot churn the fleet either.
+    2. **over-commit drain** — capacity loss or equal-priority pending
+       claims shrink the cheapest-marginal victims first (the count
+       packer's admission-by-shrinking, re-ranked by marginal value).
+    3. **marginal up-pass** — repeatedly grant the single highest-value
+       step in the fleet: (priority, marginal, neediness)-ordered, each
+       step placed whole via :func:`search_assignable_nodes` (gang
+       discipline: a step that cannot land entirely in a feasible
+       domain is not granted at all).  Unmeasured jobs price at the
+       optimistic prior so exploration happens.  A measured job whose
+       step is capacity-blocked may RECLAIM from a cheaper victim in
+       its domain (same priority requires a ``rebalance_headroom``
+       marginal dominance; lower priority just the dominance) — the
+       shrink is planned now, the grant lands a tick later once the
+       victim's pods have actually vacated.
+
+    Degraded mode: when NO job resolves a measured curve there is
+    nothing to price by, and the plan falls back to
+    :func:`scale_all_jobs_dry_run` bit-for-bit (``mode="degraded"``).
+
+    ``calibration`` (opt-in, the calibration plane's read-back hook) is
+    a :class:`~edl_tpu_torch.observability.calib.CalibrationFactors`-shaped
+    object (``factor(predictor) -> float``) or a plain callable; when
+    supplied, curve-derived marginals are scaled by the persisted
+    ``goodput_curve`` measured/predicted factor, so an optimistic curve
+    (factor < 1) stops over-granting before the curve itself re-learns.
+    """
+    jobs = list(jobs)
+    resolved: dict[str, object] = {}
+    for j in jobs:
+        c = None
+        if curves is not None:
+            try:
+                c = curves(j.uid)
+                if c is not None and not c.world_sizes():
+                    c = None
+            except Exception:
+                c = None
+        resolved[j.uid] = c
+    if not any(c is not None for c in resolved.values()):
+        return GoodputPlan(
+            diff=scale_all_jobs_dry_run(jobs, r, max_load_desired),
+            mode="degraded")
+
+    r = r.copy()
+    diff: dict[str, int] = {j.uid: 0 for j in jobs}
+    plan = GoodputPlan(diff=diff, mode="goodput")
+
+    def planned(j: PlannedJob) -> int:
+        return j.parallelism + diff[j.uid]
+
+    _floor_cache: dict[tuple[str, int], int] = {}
+
+    def floor_of(j: PlannedJob) -> int:
+        """Lowest valid count reachable from planned(j) by policy steps
+        (>= min_instance) — where preemption/reclaim must stop.
+        Memoized per (job, planned): the reclaim feasibility scans read
+        it for every victim candidate."""
+        n = planned(j)
+        key = (j.uid, n)
+        v = _floor_cache.get(key)
+        if v is None:
+            lo = j.config.group_range()[0]
+            while True:
+                m = j.shape_policy.next_down(n, lo)
+                if m >= n:
+                    break
+                n = m
+            v = _floor_cache[key] = n
+        return v
+
+    # curves are immutable within one plan: memoize the pricing — the
+    # up-pass re-prices every candidate per grant, and each raw read
+    # takes the curve's lock and walks its cells
+    _price_cache: dict[tuple[str, int], float] = {}
+
+    # the read-back factor is resolved ONCE per plan (one KV-backed
+    # lookup, not one per candidate re-price) and degrades to neutral
+    calib_factor = 1.0
+    if calibration is not None:
+        try:
+            calib_factor = float(
+                calibration.factor("goodput_curve")
+                if hasattr(calibration, "factor")
+                else calibration("goodput_curve"))
+        except Exception:
+            calib_factor = 1.0
+        if not calib_factor > 0.0:
+            calib_factor = 1.0
+
+    def step_marginal(j: PlannedJob, n_to: int) -> float:
+        key = (j.uid, n_to)
+        m = _price_cache.get(key)
+        if m is None:
+            m = _step_marginal(resolved[j.uid], n_to, j.gpu_limit(),
+                               optimistic_prior, calib_factor)
+            _price_cache[key] = m
+        return m
+
+    def hold_marginal(j: PlannedJob) -> Optional[float]:
+        """What j's topmost held step is worth (the cost of shrinking
+        it one step) — None when j is at its floor."""
+        lo = j.config.group_range()[0]
+        p = planned(j)
+        prev = j.shape_policy.next_down(p, lo)
+        if prev >= p:
+            return None
+        return step_marginal(j, p)
+
+    def up_target(j: PlannedJob) -> Optional[int]:
+        lo, hi = j.config.group_range()
+        p = planned(j)
+        if p >= hi:
+            return None
+        if p < lo:
+            # whole-gang discipline: a sub-min job grows straight to the
+            # smallest valid count >= min, never to a partial gang
+            t = j.shape_policy.next_up(max(lo - 1, 0), hi)
+            return t if t >= lo else None
+        t = j.shape_policy.next_up(p, hi)
+        return t if t > p else None
+
+    def account_totals(j: PlannedJob, delta: int) -> None:
+        # scale-downs move the cluster totals only, like the count
+        # packer's down path: which NODES a shrinking job vacates is the
+        # kubelet's knowledge, visible in the next tick's snapshot
+        r.gpu_limit += j.gpu_limit() * delta
+        r.cpu_request_milli += j.cpu_request_milli() * delta
+        r.memory_request_mega += j.mem_request_mega() * delta
+
+    _dom_nodes: dict[Optional[str], list[str]] = {None: []}
+    for n in r.nodes.nodes_cpu_idle_milli:
+        _dom_nodes.setdefault(r.nodes.domain_of(n), []).append(n)
+        _dom_nodes[None].append(n)
+    domains = sorted(d for d in _dom_nodes if d is not None)
+
+    def domain_nodes(d: Optional[str]) -> list[str]:
+        return _dom_nodes.get(d, [])
+
+    def free_gpus(d: Optional[str]) -> int:
+        return sum(r.nodes.nodes_gpu_free.get(n, 0)
+                   for n in domain_nodes(d))
+
+    def reserve_gpus(d: Optional[str], need: int) -> None:
+        """Earmark ``need`` free cards (domain ``d``, or anywhere when
+        None) for a pending gang by taking them out of the visible node
+        maps — the up-pass can no longer grant capacity a gang was just
+        promised.  Totals are untouched: the gang's pending pods already
+        count in gpu_limit/cpu_request."""
+        nodes = sorted(domain_nodes(d),
+                       key=lambda n: (-r.nodes.nodes_gpu_free.get(n, 0), n))
+        left = need
+        for n in nodes:
+            take = min(r.nodes.nodes_gpu_free.get(n, 0), left)
+            if take > 0:
+                r.nodes.nodes_gpu_free[n] -= take
+                left -= take
+            if left <= 0:
+                return
+
+    def shrink_one_step(v: PlannedJob) -> int:
+        """One policy step down (floored); returns cards freed."""
+        p = planned(v)
+        m = v.shape_policy.next_down(p, v.config.group_range()[0])
+        if m >= p:
+            return 0
+        diff[v.uid] += m - p
+        account_totals(v, m - p)
+        return (p - m) * v.gpu_limit()
+
+    def victim_order(v: PlannedJob):
+        hm = hold_marginal(v)
+        return (v.priority, hm if hm is not None else math.inf,
+                -v.fulfillment(), v.uid)
+
+    def shrinkable_gpus(v: PlannedJob, d: Optional[str]) -> int:
+        """Chips v could yield toward domain ``d`` (None = anywhere) by
+        shrinking to its floor.  A victim PINNED to another domain
+        yields nothing here; an UNPINNED card victim (a multi-domain
+        job, a serving fleet whose replicas spread) counts everywhere —
+        the snapshot cannot say which nodes its pods vacate, so the
+        claim is optimistic and the admission converges over ticks,
+        exactly like the count packer's blind drain."""
+        if not v.elastic() or not v.need_gpu():
+            return 0
+        if d is not None:
+            vd = r.jobs_nvlink_domain.get(v.uid)
+            if vd is not None and vd != d:
+                return 0
+        return (planned(v) - floor_of(v)) * v.gpu_limit()
+
+    def reclaim_for(needer: PlannedJob, need_pods: int,
+                    eligible: Callable[[PlannedJob], bool],
+                    reason: str, reserve_free: bool = True) -> str:
+        """All-or-nothing capacity transfer toward ``needer``'s next
+        ``need_pods`` instances.  In order:
+
+        * the gang PLACES whole on real nodes right now →
+          ``"reserved"``: those exact node cards (+cpu/mem) are
+          earmarked so the up-pass cannot grant capacity a pending gang
+          was just promised (``reserve_free=False`` skips the earmark —
+          the rebalance path must not hide free capacity it cannot use);
+        * some domain's free cards plus what ``eligible`` victims there
+          can yield cover the need → ``"preempted"``: victims shrink
+          cheapest-marginal-first, never below their floor, and the
+          domain's free part is earmarked;
+        * a domain could hold it only if ANY-priority victims yielded →
+          ``"blocked"`` (the over-commit drain's business — nothing is
+          shrunk here);
+        * no domain can ever hold it → ``"infeasible"`` (shrink no one).
+        """
+        gpus = needer.gpu_limit()
+        need_gpus = need_pods * gpus
+        found = search_assignable_nodes(r, needer, need_pods)
+        if found is not None:
+            if reserve_free:
+                nodes, _ = found
+                cpu, mem = needer.cpu_request_milli(), needer.mem_request_mega()
+                for n in nodes:
+                    r.nodes.nodes_cpu_idle_milli[n] -= cpu
+                    r.nodes.nodes_memory_free_mega[n] -= mem
+                    if n in r.nodes.nodes_gpu_free:
+                        r.nodes.nodes_gpu_free[n] -= gpus
+            return "reserved"
+        if needer.multi_domain():
+            cand: list[Optional[str]] = [None]
+        else:
+            pin = r.jobs_nvlink_domain.get(needer.uid)
+            cand = [pin] if pin is not None else list(domains)
+        feasible_somewhere = False
+        for d in cand:
+            have = free_gpus(d)
+            if have + sum(shrinkable_gpus(v, d) for v in jobs
+                          if v is not needer) >= need_gpus:
+                feasible_somewhere = True
+            shortfall = need_gpus - have
+            if shortfall <= 0:
+                # cards are free but fragmented (the whole-gang walk
+                # above failed): shrinking victims would not obviously
+                # defragment — wait for natural churn instead
+                continue
+            victims = []
+            for v in jobs:
+                if v is needer or shrinkable_gpus(v, d) <= 0:
+                    continue
+                if not eligible(v):
+                    continue
+                victims.append(v)
+            victims.sort(key=victim_order)
+            reclaimable = sum(shrinkable_gpus(v, d) for v in victims)
+            if have + reclaimable < need_gpus:
+                continue
+            freed = 0
+            for v in victims:
+                while freed < shortfall:
+                    before = planned(v)
+                    got = shrink_one_step(v)
+                    if got == 0:
+                        break
+                    freed += got
+                    rec = {"victim": v.uid, "for_job": needer.uid,
+                           "from": before, "to": planned(v),
+                           "domain": d, "reason": reason}
+                    (plan.preemptions if reason == "preempt"
+                     else plan.reclaims).append(rec)
+                if freed >= shortfall:
+                    break
+            reserve_gpus(d, have)  # the free part is spoken for too
+            return "preempted"
+        return "blocked" if feasible_somewhere else "infeasible"
+
+    # -- phase 0: clamp anything found over max (count-packer parity) ------
+    for j in sorted(jobs, key=lambda j: j.uid):
+        lo, hi = j.config.group_range()
+        if planned(j) > hi:
+            target = j.shape_policy.clamp(hi, lo)
+            if target > 0:
+                delta = target - planned(j)
+                diff[j.uid] += delta
+                account_totals(j, delta)
+
+    # -- phase 1: pending gangs — admission + priority preemption ----------
+    unplaceable_pending_gpus = 0
+    gangs = sorted((j for j in jobs if j.pending > 0 and j.need_gpu()),
+                   key=lambda j: (-j.priority, j.fulfillment(), j.uid))
+    for g in gangs:
+        need_pods = min(g.pending, max(planned(g), 0))
+        need = need_pods * g.gpu_limit()
+        if need <= 0:
+            continue
+        outcome = reclaim_for(
+            g, need_pods,
+            # age gate: a freshly-pending gang reserves free capacity
+            # but does not yet shrink anyone — if it is still pending at
+            # the next plan, it has earned the preemption
+            eligible=(lambda v, g=g: v.priority < g.priority)
+            if g.pending_age >= 1 else (lambda v: False),
+            reason="preempt")
+        if outcome == "infeasible":
+            # no domain can hold this gang even with every elastic
+            # victim at floor: roll it back whole — nothing is shrunk
+            # for it, and its pending claim is kept out of the
+            # over-commit arithmetic so it cannot churn the fleet.
+            # Starvation aging bounds the exclusion: a gang pending
+            # past GANG_STARVATION_PLANS re-enters the drain, so the
+            # fleet is squeezed toward it rather than starving its tail.
+            plan.rollbacks.append({"job": g.uid, "gpus_needed": need,
+                                   "reason": "no_feasible_domain"})
+            if g.pending_age < GANG_STARVATION_PLANS:
+                unplaceable_pending_gpus += need
+            else:
+                # starved: HOARD capacity toward the gang — earmark its
+                # best candidate domain's free cards (up to the need) so
+                # the up-pass stops feeding every small release to
+                # incumbent growth and releases ACCUMULATE until the
+                # whole gang fits.  (The count packer gets this for free:
+                # its down-pass vetoes growth while anything pends.)
+                if g.multi_domain():
+                    hoard_d: Optional[str] = None
+                else:
+                    pin = r.jobs_nvlink_domain.get(g.uid)
+                    cands = [pin] if pin is not None else domains
+                    if not cands:
+                        continue  # empty node snapshot: nothing to hoard
+                    hoard_d = sorted(
+                        cands, key=lambda d: (-free_gpus(d), d))[0]
+                reserve_gpus(hoard_d,
+                              min(free_gpus(hoard_d), need))
+        # "blocked" (feasible, but only same/higher-priority victims
+        # hold the capacity) deliberately falls through: phase 2's
+        # over-commit drain performs the count-packer's equal-priority
+        # admission-by-shrinking, cheapest-marginal victims first
+
+    # -- phase 2: over-commit drain (cheapest marginal first) --------------
+    def overcommitted() -> bool:
+        return ((r.gpu_limit - unplaceable_pending_gpus) > r.gpu_total
+                or r.cpu_request_milli
+                > r.cpu_total_milli * max_load_desired)
+
+    while overcommitted():
+        victims = [v for v in jobs
+                   if v.elastic() and planned(v) > floor_of(v)]
+        if not victims:
+            break
+        victims.sort(key=victim_order)
+        v = victims[0]
+        before = planned(v)
+        if shrink_one_step(v) == 0 and v.cpu_request_milli() == 0:
+            break  # pragma: no cover - floor_of already excludes this
+        plan.reclaims.append({"victim": v.uid, "from": before,
+                              "to": planned(v), "reason": "overcommit"})
+
+    # -- phase 3: marginal up-pass -----------------------------------------
+    blocked: set[str] = set()
+    rebalanced_for: set[str] = set()
+    by_uid = sorted(jobs, key=lambda j: j.uid)
+    while True:
+        best = None
+        best_key = None
+        for j in by_uid:
+            if j.uid in blocked or not j.elastic() or j.pending > 0:
+                # a gang whose pods haven't placed yet does not grow its
+                # dial further — its claim is phase 1's business
+                continue
+            t = up_target(j)
+            if t is None:
+                continue
+            m = step_marginal(j, t)
+            key = (j.priority, m, -j.fulfillment())
+            if best_key is None or key > best_key:  # first (lowest uid) wins ties
+                best, best_key = (j, t, m), key
+        if best is None:
+            break
+        j, t, m = best
+        step = t - planned(j)
+        if _try_place_step(r, j, step, max_load_desired):
+            diff[j.uid] += step
+            if math.isfinite(m):
+                plan.marginals[j.uid] = m
+            continue
+        blocked.add(j.uid)
+        # capacity-blocked: a measured, dominant step may reclaim from a
+        # cheaper victim in its domain (the grant lands next tick, once
+        # the victim's pods have vacated real nodes)
+        if j.uid in rebalanced_for or not math.isfinite(m):
+            continue
+
+        def dominates(v: PlannedJob, m=m, j=j) -> bool:
+            if v.priority > j.priority:
+                return False
+            hm = hold_marginal(v)
+            if hm is None or not math.isfinite(hm):
+                return False  # unmeasured holdings are never reclaimed
+            if v.priority < j.priority:
+                return hm < m
+            return m > hm * (1.0 + rebalance_headroom) or (hm <= 0 < m)
+
+        rebalanced_for.add(j.uid)
+        outcome = reclaim_for(j, step, eligible=dominates,
+                              reason="rebalance", reserve_free=False)
+        if outcome == "preempted":
+            # pair the grant with the reclaim IN THIS PLAN: the grown
+            # pods ride the normal pending→place path and land the
+            # moment the victims' pods vacate — without this, the freed
+            # cards idle a whole planning period before the winner's
+            # next step is even considered
+            cpu_ok = (r.cpu_total_milli * max_load_desired
+                      - r.cpu_request_milli
+                      >= j.cpu_request_milli() * step)
+            mem_ok = (r.memory_total_mega - r.memory_request_mega
+                      > j.mem_request_mega() * step)
+            gpu_ok = (r.gpu_total - r.gpu_limit
+                      >= j.gpu_limit() * step)
+            if cpu_ok and mem_ok and gpu_ok:
+                diff[j.uid] += step
+                account_totals(j, step)
+                if math.isfinite(m):
+                    plan.marginals[j.uid] = m
+
+    return plan
+
+
+def _try_place_step(r: ClusterResource, j: PlannedJob, step: int,
+                    max_load_desired: float) -> bool:
+    """Admit one whole up-step: the same memory/node/CPU-ceiling/card
+    checks as :func:`scale_dry_run`'s up path, with the accounting
+    applied on success (and not at all on failure — all-or-nothing)."""
+    cpu = j.cpu_request_milli()
+    mem = j.mem_request_mega()
+    gpus = j.gpu_limit()
+    if r.memory_total_mega - r.memory_request_mega <= mem * step:
+        return False
+    found = search_assignable_nodes(r, j, step)
+    if found is None:
+        return False
+    nodes, domain = found
+    cpu_ok = (r.cpu_total_milli * max_load_desired
+              - r.cpu_request_milli >= cpu * step)
+    gpu_ok = (not gpus) or (r.gpu_total - r.gpu_limit >= gpus * step)
+    if not (cpu_ok and gpu_ok):
+        return False
+    r.gpu_limit += gpus * step
+    r.cpu_request_milli += cpu * step
+    r.memory_request_mega += mem * step
+    for node in nodes:
+        r.nodes.nodes_cpu_idle_milli[node] -= cpu
+        r.nodes.nodes_memory_free_mega[node] -= mem
+        if node in r.nodes.nodes_gpu_free:
+            r.nodes.nodes_gpu_free[node] -= gpus
+    if domain is not None:
+        r.jobs_nvlink_domain.setdefault(j.uid, domain)
+    return True
+
+
 def plan_cluster(
     jobs: Iterable[PlannedJob],
     r: ClusterResource,
     max_load_desired: float = 1.0,
     curves: Optional[Callable[[str], object]] = None,
-    objective: str = "count",
+    objective: str = "goodput",
+    **kw,
 ) -> GoodputPlan:
-    """The one planning entry point the autoscaler calls.
-    ``objective="count"`` is the reference packer wrapped in the
-    :class:`GoodputPlan` result shape; ``"goodput"`` (the marginal
-    allocator, which reads ``curves``) is not ported yet and raises."""
-    if objective != "count":
-        raise NotImplementedError(
-            f"objective {objective!r}: the marginal-goodput allocator "
-            "(scale_all_jobs_goodput, with goodput's ScalingCurve and "
-            "CurveStore and scheduler/sim.py) waits for ROADMAP.md queue 1 "
-            "item 11; the port plans with objective='count'")
-    return GoodputPlan(
-        diff=scale_all_jobs_dry_run(jobs, r, max_load_desired), mode="count")
+    """The one planning entry point the autoscaler (and the scheduler
+    simulation) calls: ``objective="goodput"`` runs the marginal
+    allocator (degrading to count packing when no curve resolves);
+    ``objective="count"`` is the reference packer wrapped in the same
+    result shape."""
+    if objective != "goodput":
+        return GoodputPlan(
+            diff=scale_all_jobs_dry_run(jobs, r, max_load_desired),
+            mode="count")
+    return scale_all_jobs_goodput(jobs, r, max_load_desired,
+                                  curves=curves, **kw)

@@ -305,11 +305,6 @@ def test_hint_sink_gets_the_shape_policys_layout():
     assert a.tick_history[-1][1] == {"default/j": 4}
 
 
-def test_goodput_curves_raise_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Autoscaler(TorchCluster(), goodput_curves=lambda uid: None)
-
-
 def test_a_replaced_kill_keeps_the_job_in_the_plans():
     """After a killed trainer is replaced, its Failed pod lingers: the
     JAX package's stability check (running == total) drops the job from

@@ -3,9 +3,11 @@ edl_tpu_torch.api.validation): tests/test_controller.py's training-job
 scenarios run on the JAX package and on the port alike (``pkg``), each with
 the reference's assertions, the two held equal where a scenario is
 deterministic.  The serving job's scenarios are in
-tests/test_torch_serving_control.py; what of the serving half is not ported
-(the scrape plane, the goodput objective, replicas wider than one card, the
-async front door) raises, naming its ROADMAP item.
+tests/test_torch_serving_control.py; train+serve arbitration (an elastic
+card-holding ``ServingJob`` registered with both loops under the goodput
+objective, tests/test_sched_goodput.py's two controller scenarios) and the
+scraper the controller owns are held here on both packages; a replica
+wider than one card still raises, naming its ROADMAP item.
 
 All timers are shrunk so the actor loops run at test speed; phases are
 polled with deadlines rather than sleeps.
@@ -28,6 +30,10 @@ from edl_tpu_torch.cluster import base as tbase
 from edl_tpu_torch.cluster.fake import FakeCluster as TorchCluster
 from edl_tpu_torch.controller import Controller as TorchController
 from edl_tpu_torch.controller import TrainingJobUpdater as TorchUpdater
+from edl_tpu.observability import metrics as jmetrics
+from edl_tpu.observability import scrape as jscrape
+from edl_tpu_torch.observability import metrics as tmetrics
+from edl_tpu_torch.observability import scrape as tscrape
 
 PKGS = {
     "jax": types.SimpleNamespace(
@@ -137,15 +143,6 @@ def test_a_serving_job_raises_naming_its_item():
     with pytest.raises(ValueError, match="'async' and 'legacy'"):
         serve_main({"EDL_SERVING_MODEL_DIR": "/nonexistent",
                     "EDL_SERVING_FRONTDOOR": "item-8"}, device="cpu")
-
-
-@pytest.mark.parametrize("kw, item", [
-    (dict(scraper=object()), "item 11"),
-    (dict(goodput_curves=lambda uid: None), "item 11"),
-])
-def test_unported_controller_hooks_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TorchController(TorchCluster(), **kw)
 
 
 # -- updater actor -----------------------------------------------------------
@@ -349,3 +346,115 @@ def test_modify_refuses_to_flip_multi_domain():
     with pytest.raises(KeyError):
         ctl.modify(mk_job(p, name="nope"))
     ctl.stop()
+
+
+# -- train+serve arbitration and the scrape plane ---------------------------------
+
+
+def serving_job(p, lo=1, hi=4):
+    t = p.t
+    key = jtypes.RESOURCE_TPU if p.t is jtypes else ttypes.RESOURCE_GPU
+    return t.ServingJob(name="fleet", spec=t.ServingSpec(
+        min_replicas=lo, max_replicas=hi, slo_p99_ms=50.0,
+        resources=t.ResourceRequirements(
+            requests={"cpu": "1", "memory": "1Mi"}, limits={key: "1"})))
+
+
+def card_cluster(p):
+    c = p.Cluster()
+    if p.t is jtypes:
+        c.add_node("n0", cpu_milli=64_000, memory_mega=64_000, tpu_chips=8)
+    else:
+        c.add_node("n0", cpu_milli=64_000, memory_mega=64_000, gpus=8)
+    return c
+
+
+def test_controller_arbitrates_elastic_card_serving_fleets(pkg):
+    """An elastic card-holding ServingJob submitted under the goodput
+    objective registers with both loops (the SLO policy observes, the
+    goodput planner owns the dial) and leaves both on delete; without a
+    curve source, or with the objective off, the SLO policy alone owns
+    it."""
+    seen = []
+    for kw in (dict(goodput_curves=lambda uid: None), {},
+               dict(goodput_curves=lambda uid: None,
+                    goodput_objective=False)):
+        ctl = pkg.Controller(card_cluster(pkg), **kw)
+        job = serving_job(pkg)
+        try:
+            ctl.submit(job)
+            ctl.autoscaler.drain_events()
+            seen.append((job.full_name in ctl.autoscaler.jobs,
+                         job.full_name in ctl.serving_scaler.observe_only))
+            ctl.delete(job)
+            ctl.autoscaler.drain_events()
+            seen.append((job.full_name in ctl.autoscaler.jobs,
+                         job.full_name in ctl.serving_scaler.observe_only))
+        finally:
+            ctl.stop()
+    assert seen == [(True, True), (False, False), (False, False),
+                    (False, False), (False, False), (False, False)]
+
+
+def test_controller_modify_reconciles_arbitration_both_ways(pkg):
+    """A spec change can flip arbitration eligibility: exactly one loop
+    owns the replica dial afterwards, in either direction."""
+    ctl = pkg.Controller(card_cluster(pkg), goodput_curves=lambda uid: None)
+    job = serving_job(pkg, lo=2, hi=2)
+    seen = []
+
+    def look():
+        ctl.autoscaler.drain_events()
+        seen.append((job.full_name in ctl.serving_scaler.observe_only,
+                     job.full_name in ctl.autoscaler.jobs))
+
+    try:
+        ctl.submit(job)
+        look()
+        job.spec.max_replicas = 4
+        ctl.modify(job)
+        look()
+        job.spec.max_replicas = 2
+        ctl.modify(job)
+        look()
+    finally:
+        ctl.delete(job)
+        ctl.stop()
+    assert seen == [(False, False), (True, True), (False, False)]
+
+
+def test_controller_owns_the_scraper_and_feeds_the_slo_policy(pkg):
+    """A scraper handed to the controller is rolled up by a FleetView that
+    feeds the serving scaler (unless a stats hook is given explicitly),
+    started with the controller's loops and stopped with them."""
+    scrape = jscrape if pkg.t is jtypes else tscrape
+    metrics = jmetrics if pkg.t is jtypes else tmetrics
+    reg = metrics.MetricsRegistry()
+    reg.gauge("serving_replicas_active").set(3, job="default/fleet")
+    scraper = scrape.MetricsScraper(fetch=lambda t: reg.render(),
+                                    interval_s=0.02,
+                                    registry=metrics.MetricsRegistry())
+    scraper.add_target(scrape.ScrapeTarget(name="r0", addr="r0:0"))
+    ctl = fast_controller(pkg, card_cluster(pkg), scraper=scraper,
+                          scrape_window_s=5.0)
+    assert ctl.fleet_view is not None and ctl.fleet_view.window_s == 5.0
+    assert ctl.serving_scaler.stats_for == ctl.fleet_view.stats_for
+    ctl.start()
+    try:
+        deadline = time.monotonic() + 5
+        while scraper.sweeps < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert scraper.is_alive() and scraper.sweeps >= 2
+        assert ctl.serving_scaler.stats_for(
+            "default/fleet").replicas_active == 3
+    finally:
+        ctl.stop()
+    assert not scraper.is_alive()
+
+    def hook(uid):
+        return None
+
+    explicit = pkg.Controller(card_cluster(pkg), scraper=scraper,
+                              serving_stats_for=hook)
+    assert explicit.serving_scaler.stats_for is hook
+    explicit.stop()

@@ -530,11 +530,6 @@ def test_plan_cluster_count_wraps_the_packer():
     assert both(run) == ({"default/j": 3}, "count", [], [])
 
 
-def test_the_goodput_objective_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tplanner.plan_cluster([], big(TORCH), objective="goodput")
-
-
 # -- seeded random clusters ----------------------------------------------------------
 
 

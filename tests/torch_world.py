@@ -2911,6 +2911,87 @@ def suite_sp_four(rank: int, world: int, store: str, tiny_params: dict,
                            serve_dp_sp], rank)
 
 
+# -- train+serve arbitration: chip_smoke's phase (x) at TINY ------------------
+
+
+def suite_arbitrated(rank: int, world: int, store: str, rows: int,
+                     shards: int, seq: int, schedule: dict,
+                     world2_sleep_s: float) -> dict:
+    """chip_smoke's phase (x) on two CPU ranks at TINY:
+    ``entry.flagship_arbitrated_job`` and, on rank 0, the scoring fleet of
+    TINY beside it, driven by ``entry.arbitrated_campaign``.  On the card
+    a world-2 step over gloo costs ~10x a world-1 step (the all-reduce
+    staged through host memory); two CPU ranks of TINY need not, so every
+    world-2 step here sleeps ``world2_sleep_s`` after it, which makes the
+    trainer's measured marginal at 2 negative as it is on the card."""
+    from edl_tpu_torch.entry import (ARBITRATION_BATCH,
+                                     ARBITRATION_FLEET_JOB,
+                                     ARBITRATION_QUEUE_MS,
+                                     ARBITRATION_SLO_MS,
+                                     arbitrated_campaign,
+                                     flagship_arbitrated_job,
+                                     flagship_scoring_fleet,
+                                     score_last_token)
+
+    _join(rank, world, store)
+
+    def arbitrated(rank):
+        runner, plane, _ = flagship_arbitrated_job(
+            rank, world, store, device="cpu", cfg=tfm.TINY, global_batch=4,
+            seq=seq, rows=rows, shards=shards,
+            work_dir=Path(store).parent / "arbitrated")
+        order: list = []
+        fleet = tokens = None
+        if plane is not None:
+            fetch = runner.fetch
+
+            def counted(payload):
+                order.append(json.loads(payload.decode())["shard"])
+                return fetch(payload)
+
+            runner.fetch = counted
+            fleet = flagship_scoring_fleet(
+                device="cpu", cfg=tfm.TINY, seq=seq,
+                job=f"default/{ARBITRATION_FLEET_JOB}",
+                max_batch_size=ARBITRATION_BATCH,
+                max_queue_ms=ARBITRATION_QUEUE_MS,
+                slo_p99_ms=ARBITRATION_SLO_MS, kv=plane.coord)
+            fleet.scale_to(1)
+            fleet.serve_metrics(port=0, replica="r0")
+            tokens = np.random.default_rng(3).integers(
+                0, tfm.TINY.vocab_size, (64, seq), dtype=np.int64)
+        step = runner.trainer.step
+
+        def card_like(batch):
+            loss = step(batch)
+            if runner.trainer.world_size == 2:
+                time.sleep(world2_sleep_s)
+            return loss
+
+        runner.trainer.step = card_like
+        got = arbitrated_campaign(runner, plane, fleet, tokens, **schedule)
+        rep = got.pop("report")
+        out = dict(losses=rep.losses, worlds=rep.world_sizes,
+                   steps=got.pop("steps"))
+        if plane is None:
+            return out
+        sampled = got.pop("sampled", None)
+        fleet.stop()
+        stats = plane.coord.stats()
+        plane.close()
+        out.update(got, order=order, leaked=plane.leaked_servers(),
+                   stats=dict(done=stats.done, todo=stats.todo,
+                              leased=stats.leased, dropped=stats.dropped))
+        if sampled is not None:
+            model = tfm.Transformer(tfm.TINY, device="cpu", seed=0)
+            with torch.no_grad():
+                ref = score_last_token(model, (torch.from_numpy(
+                    sampled["tokens"]),)).numpy()
+            out["answers"] = (sampled["answers"], ref)
+        return out
+
+    return _run_scenarios([arbitrated], rank)
+
 SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
@@ -2921,4 +3002,5 @@ SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "local_four": suite_local_four, "controlled": suite_controlled,
           "controlled_four": suite_controlled_four,
           "serving": suite_serving, "ring_four": suite_ring_four,
-          "sp_two": suite_sp_two, "sp_four": suite_sp_four}
+          "sp_two": suite_sp_two, "sp_four": suite_sp_four,
+          "arbitrated": suite_arbitrated}
