@@ -229,8 +229,8 @@ Phases, each of which raises on failure:
 
 (t) the autoscaled job under a seeded fault campaign: two spawned ranks
     share the card over gloo (``entry.flagship_controlled_job``: the
-    FLAGSHIP trainer, replicated; on rank 0 the port's native coordinator
-    with a state file behind a ``ChaosProxy``, a ``CoordClient`` dialling
+    FLAGSHIP trainer at ``DURABLE_LAYERS`` layers, replicated; on rank 0
+    the port's native coordinator with a state file behind a ``ChaosProxy``, a ``CoordClient`` dialling
     the proxy, a ``FakeCluster`` of two one-card nodes in two NVLink
     domains with a system pod holding the second card, a ``Controller``
     (``max_load_desired`` 1.0, 50 ms loops) that created the job's pods, and
@@ -251,8 +251,9 @@ Phases, each of which raises on failure:
     the coordinator's ``done`` the task count, ``todo``, ``leased`` and
     ``dropped`` 0, after the kill and the respawn; world 2 after the
     release and 1 after the return; losses within ``WORLD_LOSS_ATOL`` of
-    a one-rank control fed rank 0's batches in its order; 8 launches of
-    each flash kernel a step on a live rank and none on one standing by;
+    a one-rank control fed rank 0's batches in its order;
+    ``DURABLE_LAYERS`` launches of each flash kernel a step on a live rank
+    and none on one standing by;
     no coordinator left running.  Prints step ms by world, each autoscaler
     tick's target and its tick-to-resize seconds, each resize's
     ``compile_ms``, ``reshard_ms`` and ``bytes_moved``, each fault's
@@ -361,13 +362,44 @@ Phases, each of which raises on failure:
     stats; a burn-rate alert within 2 evaluations of an injected SLO
     breach and a target-down alert within 3 due sweeps of the fleet's
     /metrics going away; no coordinator left.
+(y) the deployed control plane: a FLAGSHIP ``TrainingJob`` (fault
+    tolerant, 1 to 2 trainers of one ``nvidia.com/gpu``, (s)'s supervised
+    worker and its ``EDL_MH_*`` settings at ``MH_LAYERS`` layers, the
+    kernels' build root the script's own through ``EDL_COMPILE_CACHE``)
+    written as a JSON manifest, checked by ``cli validate`` and loaded by
+    ``load_manifest_file`` with ``yaml`` and ``kubernetes`` unimportable,
+    then run by ``entry.kubelet_campaign``: an in-memory CR store
+    (:class:`CrStore`), a ``TrainingJobSyncLoop`` polling it, a
+    ``Controller`` on a ``FakeCluster`` of one node of two
+    ``nvidia.com/gpu`` and a ``ProcessKubelet`` running its pods as real
+    process groups.  The two cards are bookkeeping for the one card: every
+    world child runs on ``cuda:0`` over gloo, as in (s).  Gates: the
+    spawned pods run the jobparser's ``edl_tpu_torch`` modules and nothing
+    of the JAX package; world 1 trains; the autoscaler, started then, grows
+    the job to 2; a ``KillTrainer`` through the kubelet SIGKILLs one
+    trainer pod's group, the reaper reports it Failed, the Job controller
+    replaces it and a world of 2 forms again, each world starting bitwise
+    from the newest generation saved before it; a ``KillCoordinator``
+    through the kubelet kills the coordinator pod, which respawns on its
+    per-job state file; every task done once; the surviving workers done,
+    their pods Succeeded (exit 0) and the CR's recorded status Succeeded;
+    every loss finite and falling; each trained step of a world child
+    launching each flash kernel ``MH_LAYERS`` times; deleting the CR tears
+    the job down through the sync loop, no pod process group left; the
+    card's free memory back.  Beside the job, ``python -m
+    edl_tpu_torch.examples.train_ft --device cuda:0`` (word2vec on the
+    shipped corpus, no hand-written kernel) trains and its loss falls.
+    Prints the submit → world 1's first step, the grow tick → world 2's
+    first step, the kill → the re-formed world's first step and the
+    coordinator kill → the next completed task seconds, the ``cli``
+    status and list tables after the grow and at the end, and (y)'s wall.
 
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after ((s)'s world children and (v)'s replicas are fresh processes, each
-counting from 0).  Each kernel is held to the element-wise rule of
+after ((s)'s and (y)'s world children and (v)'s replicas are fresh
+processes, each counting from 0).  Each kernel is held to the element-wise rule of
 ``edl_tpu_torch/ops/kernel_check.py``; ``python -m
 edl_tpu_torch.ops.kernel_check`` shows that faults planted in the kernels
 fail it.
@@ -382,6 +414,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -421,7 +454,9 @@ from edl_tpu_torch.entry import (ARBITRATION_BATCH, ARBITRATION_DOWN_AFTER,
                                  flagship_local_job, flagship_scoring_fleet,
                                  flagship_sp_world, flagship_tp_world,
                                  flagship_trainer,
-                                 flagship_virtual_world, rank_processes,
+                                 flagship_virtual_world, kubelet_campaign,
+                                 kubelet_job_manifest, log_field,
+                                 rank_processes, step_records,
                                  resnet_trainer, score_last_token)
 from edl_tpu_torch.models import llama, resnet
 from edl_tpu_torch.models import transformer as tfm
@@ -440,6 +475,7 @@ from edl_tpu_torch.runtime.faults import (SERVING_KINDS, TRAINING_KINDS,
 from edl_tpu_torch.runtime import sdc
 from edl_tpu_torch.observability.tracing import get_tracer
 from edl_tpu_torch.runtime.kvcache import KVBlockPool
+from edl_tpu_torch.runtime.multihost import free_port
 from edl_tpu_torch.runtime.virtual import (DEFAULT_LOSS_ATOL,
                                            DEFAULT_LOSS_RTOL, VirtualBatches,
                                            VirtualConfig, VirtualWorkerLoop,
@@ -580,7 +616,8 @@ MH_LAYERS = 2
 #: phases (k), (o), (p) and (q)'s virtual drive: the FLAGSHIP width at
 #: DURABLE_LAYERS layers (their time is bound by saving and restoring the
 #: whole state, which the depth sets; the width, the shapes every kernel
-#: sees, stays FLAGSHIP's)
+#: sees, stays FLAGSHIP's); (t) too, which took 32-52 s less at 2 layers
+#: than at 8 on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
 DURABLE_LAYERS = 2
 DURABLE_CFG = dataclasses.replace(tfm.FLAGSHIP, n_layers=DURABLE_LAYERS)
 
@@ -658,6 +695,16 @@ SP_HOLD_SEED, SP_HOLD_REPS = 5, 3
 #: and how far the scraped qps may sit from the fleet's own
 X_TIMEOUT_S = 600
 X_QPS_RTOL = 0.25
+
+#: phase (y): the TrainingJob's name; its tasks (MH_ROWS x S tokens each)
+#: and each step's pause, which paces world 1 so that the grown pod joins
+#: mid-job; the supervisors' settle, longer than the member TTL, so that a
+#: killed pod's prune and its replacement's join land in one plan; the
+#: job's deadline, the example's, and the card memory the pods may leave
+Y_JOB = "flagship-kubelet"
+Y_TASKS, Y_STEP_SLEEP_S, Y_SETTLE_S = 18, 0.25, 4.0
+Y_TIMEOUT_S, Y_TRAIN_FT_TIMEOUT_S = 420, 300
+Y_MEM_SLACK_BYTES = 64 << 20
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -3256,26 +3303,6 @@ def mh_wait_line(log: str, needle: str, procs: dict, deadline: float
     raise AssertionError(f"phase (s): {needle!r} never appeared in {log}")
 
 
-def mh_field(line: str, key: str) -> str:
-    return line.split(f"{key}=", 1)[1].split()[0]
-
-
-def mh_steps(text: str) -> list[dict]:
-    """Every ``step N world=W ms=.. wall=.. launches=.. loss=..`` line."""
-    out = []
-    for line in text.splitlines():
-        if " step " in line and " loss=" in line:
-            out.append(dict(
-                step=int(line.split(" step ", 1)[1].split()[0]),
-                world=int(mh_field(line, "world")),
-                ms=float(mh_field(line, "ms")),
-                wall=float(mh_field(line, "wall")),
-                launches=[int(x) for x in
-                          mh_field(line, "launches").split(",")],
-                loss=float(line.rsplit("loss=", 1)[1])))
-    return out
-
-
 def phase_multihost(card: str, config: str = "flagship",
                     device: str = "cuda:0",
                     timeout_s: float = MH_GROUP_TIMEOUT_S,
@@ -3354,11 +3381,11 @@ def phase_multihost(card: str, config: str = "flagship",
     failures = []
     worlds, entries, steps = {}, {}, {}
     for n, text in texts.items():
-        worlds[n] = [(int(mh_field(ln, "world")), mh_field(ln, "members"))
+        worlds[n] = [(int(log_field(ln, "world")), log_field(ln, "members"))
                      for ln in text.splitlines() if "devices ready" in ln]
         entries[n] = [ln for ln in text.splitlines()
                       if "entering world" in ln]
-        steps[n] = mh_steps(text)
+        steps[n] = step_records(text.splitlines())
         for ln in text.splitlines():
             if "world_phases" in ln or "saved generation" in ln:
                 print(f"multihost {ln.strip()}", flush=True)
@@ -3367,7 +3394,7 @@ def phase_multihost(card: str, config: str = "flagship",
         for ln in text.splitlines():
             if "saved generation" in ln:
                 saved[ln.split("saved generation ", 1)[1].split()[0]] = (
-                    int(mh_field(ln, "step")), mh_field(ln, "digest"))
+                    int(log_field(ln, "step")), log_field(ln, "digest"))
     cold = [d for f, (st, d) in saved.items() if st == 0]
     print(f"multihost worlds w0 {worlds['w0']} w1 {worlds['w1']} w2 "
           f"{worlds['w2']}; exits {rcs} (w1 SIGKILLed: "
@@ -3385,9 +3412,9 @@ def phase_multihost(card: str, config: str = "flagship",
     # the reformed world starts bitwise from the newest generation the
     # world of 2 saved, the late joiner from the one the world of 1 ended
     # on, and neither from a cold init
-    starts = [(n, mh_field(ln, "digest"), int(ln.rsplit("step=", 1)[1]))
+    starts = [(n, log_field(ln, "digest"), int(ln.rsplit("step=", 1)[1]))
               for n, k in (("w0", 1), ("w2", 0)) for ln in entries[n][k:k + 1]]
-    epoch_2 = mh_field(entries["w0"][0], "epoch") if entries["w0"] else None
+    epoch_2 = log_field(entries["w0"][0], "epoch") if entries["w0"] else None
     newest_2 = max((pair for f, pair in saved.items()
                     if f.startswith(f"mid-{epoch_2}-")), default=None)
     # w0's steps in its first world of 2 (up to the kill) and in world 1
@@ -3412,9 +3439,9 @@ def phase_multihost(card: str, config: str = "flagship",
         failures.append(f"restores {starts} (lost {lost}), want w0 at "
                         f"{newest_2} and w2 at step {last_1}")
     first_1 = w0_1[0]
-    aborted = [float(mh_field(ln, "wall")) for ln in texts["w0"].splitlines()
+    aborted = [float(log_field(ln, "wall")) for ln in texts["w0"].splitlines()
                if "aborted wall=" in ln]
-    ready = [float(mh_field(ln, "wall")) for ln in texts["w0"].splitlines()
+    ready = [float(log_field(ln, "wall")) for ln in texts["w0"].splitlines()
              if "devices ready" in ln and "world=1 " in ln]
     abort = (f"{aborted[0] - t_kill:.3f} s" if aborted else
              "not logged (ended by a signal: NCCL's watchdog or the stall "
@@ -3472,7 +3499,8 @@ def controlled_rank(rank: int, store: str, out: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     rec = dict(rank=rank, steps=[], restarts_s=[])
     fa.reset_launches()
-    runner, plane, reg = flagship_controlled_job(rank, WORLD_RANKS, store)
+    runner, plane, reg = flagship_controlled_job(rank, WORLD_RANKS, store,
+                                                 cfg=DURABLE_CFG)
     instrument_steps(runner.trainer, rec["steps"])
     order: list = []
     if plane is not None:
@@ -3571,13 +3599,15 @@ def phase_controlled(card: str) -> dict:
     torch.cuda.empty_cache()
     recs = run_ranks(controlled_rank, "t", CONTROLLED_TIMEOUT_S)
     r0, r1 = recs
-    runner, reg, _ = flagship_local_job(0, 1, None, rows=CONTROLLED_ROWS,
+    runner, reg, _ = flagship_local_job(0, 1, None, cfg=DURABLE_CFG,
+                                        rows=CONTROLLED_ROWS,
                                         shards=CONTROLLED_SHARDS)
     trainer = runner.trainer
     control = [trainer.step(reg.get(i)) for i in r0["order"]]
     del runner, trainer
     torch.cuda.empty_cache()
-    print(f"controlled phase (t): FLAGSHIP, global batch {B} x {S} in "
+    print(f"controlled phase (t): FLAGSHIP at {DURABLE_LAYERS} of its "
+          f"{tfm.FLAGSHIP.n_layers} layers, global batch {B} x {S} in "
           f"{r0['tasks']} leased tasks, a Controller (max_load_desired 1.0) "
           f"over a FakeCluster of two one-card nodes in two NVLink domains, "
           f"the second card held until step {CONTROLLED_RELEASE_AT} and "
@@ -3644,7 +3674,7 @@ def phase_controlled(card: str) -> dict:
         failures.append(f"worlds {worlds} / {r1['worlds']}")
     for rec in recs:
         for st in rec["steps"]:
-            want = tfm.FLAGSHIP.n_layers if st["live"] else 0
+            want = DURABLE_LAYERS if st["live"] else 0
             if set(st["launches"].values()) != {want}:
                 failures.append(f"rank {rec['rank']} launches {st}")
     if len(r0["losses"]) != len(control):
@@ -4587,10 +4617,10 @@ def phase_data_plane(card: str, cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
                 logs, procs, t_spawn,
                 time.monotonic() + FD_READY_TIMEOUT_S).items():
             ready[name] = dict(
-                port=int(mh_field(line, "port")),
-                metrics=int(mh_field(line, "metrics_port")),
-                build_s=float(mh_field(line, "build_s")),
-                main_s=float(mh_field(line, "ready_s")),
+                port=int(log_field(line, "port")),
+                metrics=int(log_field(line, "metrics_port")),
+                build_s=float(log_field(line, "build_s")),
+                main_s=float(log_field(line, "ready_s")),
                 spawn_s=round(seen_s, 3))
         drill_thread.join(SERVE_MAIN_TIMEOUT_S + 60)
         if "error" in drill:
@@ -5438,6 +5468,272 @@ def phase_arbitrated(card: str) -> dict:
     return {k: r0["launches"][k] + r1["launches"][k] for k in FLASH}
 
 
+# -- phase (y): a TrainingJob from its manifest, through real pod processes ---
+
+
+class CrStore:
+    """The TrainingJob custom resources of (y), in memory: the CR surface
+    the sync loop and ``cli.format_status``/``format_job_list`` read (the
+    apiserver's role; the card's machine has no ``kubernetes`` package)."""
+
+    def __init__(self) -> None:
+        self._crs: dict = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _key(name: str, namespace: Optional[str]) -> tuple:
+        return (namespace or "default", name)
+
+    def create_training_job_cr(self, manifest: dict) -> None:
+        meta = manifest["metadata"]
+        with self._lock:
+            self._crs[self._key(meta["name"], meta.get("namespace"))] = (
+                json.loads(json.dumps(manifest)))
+
+    def list_training_job_crs(self) -> list:
+        with self._lock:
+            return [json.loads(json.dumps(cr)) for cr in self._crs.values()]
+
+    def get_training_job_cr(self, name: str,
+                            namespace: Optional[str] = None):
+        with self._lock:
+            cr = self._crs.get(self._key(name, namespace))
+            return None if cr is None else json.loads(json.dumps(cr))
+
+    def patch_training_job_status(self, name: str, status: dict,
+                                  namespace: Optional[str] = None) -> bool:
+        with self._lock:
+            cr = self._crs.get(self._key(name, namespace))
+            if cr is None:
+                return False
+            cr["status"] = json.loads(json.dumps(status))
+            return True
+
+    def delete_training_job_cr(self, name: str,
+                               namespace: Optional[str] = None) -> bool:
+        with self._lock:
+            return self._crs.pop(self._key(name, namespace), None) is not None
+
+
+@contextlib.contextmanager
+def modules_blocked(*names):
+    """Any import of ``names`` raises ImportError inside the block."""
+    saved = {n: sys.modules.get(n, False) for n in names}
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for n, mod in saved.items():
+            if mod is False:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = mod
+
+
+def kubelet_manifest(tmp: str, config: str, device: str, n_layers: int,
+                     timeout_s: float) -> dict:
+    """(y)'s TrainingJob: (s)'s supervised worker and ``EDL_MH_*``
+    settings, at Y_TASKS tasks and Y_STEP_SLEEP_S a step, with the
+    kernels' build root the script's own (``EDL_COMPILE_CACHE``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    worker = (f"--settle-s {Y_SETTLE_S} --heartbeat-timeout-s 10 "
+              f"--init-timeout-s {timeout_s} --stall-floor-s {timeout_s} "
+              f"--model transformer --model-config {config} "
+              f"--n-layers {n_layers} --device {device}")
+    env = dict(EDL_MH_EXAMPLES=Y_TASKS * MH_ROWS, EDL_MH_SHARDS=Y_TASKS,
+               EDL_MH_BATCH=MH_ROWS, EDL_MH_SEQ=S,
+               EDL_MH_CKPT_EVERY=MH_CKPT_EVERY,
+               EDL_MH_STEP_SLEEP=Y_STEP_SLEEP_S, EDL_MH_DIGEST=1,
+               EDL_COMPILE_CACHE=os.path.join(root, "build"))
+    return kubelet_job_manifest(Y_JOB, free_port(), os.path.join(tmp, "ckpt"),
+                                worker, env)
+
+
+def phase_kubelet(card: str, config: str = "flagship",
+                  device: str = "cuda:0", n_layers: int = MH_LAYERS,
+                  timeout_s: float = MH_GROUP_TIMEOUT_S) -> dict:
+    """(y): a FLAGSHIP TrainingJob from its JSON manifest to Succeeded
+    through the port's deployed control plane, its pods real processes
+    (``entry.kubelet_campaign``'s gates a–h), then the shipped example
+    (``python -m edl_tpu_torch.examples.train_ft``) on ``device``.  The
+    cluster's two ``nvidia.com/gpu`` are bookkeeping for the one card:
+    every world child runs on ``device`` over gloo, as in (s), since NCCL
+    puts no two ranks on one GPU.  Returns the flash launches of every
+    world child of every pod, summed."""
+    from edl_tpu_torch import cli
+    from edl_tpu_torch.api.serde import load_manifest_file
+    from edl_tpu_torch.coord import bindings
+    from edl_tpu_torch.runtime.multihost import world_backend
+
+    t0 = time.perf_counter()
+    on_card = device.startswith("cuda")
+    if on_card:
+        torch.cuda.empty_cache()
+        free_before = torch.cuda.mem_get_info(0)[0]
+    bindings.ensure_built()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-kubelet-")
+    # the shipped example, standalone on the card, beside the job (its
+    # process is idle while the pods start, and the card is not the
+    # job's bound)
+    ft = subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu_torch.examples.train_ft",
+         "--device", device],
+        env=dict(os.environ, PYTHONPATH=root,
+                 EDL_DATA_DIR=os.path.join(tmp, "train_ft")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root)
+    try:
+        with modules_blocked("yaml", "kubernetes"):
+            manifest = kubelet_manifest(tmp, config, device, n_layers,
+                                        timeout_s)
+            path = os.path.join(tmp, f"{Y_JOB}.json")
+            with open(path, "w") as f:
+                json.dump(manifest, f, indent=2)
+            echo = io.StringIO()
+            with contextlib.redirect_stdout(echo):
+                rc = cli.main(["--log-level", "warn", "validate", path])
+            job = load_manifest_file(path)
+            if rc != 0 or json.loads(echo.getvalue())["metadata"][
+                    "name"] != Y_JOB or job.gpus_per_trainer() != 1:
+                raise AssertionError(f"phase (y): cli validate rc {rc} "
+                                     f"{echo.getvalue()[:200]!r}")
+            with open(path) as f:
+                doc = json.load(f)
+            print(f"kubelet manifest {os.path.basename(path)} (JSON, no "
+                  f"yaml or kubernetes module): cli validate rc {rc}; "
+                  f"{config.upper()} at {n_layers} of its "
+                  f"{tfm.FLAGSHIP.n_layers} layers (depth cut, as (s)), "
+                  f"trainers {job.group_range()} of "
+                  f"{job.gpus_per_trainer()} nvidia.com/gpu, "
+                  f"{Y_TASKS} tasks of {MH_ROWS} x {S} tokens", flush=True)
+            out = kubelet_campaign(
+                CrStore(), os.path.join(tmp, "kubelet"), doc,
+                kubelet_env=dict(
+                    EDL_HEALTH_PORT="0", EDL_MH_DIE_WITH_PARENT="1",
+                    EDL_COORD_MEMBER_TTL_MS=str(MH_MEMBER_TTL_MS),
+                    EDL_COORD_TASK_TIMEOUT_MS=str(MH_TASK_TIMEOUT_MS)),
+                timeout_s=Y_TIMEOUT_S)
+        t_job = time.perf_counter() - t0
+        rec = out["records"]
+        print(f"kubelet pods spawned: coordinator "
+              f"`{out['commands']['coordinator']}`, trainer "
+              f"`{out['commands']['trainer']}`, entry "
+              f"`{out['entry']}`", flush=True)
+        print(f"kubelet worlds (epoch, size) {out['worlds']} on {device} "
+              f"over {world_backend(device)}; killed {out['victims']}, "
+              f"replaced by {out['replacement']}; coordinator respawned "
+              f"as {out['coord_respawned']}, tasks done "
+              f"{out['coord_done'][0]} -> {out['coord_done'][1]}; queue "
+              f"{out['stats']}; exits {out['exit_codes']}", flush=True)
+        print("kubelet status after the grow:\n" + out["status_after_grow"],
+              flush=True)
+        print("kubelet status at the end:\n" + out["status_end"],
+              flush=True)
+        t_sub = out["t_submit"]
+        events = sorted([(w - t_sub, f"{pod} spawned") for pod, w in
+                         out["spawns"]] + [
+            (r["wall"] - t_sub, f"{r['pod']} devices ready epoch "
+             f"{r['epoch']}") for r in rec["ready"]] + [
+            (max(st["wall"] for st in rec["steps"]) - t_sub, "last step"),
+            (out["t_succeeded"] - t_sub, "the CR's status Succeeded")])
+        print("kubelet timeline (s after the submit): " + "; ".join(
+            f"{t:.2f} {what}" for t, what in events), flush=True)
+        for pod, line in rec["phases"]:
+            print(f"kubelet {pod} world_phases {line}", flush=True)
+        ms = sorted(rec["save_ms"])
+        print(f"kubelet generations saved {len(ms)}, save ms median "
+              f"{ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}", flush=True)
+        for label, key in (("submit to world 1's first step",
+                            "submit_to_world1_s"),
+                           ("grow tick to world 2's first step",
+                            "grow_to_world2_s"),
+                           ("kill to the re-formed world's first step",
+                            "kill_to_world2_s"),
+                           ("coordinator kill to the next completed task",
+                            "coord_kill_to_task_s")):
+            print(f"kubelet {label} {out[key]:.3f} s on {card}", flush=True)
+        for world in (1, 2):
+            ms = sorted(st["ms"] for st in rec["steps"]
+                        if st["world"] == world and st["loss"] != 0)
+            print(f"kubelet world {world} step_ms n {len(ms)} median "
+                  f"{ms[len(ms) // 2]:.2f} min {ms[0]:.2f} max {ms[-1]:.2f} "
+                  f"(two pods share one card over gloo: not a scaling "
+                  f"figure) on {card}", flush=True)
+        want = n_layers if on_card else 0
+        bad = [st for st in rec["steps"] if st["launches"]
+               != [want if st["loss"] != 0 else 0] * 3]
+        if bad:
+            raise AssertionError(f"phase (y): launches {bad[:3]}")
+        print(f"kubelet losses {out['losses'][0]:.5f} -> "
+              f"{out['losses'][1]:.5f} over {len(rec['steps'])} step "
+              f"lines; CR deleted: {out['groups']} pod process groups "
+              f"gone", flush=True)
+        ft_out = ft.communicate(timeout=Y_TRAIN_FT_TIMEOUT_S)[0]
+        done = [ln for ln in ft_out.splitlines() if " done on " in ln]
+        if ft.returncode != 0 or not done:
+            raise AssertionError(f"phase (y): train_ft rc {ft.returncode}"
+                                 f" {ft_out[-800:]}")
+        print(f"kubelet train_ft: {done[0].strip()}", flush=True)
+    finally:
+        if ft.poll() is None:
+            ft.kill()
+            ft.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if on_card:
+        free_after = torch.cuda.mem_get_info(0)[0]
+        print(f"kubelet card memory free before {free_before / 2**30:.3f} "
+              f"GiB, after {free_after / 2**30:.3f} GiB on {card}",
+              flush=True)
+        if free_after < free_before - Y_MEM_SLACK_BYTES:
+            raise AssertionError("phase (y): the pods left memory on the "
+                                 "card")
+    wall = time.perf_counter() - t0
+    print(f"kubelet (y) wall {wall:.3f} s (the job {t_job:.3f} s) on "
+          f"{card}", flush=True)
+    total = {k: 0 for k in FLASH}
+    for st in rec["steps"]:
+        for k, c in zip(sorted(FLASH), st["launches"]):
+            total[k] += c
+    return total
+
+
+def stop_descendants() -> list[str]:
+    """Stop every process this one started that still runs, and return
+    the command lines of those other than multiprocessing's fork server
+    and resource tracker (those two end only when this process does, so
+    they are stopped here, before it exits, and waited for)."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    parent = {}
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                parent[int(pid)] = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError):
+            continue
+    left, frontier = [], [os.getpid()]
+    while frontier:
+        kids = [pid for pid, pp in parent.items() if pp == frontier[-1]]
+        frontier.pop()
+        left += kids
+        frontier += kids
+    cmds = []
+    for pid in left:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmds.append(f.read().replace(b"\0", b" ").decode().strip())
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            continue
+        if parent[pid] == os.getpid():
+            os.waitpid(pid, 0)
+    return cmds
+
+
 def goodput_summary(raw) -> dict:
     from edl_tpu_torch.observability.goodput import ScalingCurve
 
@@ -5517,6 +5813,10 @@ def main() -> int:
                                         card)["launches"]
     paths["flagship_sp"] = timed("w", phase_sp, card)
     paths["flagship_arbitrated"] = timed("x", phase_arbitrated, card)
+    paths["flagship_kubelet"] = timed("y", phase_kubelet, card)
+    left = stop_descendants()
+    print(f"processes left running at the end, now stopped: {left}",
+          flush=True)
     rounded = {k: round(v, 1) for k, v in seconds.items()}
     print(f"phase seconds {json.dumps(rounded)} "
           f"total {sum(seconds.values()):.1f} on {card}", flush=True)

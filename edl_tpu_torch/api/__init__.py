@@ -1,6 +1,6 @@
 """Resource model: the TrainingJob and ServingJob spec/status types, their
-validation and quantity arithmetic — the port's copy of what edl_tpu.api
-holds for them (serde waits for ROADMAP.md queue 1 item 11)."""
+validation and quantity arithmetic, and (``edl_tpu_torch.api.serde``) their
+manifests — the port's copy of edl_tpu.api."""
 
 from edl_tpu_torch.api.quantity import Quantity
 from edl_tpu_torch.api.validation import (

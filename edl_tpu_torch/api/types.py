@@ -11,8 +11,8 @@ The accelerator resource is ``nvidia.com/gpu`` (:data:`RESOURCE_GPU`), a
 count of cards a trainer replica claims (``gpu_limit``,
 ``gpus_per_trainer``).  The JAX package's TPU-only pieces — ``TpuTopology``
 and a trainer's ``topology`` — have no counterpart here: a job claims a
-count of cards and nothing reads a slice shape (ROADMAP.md, queue 1 item
-11).
+count of cards and nothing reads a slice shape, so the manifest serde
+rejects a ``topology`` by name (:mod:`edl_tpu_torch.api.serde`).
 
 :class:`ServingJob` and :class:`ServingSpec` are the serving job's copy:
 a replica claims ``nvidia.com/gpu`` cards (``gpus_per_replica``) where the

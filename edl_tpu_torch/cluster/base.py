@@ -7,9 +7,9 @@ actuation (`GetTrainerJob`/`UpdateTrainerJob`, cluster.go:91-113), and pod
 counting by job label (`JobPods`, cluster.go:117-136).
 
 Implementations: :class:`edl_tpu_torch.cluster.fake.FakeCluster` (in-memory,
-used by the tests and the local elastic job).  The JAX package's
-Kubernetes backend waits for the port's control plane (ROADMAP.md, queue 1
-item 11).
+used by the tests, the local elastic job and the process-backed kubelet)
+and :class:`edl_tpu_torch.cluster.k8s.K8sCluster` (a live cluster through
+the ``kubernetes`` package).
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@ port's copy of edl_tpu.coord.bindings, over the port's own copy of the C++
 sources (``edl_tpu_torch/coord/native/``).
 
 The core builds at first use through the directory's Makefile, with g++,
-into ``build/edl_tpu_torch/coord/<hash>/`` at the repository root (the
-Makefile's ``BUILD=`` variable), where the hash covers every file of the
+into ``build/edl_tpu_torch/coord/<hash>/`` at the repository root, or
+``$EDL_COMPILE_CACHE/edl_tpu_torch/coord/<hash>/`` (the Makefile's
+``BUILD=`` variable), where the hash covers every file of the
 native directory: an edited source rebuilds, an unchanged one is reused, and
 nothing is written into the source tree.  A failed build raises with the
 compiler's output; :func:`native_available` turns that into False for
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import os
 import subprocess
 import threading
 import time
@@ -31,8 +33,11 @@ from edl_tpu_torch.coord.service import (
 )
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
-BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build" / "edl_tpu_torch"
-              / "coord")
+#: under ``EDL_COMPILE_CACHE`` when it is set, as the kernels' build root
+#: (ops/_build.py)
+BUILD_ROOT = (Path(os.environ.get("EDL_COMPILE_CACHE")
+                   or Path(__file__).resolve().parents[2] / "build")
+              / "edl_tpu_torch" / "coord")
 
 
 def build_dir(native: Path = NATIVE_DIR) -> Path:

@@ -32,6 +32,12 @@ door that publishes its ready gate for the LB tier, and
 run on the CUDA device unless ``device`` says otherwise, with the kernels
 on.
 
+``kubelet_job_manifest`` writes the TrainingJob manifest of an elastic job
+of supervised multi-process workers, and ``kubelet_campaign`` runs one from
+its CR to Succeeded through the deployed control plane (the CR sync loop,
+the ``Controller``, a ``ProcessKubelet`` running its pods as processes),
+through a grow, a killed trainer pod and a killed coordinator pod.
+
 ``dryrun_multichip(n, device)`` is the twin of
 ``__graft_entry__.dryrun_multichip``: one sharded train step of TINY over n
 ranks (on the card unless ``device`` says otherwise), with the
@@ -1169,6 +1175,405 @@ def arbitrated_campaign(runner, plane: Optional[ControlPlane], fleet, rows,
         fleet_prewarm=dict(hits=fleet.prewarm_hits,
                            misses=fleet.prewarm_misses),
         fleet_job=uid_fleet, trainer_job=uid_train)
+    return out
+
+
+# -- the deployed control plane: a TrainingJob from its manifest -------------
+
+#: the worker command of a kubelet job's trainer pods (the launcher exports
+#: EDL_COORD_HOST/PORT and EDL_WORKER_NAME; EDL_TRAINER_MIN is the job's)
+KUBELET_ENTRY = ("python -m edl_tpu_torch.runtime.multihost_worker"
+                 " --coord $EDL_COORD_HOST:$EDL_COORD_PORT"
+                 " --name $EDL_WORKER_NAME --min-members $EDL_TRAINER_MIN")
+
+
+def kubelet_job_manifest(name: str, port: int, ckpt_dir: str,
+                         worker_args: str, env: dict) -> dict:
+    """The ``TrainingJob`` manifest a user submits for an elastic job of
+    supervised multi-process workers: fault tolerant, 1 to 2 trainers of
+    one card each, the coordinator on ``port``, each
+    trainer pod running ``KUBELET_ENTRY`` with its generations under
+    ``ckpt_dir`` and ``worker_args`` (model, depth, device, timeouts) after
+    it, and ``env`` the trainers' environment (the ``EDL_MH_*`` knobs)."""
+    return {
+        "apiVersion": "edl.tpu/v1",
+        "kind": "TrainingJob",
+        "metadata": {"name": name, "namespace": "default"},
+        "spec": {
+            "image": "edl-tpu-job:latest",
+            "fault_tolerant": True,
+            "port": port,
+            "passes": 1,
+            "trainer": {
+                "entrypoint": (f"{KUBELET_ENTRY} --ckpt-dir {ckpt_dir} "
+                               f"{worker_args}"),
+                "min_instance": 1,
+                "max_instance": 2,
+                "env": {k: str(v) for k, v in env.items()},
+                "resources": {"requests": {"cpu": "1", "memory": "1Gi"},
+                              "limits": {"cpu": "2", "memory": "8Gi",
+                                         "nvidia.com/gpu": "1"}},
+            },
+        },
+    }
+
+
+def _log_lines(paths) -> dict:
+    """Every line of each pod log, by pod name."""
+    out = {}
+    for path in paths:
+        with open(path, errors="replace") as f:
+            out[os.path.basename(path)[:-len(".log")]] = f.read().splitlines()
+    return out
+
+
+def log_field(line: str, key: str) -> str:
+    """The value of ``key=value`` in a log line."""
+    return line.split(f"{key}=", 1)[1].split()[0]
+
+
+def step_records(lines) -> list[dict]:
+    """Every ``step N world=W ms=.. wall=.. launches=a,b,c loss=..`` line
+    a supervised multi-process worker logged, parsed."""
+    return [dict(step=int(ln.split(" step ", 1)[1].split()[0]),
+                 world=int(log_field(ln, "world")),
+                 ms=float(log_field(ln, "ms")),
+                 wall=float(log_field(ln, "wall")),
+                 launches=[int(x) for x in
+                           log_field(ln, "launches").split(",")],
+                 loss=float(ln.rsplit("loss=", 1)[1]))
+            for ln in lines
+            if " step " in ln and " loss=" in ln and "world=" in ln]
+
+
+def kubelet_records(lines: dict) -> dict:
+    """The supervised workers' records in their pod logs: every
+    ``step``/``entering world``/``saved generation``/``done``/``devices
+    ready``/``world_phases`` line, and whether each supervisor initialised
+    CUDA, parsed."""
+    steps, entries, saved, done, cuda = [], [], {}, {}, {}
+    ready, phases, save_ms = [], [], []
+    for pod, text in lines.items():
+        steps += [dict(rec, pod=pod) for rec in step_records(text)]
+        for ln in text:
+            if "entering world epoch=" in ln:
+                entries.append(dict(
+                    pod=pod, epoch=int(log_field(ln, "epoch")),
+                    world=int(log_field(ln, "world")),
+                    digest=(log_field(ln, "digest") if "digest=" in ln
+                            else ""),
+                    step=int(ln.rsplit("step=", 1)[1])))
+            elif "saved generation " in ln:
+                gen = ln.split("saved generation ", 1)[1].split()[0]
+                saved[gen] = (int(log_field(ln, "step")),
+                              log_field(ln, "digest") if "digest=" in ln
+                              else "")
+                save_ms.append(float(log_field(ln, "ms")))
+            elif "] done at step " in ln:
+                done[pod] = int(ln.split("] done at step ", 1)[1].split()[0])
+            elif "] supervisor cuda initialized " in ln:
+                cuda[pod] = ln.rsplit(" ", 1)[1] == "True"
+            elif "] devices ready epoch=" in ln:
+                ready.append(dict(pod=pod,
+                                  epoch=int(log_field(ln, "epoch")),
+                                  wall=float(log_field(ln, "wall"))))
+            elif "] world_phases epoch=" in ln:
+                phases.append((pod, ln.split("] world_phases ", 1)[1]))
+    return dict(steps=steps, entries=entries, saved=saved, done=done,
+                supervisor_cuda=cuda, ready=ready, phases=phases,
+                save_ms=save_ms)
+
+
+def _gen_epoch(gen: str) -> int:
+    """``gen-E[.npz]`` or ``mid-E-S[.npz]`` → E."""
+    return int(gen.split(".")[0].split("-")[1])
+
+
+def _group_alive(pgid: int) -> bool:
+    """Whether any process of group ``pgid`` runs (a zombie does not)."""
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            return True
+    return False
+
+
+def kubelet_campaign(store, work_dir: str, manifest: dict, *,
+                     kubelet_env: dict, timeout_s: float = 420.0) -> dict:
+    """Run ``manifest`` (:func:`kubelet_job_manifest`) from its CR to
+    Succeeded through the port's deployed control plane, as real pod
+    processes on this machine, and check it on the way.
+
+    The cluster is a ``FakeCluster`` with one node of two
+    ``nvidia.com/gpu``; a ``Controller`` runs it with a ``ProcessKubelet``
+    (pod logs and volumes under ``work_dir``, ``kubelet_env`` over each
+    pod's environment) and a ``TrainingJobSyncLoop`` polls ``store`` (any
+    object with ``create_training_job_cr``, ``list_training_job_crs``,
+    ``get_training_job_cr``, ``patch_training_job_status`` and
+    ``delete_training_job_cr``).  Gates, each raising ``AssertionError``:
+
+    a. the sync loop adds the CR; the kubelet spawns a coordinator pod and
+       a trainer pod running the jobparser's ``edl_tpu_torch`` modules, and
+       no command or entry names the JAX package's;
+    b. a world of 1 forms and trains;
+    c. the autoscaler, started only then, grows the job to 2: a second pod
+       joins and a world of 2 forms;
+    d. a ``FaultPlanEngine`` ``KillTrainer`` through the kubelet SIGKILLs
+       one trainer pod's process group; the reaper reports it Failed, the
+       Job controller replaces it, and a world of 2 forms again, every
+       world starting bitwise from the newest generation saved before it
+       (its digest);
+    e. a ``KillCoordinator`` through the kubelet kills the coordinator pod,
+       which respawns on its per-job state file; the queue drains exactly
+       once;
+    f. the surviving workers end ``done`` (their supervisors never
+       initialised CUDA), their pods Succeeded (exit 0) and the CR's
+       recorded status ``Succeeded``;
+    g. every loss is finite and the loss falls from the first step to the
+       last;
+    h. deleting the CR tears the job down through the sync loop: no live
+       pod, no process of any pod's group left.
+
+    Returns the timings (wall seconds: submit → world 1's first step, the
+    grow tick → world 2's first step, the kill → the re-formed world's
+    first step, the coordinator kill → the next completed task), the
+    spawned commands, the per-step records (``launches`` by kernel), the
+    queue's stats and the ``cli`` status and list tables after (c) and at
+    the end."""
+    import random
+
+    from edl_tpu_torch.cli import format_job_list, format_status
+    from edl_tpu_torch.cluster.base import PodPhase
+    from edl_tpu_torch.cluster.exec_kubelet import ProcessKubelet
+    from edl_tpu_torch.cluster.fake import FakeCluster
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.controller.sync import TrainingJobSyncLoop
+    from edl_tpu_torch.coord.client import CoordClient, CoordError
+    from edl_tpu_torch.runtime.faults import (FaultContext, FaultPlan,
+                                              FaultPlanEngine,
+                                              KillCoordinator, KillTrainer)
+
+    name = manifest["metadata"]["name"]
+    ns = manifest["metadata"].get("namespace", "default")
+    port = int(manifest["spec"]["port"])
+    tasks = int(manifest["spec"]["trainer"]["env"]["EDL_MH_SHARDS"])
+    cluster = FakeCluster()
+    cluster.add_node("host0", cpu_milli=32_000, memory_mega=256_000, gpus=2)
+    controller = Controller(cluster, autoscaler_loop_seconds=0.3,
+                            updater_convert_seconds=0.3,
+                            updater_confirm_seconds=0.2)
+    kubelet = ProcessKubelet(cluster, work_dir, env_overrides=kubelet_env)
+    sync = TrainingJobSyncLoop(store, controller, poll_seconds=0.2)
+    deadline = time.monotonic() + timeout_s
+    out: dict = {"tasks": tasks}
+
+    def records() -> dict:
+        import glob
+
+        return kubelet_records(_log_lines(sorted(glob.glob(os.path.join(
+            work_dir, "logs", f"{name}-trainer-*.log")))))
+
+    def phase() -> str:
+        cr = store.get_training_job_cr(name, namespace=ns) or {}
+        return (cr.get("status") or {}).get("phase", "")
+
+    def wait(cond, what: str, poll_s: float = 0.1):
+        while time.monotonic() < deadline:
+            got = cond()
+            if got:
+                return got
+            time.sleep(poll_s)
+        tails = {pod: text[-6:] for pod, text in _log_lines(sorted(
+            os.path.join(work_dir, "logs", f) for f in os.listdir(
+                os.path.join(work_dir, "logs")))).items()}
+        raise AssertionError(f"never: {what}; phase {phase()!r}, live pods "
+                             f"{kubelet.live_pods()}, logs {tails}")
+
+    def stats():
+        try:
+            c = CoordClient("127.0.0.1", port, timeout=2.0,
+                            reconnect_window_s=1.0)
+            try:
+                return c.stats()
+            finally:
+                c.close()
+        except (OSError, CoordError):
+            return None
+
+    def spawned(role: str) -> list:
+        return [s.pod for s in kubelet.spawned if f"-{role}-" in s.pod]
+
+    coord_probe = None
+    try:
+        t_submit = time.time()
+        store.create_training_job_cr(manifest)
+        sync.start()
+        # (a) the CR added; the jobparser's commands spawned
+        wait(lambda: spawned("coordinator") and spawned("trainer"),
+             "a coordinator pod and a trainer pod spawned")
+        want = {"coordinator": ["-m", "edl_tpu_torch.coord.server"],
+                "trainer": ["-m", "edl_tpu_torch.runtime.launcher",
+                            "start_trainer"]}
+        for s in kubelet.spawned:
+            role = "trainer" if "-trainer-" in s.pod else "coordinator"
+            text = " ".join(s.command) + " " + s.entry
+            if s.command[1:] != want[role] or "edl_tpu." in text:
+                raise AssertionError(f"pod {s.pod} runs {s.command} "
+                                     f"{s.entry!r}")
+        out["commands"] = {role: " ".join(cmd) for role, cmd in want.items()}
+        out["entry"] = kubelet.spawned[-1].entry
+        # (b) world 1 trains
+        first1 = wait(lambda: [s for s in records()["steps"]
+                               if s["world"] == 1], "world 1's first step")
+        out["submit_to_world1_s"] = min(s["wall"] for s in first1) - t_submit
+        # (c) the autoscaler grows the job 1 -> 2
+        job = controller.jobs()[0]
+        controller.start()
+        wait(lambda: cluster.get_trainer_parallelism(job) == 2,
+             "the autoscaler grows the job to 2", poll_s=0.02)
+        t_grow = time.time()
+        first2 = wait(lambda: [s for s in records()["steps"]
+                               if s["world"] == 2 and s["wall"] > t_grow],
+                      "world 2's first step")
+        out["grow_to_world2_s"] = min(s["wall"] for s in first2) - t_grow
+        out["status_after_grow"] = (format_status(store, ns, name) + "\n"
+                                    + format_job_list(store))
+        # (d) KillTrainer through the kubelet
+        coord_probe = CoordClient("127.0.0.1", port, timeout=2.0)
+        ctx = FaultContext(cluster=cluster, job=job, kubelet=kubelet,
+                           coord=coord_probe, rng=random.Random(0))
+        engine = FaultPlanEngine(FaultPlan(actions=[
+            KillTrainer(at_time_s=0.0)], seed=0), ctx)
+        pods_before = set(spawned("trainer"))
+        t_kill = time.time()
+        engine.tick()
+        wait(lambda: (engine.tick(), "kill_trainer" in engine.recovered)[1],
+             "the killed trainer pod replaced (reaper, Job controller)")
+        victims = sorted(p.name for p in cluster.list_pods(
+            job_uid=job.full_name, role="trainer")
+            if p.phase == PodPhase.FAILED)
+        replacement = wait(lambda: sorted(set(spawned("trainer"))
+                                          - pods_before),
+                           "a replacement trainer pod spawned")
+        reformed = wait(lambda: [s for s in records()["steps"]
+                                 if s["world"] == 2 and s["wall"] > t_kill
+                                 and s["pod"] in replacement],
+                        "the replacement trains in a world of 2")
+        out["kill_to_world2_s"] = min(s["wall"] for s in reformed) - t_kill
+        out["victims"], out["replacement"] = victims, replacement
+        # (e) KillCoordinator through the kubelet
+        before = wait(lambda: (lambda s: s if s and s.done else None)(
+            stats()), "a completed task before the coordinator kill")
+        coords_before = set(spawned("coordinator"))
+        engine = FaultPlanEngine(FaultPlan(actions=[
+            KillCoordinator(at_time_s=0.0)], seed=0), ctx)
+        t_ckill = time.time()
+        engine.tick()
+        wait(lambda: (engine.tick(),
+                      "kill_coordinator" in engine.recovered)[1],
+             "the coordinator answers again")
+        respawned = sorted(set(spawned("coordinator")) - coords_before)
+        if not respawned:
+            raise AssertionError("the coordinator pod was not respawned")
+        after = wait(lambda: (lambda s: s if s and s.done > before.done
+                              else None)(stats()),
+                     "a task completed after the coordinator kill",
+                     poll_s=0.05)
+        out["coord_kill_to_task_s"] = time.time() - t_ckill
+        out["coord_done"] = (before.done, after.done)
+        out["coord_respawned"] = respawned
+        # (f) drained, Succeeded, recorded; the queue read while the
+        # coordinator lives (the job's success releases its pods)
+        seen = [after]
+
+        def succeeded() -> bool:
+            if phase() == "Succeeded":
+                return True
+            got = stats()
+            if got is not None:
+                seen.append(got)
+            return False
+
+        wait(succeeded, "the CR's status Succeeded", poll_s=0.2)
+        out["t_succeeded"] = time.time()
+        final = seen[-1]
+        rec = records()
+        out["stats"] = final
+        out["records"] = rec
+        # the trainer pods' states as the CR recorded them with Succeeded
+        pods = {n: st for rs in (store.get_training_job_cr(
+            name, namespace=ns)["status"]["replica_statuses"])
+            if rs["resource_type"] == "TRAINER"
+            for n, st in rs["resource_states"].items()}
+        out["pods"] = dict(sorted(pods.items()))
+        out["exit_codes"] = dict(sorted(kubelet.exit_codes.items()))
+        trained_twice = [pod for pod, text in _log_lines(
+            os.path.join(work_dir, "logs", f"{p}.log")
+            for p in spawned("trainer")).items()
+            if any("trained twice" in ln for ln in text)]
+        if (final is None or final.done != tasks or final.todo
+                or final.leased or final.dropped or trained_twice):
+            raise AssertionError(f"the queue of {tasks} tasks did not "
+                                 f"drain exactly once: {final}, "
+                                 f"{trained_twice}")
+        ended = sorted(set(spawned("trainer")) - set(victims))
+        if (sorted(rec["done"]) != ended
+                or any(rec["supervisor_cuda"].get(p) is not False
+                       for p in ended)
+                or any(pods.get(p) != "Succeeded"
+                       or kubelet.exit_codes.get(p) != 0 for p in ended)
+                or any(pods.get(p) != "Failed" for p in victims)):
+            raise AssertionError(f"pods {pods}, exits {kubelet.exit_codes}, "
+                                 f"workers done {rec['done']}, victims "
+                                 f"{victims}")
+        # every world starts bitwise from the newest generation before it
+        for e in rec["entries"]:
+            older = [pair for gen, pair in rec["saved"].items()
+                     if (gen.startswith("gen-")
+                         and _gen_epoch(gen) <= e["epoch"])
+                     or (gen.startswith("mid-")
+                         and _gen_epoch(gen) < e["epoch"])]
+            if (e["step"], e["digest"]) != max(older, default=None):
+                raise AssertionError(
+                    f"{e['pod']} entered world epoch {e['epoch']} at "
+                    f"{(e['step'], e['digest'])}, the newest generation "
+                    f"is {max(older, default=None)}")
+        worlds = sorted({(e["epoch"], e["world"]) for e in rec["entries"]})
+        sizes = [w for _, w in worlds]
+        if sizes[:1] != [1] or 2 not in sizes:
+            raise AssertionError(f"worlds {worlds}")
+        out["worlds"] = worlds
+        # (g) finite losses, falling
+        steps = sorted(rec["steps"], key=lambda s: s["wall"])
+        losses = [s["loss"] for s in steps if s["loss"] != 0]
+        if (not losses or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"losses {losses[:3]} .. {losses[-3:]}")
+        out["losses"] = (losses[0], losses[-1])
+        out["status_end"] = (format_status(store, ns, name) + "\n"
+                             + format_job_list(store))
+        out["t_submit"] = t_submit
+        out["spawns"] = [(s.pod, s.wall) for s in kubelet.spawned]
+        # (h) the CR deleted: the sync loop tears the job down
+        groups = [s.pid for s in kubelet.spawned]
+        store.delete_training_job_cr(name, namespace=ns)
+        wait(lambda: not controller.jobs() and not kubelet.live_pods(),
+             "the job torn down", poll_s=0.1)
+        wait(lambda: not any(_group_alive(g) for g in groups),
+             "every pod's process group gone", poll_s=0.1)
+        out["groups"] = len(groups)
+    finally:
+        if coord_probe is not None:
+            coord_probe.close()
+        sync.stop()
+        controller.stop()
+        kubelet.stop()
     return out
 
 

@@ -93,3 +93,16 @@ def params_to_numpy(module: nn.Module) -> dict:
                 node.append(None)
         node[last] = arr
     return tree
+
+
+def word2vec_from_numpy(tree: dict, device="cuda"):
+    """A :class:`~edl_tpu_torch.models.word2vec.Word2Vec` holding the JAX
+    package's word2vec params ``tree`` (``emb``, ``w_h``, ``b_h``, ``w_o``,
+    ``b_o``); the vocabulary, context, embedding and hidden sizes are read
+    off the leaves' shapes."""
+    from edl_tpu_torch.models.word2vec import Word2Vec
+
+    vocab, emb_dim = np.shape(tree["emb"])
+    flat, hidden = np.shape(tree["w_h"])
+    model = Word2Vec(vocab, flat // emb_dim, emb_dim, hidden, device=device)
+    return params_from_numpy(model, tree)

@@ -29,3 +29,12 @@ class StructuredLogger:
 
 def get_logger(name: str) -> StructuredLogger:
     return StructuredLogger(name)
+
+
+def setup(level: str = "info") -> None:
+    """The CLI's ``--log-level`` (role of the -log_level flag,
+    cmd/edl/edl.go:18)."""
+    logging.basicConfig(
+        level=getattr(logging, level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)-5s %(name)s %(message)s",
+    )

@@ -32,8 +32,8 @@ The consuming half:
   counters, trace instants, and flight records.
 
 :func:`render_fleet_dashboard` and :func:`render_calib_dashboard` are the
-one-screen text views the port's ``cli.py`` will print (ROADMAP.md,
-queue 1 item 11).
+one-screen text views ``python -m edl_tpu_torch.cli fleet`` and ``calib``
+print.
 """
 
 from __future__ import annotations

@@ -13,8 +13,7 @@ merges several dumps onto one wall-clock axis, and the loaders
 (:func:`load_trace_events`, :func:`build_span_forest`,
 :func:`render_trace_tree`, :func:`discover_trace_files`) read dumps and
 flight records back into one trace's stitched cross-process span tree.
-The ``edl-tpu trace`` command that prints it comes with the port's
-``cli.py`` (ROADMAP.md, queue 1 item 11).
+``python -m edl_tpu_torch.cli trace <id>`` prints it.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The build
 happens at first use, under ``build/edl_tpu_torch/<hash>/`` at the repository
-root, keyed by a hash of every file under ``csrc/`` and the compiler flags, so
+root (or under ``$EDL_COMPILE_CACHE/edl_tpu_torch/<hash>/``), keyed by a hash of every file under ``csrc/`` and the compiler flags, so
 an edited kernel or header is rebuilt and an unchanged one is reused.  All
 sources compile in parallel, one ``nvcc`` each.
 """
@@ -23,7 +23,12 @@ from pathlib import Path
 from typing import Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "edl_tpu_torch"
+#: ``EDL_COMPILE_CACHE`` moves the build root (the compiled trainer pod's
+#: compile-cache volume, controller/jobparser.py); unset, it is ``build/``
+#: at the repository root
+BUILD_ROOT = (Path(os.environ.get("EDL_COMPILE_CACHE")
+                   or Path(__file__).resolve().parents[2] / "build")
+              / "edl_tpu_torch")
 #: library name -> its one source file
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "group_norm": "group_norm.cu"}

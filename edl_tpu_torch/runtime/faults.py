@@ -239,9 +239,11 @@ class FaultContext:
 
     cluster: Any = None          # FakeCluster-compatible backend
     job: Any = None              # TrainingJob the campaign targets
-    #: a process-backed kubelet (real pod processes); the port's waits
-    #: for cluster/exec_kubelet.py (ROADMAP.md queue 1 item 11), so a
-    #: campaign on the fake cluster leaves it None
+    #: a process-backed kubelet running the pods as real processes
+    #: (:class:`~edl_tpu_torch.cluster.exec_kubelet.ProcessKubelet`):
+    #: KillTrainer and KillCoordinator then SIGKILL a pod's process group
+    #: and its reaper reports the exit; None on the fake cluster alone,
+    #: where a kill flips the fake pod
     kubelet: Any = None
     coord: Any = None            # CoordClient/service for recovery probes
     proxy: Optional[ChaosProxy] = None

@@ -66,7 +66,7 @@ def measure(tree: str, reqs: list, check, rates: list, seconds: float,
     try:
         (line, _), = cs.fd_wait_ready({"r0": log}, {"r0": proc}, t0,
                                       time.monotonic() + 300).values()
-        port = int(cs.mh_field(line, "port"))
+        port = int(cs.log_field(line, "port"))
         clients = [cs.LoadClient(port, reqs, check, seed=60 + i)
                    for i in range(2)]
         windows = [cs.run_window(clients, "capacity", job=JOB,

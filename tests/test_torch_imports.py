@@ -87,8 +87,20 @@ DATA_PLANE = ("edl_tpu_torch.runtime.frontdoor", "edl_tpu_torch.runtime.lb",
               "edl_tpu_torch.observability.tracing")
 
 
+#: the deployed control plane and the shipped example: manifests, job
+#: compilation, the CR sync loop, the Kubernetes backend, the process-backed
+#: kubelet, the pod launcher, the CLI, word2vec, the corpus and train_ft
+DEPLOYED = ("edl_tpu_torch.api.serde", "edl_tpu_torch.controller.jobparser",
+            "edl_tpu_torch.controller.sync", "edl_tpu_torch.cluster.k8s",
+            "edl_tpu_torch.cluster.exec_kubelet",
+            "edl_tpu_torch.runtime.launcher", "edl_tpu_torch.cli",
+            "edl_tpu_torch.models.word2vec", "edl_tpu_torch.runtime.corpus",
+            "edl_tpu_torch.examples", "edl_tpu_torch.examples.train_ft")
+
+
 @pytest.mark.parametrize("module",
-                         CONTROL_PLANE + MULTI_PROCESS + SERVING + DATA_PLANE)
+                         CONTROL_PLANE + MULTI_PROCESS + SERVING + DATA_PLANE
+                         + DEPLOYED)
 def test_the_control_plane_modules_are_covered(module):
     assert module in set(_port_modules())
 
@@ -173,6 +185,21 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):  # before binding
         flagship_frontdoor_replica(cfg=tfm.TINY)
+
+
+def test_deployed_entry_points_take_the_card(monkeypatch):
+    """word2vec and the shipped example default to the card, and refuse
+    the CPU when it is not asked for."""
+    from edl_tpu_torch.examples import train_ft
+    from edl_tpu_torch.models import word2vec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("EDL_COORD_HOST", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        word2vec.Word2Vec(16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_ft.main([])
+    assert word2vec.Word2Vec(16, device="cpu").emb.device.type == "cpu"
 
 
 def test_entry_on_the_cpu_builds_the_flagship():

@@ -8,9 +8,9 @@ with the reference's assertions on each, and the two packages' results
 marginals, or the loop's outcome) required equal; then 50 seeded random
 clusters through both packages' ``plan_cluster(objective="goodput")``.
 
-Left out: ``test_priority_threads_api_serde_crd``, which round-trips the
-priority through ``api/serde.py`` and the CRD schemas; it waits for the
-port's ``api/serde.py`` (ROADMAP.md queue 1 item 11, the k8s/CLI group).
+``test_priority_threads_api_serde_crd``, which round-trips the priority
+through ``api/serde.py`` and the CRD schemas, is in
+tests/test_torch_serde_cli.py with the port's serde.
 """
 
 import math

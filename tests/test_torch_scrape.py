@@ -497,17 +497,17 @@ class TestDiscovery:
         assert found[0].addr == "127.0.0.1:9999"
 
     def test_manifest_targets_from_jobparser_annotations(self, pkg):
-        """The reference's jobparser manifest (JAX-free; the port's
-        jobparser comes with the k8s/CLI group) read by each package's
-        discovery."""
-        from edl_tpu.controller.jobparser import parse_to_coordinator
+        """Each package's jobparser manifest read by its own discovery."""
+        from edl_tpu.controller import jobparser as jjobparser
+        from edl_tpu_torch.controller import jobparser as tjobparser
 
-        job = jtypes.TrainingJob(
-            name="j1", namespace="ns", spec=jtypes.TrainingJobSpec(
-                fault_tolerant=True, trainer=jtypes.TrainerSpec(
+        jobparser = tjobparser if pkg.t is ttypes else jjobparser
+        job = pkg.t.TrainingJob(
+            name="j1", namespace="ns", spec=pkg.t.TrainingJobSpec(
+                fault_tolerant=True, trainer=pkg.t.TrainerSpec(
                     min_instance=1, max_instance=2,
-                    resources=jtypes.ResourceRequirements())))
-        m = parse_to_coordinator(job)
+                    resources=pkg.t.ResourceRequirements())))
+        m = jobparser.parse_to_coordinator(job)
         targets = pkg.scrape.manifest_targets([m, {"kind": "Service"}],
                                               host="10.0.0.7")()
         assert len(targets) == 1
