@@ -36,8 +36,9 @@ Phases, each of which raises on failure:
     world of 2 (b 8), at a rank's heads on (m)'s tp 2 (b 16, h 4,
     hk 1), at (o)'s tp-2 micro-batch (b 2, h 4, hk 1), at a rank's
     heads of BERT-base on (r)'s tp 2 (b 32, s 512, h = hk = 6, d 64,
-    non-causal), and at (w)'s ring chunk (b 4, s 2 048, FLAGSHIP's heads,
-    full and causal), checked and timed as in (b);
+    non-causal), at (w)'s ring chunk (b 4, s 2 048, FLAGSHIP's heads,
+    full and causal), and at (aa)'s LLAMA3_8B shape (b 1, s 8 192, h 32,
+    hk 8, d 128, causal), checked and timed as in (b);
 (g) the ResNet-50 path: ``ElasticTrainer`` on RESNET50 at b 256 x 224²,
     adamw(3e-4), 1 warm-up and 5 timed steps, 53 launches of each GroupNorm
     kernel per step; the same steps from fresh weights with
@@ -393,13 +394,47 @@ Phases, each of which raises on failure:
     first step, the kill → the re-formed world's first step and the
     coordinator kill → the next completed task seconds, the ``cli``
     status and list tables after the grow and at the end, and (y)'s wall.
+(z) serving replicas wider than one card: FLAGSHIP's scoring forward
+    (``entry.score_last_token``, the flash forward) through
+    ``flagship_scoring_fleet(chips_per_replica=2)`` over the card named
+    ``WIDE_SLOTS`` times, each replica two rank processes forked from the
+    fork server (``entry.wide_replica_rank``) sharing the card over gloo,
+    the batch split between them, rank 0 broadcasting each batch from the
+    fleet's pipe.  ``WIDE_ROWS`` seeded rows held to a world-1
+    ``ElasticServer`` in this process by the kernels' rule; then Poisson
+    traffic at ``WIDE_SHARE`` of (u)'s C through ``hint(2)``,
+    ``scale_to(2)`` (four rank processes), ``rolling_reload`` onto
+    generation 2 (seed ``WIDE_GEN2_SEED``), a SIGKILL of one rank of the
+    first replica and ``scale_to(1)``.  Gates: every answer within (d)'s
+    rule of its row's plain logits on the generation it may come from; no
+    request lost but the killed replica's, each failing as
+    ``ReplicaRankDied`` within ``WIDE_FAIL_S``; the replica stopped, the
+    dead one pruned, no rank process left; each rank's flash forward
+    launches 8 a forward, no backward.  Then a heads-sharded FLAGSHIP
+    ``DecodeFleet(devices_per_replica=2)`` (two shards on the card) on
+    (i)'s traffic, token-equal to (i)'s one-device fleet, its
+    ``per_device_used_bytes`` and ``kv_reserved_bytes_per_device`` printed
+    and held to halves of the pool; and one decode step of 8 slots over
+    the split pool, logits equal to one device's, with the bytes that
+    cross to the other shard and both steps' device ms.
+(aa) LLAMA3_8B's width (d 4 096, 32/8 heads of 128, d_ff 14 336, vocab
+    32 000) at ``L8B_LAYERS`` layers (the cut: 32 → 4), remat and adamw
+    on: one world-1 ``ElasticTrainer`` through ``entry.flagship_trainer``,
+    one row of ``L8B_SEQ`` tokens, a warm-up and ``L8B_TIMED`` timed
+    steps.  Gates: the first loss finite and within 1 of ln 32 000 + 1
+    (``L8B_INIT_EXCESS``: random targets under the He-initialized lm_head);
+    the bytes of the parameters and of Adam's moments on the card, counted
+    from the tensors, ``models.planning.fsdp_memory_plan(cfg, 1)``'s to the
+    byte; each step launching the flash forward twice a layer (remat
+    recomputes it) and each backward kernel once.  Prints the step ms,
+    tokens/s and ``max_memory_allocated``.
 
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after ((s)'s and (y)'s world children and (v)'s replicas are fresh
-processes, each counting from 0).  Each kernel is held to the element-wise rule of
+after ((s)'s and (y)'s world children, (v)'s replicas and (z)'s rank
+processes are fresh processes, each counting from 0).  Each kernel is held to the element-wise rule of
 ``edl_tpu_torch/ops/kernel_check.py``; ``python -m
 edl_tpu_torch.ops.kernel_check`` shows that faults planted in the kernels
 fail it.
@@ -413,6 +448,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import io
 import itertools
@@ -705,6 +741,26 @@ Y_JOB = "flagship-kubelet"
 Y_TASKS, Y_STEP_SLEEP_S, Y_SETTLE_S = 18, 0.25, 4.0
 Y_TIMEOUT_S, Y_TRAIN_FT_TIMEOUT_S = 420, 300
 Y_MEM_SLACK_BYTES = 64 << 20
+#: phase (z): ranks a wide replica (each a rank process), the card named
+#: once a rank slot (two replicas of two), the rows held to a world-1
+#: replica, the pool of rows the traffic draws from, its share of (u)'s
+#: capacity C, generation 2's seed, the pause between the drill's steps,
+#: and the seconds a killed rank's requests may take to fail
+WIDE_CHIPS, WIDE_SLOTS = 2, 4
+WIDE_ROWS, WIDE_ROW_POOL, WIDE_SHARE = 32, 64, 0.5
+WIDE_GEN2_SEED, WIDE_SETTLE_S, WIDE_FAIL_S = 2, 1.0, 10.0
+#: phase (z): the seconds the survivor may take to serve out the traffic's
+#: backlog (two ranks on a shared card serve ~0.6 C; a slow host queues)
+WIDE_DRAIN_S = 300
+#: phase (aa): LLAMA3_8B's width at this many layers (its 32 cut for one
+#: card and the script's time), one row of this many tokens, timed steps
+L8B_LAYERS, L8B_SEQ, L8B_TIMED = 4, 8192, 3
+#: phase (aa): what the first loss exceeds ln(vocab) by at the init: the
+#: lm_head's He init (variance 2/d) on the final RMS norm's unit-RMS
+#: features gives each logit variance σ² = 2, and cross entropy on random
+#: targets ln(vocab) + σ²/2 (11.37 at vocab 32 000; the reference's init
+#: is the same).  The gate holds the first loss within 1 of that
+L8B_INIT_EXCESS = 1.0
 
 KERNELS = {
     "flash_fwd": dict(source="edl_tpu_torch/csrc/flash_fwd.cu",
@@ -1461,7 +1517,7 @@ def phase_serving() -> dict:
           flush=True)
     if any(launches.values()):
         raise AssertionError(f"phase (i) launched {launches}")
-    return launches
+    return dict(launches=launches, single=single["tokens"])
 
 
 # -- phase (j): the multi-rank trainer ---------------------------------------
@@ -5699,6 +5755,380 @@ def phase_kubelet(card: str, config: str = "flagship",
     return total
 
 
+# -- phase (z): serving replicas wider than one card --------------------------
+
+
+def wide_reference(model, rows: np.ndarray, dev) -> torch.Tensor:
+    """(z): the plain attention path's last-token logits of ``rows`` on
+    ``model`` (its flash flag off for the call), eight rows a forward."""
+    flash = model.cfg
+    model.cfg = dataclasses.replace(flash, use_flash=False)
+    try:
+        with torch.no_grad():
+            return torch.cat([score_last_token(model, (torch.from_numpy(
+                rows[i:i + SCORE_BATCH]).to(dev),))
+                for i in range(0, len(rows), SCORE_BATCH)])
+    finally:
+        model.cfg = flash
+
+
+def wide_counts(servers: list) -> list:
+    """(z): each rank's launch counts of the wide replicas that stopped
+    cleanly (a killed replica's ranks are gone with theirs)."""
+    return [c for srv in servers for c in (srv.final_counts or [])]
+
+
+def wide_decode_step(cfg, model, dev) -> dict:
+    """(z): one decode step of 8 slots with 512 cached tokens a slot of
+    seeded random K/V, over a pool split by heads on [card, card], against
+    the same step on one device: logits bitwise equal, the bytes that
+    cross to the other shard, and each step's device ms (on the card)."""
+    params = llama.as_decode_params(model, dev)
+    slots, cached = DECODE_DEFAULTS["slots"], 512
+    maxb = DECODE_DEFAULTS["max_blocks_per_session"]
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, slots)
+    pos, live = np.full(slots, cached), np.ones(slots, bool)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    content = {name: torch.randn(
+        (cfg.n_layers, slots * maxb, DECODE_DEFAULTS["kv_block_size"],
+         cfg.n_kv_heads, cfg.head_dim), generator=gen, device=dev
+    ).to(cfg.dtype) for name in ("k", "v")}
+    got = {}
+    for label, devices in (("one device", None), ("heads split", [dev] * 2)):
+        pool = KVBlockPool(cfg, slots * maxb, DECODE_DEFAULTS["kv_block_size"],
+                           maxb, job=f"smoke/wide-step-{len(devices or [1])}",
+                           device=dev, devices=devices)
+        llama.write_blocks(pool.cache, range(slots * maxb), content)
+        for i in range(slots):
+            pool.ensure_capacity(i, cached + 1)
+        tables = np.stack([pool.block_table(i) for i in range(slots)])
+
+        def step():
+            return llama.decode_step(params, pool.cache, toks, pos, tables,
+                                     live)
+
+        step()
+        before = getattr(pool.cache, "cross_bytes", 0)
+        logits, _ = step()  # the step rewrites its own cells: repeatable
+        moved = getattr(pool.cache, "cross_bytes", 0) - before
+        ms = (float(np.median([cuda_ms(step, 1, SERVE_SLEEP_CYCLES)
+                               for _ in range(SERVE_TIMED_REPS)]))
+              if dev.type == "cuda" else None)
+        got[label] = dict(logits=logits, moved=moved, ms=ms,
+                          reserved=pool.reserved_bytes_per_device())
+        print(f"wide decode_step {label}: {slots} slots x {cached} cached, "
+              f"device_ms {ms} bytes crossing to the other shard {moved} "
+              f"reserved bytes a device {got[label]['reserved']}",
+              flush=True)
+    if not torch.equal(got["one device"]["logits"],
+                       got["heads split"]["logits"]):
+        raise AssertionError("phase (z): the heads-split decode step's "
+                             "logits differ from one device's")
+    return got
+
+
+def phase_wide(card: str, capacity: float, single_tokens=None,
+               cfg: tfm.TransformerConfig = tfm.FLAGSHIP,
+               device: str = "cuda", seq: int = S) -> dict:
+    """(z): FLAGSHIP scored through ``ServingFleet(chips_per_replica=2)``,
+    each replica two rank processes sharing the card over gloo, and a
+    heads-sharded ``DecodeFleet(devices_per_replica=2)``.  ``capacity`` is
+    (u)'s one-replica C from this run, ``single_tokens`` (i)'s one-device
+    fleet's tokens (run again when None).  ``cfg``, ``device`` and ``seq``
+    let the phase be rehearsed on the CPU at TINY.  Returns the kernels'
+    launches on the phase's paths."""
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    zero_launch_counts()
+    pool_rows = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (WIDE_ROW_POOL, seq), dtype=np.int64)
+    gen1 = tfm.Transformer(cfg, device=dev, seed=0)
+    gen2 = tfm.Transformer(cfg, device=dev, seed=WIDE_GEN2_SEED)
+    refs = {g: wide_reference(m, pool_rows, dev)
+            for g, m in ((1, gen1), (2, gen2))}
+    fleet = flagship_scoring_fleet(
+        device=device, params=gen1, seq=seq, job="smoke/wide",
+        max_batch_size=SCORE_BATCH, max_queue_ms=SCORE_QUEUE_MS,
+        chips_per_replica=WIDE_CHIPS, devices=[dev] * WIDE_SLOTS)
+    servers, marks = [], {}
+    try:
+        t0 = time.perf_counter()
+        fleet.scale_to(1)
+        marks["build_s"] = time.perf_counter() - t0
+        first = fleet.replicas()[0]
+        servers.append(first.server)
+        # the world-1 replica: the same weights, the same kernels, in this
+        # process, on the same rows
+        one = serving.ElasticServer(score_last_token, copy.deepcopy(gen1),
+                                    devices=[dev])
+        rows = pool_rows[:WIDE_ROWS]
+        with torch.inference_mode():
+            world1 = torch.cat([one.serve((rows[i:i + SCORE_BATCH],))
+                                for i in range(0, WIDE_ROWS, SCORE_BATCH)])
+        del one
+        reqs = [fleet.submit((r,)) for r in rows]
+        wide = torch.from_numpy(np.stack([np.asarray(q.wait(120))
+                                          for q in reqs])).to(dev)
+        rms = world1.float().square().mean().sqrt().item()
+        held = kc.reading(wide, world1, kc.BF16_RTOL, kc.BF16_ATOL * rms)
+        print(f"wide answers: {WIDE_ROWS} rows of a replica of "
+              f"{WIDE_CHIPS} ranks vs a world-1 replica's: max |diff| "
+              f"{held['max_abs_err']:.4e}, {held['worst']:.3f} of the "
+              f"kernels' rule (floor needed {held['need_atol']:.4f} rms); "
+              f"built in {marks['build_s']:.1f} s", flush=True)
+        if not held["worst"] <= 1.0:
+            raise AssertionError("phase (z): the wide replica's answers "
+                                 "off the world-1 replica's")
+
+        # Poisson traffic at WIDE_SHARE C through hint, scale_to(2), a
+        # rolling reload, a killed rank and scale_to(1)
+        qps = WIDE_SHARE * capacity
+        traffic = serving.PoissonTraffic(
+            fleet, lambda i: (pool_rows[i % WIDE_ROW_POOL],), qps=qps,
+            seed=29)
+        stop = threading.Event()
+
+        def drive():
+            while not stop.is_set():
+                traffic.run(0.5)
+
+        feeder = threading.Thread(target=drive, daemon=True)
+        feeder.start()
+        t0 = time.perf_counter()
+        fleet.hint(2)
+        fleet._hinted[0].wait_ready(600)
+        marks["hint_ready_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet.scale_to(2)
+        marks["scale_up_s"] = time.perf_counter() - t0
+        servers += [r.server for r in fleet.replicas() if r is not first]
+        time.sleep(WIDE_SETTLE_S)
+        marks["reload0"] = time.perf_counter()
+        swapped = fleet.rolling_reload(gen2, 2)
+        marks["reload1"] = time.perf_counter()
+        time.sleep(WIDE_SETTLE_S)
+        victim = first.server.procs[1]
+        marks["kill"] = time.perf_counter()
+        os.kill(victim.pid, signal.SIGKILL)
+        deadline = time.monotonic() + WIDE_FAIL_S
+        while first.state != serving.STOPPED \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        marks["dead_s"] = time.perf_counter() - marks["kill"]
+        t0 = time.perf_counter()
+        after_kill = fleet.scale_to(1)
+        marks["scale_down_s"] = time.perf_counter() - t0
+        time.sleep(WIDE_SETTLE_S)
+        stop.set()
+        feeder.join(60)
+        tally = traffic.await_all(timeout_s=WIDE_DRAIN_S)
+        survivor = fleet.replicas()
+    finally:
+        fleet.stop()
+    dropped = [q for q in traffic.sent if q.error is not None]
+    typed = [q for q in dropped if isinstance(q.error,
+                                              serving.ReplicaRankDied)]
+    late = [q.t_done - marks["kill"] for q in typed]
+    wrong, served = [], []
+    for i, q in enumerate(traffic.sent):
+        if q.error is not None:
+            continue
+        served.append(q)
+        i %= WIDE_ROW_POOL
+        gens = ((1,) if q.t_enqueue < marks["reload0"] else (2,)
+                if q.t_enqueue > marks["reload1"] else (1, 2))
+        got = torch.from_numpy(np.asarray(q.result))[None].to(dev)
+        ok = False
+        for g in gens:
+            ref = refs[g][i:i + 1]
+            r = kc.reading(got, ref, kc.BF16_RTOL,
+                           MODEL_ATOL * refs[g].float().square().mean()
+                           .sqrt().item())
+            ok = ok or r["worst"] <= 1.0
+        if not ok:
+            wrong.append(q.id)
+    lat = 1e3 * np.array([q.latency_s for q in served])
+    print(f"wide traffic at {WIDE_SHARE} C ({qps:.1f} rows/s): sent "
+          f"{tally['sent']} served {tally['served']} dropped "
+          f"{tally['dropped']} ({len(typed)} ReplicaRankDied, failed "
+          f"{max(late, default=0):.3f} s after the kill at most) errors "
+          f"{tally['errors']} timeouts {tally['timeouts']} wrong payloads "
+          f"{len(wrong)}; p50_ms {np.percentile(lat, 50):.1f} p99_ms "
+          f"{np.percentile(lat, 99):.1f}; hint ready "
+          f"{marks['hint_ready_s']:.1f} s, scale_to(2) "
+          f"{marks['scale_up_s']:.2f} s (prewarm hits {fleet.prewarm_hits}),"
+          f" rolling reload of {swapped} replicas "
+          f"{marks['reload1'] - marks['reload0']:.2f} s, killed rank's "
+          f"replica stopped in {marks['dead_s']:.3f} s, scale_to(1) "
+          f"{marks['scale_down_s']:.2f} s -> {after_kill} replica "
+          f"({[r.name for r in survivor]}); rank processes left alive "
+          f"{[p.pid for srv in servers for p in srv.procs if p.is_alive()]}",
+          flush=True)
+
+    counts = wide_counts(servers)
+    in_process = dict(fa.launches)
+    launches = {name: in_process[name] + sum(c["flash"][name]
+                                            for c in counts)
+                for name in FLASH}
+    print(f"wide launches: in this process {in_process}; by rank "
+          f"{[(c['forwards'], c['flash']) for c in counts]}", flush=True)
+
+    # the heads-sharded decode fleet on (i)'s traffic
+    decode_traffic = serving_traffic(cfg)
+    if single_tokens is None:
+        single_tokens = serve("1 replica (z)", flagship_decode_fleet(
+            device=device, cfg=cfg, job="smoke/wide-single"),
+            decode_traffic)["tokens"]
+    dfleet = flagship_decode_fleet(device=device, cfg=cfg,
+                                   job="smoke/wide-decode",
+                                   devices_per_replica=WIDE_CHIPS)
+    try:
+        pool = dfleet._replicas[0].pool
+        t0 = time.perf_counter()
+        sessions = [dfleet.submit(p, SERVE_NEW_TOKENS, priority=pri)
+                    for p, pri in decode_traffic]
+        for sess in sessions:
+            sess.wait_first_token(300)
+        per_device = pool.per_device_used_bytes()
+        reserved = dfleet.kv_reserved_bytes_per_device()
+        tokens = [sess.wait(300) for sess in sessions]
+        wall = time.perf_counter() - t0
+        failed, chips = dfleet.sessions_failed, dfleet.chips()
+    finally:
+        dfleet.stop()
+    differ = [i for i, (a, b) in enumerate(zip(tokens, single_tokens))
+              if a != b]
+    n_tok = sum(len(t) for t in tokens)
+    print(f"wide decode: FLAGSHIP pool split by {pool.shard_axis} over "
+          f"{len(pool.devices)} shards of {card}; {len(tokens)} sessions "
+          f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s); "
+          f"{len(tokens) - len(differ)} token-equal to the one-device "
+          f"fleet's (differ: {differ}); failed {failed}; chips {chips}; "
+          f"per_device_used_bytes at every first token {per_device}; "
+          f"kv_reserved_bytes_per_device {reserved} of "
+          f"{pool.total_bytes()}", flush=True)
+    step = wide_decode_step(cfg, gen1, dev)
+
+    failures = []
+    if wrong:
+        failures.append(f"{len(wrong)} wrong payloads: {wrong[:8]}")
+    if tally["errors"] or tally["timeouts"] or len(typed) != len(dropped):
+        failures.append(f"lost beyond the killed replica's: {tally}, "
+                        f"{len(typed)} typed of {len(dropped)}")
+    if late and max(late) > WIDE_FAIL_S:
+        failures.append(f"the killed replica's requests failed "
+                        f"{max(late):.1f} s after the kill")
+    if first.state != serving.STOPPED or after_kill != 1 or swapped != 2 \
+            or fleet.prewarm_hits < 1:
+        failures.append(f"drill: replica {first.state}, scale_to(1) "
+                        f"{after_kill}, swapped {swapped}, prewarm hits "
+                        f"{fleet.prewarm_hits}")
+    if any(p.is_alive() for srv in servers for p in srv.procs):
+        failures.append("a rank process outlived the fleet")
+    bad = [c for c in counts
+           if c["flash"]["flash_fwd"] != (cfg.n_layers * c["forwards"]
+                                          if on_card else 0)
+           or c["flash"]["flash_bwd_dq"] or c["flash"]["flash_bwd_dkv"]]
+    if bad or not counts:
+        failures.append(f"rank launches {bad or counts}")
+    if differ or failed or pool.shard_axis != "heads" \
+            or chips != WIDE_CHIPS:
+        failures.append(f"decode: sessions {differ} differ, {failed} "
+                        f"failed, axis {pool.shard_axis}, chips {chips}")
+    if reserved != pool.total_bytes() // WIDE_CHIPS \
+            or len(set(per_device.values())) != 1 \
+            or not sum(per_device.values()):
+        failures.append(f"decode accounting: reserved {reserved}, per "
+                        f"device {per_device}")
+    if failures:
+        raise AssertionError("phase (z): " + "; ".join(failures))
+    return dict(launches=launches, cross_bytes=step["heads split"]["moved"])
+
+
+# -- phase (aa): LLAMA3_8B's width on one card ----------------------------------
+
+
+def phase_llama8b(device: str = "cuda", seq: int = L8B_SEQ,
+                  cfg: Optional[tfm.TransformerConfig] = None) -> dict:
+    """(aa): one world-1 trainer of LLAMA3_8B's width at ``L8B_LAYERS``
+    layers, remat and adamw on, one row of ``seq`` tokens: a warm-up and
+    ``L8B_TIMED`` timed steps.  Gates: the first loss finite and within 1
+    of ln(vocab) + ``L8B_INIT_EXCESS``, the loss of random targets at the
+    init; the bytes of the parameters and Adam's moments on the
+    card, counted from the tensors, the memory plan's to the byte; each
+    step launching each flash kernel as remat runs it (the forward twice a
+    layer: once in the forward, once recomputed in the backward)."""
+    from edl_tpu_torch.models import planning
+
+    if cfg is None:
+        cfg = dataclasses.replace(tfm.LLAMA3_8B, n_layers=L8B_LAYERS)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer, batch = flagship_trainer(1, seq, device=device, cfg=cfg)
+    build_s = time.perf_counter() - t0
+    n = cfg.n_layers
+    want = ({"flash_fwd": 2 * n if cfg.remat else n, "flash_bwd_dq": n,
+             "flash_bwd_dkv": n} if on_card
+            else dict.fromkeys(FLASH, 0))
+    losses, step_s = [], []
+    for i in range(1 + L8B_TIMED):
+        before = dict(fa.launches)
+        t = time.perf_counter()
+        losses.append(trainer.step(batch))
+        step_s.append(time.perf_counter() - t)
+        grown = {k: fa.launches[k] - before[k] for k in FLASH}
+        if grown != want:
+            raise AssertionError(f"phase (aa) step {i}: launches {grown}, "
+                                 f"want {want}")
+    launches = dict(fa.launches)
+    opt = trainer.state.opt_state.state
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in trainer.shards.values())
+    moment_bytes = sum(v.numel() * v.element_size()
+                       for t in trainer.shards.values()
+                       for v in opt[t].values() if v.dim())
+    plan = planning.fsdp_memory_plan(cfg, 1)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    timed = step_s[1:]
+    tokens = seq
+    print(f"llama3_8b width x {n} layers (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, remat {cfg.remat_policy if cfg.remat else 'off'}"
+          f"): built in {build_s:.1f} s; losses {[round(x, 4) for x in losses]}"
+          f" (ln vocab {math.log(cfg.vocab_size):.4f}, the first "
+          f"{losses[0] - math.log(cfg.vocab_size):.4f} above it); step_ms "
+          f"{[round(1e3 * x, 2) for x in step_s]} median "
+          f"{1e3 * float(np.median(timed)):.2f} tokens_per_second "
+          f"{tokens / float(np.median(timed)):.1f}; params {param_bytes} and "
+          f"moments {moment_bytes} bytes on the card, the plan's "
+          f"{plan.param_bytes_per_device} and {plan.opt_bytes_per_device} "
+          f"({plan.state_gb_per_device:.3f} GB); max_memory_allocated "
+          f"{peak}; launches {launches}", flush=True)
+    failures = []
+    if not (math.isfinite(losses[0])
+            and abs(losses[0] - math.log(cfg.vocab_size)
+                    - L8B_INIT_EXCESS) < 1.0):
+        failures.append(f"first loss {losses[0]}")
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"losses {losses}")
+    if (param_bytes, moment_bytes) != (plan.param_bytes_per_device,
+                                       plan.opt_bytes_per_device):
+        failures.append(f"bytes {param_bytes} + {moment_bytes} against the "
+                        f"plan's {plan.param_bytes_per_device} + "
+                        f"{plan.opt_bytes_per_device}")
+    if failures:
+        raise AssertionError("phase (aa): " + "; ".join(failures))
+    del trainer, batch
+    return launches
+
+
 def stop_descendants() -> list[str]:
     """Stop every process this one started that still runs, and return
     the command lines of those other than multiprocessing's fork server
@@ -5785,12 +6215,15 @@ def main() -> int:
             ("bert_tp", (BERT_B, BERT_S, BERT_H // WORLD_RANKS,
                          BERT_H // WORLD_RANKS, BERT_D, (False,))),
             ("flagship_sp", (SP_B, SP_S // WORLD_RANKS, H, HK, D,
-                             (False, True))))}
+                             (False, True))),
+            ("llama3_8b", (1, L8B_SEQ, tfm.LLAMA3_8B.n_heads,
+                           tfm.LLAMA3_8B.n_kv_heads,
+                           tfm.LLAMA3_8B.head_dim, (True,))))}
 
     extra = timed("f", more_flash)
     paths["resnet50"] = timed("g", phase_resnet, sum(sites.values()))
     paths["bert_base"] = timed("h", phase_bert)
-    timed("i", phase_serving)
+    decode = timed("i", phase_serving)
     paths["flagship_world"] = timed("j", phase_world, card)
     virtual = timed("k", phase_virtual, card)
     paths["flagship_virtual"] = virtual["launches"]
@@ -5807,13 +6240,17 @@ def main() -> int:
     paths["bert_tp"] = timed("r", phase_bert_tp, card)
     paths["flagship_multihost"] = timed("s", phase_multihost, card)
     paths["flagship_controlled"] = timed("t", phase_controlled, card)
-    paths["flagship_scoring"] = timed("u", phase_serving_plane,
-                                      card)["launches"]
+    scoring = timed("u", phase_serving_plane, card)
+    paths["flagship_scoring"] = scoring["launches"]
     paths["flagship_frontdoor"] = timed("v", phase_data_plane,
                                         card)["launches"]
     paths["flagship_sp"] = timed("w", phase_sp, card)
     paths["flagship_arbitrated"] = timed("x", phase_arbitrated, card)
     paths["flagship_kubelet"] = timed("y", phase_kubelet, card)
+    paths["flagship_wide"] = timed("z", phase_wide, card,
+                                   scoring["capacity"],
+                                   decode["single"])["launches"]
+    paths["llama3_8b"] = timed("aa", phase_llama8b)
     left = stop_descendants()
     print(f"processes left running at the end, now stopped: {left}",
           flush=True)

@@ -24,7 +24,8 @@ runs it under a seeded campaign of the training fault kinds.
 FLAGSHIP token by token, from seed-0 weights or the ones it is given, and
 ``flagship_scoring_fleet(device)`` the single-shot ``ServingFleet`` whose
 requests are rows of tokens and whose answers are FLAGSHIP's next-token
-logits.  ``flagship_frontdoor_replica(device)`` is one replica of the
+logits (``chips_per_replica=n`` makes each replica n rank processes, each
+running ``wide_replica_rank``).  ``flagship_frontdoor_replica(device)`` is one replica of the
 serving data plane: the same scoring forward behind a ``BatchApp`` front
 door that publishes its ready gate for the LB tier, and
 ``spawn_flagship_frontdoor_replica`` runs it as a process of its own
@@ -190,6 +191,40 @@ def _join_world(rank: int, world: int, store_path, device,
                                 store=dist.FileStore(str(store_path), world),
                                 rank=rank, world_size=world)
     return dev
+
+
+def wide_replica_rank(rank: int, devices: list, store_path, conn,
+                      apply_fn, skeleton: bytes, example_batch: tuple,
+                      shm_in: str) -> None:
+    """One rank process of a serving replica ``len(devices)`` devices wide
+    (``ServingFleet(chips_per_replica=n)``, through
+    ``serving.RankGroupServer``): join the replica's own process group
+    through a ``FileStore`` at ``store_path`` on ``devices[rank]`` — gloo
+    when the ranks share a device (one card, or the CPU), as
+    :func:`_join_world` chooses, NCCL across cards — and serve until the
+    fleet stops the replica (``serving.serve_ranks``; ``conn`` is rank 0's
+    pipe to the fleet, None on the others, and ``shm_in`` the shared
+    memory block the fleet puts each batch in)."""
+    from datetime import timedelta
+
+    from edl_tpu_torch.runtime import serving
+
+    devs = [torch.device(d) for d in devices]
+    dev = devs[rank]
+    shared = dev.type != "cuda" or len(set(devs)) < len(devs)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo" if shared else "nccl",
+        store=dist.FileStore(str(store_path), len(devs)), rank=rank,
+        world_size=len(devs),
+        timeout=timedelta(seconds=serving.WIDE_GROUP_TIMEOUT_S))
+    try:
+        serving.serve_ranks(rank, dev, conn, apply_fn, skeleton,
+                            example_batch, shm_in,
+                            torch.device("cpu") if shared else dev)
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_processes():

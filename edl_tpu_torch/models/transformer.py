@@ -137,13 +137,16 @@ class Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The decoder's parameters (fp32), initialized from ``seed`` with a
-    ``torch.Generator`` on ``device``; ``forward`` is :func:`apply`."""
+    ``torch.Generator`` on ``device``; ``forward`` is :func:`apply`.  On
+    the ``meta`` device the parameters have shapes and no storage (what a
+    memory plan reads)."""
 
     def __init__(self, cfg: TransformerConfig, device="cuda",
                  seed: int = 0) -> None:
         super().__init__()
         dev = resolve(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         self.cfg = cfg
         self.embed = nn.Parameter(
             torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,

@@ -20,8 +20,22 @@ of blocks, so any free block serves any session.
   :meth:`KVBlockPool.import_session` go through the host (``path="host"``)
   and convert between storage modes.
 
-A pool lives on one ``torch.device``: the JAX package's heads- or
-pages-sharded pool over several devices is not ported.
+A pool over several devices (``devices=``) splits its blocks by kv heads,
+by pages or not at all, by the JAX package's rule
+(:func:`edl_tpu_torch.models.llama.shard_axis`), and holds one shard a
+device as tensors of their own (:class:`~edl_tpu_torch.models.llama.
+ShardedCache`).  The pool stays one object in one process over its list of
+devices, as the JAX package's pool is a single controller: its allocator,
+refcounts and prefix cache are the state of one lock, where a pool of one
+process a device would make every allocation a collective.  The serving
+fleets already drive several cards from one process.  On one card,
+``devices=[cuda:0, cuda:0]`` gives two shards on that card: that proves
+the split, not added capacity.
+:meth:`KVBlockPool.reserved_bytes_per_device` and
+:meth:`KVBlockPool.per_device_used_bytes` count what each shard's tensors
+hold: a replicated pool holds the whole pool on every device (the JAX
+package divides it by the device count for every axis but pages, which
+under-reports a replicated pool and an int8 heads pool's whole scales).
 
 Scrape names: ``edl_serving_kv_blocks_used`` / ``_total`` / ``_cached``
 (gauges, labeled ``job=``/``replica=``),
@@ -76,34 +90,64 @@ def plan_move(arrays: dict, dst_device) -> TransferPlan:
     one-device move — ``bytes_stay`` when source and destination are one
     device, else ``bytes_dcn`` (the source device is not on the
     destination's mesh)."""
-    total = stay = dcn = 0
-    for t in arrays.values():
+    return _plan([(t, dst_device) for t in arrays.values()], [dst_device],
+                 sum(t.numel() * t.element_size() for t in arrays.values()))
+
+
+def _plan(moves, dst_devices, total: int) -> TransferPlan:
+    """The accounting of ``moves`` ((tensor, destination device) pairs)
+    onto a pool over ``dst_devices``: a piece already on its destination
+    stays; one fetched from another device of the pool is a device-to-device
+    hop (``bytes_ici``); one whose source is not on the pool is
+    ``bytes_dcn``.  ``bytes_total`` is the payload's own bytes (a piece
+    placed on several devices is counted once in it)."""
+    stay = ici = dcn = 0
+    for t, dst in moves:
         nbytes = t.numel() * t.element_size()
-        total += nbytes
-        if llama.same_device(t.device, dst_device):
+        if llama.same_device(t.device, dst):
             stay += nbytes
+        elif any(llama.same_device(t.device, d) for d in dst_devices):
+            ici += nbytes
         else:
             dcn += nbytes
-    return TransferPlan(total, stay, 0, dcn)
+    return TransferPlan(total, stay, ici, dcn)
 
 
 class KVDevicePayload:
     """A D2D migration in flight: one session's blocked cache tensors,
     already gathered off the source pool (new tensors: the source may free
-    or decode at once), with the :class:`TransferPlan` of the move."""
+    or decode at once), with the :class:`TransferPlan` of the move.
+    ``parts`` is one dict of whole blocks, or one a shard of a heads-split
+    pool (its kv heads, on its device); ``placed`` is what a destination
+    pool put on each of its devices (:meth:`KVBlockPool.
+    reserve_import_device`)."""
 
-    __slots__ = ("arrays", "length", "quantize", "plan")
+    __slots__ = ("parts", "placed", "length", "quantize", "plan")
 
-    def __init__(self, arrays: dict, length: int, quantize: Optional[str],
+    def __init__(self, arrays, length: int, quantize: Optional[str],
                  plan: Optional[TransferPlan] = None) -> None:
-        self.arrays = arrays
+        self.parts = list(arrays) if isinstance(arrays, list) else [arrays]
+        self.placed = None
         self.length = int(length)
         self.quantize = quantize
         self.plan = plan
 
     @property
+    def arrays(self) -> dict:
+        """The payload as whole blocks (a heads split joined)."""
+        return llama.join_heads(self.parts)
+
+    @property
+    def shape(self) -> tuple:
+        """``[L, n, bs, kv, hd]`` of the whole K payload."""
+        k = self.parts[0]["k"].shape
+        return (k[0], k[1], k[2], sum(p["k"].shape[3] for p in self.parts),
+                k[4])
+
+    @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.arrays.values())
+        return sum(t.numel() * t.element_size()
+                   for p in self.parts for t in p.values())
 
 
 def payload_to_host(payload: KVDevicePayload, block_size: int,
@@ -135,17 +179,16 @@ class KVBlockPool:
 
     The pool owns the cache tensors (``self.cache``); the entry points of
     :mod:`edl_tpu_torch.models.llama` update them in place.
-    ``quantize="int8"`` stores blocks as int8 with per-row scales."""
+    ``quantize="int8"`` stores blocks as int8 with per-row scales.
+    ``devices`` (more than one) shards the storage over them (module
+    docstring); ``device`` (its first device) is where the weights and the
+    step's other work go."""
 
     def __init__(self, cfg, num_blocks: int, block_size: int,
                  max_blocks_per_session: int, *, job: str = "job",
                  replica: str = "", registry=None, device="cuda",
                  devices=None, quantize: Optional[str] = None) -> None:
         if devices is not None:
-            if len(devices) > 1:
-                raise NotImplementedError(
-                    "a KV pool sharded over several devices is not ported; "
-                    "give one device")
             device = devices[0]
         self.cfg = cfg
         self.num_blocks = int(num_blocks)
@@ -155,9 +198,16 @@ class KVBlockPool:
         self.replica = replica
         self.quantize = quantize
         self.cache = llama.init_cache(cfg, self.num_blocks, self.block_size,
-                                      quantize=quantize, device=device)
-        #: the pool's one device, as its tensors name it
-        self.device = self.cache["k"].device
+                                      quantize=quantize, device=device,
+                                      devices=devices)
+        sharded = isinstance(self.cache, llama.ShardedCache)
+        #: the device of each shard (one for an unsharded pool), as the
+        #: tensors name them, and the pool's home device, the first
+        self.devices = (self.cache.devices if sharded
+                        else [self.cache["k"].device])
+        self.device = self.devices[0]
+        #: "heads" | "pages" | "replicated", None on one device
+        self.shard_axis = self.cache.axis if sharded else None
         self._free: "collections.deque[int]" = collections.deque(
             range(self.num_blocks))
         self._sessions: dict[int, list[int]] = {}
@@ -239,6 +289,53 @@ class KVBlockPool:
 
     def used_bytes(self) -> int:
         return self.blocks_used() * self.bytes_per_block
+
+    def _shards(self) -> list:
+        return (self.cache.shards if self.shard_axis is not None
+                else [self.cache])
+
+    def reserved_bytes_per_device(self) -> int:
+        """What the pool holds on its fullest device, counted from the
+        shards' tensors: the whole pool on one device or on each device of
+        a replicated pool, 1/n of it split by heads or pages (plus, split
+        by heads, every block's int8 scales whole)."""
+        return max(sum(t.numel() * t.element_size() for t in shard.values())
+                   for shard in self._shards())
+
+    def per_device_used_bytes(self) -> dict[int, int]:
+        """Bytes of the used blocks by device index: every used block's
+        share on each device of a heads split (its kv heads) or a
+        replicated pool (all of it), each used block whole on the device
+        owning its page range."""
+        with self._lock:
+            used = list(self._ref)
+        out = {}
+        for j, shard in enumerate(self._shards()):
+            held = shard["k"].shape[1]
+            per_block = sum(t.numel() * t.element_size()
+                            for t in shard.values()) // held
+            if self.shard_axis == "pages":
+                lo, hi = self.cache.page_range(j)
+                n = sum(1 for b in used if lo <= b < hi)
+            else:
+                n = len(used)
+            out[j] = n * per_block
+        return out
+
+    def payload_shardings(self, n_blocks: int) -> Optional[dict]:
+        """Where a ``[L, n_blocks, ...]`` D2D payload landing in this pool
+        goes before its deferred scatter: tensor name → (devices, dim) —
+        split over the devices along ``dim`` (3, the kv heads, on a heads
+        split), or whole on each device (``dim`` None: an arbitrary block
+        subset has no aligned page split).  None for a one-device pool."""
+        if self.shard_axis is None:
+            return None
+        names = ("k", "v") + (("k_scale", "v_scale")
+                              if self.quantize == "int8" else ())
+        return {name: (list(self.devices),
+                       3 if self.shard_axis == "heads"
+                       and not name.endswith("_scale") else None)
+                for name in names}
 
     # -- admission / growth --------------------------------------------------
 
@@ -487,11 +584,8 @@ class KVBlockPool:
                 self._decref_locked(b)
         if not copies:
             return 0
-        src = torch.tensor([s for s, _ in copies], device=self.device)
-        dst = torch.tensor([d for _, d in copies], device=self.device)
-        with torch.no_grad():
-            for t in self.cache.values():
-                t.index_copy_(1, dst, t.index_select(1, src))
+        llama.copy_blocks(self.cache, [s for s, _ in copies],
+                          [d for _, d in copies])
         self._c.inc("kv_cow_copies", len(copies), job=self.job)
         return len(copies)
 
@@ -541,7 +635,7 @@ class KVBlockPool:
                               payload: KVDevicePayload) -> list[int]:
         """First half of a D2D import: the duplicate guard and the block
         reservation under one lock hold, then the payload placed on this
-        pool's device with its :func:`plan_move` accounting
+        pool's devices (:meth:`payload_shardings`) with its accounting
         (``path="ici"`` bytes).  The scatter is the caller's to run at its
         loop's iteration boundary (:meth:`apply_import_device`).  Raises
         :class:`KVPoolExhausted` / :class:`ValueError` with nothing
@@ -550,7 +644,7 @@ class KVBlockPool:
             raise ValueError(
                 f"D2D import needs matching storage modes "
                 f"(src={payload.quantize!r}, dst={self.quantize!r})")
-        n = int(payload.arrays["k"].shape[1])
+        n = int(payload.shape[1])
         with self._lock:
             if sid in self._sessions:
                 raise ValueError(f"session {sid} already resident")
@@ -564,16 +658,14 @@ class KVBlockPool:
             blocks = list(self._sessions[sid])
         try:
             t0 = time.perf_counter()
-            placed = {name: t.to(self.device)
-                      for name, t in payload.arrays.items()}
+            payload.placed, moves = self._place(payload)
             if (calib.get_process_calib() is not None
                     and self.device.type == "cuda"):
                 # only when calibration is armed: wait for the copy so the
                 # wall below is the move, not its launch
                 torch.cuda.synchronize(self.device)
             move_s = time.perf_counter() - t0
-            payload.plan = plan_move(payload.arrays, self.device)
-            payload.arrays = placed
+            payload.plan = _plan(moves, self.devices, payload.nbytes)
             self._c.inc("kv_migration_bytes", payload.plan.bytes_total,
                         job=self.job, path="ici")
             calib.record(
@@ -586,12 +678,38 @@ class KVBlockPool:
             raise
         return blocks
 
+    def _place(self, payload: KVDevicePayload) -> tuple[list, list]:
+        """The payload on this pool's devices, by :meth:`payload_shardings`:
+        (one dict a device, the (tensor, destination) moves made).  A
+        heads-split payload of as many shards goes part to part."""
+        where = self.payload_shardings(payload.shape[1])
+        if where is None:
+            parts = [payload.arrays]
+        elif (self.shard_axis == "heads"
+              and len(payload.parts) == len(self.devices)):
+            parts = payload.parts
+        else:
+            whole = payload.arrays
+            n = len(self.devices)
+            parts = [{name: (t.chunk(n, dim=3)[j] if where[name][1] == 3
+                             else t) for name, t in whole.items()}
+                     for j in range(n)]
+        moves = [(t, dev) for part, dev in zip(parts, self.devices)
+                 for t in part.values()]
+        placed = [{name: t.to(dev) for name, t in part.items()}
+                  for part, dev in zip(parts, self.devices)]
+        return placed, moves
+
     def apply_import_device(self, sid: int, blocks: list,
                             payload: KVDevicePayload) -> None:
         """Second half of a D2D import: the blocked scatter on the device.
         Runs where cache mutation is race-free (the owning loop at an
         iteration boundary, or quiesced)."""
-        llama.scatter_session_kv_device(self.cache, blocks, payload.arrays)
+        placed = payload.placed or [payload.arrays]
+        if self.shard_axis is None:
+            llama.scatter_session_kv_device(self.cache, blocks, placed[0])
+        else:
+            llama.write_placed(self.cache, blocks, placed)
 
     def evacuate(self, lengths: dict[int, int]) -> dict[int, dict]:
         """Export every resident session (``sid → current token count``)

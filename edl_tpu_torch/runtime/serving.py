@@ -18,8 +18,10 @@ The single-shot half:
   warms the new replica BEFORE traffic shifts — the ready gate opens only
   once its warm-up forward has run), **graceful drain** on scale-down
   (zero dropped requests), and **rolling weight reloads** from a training
-  job's checkpoint lineage.  Replicas are threads of one process, each on
-  its own device or sharing one.
+  job's checkpoint lineage.  A replica of one device is a thread of the
+  fleet's process; a replica of n devices (``chips_per_replica``) is n
+  rank processes behind a :class:`RankGroupServer`, each holding the SPMD
+  :class:`ElasticServer` over their own process group.
 * :class:`PoissonTraffic` — seeded open-loop traffic; :func:`serve_main`
   — one replica's pod entry point (``python -m
   edl_tpu_torch.runtime.serving [--device cpu]``).
@@ -51,7 +53,9 @@ Each replica's loop runs on its own thread and launches on its device's
 current stream; a decode replica reads the device once an iteration (the
 argmax of every slot), a single-shot one copies its batch in and its
 outputs out once an iteration.  Replicas take a ``device`` (CUDA by
-default); a decode fleet places all of its replicas on one device.
+default); a decode fleet places all of its replicas on one device, each
+replica's KV pool on one device or sharded over several
+(``devices_per_replica``).
 
 Scrape names (``edl_`` prefix): ``serving_request_seconds`` and
 ``serving_span_seconds{phase=admit|queue|batch|forward|respond}``
@@ -74,10 +78,17 @@ series of kvcache.py.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import itertools
+import os
+import pickle
+import shutil
+import signal
+import tempfile
 import threading
 import time
+from multiprocessing import connection as mp_connection
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
@@ -406,7 +417,11 @@ class DecodeReplica:
 
     ``role="prefill"`` replicas stop at the first token: they emit it,
     export the session's cache, and hand the session to
-    ``on_handoff(sess, host_kv)``."""
+    ``on_handoff(sess, host_kv)``.
+
+    ``devices`` (more than one) shards the replica's KV pool over them
+    (:class:`~edl_tpu_torch.runtime.kvcache.KVBlockPool`); the weights and
+    the step's other work stay on the first."""
 
     def __init__(self, name: str, params: Any, cfg, *, job: str = "job",
                  role: str = "decode", slots: int = 4,
@@ -416,7 +431,8 @@ class DecodeReplica:
                  scheduler: Optional[TokenScheduler] = None,
                  ttft_slo_ms: float = 0.0, tpot_slo_ms: float = 0.0,
                  spec_tokens: int = 0, spec_ngram: int = 3,
-                 device="cuda", kv_quantize: Optional[str] = None,
+                 device="cuda", devices=None,
+                 kv_quantize: Optional[str] = None,
                  on_handoff: Optional[Callable] = None,
                  on_session_done: Optional[Callable] = None) -> None:
         self.name = name
@@ -443,7 +459,7 @@ class DecodeReplica:
         self.pool = KVBlockPool(cfg, kv_blocks, kv_block_size,
                                 max_blocks_per_session, job=job,
                                 replica=name, device=device,
-                                quantize=kv_quantize)
+                                devices=devices, quantize=kv_quantize)
         self.params = llama.as_decode_params(params, self.pool.device)
         self.state = BUILDING
         self.generation = 0
@@ -543,7 +559,7 @@ class DecodeReplica:
         nb = self.pool.num_blocks
         scratch = llama.init_cache(self.cfg, nb, self.pool.block_size,
                                    quantize=self.pool.quantize,
-                                   device=self.pool.device)
+                                   devices=self.pool.devices)
         dead = np.full((self.slots, maxb), nb, np.int32)
         zeros = np.zeros(self.slots, np.int64)
         logits, _ = llama.decode_step(self.params, scratch, zeros, zeros,
@@ -1130,7 +1146,11 @@ class DecodeFleet:
     ``{"prefill": 1, "decode": 2}``; ``params`` may also be the weights
     nested as a checkpoint holds them (:func:`~edl_tpu_torch.models.llama.
     param_tree`).  Every replica runs on ``device``: the JAX package's own
-    wrap-around when a host has fewer devices than replicas.  ``kv`` is a
+    wrap-around when a host has fewer devices than replicas.
+    ``devices_per_replica`` d > 0 shards each replica's KV pool over d
+    devices: replica ``idx`` takes the cards ``(idx·d + j) mod count`` of
+    ``device``'s kind, wrapping as the JAX package's slices do (on one card,
+    d shards on it).  ``kv`` is a
     coordinator (a :class:`~edl_tpu_torch.coord.client.CoordClient`, or
     any store with ``kv_set``/``kv_get``): each rolling reload publishes
     the generation under ``serving-gen/<job>``, and the lineage watcher
@@ -1147,7 +1167,8 @@ class DecodeFleet:
                  spec_tokens: int = 0, spec_ngram: int = 3,
                  kv_quantize: Optional[str] = None,
                  max_queued_sessions: int = 64, window: int = 4096,
-                 device="cuda", kv=None) -> None:
+                 device="cuda", devices_per_replica: int = 0,
+                 kv=None) -> None:
         self._gen_params = llama.as_decode_params(params, device, cfg)
         if self._gen_params.cfg != cfg:
             raise ValueError("params were built for another config")
@@ -1164,6 +1185,7 @@ class DecodeFleet:
             ttft_slo_ms=ttft_slo_ms, tpot_slo_ms=tpot_slo_ms,
             spec_tokens=spec_tokens, spec_ngram=spec_ngram,
             kv_quantize=kv_quantize)
+        self.devices_per_replica = int(devices_per_replica)
         self._wfq_weights = dict(wfq_weights) if wfq_weights else None
         self._decode_per_prefill = int(decode_per_prefill)
         self._tpot_budget_ms = float(tpot_budget_ms)
@@ -1203,11 +1225,25 @@ class DecodeFleet:
 
     # -- replica construction ------------------------------------------------
 
+    def _replica_devices(self, idx: int) -> Optional[list]:
+        """The d devices replica ``idx`` shards its pool over (None when
+        each replica is one device): cyclic slices of the cards, wrapping
+        when the host has fewer than replicas × d."""
+        d = self.devices_per_replica
+        if d <= 0:
+            return None
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if self.device.type == "cuda" else [self.device])
+        return [devs[(idx * d + j) % len(devs)] for j in range(d)]
+
     def _new_replica(self, role: str) -> DecodeReplica:
         idx = next(self._rep_seq)
+        devices = self._replica_devices(idx)
         r = DecodeReplica(
             f"{self.job}/{role[0]}{idx}", self._gen_params, self.cfg,
-            job=self.job, role=role, device=self.device,
+            job=self.job, role=role,
+            device=devices[0] if devices else self.device, devices=devices,
             scheduler=TokenScheduler(self._wfq_weights,
                                      self._decode_per_prefill,
                                      tpot_budget_ms=self._tpot_budget_ms),
@@ -1362,11 +1398,11 @@ class DecodeFleet:
             ranked = sorted(survivors, key=lambda r: r.sessions_active())
             if payload is not None:
                 d2d_nbytes = payload.nbytes
-                k = payload.arrays["k"]
+                k = payload.shape
                 # what the host path would ship for this session: the
                 # trimmed dequantized f32 pair, off the device and back
-                trimmed = (2 * int(k.shape[0]) * int(payload.length)
-                           * int(k.shape[3]) * int(k.shape[4]) * 4)
+                trimmed = (2 * int(k[0]) * int(payload.length)
+                           * int(k[3]) * int(k[4]) * 4)
                 for r in ranked:
                     try:
                         r.import_session_device(sess, payload)
@@ -1556,12 +1592,22 @@ class DecodeFleet:
         with self._lock:
             return sum(r.pool.total_bytes() for r in self._replicas)
 
-    def chips(self) -> int:
-        """Devices backing active replicas, one each (a shared device
-        counted once per replica, as the JAX package counts wrapped
-        slices)."""
+    def kv_reserved_bytes_per_device(self) -> int:
+        """The most KV bytes any active replica's pool holds on one device
+        (:meth:`KVBlockPool.reserved_bytes_per_device`): what a layout
+        planned beside these pools must leave free on each device."""
         with self._lock:
-            return sum(1 for r in self._replicas if r.state != STOPPED)
+            return max((r.pool.reserved_bytes_per_device()
+                        for r in self._replicas if r.state != STOPPED),
+                       default=0)
+
+    def chips(self) -> int:
+        """Devices backing active replicas: each replica's pool devices (a
+        shared device counted once per replica and shard, as the JAX
+        package counts wrapped slices)."""
+        with self._lock:
+            return sum(len(r.pool.devices) for r in self._replicas
+                       if r.state != STOPPED)
 
     def stats(self, window_s: float = 10.0) -> FleetStats:
         """Windowed decode rollup: TTFT p99 over recent completions, decode
@@ -1866,6 +1912,11 @@ class RequestDropped(RuntimeError):
     non-draining stop can cause it — counted, and held to zero)."""
 
 
+class ReplicaRankDied(RequestDropped):
+    """A rank process of a wide replica died: the whole replica ends, and
+    every request it held fails with this."""
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, x) for x in tree)
@@ -1991,6 +2042,447 @@ class ElasticServer:
     def resize_events(self) -> list:
         return self._trainer.resize_events
 
+    def close(self) -> None:
+        """Nothing to release: the server lives in this process."""
+
+
+# -- wide replicas: a rank process a device -----------------------------------
+
+#: a collective of a wide replica's group that waits longer than this raises
+WIDE_GROUP_TIMEOUT_S = 60
+#: the seconds a wide replica's ranks may take to start, load and warm up
+WIDE_BUILD_TIMEOUT_S = 600.0
+#: an idle rank 0 broadcasts a no-op this often, so the ranks waiting on
+#: its next op never reach the group's timeout
+WIDE_IDLE_TICK_S = 10.0
+#: the ops rank 0 broadcasts to its group, one a message from the fleet
+_OPS = {"serve": 1, "load": 2, "host": 3, "counts": 4, "stop": 5,
+        "noop": 6}
+
+
+def _flatten(tree) -> tuple[list, Any]:
+    """(leaves, spec) of a tuple, list or dict tree of arrays; the spec
+    holds each leaf's index."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(x) for x in t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        leaves.append(t)
+        return len(leaves) - 1
+
+    return leaves, walk(tree)
+
+
+def _shm_attach(name: str):
+    """Attach to another process's shared memory block.  Its creator
+    unlinks it; the fleet's process and its forked ranks share one
+    resource tracker, which has the block once however many attach."""
+    from multiprocessing import shared_memory
+
+    return shared_memory.SharedMemory(name=name)
+
+
+def _shm_write(shm, arrays: list) -> list:
+    """Copy ``arrays`` one after another into ``shm``; their (shape, dtype,
+    offset) for :func:`_shm_read`."""
+    at, where = 0, []
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        np.ndarray(a.shape, a.dtype, buffer=shm.buf, offset=at)[...] = a
+        where.append((a.shape, a.dtype.str, at))
+        at += -(-a.nbytes // 64) * 64
+    return where
+
+
+def _shm_read(shm, where: list) -> list:
+    """Copies of the arrays :func:`_shm_write` put in ``shm``."""
+    return [np.ndarray(shape, np.dtype(dt), buffer=shm.buf,
+                       offset=at).copy() for shape, dt, at in where]
+
+
+def _shm_bytes(arrays: list) -> int:
+    return sum(-(-np.asarray(a).nbytes // 64) * 64 for a in arrays)
+
+
+def _skeleton(module: torch.nn.Module) -> bytes:
+    """``module`` pickled with every parameter and buffer on the meta
+    device: its structure (and config), none of its storage."""
+    memo = {id(t): (torch.nn.Parameter(torch.empty_like(t, device="meta"),
+                                       requires_grad=t.requires_grad)
+                    if isinstance(t, torch.nn.Parameter)
+                    else torch.empty_like(t, device="meta"))
+            for t in list(module.parameters()) + list(module.buffers())}
+    return pickle.dumps(copy.deepcopy(module, memo))
+
+
+class RankGroupServer:
+    """The fleet-side handle of a replica ``len(devices)`` devices wide: one
+    rank process a device (forked from :func:`~edl_tpu_torch.entry.
+    rank_processes`' fork server, each running :func:`~edl_tpu_torch.entry.
+    wide_replica_rank`), joined in a process group of their own (gloo when
+    they share a device, NCCL across cards), each holding the SPMD
+    :class:`ElasticServer` over it.  It has :class:`ElasticServer`'s serving
+    surface, so a :class:`ServingReplica` runs it as it runs a thread's
+    server.
+
+    The fleet talks to rank 0 alone: each call is one small message over a
+    pipe, which rank 0 broadcasts to its group with a collective before
+    every rank acts on it — a batch (every rank serves its rows and rank 0
+    returns the rows gathered over the group), new weights (every rank
+    loads them before rank 0 answers, so no batch after it runs on the old
+    generation), a host copy of the weights, the ranks' launch counts, or
+    the stop.  Bulk data never rides the pipe (a local socket may move a
+    few MB/s where the host's memory moves GB/s): a batch and its answers
+    travel through shared memory blocks, weights through a file in the
+    replica's own temporary directory, beside its group's store.  A batch
+    may hold any number of rows (a front door's chunk): it is padded to a
+    multiple of the ranks.  The death of any rank process, or an error a
+    rank answers (its process ends with it), ends the replica at once: the
+    call in flight and every later one raise :class:`ReplicaRankDied`, the other ranks are killed (never left
+    waiting on the group's timeout), and ``on_death`` is told, also when
+    no call is in flight."""
+
+    def __init__(self, apply_fn: Callable[[Any, Any], Any],
+                 params: torch.nn.Module, example_batch: tuple,
+                 devices: Sequence, name: str = "replica",
+                 on_death: Optional[Callable[[BaseException], None]] = None
+                 ) -> None:
+        from multiprocessing import shared_memory
+
+        from edl_tpu_torch import entry
+
+        self.name = name
+        #: each rank's device, a card named by its index
+        self.devices = [torch.device("cuda", torch.cuda.current_device())
+                        if d.type == "cuda" and d.index is None else d
+                        for d in map(torch.device, devices)]
+        self.on_death = on_death
+        #: forwards run (the warm-up's included), as ElasticServer counts
+        self.forwards = 0
+        #: each rank's launch counts, read at the stop (None before)
+        self.final_counts: Optional[list] = None
+        self._skeleton = _skeleton(params)
+        self._lock = threading.Lock()
+        self._death_lock = threading.Lock()
+        self._dead: Optional[BaseException] = None
+        #: set before the stop: the ranks' exits after it are no death
+        self._closing = False
+        self._dir = tempfile.mkdtemp(prefix="edl-wide-replica-")
+        n = len(self.devices)
+        #: the batch block: the example batch's rows, padded to the ranks
+        self._rows_cap = -(-len(example_batch[0]) // n) * n
+        self._shm_in = shared_memory.SharedMemory(
+            create=True, size=max(_shm_bytes(
+                [np.repeat(np.asarray(a)[:1], self._rows_cap, axis=0)
+                 for a in example_batch]), 64))
+        self._shm_out = None
+        ctx = entry.rank_processes()
+        self._conn, child = ctx.Pipe()
+        store = os.path.join(self._dir, "store")
+        self.procs = [ctx.Process(
+            target=entry.wide_replica_rank, daemon=True,
+            name=f"{name}-rank{r}",
+            args=(r, [str(d) for d in self.devices], store,
+                  child if r == 0 else None, apply_fn, self._skeleton,
+                  example_batch, self._shm_in.name))
+            for r in range(n)]
+        for p in self.procs:
+            p.start()
+        child.close()
+        self._wake_r, self._wake_w = os.pipe()
+        self._monitor = threading.Thread(target=self._watch, daemon=True,
+                                         name=f"{name}-ranks")
+        self._monitor.start()
+        self._load(params, WIDE_BUILD_TIMEOUT_S)
+
+    # -- the pipe to rank 0 --------------------------------------------------
+
+    def _call(self, op: str, payload=None,
+              timeout_s: float = WIDE_BUILD_TIMEOUT_S):
+        with self._lock:
+            if self._dead is not None:
+                raise self._dead
+            try:
+                self._conn.send((op, payload))
+                deadline = time.monotonic() + timeout_s
+                while True:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise TimeoutError(f"replica {self.name}: {op} took "
+                                           f"over {timeout_s} s")
+                    ready = mp_connection.wait(
+                        [self._conn] + [p.sentinel for p in self.procs],
+                        timeout=left)
+                    if self._conn in ready:
+                        status, got = self._conn.recv()
+                        break
+                    if ready:
+                        raise EOFError("a rank process exited")
+            except (EOFError, OSError) as exc:
+                self._die(f"{op}: {exc}")
+                raise self._dead from exc
+            if status != "ok":
+                # a rank that fails ends its process (a peer's death shows
+                # as a reset on the group first): the replica is over
+                self._die(f"{op} failed on its ranks: {got}")
+                raise self._dead
+        return got
+
+    def _watch(self) -> None:
+        """Wait for any rank process to end (or the close's wake-up); a
+        rank that ends before the close ends the replica."""
+        mp_connection.wait([p.sentinel for p in self.procs] + [self._wake_r])
+        if not self._closing:
+            self._die("a rank process exited")
+
+    def _die(self, why: str) -> None:
+        """End the replica: kill every rank left, once, and tell
+        ``on_death``."""
+        with self._death_lock:
+            first = self._dead is None
+            if first:
+                codes = [p.exitcode for p in self.procs]
+                self._dead = ReplicaRankDied(
+                    f"replica {self.name}: {why} (exit codes {codes}); its "
+                    "other ranks are killed")
+        self._kill()
+        if first:
+            log.error("wide replica rank died", replica=self.name,
+                      why=why)
+            get_counters().inc("serving_replica_rank_deaths")
+            if self.on_death is not None:
+                self.on_death(self._dead)
+
+    def _kill(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                try:
+                    os.kill(p.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        for p in self.procs:
+            p.join(10)
+
+    def _load(self, params, timeout_s: float = WIDE_BUILD_TIMEOUT_S
+              ) -> None:
+        named = (dict(params.named_parameters())
+                 if isinstance(params, torch.nn.Module) else dict(params))
+        path = os.path.join(self._dir, f"weights-{time.monotonic_ns()}.pt")
+        torch.save({n: t.detach().to("cpu") for n, t in named.items()},
+                   path)
+        try:
+            self._call("load", path, timeout_s)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+
+    # -- ElasticServer's serving surface -------------------------------------
+
+    def serve(self, batch) -> Any:
+        """One forward over ``batch``: its rows in chunks of the batch
+        block's, each padded with its last row to a multiple of the ranks,
+        which split it, and the answers trimmed back."""
+        arrays = [np.asarray(a) for a in batch]
+        rows = len(arrays[0])
+        outs = []
+        for lo in range(0, rows, self._rows_cap):
+            chunk = [a[lo:lo + self._rows_cap] for a in arrays]
+            k = len(chunk[0])
+            pad = -k % len(self.devices)
+            if pad:
+                chunk = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                         for a in chunk]
+            where = _shm_write(self._shm_in, chunk)
+            out_name, out_where, spec = self._call("serve", where)
+            if self._shm_out is None or self._shm_out.name != out_name:
+                if self._shm_out is not None:
+                    self._shm_out.close()
+                self._shm_out = _shm_attach(out_name)
+            outs.append(([a[:k] for a in _shm_read(self._shm_out,
+                                                  out_where)], spec))
+        self.forwards += 1
+        leaves = [np.concatenate(parts) for parts in
+                  zip(*(leaves for leaves, _ in outs))]
+        return _tree_map(lambda i: torch.from_numpy(leaves[i]), outs[0][1])
+
+    def warmup(self, batch) -> None:
+        self.serve(batch)
+
+    def load_params(self, params: Any) -> None:
+        self._load(params)
+
+    def params_host(self) -> torch.nn.Module:
+        module = pickle.loads(self._skeleton).to_empty(device="cpu")
+        path = os.path.join(self._dir, f"host-{time.monotonic_ns()}.pt")
+        self._call("host", path)
+        try:
+            got = torch.load(path, map_location="cpu")
+        finally:
+            os.remove(path)
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                p.copy_(got[n])
+                p.requires_grad_(False)
+        return module
+
+    def rank_counts(self) -> list:
+        """Each rank's ``{"flash": launches by kernel, "forwards": n}``."""
+        return self._call("counts")
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def world_size(self) -> int:
+        return len(self.devices)
+
+    def close(self) -> None:
+        """Stop the ranks (their counts kept in :attr:`final_counts`) and
+        release the shared memory and the replica's files; a dead
+        replica's ranks are gone already."""
+        if self._closing:
+            return
+        self._closing = True
+        if self._dead is None:
+            try:
+                self.final_counts = self._call("stop", None, 60.0)
+            except (RequestDropped, TimeoutError) as exc:
+                log.warn("wide replica stop failed", replica=self.name,
+                         error=str(exc)[:120])
+        os.write(self._wake_w, b"x")
+        self._kill()
+        self._monitor.join(10)
+        self._conn.close()
+        os.close(self._wake_r)
+        os.close(self._wake_w)
+        if self._shm_out is not None:
+            self._shm_out.close()
+            if self._dead is not None:
+                # its creator, rank 0, died before it could unlink it
+                with contextlib.suppress(FileNotFoundError):
+                    self._shm_out.unlink()
+        self._shm_in.close()
+        self._shm_in.unlink()
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def serve_ranks(rank: int, device: torch.device, conn, apply_fn,
+                skeleton: bytes, example_batch: tuple, shm_in: str,
+                comm_device: torch.device) -> None:
+    """One rank's life in a wide replica (:class:`RankGroupServer`), in a
+    process that has joined the replica's group: rank 0 takes each message
+    from the fleet's pipe (a batch's place in the shared memory block
+    ``shm_in``, a weights file's path) and broadcasts its op and its data
+    (on ``comm_device``: the host for gloo, the card for NCCL) to the
+    group; every rank acts on it.  The first message is the weights the
+    :class:`ElasticServer` is built on.  With no message for
+    ``WIDE_IDLE_TICK_S`` rank 0 broadcasts a no-op, so an idle replica's
+    ranks never wait out the group's timeout.  Returns at the stop."""
+    from multiprocessing import shared_memory
+
+    import torch.distributed as dist
+
+    from edl_tpu_torch.ops import flash_attention as fa
+
+    module = pickle.loads(skeleton).to_empty(device=device)
+    rows = [torch.from_numpy(np.asarray(e)) for e in example_batch]
+    block = _shm_attach(shm_in) if rank == 0 else None
+    out_block = None
+    server: Optional[ElasticServer] = None
+
+    def bcast(t: torch.Tensor) -> torch.Tensor:
+        t = t.to(comm_device)
+        dist.broadcast(t, 0)
+        return t
+
+    def bcast_object(obj):
+        box = [obj]
+        dist.broadcast_object_list(box, 0)
+        return box[0]
+
+    try:
+        while True:
+            msg = (None, None)
+            if rank == 0:
+                msg = (conn.recv() if conn.poll(WIDE_IDLE_TICK_S)
+                       else ("noop", None))
+            n_rows = (msg[1][0][0][0] if rank == 0 and msg[0] == "serve"
+                      else 0)
+            head = bcast(torch.tensor([_OPS.get(msg[0], 0), n_rows]))
+            op, n_rows = (int(x) for x in head.tolist())
+            try:
+                if op == _OPS["serve"]:
+                    got = _shm_read(block, msg[1]) if rank == 0 else rows
+                    batch = tuple(
+                        bcast(torch.from_numpy(a) if rank == 0
+                              else e.new_empty((n_rows,)
+                                               + tuple(e.shape[1:])))
+                        for a, e in zip(got, rows))
+                    out = server.serve(batch)
+                    reply = None
+                    if rank == 0:
+                        leaves, spec = _flatten(_tree_map(_host, out))
+                        need = _shm_bytes(leaves)
+                        if out_block is None or out_block.size < need:
+                            if out_block is not None:
+                                out_block.close()
+                                out_block.unlink()
+                            out_block = shared_memory.SharedMemory(
+                                create=True, size=need)
+                        reply = (out_block.name,
+                                 _shm_write(out_block, leaves), spec)
+                elif op == _OPS["load"]:
+                    path = bcast_object(msg[1])
+                    named = torch.load(path, map_location=device)
+                    if server is None:
+                        with torch.no_grad():
+                            for n, p in module.named_parameters():
+                                p.copy_(named[n])
+                        server = ElasticServer(
+                            apply_fn, module, devices=[device],
+                            initial_world_size=dist.get_world_size())
+                        server.warmup(example_batch)
+                    else:
+                        server.load_params(named)
+                    del named
+                    dist.barrier()
+                    reply = None
+                elif op == _OPS["host"]:
+                    path = bcast_object(msg[1])
+                    host = server.params_host()
+                    if rank == 0:
+                        torch.save({n: p.detach() for n, p in
+                                    host.named_parameters()}, path)
+                    reply = None
+                elif op == _OPS["noop"]:
+                    continue  # idle: nothing to act on, nothing to answer
+                elif op in (_OPS["counts"], _OPS["stop"]):
+                    mine = {"flash": dict(fa.launches),
+                            "forwards": server.forwards if server else 0}
+                    every = [None] * dist.get_world_size()
+                    dist.all_gather_object(every, mine)
+                    reply = every
+                else:
+                    raise ValueError(f"unknown op {msg[0]!r}")
+            except Exception as exc:  # answered, then the replica is ended
+                if rank == 0:
+                    conn.send(("error", repr(exc)[:400]))
+                raise
+            if rank == 0:
+                conn.send(("ok", reply))
+            if op == _OPS["stop"]:
+                return
+    finally:
+        if block is not None:
+            block.close()
+        if out_block is not None:
+            out_block.close()
+            out_block.unlink()
+
 
 class ServingReplica:
     """One replicated model server: an admission queue drained by a
@@ -2084,7 +2576,20 @@ class ServingReplica:
                              replica=self.name, build_ms=self.build_ms)
         log.info("serving replica ready", replica=self.name,
                  build_ms=self.build_ms)
-        self._loop()
+        try:
+            self._loop()
+        finally:
+            self.server.close()
+
+    def rank_died(self, exc: BaseException) -> None:
+        """A wide replica's rank process died (:class:`RankGroupServer`'s
+        ``on_death``, from any thread): the replica stops at once and every
+        request it holds fails typed."""
+        with self._cond:
+            self.state = STOPPED
+            self._cond.notify_all()
+        self._swap_applied.set()  # nothing staged will be applied now
+        self._fail_queue(exc)
 
     def stop(self, drain: bool = True, timeout_s: float = 30.0) -> bool:
         """Stop serving.  ``drain=True`` (the graceful path) serves out
@@ -2187,7 +2692,11 @@ class ServingReplica:
             return
         params, generation = pending
         t0 = time.perf_counter()
-        self.server.load_params(params)
+        try:
+            self.server.load_params(params)
+        except ReplicaRankDied as exc:
+            self.rank_died(exc)
+            return
         self.generation = generation
         with self._cond:
             # weights staged again meanwhile wait for the next boundary
@@ -2261,6 +2770,13 @@ class ServingReplica:
             t_fwd0 = time.perf_counter()
             try:
                 host = _tree_map(_host, self.server.serve(batch))
+            except ReplicaRankDied as exc:
+                for req in reqs:
+                    self._counters.inc("serving_dropped_requests",
+                                       job=self.job)
+                    req.fail(exc)
+                self.rank_died(exc)
+                return
             except Exception as exc:
                 log.error("serve iteration failed", replica=self.name,
                           error=str(exc)[:200])
@@ -2329,9 +2845,6 @@ class ServingReplica:
         self._hist.put_exemplar(req.latency_s, tid, job=self.job)
 
 
-#: the ROADMAP item that serving replicas wider than one card wait for
-WIDE_REPLICA_ITEM = "ROADMAP.md queue 1 item 12"
-
 #: completions a ServingFleet keeps for its windowed stats
 STATS_WINDOW = 2048
 
@@ -2342,14 +2855,22 @@ class ServingFleet:
 
     ``apply_fn(model, batch) -> outputs`` is the forward, ``init_params``
     the model (an ``nn.Module``, copied for each replica), ``example_row``
-    one request's arrays (no batch dim).  Each replica is a thread holding
-    a world-1 :class:`ElasticServer`: each replica thread runs outside any
+    one request's arrays (no batch dim).
+
+    A replica of one device (``chips_per_replica`` 1) is a thread holding a
+    world-1 :class:`ElasticServer`: each replica thread runs outside any
     process group this process joined (``mesh.outside_group``), so a fleet
-    may share a process with an SPMD trainer rank; replica ``slot`` runs on
-    ``cuda:(slot mod device count)`` when ``device`` is CUDA without an
-    index, else on ``device``.  On one card every replica shares it, which
-    proves the protocol, not added capacity.  A replica spans one device:
-    ``chips_per_replica > 1`` raises."""
+    may share a process with an SPMD trainer rank.  A replica of n > 1
+    devices is n rank processes (:class:`RankGroupServer`), each holding
+    the SPMD :class:`ElasticServer` over the replica's own process group,
+    the batch split over them; the fleet's process joins no group for
+    them.  Replica ``slot`` takes devices as the JAX package's fleet
+    slices them: ``devices[lo:lo+n]`` with ``lo = slot·n mod (len − n +
+    1)``, at most ``len // n`` replicas, when ``devices`` is given;
+    otherwise the cards of ``device``'s kind (``cuda:(slot·n + j) mod
+    count`` when ``device`` is CUDA without an index, else ``device``),
+    wrapping without bound.  On one card every replica and rank shares it,
+    which proves the protocol, not added capacity."""
 
     def __init__(
         self,
@@ -2364,13 +2885,9 @@ class ServingFleet:
         drain_timeout_s: float = 30.0,
         chips_per_replica: int = 1,
         device="cuda",
+        devices: Optional[Sequence] = None,
         kv=None,
     ) -> None:
-        if int(chips_per_replica) > 1:
-            raise NotImplementedError(
-                f"chips_per_replica {chips_per_replica}: a replica wider "
-                "than one card needs each admitted batch broadcast from a "
-                f"rank-0 loop to the replica's ranks ({WIDE_REPLICA_ITEM})")
         self.apply_fn = apply_fn
         self.init_params = init_params
         self.job = job
@@ -2379,6 +2896,9 @@ class ServingFleet:
         self.slo_p99_ms = float(slo_p99_ms)
         self.drain_timeout_s = float(drain_timeout_s)
         self.device = resolve(device)
+        self.chips_per_replica = max(int(chips_per_replica), 1)
+        self._devices = ([resolve(d) for d in devices] if devices is not None
+                         else None)
         self._kv = kv
         #: the fixed batch: example_row stacked to max_batch_size
         self.example_batch = tuple(
@@ -2421,22 +2941,47 @@ class ServingFleet:
             return torch.device("cuda", slot % torch.cuda.device_count())
         return self.device
 
-    def _new_replica(self, slot: int) -> ServingReplica:
-        dev = self._slot_device(slot)
-        params = self.init_params
+    def _max_replicas(self) -> Optional[int]:
+        """The replicas ``devices`` holds (None: no bound)."""
+        if self._devices is None:
+            return None
+        return max(len(self._devices) // self.chips_per_replica, 1)
 
-        def build() -> ElasticServer:
+    def _slot_devices(self, slot: int) -> list:
+        n = self.chips_per_replica
+        if self._devices is None:
+            return [self._slot_device(slot * n + j) for j in range(n)]
+        lo = (slot * n) % max(len(self._devices) - n + 1, 1)
+        return [self._devices[(lo + j) % len(self._devices)]
+                for j in range(n)]
+
+    def _new_replica(self, slot: int) -> ServingReplica:
+        devs = self._slot_devices(slot)
+        params = self.init_params
+        name = f"{self.job}/r{slot}"
+        r: Optional[ServingReplica] = None
+
+        def build():
+            if len(devs) > 1:
+                return RankGroupServer(self.apply_fn, params,
+                                       self.example_batch, devs, name=name,
+                                       on_death=r.rank_died)
             return ElasticServer(self.apply_fn, copy.deepcopy(params),
-                                 devices=[dev])
+                                 devices=devs)
 
         r = ServingReplica(
-            name=f"{self.job}/r{slot}", build=build,
+            name=name, build=build,
             example_batch=self.example_batch,
             max_batch_size=self.max_batch_size,
             max_queue_ms=self.max_queue_ms, job=self.job,
             slo_p99_ms=self.slo_p99_ms, on_done=self._record)
         r.slot = slot
+        r.devices = devs
         return r.start()
+
+    def _capped(self, target: int) -> int:
+        cap = self._max_replicas()
+        return int(target) if cap is None else min(int(target), cap)
 
     def _next_slot(self) -> int:
         """Smallest device slot no live replica occupies — a drained
@@ -2457,7 +3002,7 @@ class ServingFleet:
         Never blocks; never touches routing."""
         started = 0
         with self._lock:
-            target = int(target)
+            target = self._capped(target)
             want = target - len(self._replicas) - len(self._hinted)
             for _ in range(max(want, 0)):
                 self._hinted.append(self._new_replica(self._next_slot()))
@@ -2479,7 +3024,13 @@ class ServingFleet:
         to_stop: list[ServingReplica] = []
         adopted_total = 0
         with self._lock:
-            target = max(1, int(target))
+            target = max(1, self._capped(target))
+            # a replica that died (a wide replica's rank) is no capacity:
+            # it leaves first, so the shrink below drains live ones only
+            dead = [r for r in self._replicas if r.state == STOPPED]
+            for r in dead:
+                self._replicas.remove(r)
+                self.replicas_retired += 1
             while len(self._replicas) > target:
                 to_stop.append(self._replicas.pop())
         # fill-then-prune, bounded: a replica whose background build

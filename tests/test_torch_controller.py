@@ -114,11 +114,12 @@ def test_defaults_and_validation_match_the_reference():
 
 
 def test_a_serving_job_raises_naming_its_item():
-    """A serving job passes the gate and every controller verb; what of
-    its plane is not ported raises, naming its item: a replica wider than
-    one card (item 12).  The async front door is ported: serve_main
-    raises only for a front door it does not know, before touching the
-    lineage."""
+    """A serving job passes the gate and every controller verb; its whole
+    plane is ported: a fleet of replicas wider than one card (item 12,
+    done) builds, each replica taking two devices
+    (tests/test_torch_serving_wide.py serves through one).  The async
+    front door is ported: serve_main raises only for a front door it does
+    not know, before touching the lineage."""
     import numpy as np
 
     from edl_tpu_torch.models import mlp
@@ -135,11 +136,12 @@ def test_a_serving_job_raises_naming_its_item():
         ctl.delete(serving)
     finally:
         ctl.stop()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServingFleet(lambda p, b: mlp.apply(p, b[0]),
-                     mlp.MLP([4, 2], device="cpu"),
-                     example_row=(np.zeros(4, np.float32),),
-                     chips_per_replica=2, device="cpu")
+    wide = ServingFleet(lambda p, b: mlp.apply(p, b[0]),
+                        mlp.MLP([4, 2], device="cpu"),
+                        example_row=(np.zeros(4, np.float32),),
+                        chips_per_replica=2, device="cpu")
+    assert wide.replicas_active() == 0
+    assert [d.type for d in wide._slot_devices(0)] == ["cpu", "cpu"]
     with pytest.raises(ValueError, match="'async' and 'legacy'"):
         serve_main({"EDL_SERVING_MODEL_DIR": "/nonexistent",
                     "EDL_SERVING_FRONTDOOR": "item-8"}, device="cpu")

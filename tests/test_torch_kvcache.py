@@ -5,9 +5,8 @@ driven through the JAX package's KVBlockPool and the port's side by side
 (the same block tables, refcounts, free lists and byte accounting after
 every operation), and the move accounting against ``plan_reshard``.
 
-Left out: the sharded-pool cases (a pool here lives on one device) and
-``test_reserved_bytes_tighten_replan_filter`` (``replan`` is not
-ported)."""
+The sharded-pool cases and ``test_reserved_bytes_tighten_replan_filter``
+are tests/test_torch_kvcache_sharded.py's."""
 
 from __future__ import annotations
 
@@ -238,9 +237,11 @@ class TestAccounting:
             in text
 
     def test_one_device_only_and_no_quiet_cpu(self, monkeypatch):
-        with pytest.raises(NotImplementedError):
-            make_pool(devices=["cpu", "cpu"])
-        assert make_pool(devices=["cpu"]).device.type == "cpu"
+        # two devices shard the pool (tests/test_torch_kvcache_sharded.py);
+        # one device is the unsharded pool
+        assert make_pool(devices=["cpu", "cpu"]).shard_axis == "heads"
+        one = make_pool(devices=["cpu"])
+        assert one.device.type == "cpu" and one.shard_axis is None
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             KVBlockPool(tfm.TINY, 8, 4, 4, registry=MetricsRegistry())

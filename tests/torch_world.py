@@ -119,6 +119,12 @@ def _join(rank: int, world: int, store: str) -> None:
 # -- shared pieces ------------------------------------------------------------
 
 
+def mlp_rows(model, batch):
+    """A serving fleet's forward of the MLP on a batch of rows: importable
+    by a wide replica's rank processes."""
+    return mlp.apply(model, batch[0])
+
+
 def digest(trainer: ElasticTrainer) -> str:
     """sha256 of every parameter's and optimizer-state tensor's bytes."""
     h = hashlib.sha256()
@@ -2992,7 +2998,43 @@ def suite_arbitrated(rank: int, world: int, store: str, rows: int,
 
     return _run_scenarios([arbitrated], rank)
 
-SUITES = {"two": suite_two, "four": suite_four, "virtual": suite_virtual,
+def suite_plan_two(rank: int, world: int, store: str,
+                   tiny_params: dict) -> dict:
+    """TINY laid out by its partition specs on a world of 2, fsdp 2 and tp
+    2 in turn: the bytes each rank holds of every parameter and of Adam's
+    moments, against models/planning.py's plan."""
+    _join(rank, world, store)
+
+    def held(t: ElasticTrainer) -> dict:
+        opt = t.state.opt_state.state
+        return dict(
+            params={n: s.numel() * s.element_size()
+                    for n, s in t.shards.items()},
+            moments=sum(v.numel() * v.element_size()
+                        for s in t.shards.values() for v in opt[s].values()
+                        if v.dim()))
+
+    def fsdp_2(rank):
+        t = tiny_trainer(tiny_params, param_sharding=tfm.param_partition_specs(
+            tfm.TINY), spec=FSDP, initial_world_size=2)
+        t.step(tiny_batch())  # Adam's moments exist after a step
+        return held(t)
+
+    def tp_2(rank):
+        t = tp_tiny(tiny_params, TP, 2)
+        t.step(tiny_batch())
+        return held(t)
+
+    return _run_scenarios([fsdp_2, tp_2], rank)
+
+
+def tiny_batch() -> tuple:
+    toks = np.random.default_rng(0).integers(0, tfm.TINY.vocab_size,
+                                             (4, 16), dtype=np.int64)
+    return (torch.from_numpy(toks), torch.from_numpy(np.roll(toks, -1, 1)))
+
+
+SUITES = {"plan_two": suite_plan_two, "two": suite_two, "four": suite_four, "virtual": suite_virtual,
           "fsdp_four": suite_fsdp_four, "fsdp_two": suite_fsdp_two,
           "tp_two": suite_tp_two, "tp_eight": suite_tp_eight,
           "sharded": suite_sharded, "lineage": suite_lineage,
