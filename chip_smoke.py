@@ -398,7 +398,7 @@ Phases, each of which raises on failure:
     (``entry.score_last_token``, the flash forward) through
     ``flagship_scoring_fleet(chips_per_replica=2)`` over the card named
     ``WIDE_SLOTS`` times, each replica two rank processes forked from the
-    fork server (``entry.wide_replica_rank``) sharing the card over gloo,
+    fork server (``serving.wide_replica_rank``) sharing the card over gloo,
     the batch split between them, rank 0 broadcasting each batch from the
     fleet's pipe.  ``WIDE_ROWS`` seeded rows held to a world-1
     ``ElasticServer`` in this process by the kernels' rule; then Poisson
@@ -426,8 +426,9 @@ Phases, each of which raises on failure:
     the bytes of the parameters and of Adam's moments on the card, counted
     from the tensors, ``models.planning.fsdp_memory_plan(cfg, 1)``'s to the
     byte; each step launching the flash forward twice a layer (remat
-    recomputes it) and each backward kernel once.  Prints the step ms,
-    tokens/s and ``max_memory_allocated``.
+    recomputes it) and each backward kernel once; an H100 80GB's
+    ``total_memory`` ``planning.H100_MEMORY_BYTES``.  Prints the step ms,
+    tokens/s, ``max_memory_allocated`` and ``total_memory``.
 
 Each phase prints its wall seconds (``phase (x) wall_s``), and a ``phase
 seconds`` line sums them with the build's.
@@ -6057,7 +6058,8 @@ def phase_llama8b(device: str = "cuda", seq: int = L8B_SEQ,
     ``L8B_TIMED`` timed steps.  Gates: the first loss finite and within 1
     of ln(vocab) + ``L8B_INIT_EXCESS``, the loss of random targets at the
     init; the bytes of the parameters and Adam's moments on the
-    card, counted from the tensors, the memory plan's to the byte; each
+    card, counted from the tensors, the memory plan's to the byte; an H100
+    80GB's ``total_memory`` the plan's card's; each
     step launching each flash kernel as remat runs it (the forward twice a
     layer: once in the forward, once recomputed in the backward)."""
     from edl_tpu_torch.models import planning
@@ -6096,6 +6098,8 @@ def phase_llama8b(device: str = "cuda", seq: int = L8B_SEQ,
                        for v in opt[t].values() if v.dim())
     plan = planning.fsdp_memory_plan(cfg, 1)
     peak = torch.cuda.max_memory_allocated() if on_card else None
+    total = (torch.cuda.get_device_properties(dev).total_memory if on_card
+             else None)
     timed = step_s[1:]
     tokens = seq
     print(f"llama3_8b width x {n} layers (d {cfg.d_model}, {cfg.n_heads}/"
@@ -6110,7 +6114,8 @@ def phase_llama8b(device: str = "cuda", seq: int = L8B_SEQ,
           f"moments {moment_bytes} bytes on the card, the plan's "
           f"{plan.param_bytes_per_device} and {plan.opt_bytes_per_device} "
           f"({plan.state_gb_per_device:.3f} GB); max_memory_allocated "
-          f"{peak}; launches {launches}", flush=True)
+          f"{peak} of total_memory {total} (the plan's card "
+          f"{planning.H100_MEMORY_BYTES}); launches {launches}", flush=True)
     failures = []
     if not (math.isfinite(losses[0])
             and abs(losses[0] - math.log(cfg.vocab_size)
@@ -6123,6 +6128,10 @@ def phase_llama8b(device: str = "cuda", seq: int = L8B_SEQ,
         failures.append(f"bytes {param_bytes} + {moment_bytes} against the "
                         f"plan's {plan.param_bytes_per_device} + "
                         f"{plan.opt_bytes_per_device}")
+    if (on_card and "H100 80GB" in torch.cuda.get_device_name(dev)
+            and total != planning.H100_MEMORY_BYTES):
+        failures.append(f"the card's total_memory {total} is not the plan's "
+                        f"{planning.H100_MEMORY_BYTES}")
     if failures:
         raise AssertionError("phase (aa): " + "; ".join(failures))
     del trainer, batch

@@ -25,8 +25,9 @@ FLAGSHIP token by token, from seed-0 weights or the ones it is given, and
 ``flagship_scoring_fleet(device)`` the single-shot ``ServingFleet`` whose
 requests are rows of tokens and whose answers are FLAGSHIP's next-token
 logits (``chips_per_replica=n`` makes each replica n rank processes, each
-running ``wide_replica_rank``).  ``flagship_frontdoor_replica(device)`` is one replica of the
-serving data plane: the same scoring forward behind a ``BatchApp`` front
+running ``wide_replica_rank``, ``serving``'s, named here beside the
+``flagship_*_world`` rank helpers).  ``flagship_frontdoor_replica(device)``
+is one replica of the serving data plane: the same scoring forward behind a ``BatchApp`` front
 door that publishes its ready gate for the LB tier, and
 ``spawn_flagship_frontdoor_replica`` runs it as a process of its own
 (``python -m edl_tpu_torch.entry frontdoor-replica ...``).  All
@@ -71,7 +72,7 @@ from edl_tpu_torch.runtime.data import ShardRegistry
 from edl_tpu_torch.runtime.elastic import ElasticTrainer
 from edl_tpu_torch.runtime.frontdoor import BatchApp, FrontDoor
 from edl_tpu_torch.runtime.serving import (DecodeFleet, ElasticServer,
-                                           ServingFleet)
+                                           ServingFleet, wide_replica_rank)
 from edl_tpu_torch.runtime.virtual import VirtualConfig
 
 
@@ -193,51 +194,10 @@ def _join_world(rank: int, world: int, store_path, device,
     return dev
 
 
-def wide_replica_rank(rank: int, devices: list, store_path, conn,
-                      apply_fn, skeleton: bytes, example_batch: tuple,
-                      shm_in: str) -> None:
-    """One rank process of a serving replica ``len(devices)`` devices wide
-    (``ServingFleet(chips_per_replica=n)``, through
-    ``serving.RankGroupServer``): join the replica's own process group
-    through a ``FileStore`` at ``store_path`` on ``devices[rank]`` — gloo
-    when the ranks share a device (one card, or the CPU), as
-    :func:`_join_world` chooses, NCCL across cards — and serve until the
-    fleet stops the replica (``serving.serve_ranks``; ``conn`` is rank 0's
-    pipe to the fleet, None on the others, and ``shm_in`` the shared
-    memory block the fleet puts each batch in)."""
-    from datetime import timedelta
-
-    from edl_tpu_torch.runtime import serving
-
-    devs = [torch.device(d) for d in devices]
-    dev = devs[rank]
-    shared = dev.type != "cuda" or len(set(devs)) < len(devs)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group(
-        "gloo" if shared else "nccl",
-        store=dist.FileStore(str(store_path), len(devs)), rank=rank,
-        world_size=len(devs),
-        timeout=timedelta(seconds=serving.WIDE_GROUP_TIMEOUT_S))
-    try:
-        serving.serve_ranks(rank, dev, conn, apply_fn, skeleton,
-                            example_batch, shm_in,
-                            torch.device("cpu") if shared else dev)
-    finally:
-        dist.destroy_process_group()
-
-
 def rank_processes():
-    """The multiprocessing context rank processes start from: a fork
-    server that imports the caller's main module and this one once, and
-    never touches CUDA, so each rank is forked from it instead of importing
-    torch and the port anew (what bounds a wide dryrun's start on the
-    card's host); the server forks from its one thread, so fork's hazards
-    in a threaded process do not arise, and each rank brings up CUDA
-    itself."""
-    ctx = torch.multiprocessing.get_context("forkserver")
-    ctx.set_forkserver_preload(["__main__", "edl_tpu_torch.entry"])
-    return ctx
+    """:func:`~edl_tpu_torch.runtime.elastic.rank_processes` with this
+    module preloaded, so a rank whose target lives here is forked ready."""
+    return elastic.rank_processes(__name__)
 
 
 #: the virtual-worker job's dataset: rows of ``seq`` tokens, in shards

@@ -417,28 +417,48 @@ def _rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous fp32 copy of ``t``, in one copy whatever its strides."""
+    return torch.empty(t.shape, dtype=torch.float32,
+                       device=t.device).copy_(t)
+
+
 def _group_attention(q: torch.Tensor, ctx_k: torch.Tensor,
                      ctx_v: torch.Tensor, mask: torch.Tensor,
-                     cfg: TransformerConfig) -> tuple[torch.Tensor, ...]:
+                     cfg: TransformerConfig, with_lse: bool = False
+                     ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """fp32 attention of each kv head's query group on its own: q ``[rows,
     h, hd]``, ctx_k/ctx_v ``[rows, T, kv, hd]``, mask ``[rows, 1, T]``.
-    Returns the normalised output ``[rows, h, hd]`` and the log-sum-exp
-    ``[rows, h]`` of the masked scores.  One group a product, so each
-    product's shapes are the same whether the kv heads lie on one device
-    or are split over several: a heads split computes what one device
-    does, bit for bit."""
-    h, kv = q.shape[1], ctx_k.shape[2]
+    Returns the normalised output ``[rows, h, hd]`` and, ``with_lse``, the
+    log-sum-exp ``[rows, h]`` of the masked scores (else None).  Each
+    operand is copied once, kv head first, and each product takes one
+    group's slice, so its shapes and strides are the same whether the kv
+    heads lie on one device or are split over several; the mask and the
+    softmax run over every group at once, row by row.  So a heads split
+    computes what one device does, bit for bit (one product over every
+    group does not: cuBLAS picks its kernel by the batch)."""
+    rows, h, hd = q.shape
+    kv, t = ctx_k.shape[2], ctx_k.shape[1]
     rep = h // kv
-    outs, lses = [], []
-    for g in range(kv):
-        scores = torch.matmul(q[:, g * rep:(g + 1) * rep].float(),
-                              ctx_k[:, :, g].float().transpose(1, 2))
-        scores = torch.where(mask, scores / (cfg.head_dim ** 0.5), -1e30)
+    qs = _f32(q.reshape(rows, kv, rep, hd).transpose(0, 1)).unbind(0)
+    ks = _f32(ctx_k.permute(2, 0, 3, 1)).unbind(0)  # [kv][rows, hd, T]
+    vs = _f32(ctx_v.permute(2, 0, 1, 3)).unbind(0)  # [kv][rows, T, hd]
+    scores = q.new_empty((kv, rows, rep, t), dtype=torch.float32)
+    for g, part in enumerate(scores.unbind(0)):
+        torch.bmm(qs[g], ks[g], out=part)
+    scores = torch.add(torch.where(mask, 0.0, -1e30), scores,
+                       alpha=cfg.head_dim ** -0.5)
+    lse = None
+    if with_lse:
         lse = torch.logsumexp(scores, dim=-1)
-        outs.append(torch.matmul(torch.exp(scores - lse[..., None]),
-                                 ctx_v[:, :, g].float()))
-        lses.append(lse)
-    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+        probs = torch.exp(scores - lse[..., None])
+        lse = lse.transpose(0, 1).reshape(rows, h)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = q.new_empty((kv, rows, rep, hd), dtype=torch.float32)
+    for g, (p, part) in enumerate(zip(probs.unbind(0), out.unbind(0))):
+        torch.bmm(p, vs[g], out=part)
+    return out.transpose(0, 1).reshape(rows, h, hd), lse
 
 
 def _paged_attention(q: torch.Tensor, ctx_k: torch.Tensor,
@@ -622,7 +642,7 @@ def _sharded_attention(cache: ShardedCache, cfg: TransformerConfig,
                 continue
             qd = cache.move(qj, j, dev)
             if cache.axis == "pages":
-                o, lse = _group_attention(qd, *ctx, m, cfg)
+                o, lse = _group_attention(qd, *ctx, m, cfg, with_lse=True)
                 parts.append((cache.move(o, j, home),
                               cache.move(lse, j, home)))
             else:
@@ -824,28 +844,24 @@ def gather_session_kv_device(cache, block_ids):
 
 
 @torch.no_grad()
-def scatter_session_kv_device(cache, block_ids, payload):
+def scatter_session_kv_device(cache: dict, block_ids, payload: dict
+                              ) -> dict:
     """Write a :func:`gather_session_kv_device` payload into (another)
-    cache's freshly allocated blocks, on the device.  A heads-split payload
-    goes shard to shard into a cache split the same way, and is joined
-    into whole blocks for any other.  Needs the same storage mode on both
-    sides; a layout mismatch raises before anything lands."""
-    parts = payload if isinstance(payload, list) else [payload]
-    if set(parts[0]) != _cache_names(cache):
+    one-device cache's freshly allocated blocks, on the device.  Needs the
+    same storage mode on both sides; a layout mismatch raises before
+    anything lands.  A sharded cache takes its payload through
+    :func:`write_placed`."""
+    if set(payload) != set(cache):
         raise ValueError(
-            f"D2D payload layout {sorted(parts[0])} != cache layout "
-            f"{sorted(_cache_names(cache))} (quantization modes differ)")
-    n = parts[0]["k"].shape[1]
+            f"D2D payload layout {sorted(payload)} != cache layout "
+            f"{sorted(cache)} (quantization modes differ)")
+    n = payload["k"].shape[1]
     if len(block_ids) < n:
         raise ValueError(f"{len(block_ids)} blocks for a {n}-block payload")
-    if (isinstance(cache, ShardedCache) and cache.axis == "heads"
-            and len(parts) == len(cache.shards)):
-        for j, (shard, part) in enumerate(zip(cache.shards, parts)):
-            write_blocks(shard, block_ids, {
-                name: cache.move(t, j, shard["k"].device)
-                for name, t in part.items()})
-        return cache
-    write_blocks(cache, block_ids, join_heads(parts))
+    ids = _ids(list(block_ids)[:n], cache["k"].device)
+    for name, t in payload.items():
+        cache[name].index_copy_(1, ids, t.to(cache[name].device,
+                                             cache[name].dtype))
     return cache
 
 

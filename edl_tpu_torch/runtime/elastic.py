@@ -173,6 +173,20 @@ BUILD_WAIT_TIMEOUT_S = 300.0
 _census: dict[str, dict] = {}
 
 
+def rank_processes(*preload: str):
+    """The multiprocessing context rank processes start from: a fork
+    server that imports the caller's main module, this one and the modules
+    named in ``preload`` once, and never touches CUDA, so each rank is
+    forked from it instead of importing torch and the port anew (what
+    bounds a wide dryrun's start on the card's host); the server forks
+    from its one thread, so fork's hazards in a threaded process do not
+    arise, and each rank brings up CUDA itself.  The server is one a
+    process: the first caller's ``preload`` is the one it keeps."""
+    ctx = torch.multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", __name__, *preload])
+    return ctx
+
+
 def collective_census() -> dict[str, dict]:
     """Every collective this process ran through the choke points since
     :func:`reset_census`, by axis label (``"dp"``, ``"fsdp"``, ``"tp"``,

@@ -111,7 +111,8 @@ from edl_tpu_torch.observability.tracing import get_tracer, new_trace_id
 from edl_tpu_torch.parallel.mesh import outside_group
 from edl_tpu_torch.runtime import optim
 from edl_tpu_torch.runtime.checkpoint import param_path
-from edl_tpu_torch.runtime.elastic import ElasticTrainer, _all_gather
+from edl_tpu_torch.runtime.elastic import (ElasticTrainer, _all_gather,
+                                           rank_processes)
 from edl_tpu_torch.runtime.kvcache import (
     KVBlockPool,
     KVDevicePayload,
@@ -2120,9 +2121,9 @@ def _skeleton(module: torch.nn.Module) -> bytes:
 
 class RankGroupServer:
     """The fleet-side handle of a replica ``len(devices)`` devices wide: one
-    rank process a device (forked from :func:`~edl_tpu_torch.entry.
-    rank_processes`' fork server, each running :func:`~edl_tpu_torch.entry.
-    wide_replica_rank`), joined in a process group of their own (gloo when
+    rank process a device (forked from :func:`~edl_tpu_torch.runtime.
+    elastic.rank_processes`' fork server, each running
+    :func:`wide_replica_rank`), joined in a process group of their own (gloo when
     they share a device, NCCL across cards), each holding the SPMD
     :class:`ElasticServer` over it.  It has :class:`ElasticServer`'s serving
     surface, so a :class:`ServingReplica` runs it as it runs a thread's
@@ -2152,8 +2153,6 @@ class RankGroupServer:
                  ) -> None:
         from multiprocessing import shared_memory
 
-        from edl_tpu_torch import entry
-
         self.name = name
         #: each rank's device, a card named by its index
         self.devices = [torch.device("cuda", torch.cuda.current_device())
@@ -2179,11 +2178,11 @@ class RankGroupServer:
                 [np.repeat(np.asarray(a)[:1], self._rows_cap, axis=0)
                  for a in example_batch]), 64))
         self._shm_out = None
-        ctx = entry.rank_processes()
+        ctx = rank_processes(__name__)
         self._conn, child = ctx.Pipe()
         store = os.path.join(self._dir, "store")
         self.procs = [ctx.Process(
-            target=entry.wide_replica_rank, daemon=True,
+            target=wide_replica_rank, daemon=True,
             name=f"{name}-rank{r}",
             args=(r, [str(d) for d in self.devices], store,
                   child if r == 0 else None, apply_fn, self._skeleton,
@@ -2368,6 +2367,38 @@ class RankGroupServer:
         self._shm_in.close()
         self._shm_in.unlink()
         shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def wide_replica_rank(rank: int, devices: list, store_path, conn,
+                      apply_fn, skeleton: bytes, example_batch: tuple,
+                      shm_in: str) -> None:
+    """One rank process of a serving replica ``len(devices)`` devices wide
+    (:class:`RankGroupServer`): join the replica's own process group
+    through a ``FileStore`` at ``store_path`` on ``devices[rank]`` — gloo
+    when the ranks share a device (one card, or the CPU), NCCL across
+    cards — and serve until the fleet stops the replica
+    (:func:`serve_ranks`; ``conn`` is rank 0's pipe to the fleet, None on
+    the others, and ``shm_in`` the shared memory block the fleet puts each
+    batch in)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    devs = [torch.device(d) for d in devices]
+    dev = devs[rank]
+    shared = dev.type != "cuda" or len(set(devs)) < len(devs)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo" if shared else "nccl",
+        store=dist.FileStore(str(store_path), len(devs)), rank=rank,
+        world_size=len(devs),
+        timeout=timedelta(seconds=WIDE_GROUP_TIMEOUT_S))
+    try:
+        serve_ranks(rank, dev, conn, apply_fn, skeleton, example_batch,
+                    shm_in, torch.device("cpu") if shared else dev)
+    finally:
+        dist.destroy_process_group()
 
 
 def serve_ranks(rank: int, device: torch.device, conn, apply_fn,

@@ -1,6 +1,6 @@
 """The port's serving replicas wider than one device
 (``ServingFleet(chips_per_replica=2)``: each replica two rank processes
-forked from ``entry.rank_processes``, a gloo CPU world of their own, behind
+forked from ``elastic.rank_processes``, a gloo CPU world of their own, behind
 ``serving.RankGroupServer``) on the CPU, on the MLP [16, 32, 4] holding the
 JAX init (tests/torch_world.py's ``mlp_rows`` is the forward the ranks
 import):
